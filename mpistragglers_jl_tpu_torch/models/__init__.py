@@ -1,0 +1,2 @@
+"""Model code of the port: transformer blocks, KV-cache decode, the
+continuous-batching server."""

@@ -6,10 +6,11 @@ and the tests run both on the same numpy inputs. This package imports
 ``torch`` and never ``jax`` or ``mpistragglers_jl_tpu``: what it needs
 from the reference is copied, not imported.
 
-Slice 1 is the int8 continuous-batching server: ``models/serving.py``
-``ServingScheduler`` over the slot-ring cache, whose decode attention
-runs as a hand-written CUDA kernel (``ops/decode_attention.py``,
-``ops/csrc/decode_attention.cu``). Entry points default to the GPU and
+Slices 1 and 2 are the int8 continuous-batching server:
+``models/serving.py`` ``ServingScheduler`` over the slot-ring cache or
+the paged cache (``models/paging.py``: shared prefix pages,
+copy-on-write), whose decode attention runs as hand-written CUDA
+kernels (``ops/decode_attention.py``, ``ops/csrc/decode_attention.cu``). Entry points default to the GPU and
 raise when there is none unless the caller passes ``device="cpu"``,
 where every kernel wrapper runs its plain PyTorch version.
 """

@@ -1,17 +1,19 @@
 """Where a serving decode step spends its time on the GPU.
 
-Builds the bf16 int8 slot-ring server of ``chip_smoke.py`` phase 5
-(full width, S=8 slots of 512-token prompts), runs one warm tick, then
-traces one more tick of 16 decode steps with
-``torch.profiler`` and prints: the tick's host time, the device's busy
-time and idle share inside it, and the kernels and host operators that
-take the most time.
+Builds the bf16 int8 server of ``chip_smoke.py`` phase 5 (full width,
+S=8 slots of 512-token prompts; with ``--paged``, the paged cache of
+phase 9: pages of 64, every prompt a shared 256-token system prompt
+plus 256 own tokens), runs one warm tick, then traces one more tick of
+16 decode steps with ``torch.profiler`` and prints: the tick's host
+time, the device's busy time and idle share inside it, and the kernels
+and host operators that take the most time.
 
-    python -m mpistragglers_jl_tpu_torch.bench.serving_profile
+    python -m mpistragglers_jl_tpu_torch.bench.serving_profile [--paged]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -50,6 +52,10 @@ def _busy_us(events) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged cache (pages of 64, shared prefix)")
+    paged = ap.parse_args().paged
     if not torch.cuda.is_available():
         raise SystemExit("serving_profile: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -58,13 +64,21 @@ def main() -> int:
     rng = np.random.default_rng(2)
     sched = ServingScheduler(params, cfg, slots=8, n_inner=N_INNER,
                              prompt_chunk=512, max_prompt=512,
-                             quantize_kv=True, device=dev)
+                             quantize_kv=True, device=dev,
+                             page_tokens=64 if paged else None)
+    system = rng.integers(0, cfg.vocab, 256)
     for _ in range(8):
-        sched.submit(rng.integers(0, cfg.vocab, 512), max_new=10_000)
+        own = rng.integers(0, cfg.vocab, 256 if paged else 512)
+        # within the window: prompt + budget + n_inner <= 1024
+        sched.submit(np.concatenate([system, own]) if paged else own,
+                     max_new=400)
+        if paged:
+            sched.step()  # resident, so the next admission shares
     sched.step()  # admission + first tick
     sched.step()  # warm
     torch.cuda.synchronize()
-    da.LAUNCHES["quantized_decode_attention"] = 0
+    for name in da.LAUNCHES:
+        da.LAUNCHES[name] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -80,7 +94,7 @@ def main() -> int:
     print(f"tick of {N_INNER} steps: host {tick_us:.0f} us, device "
           f"busy {busy:.0f} us, idle share {1 - busy / tick_us:.3f}, "
           f"{n_kernels} kernels ({n_kernels / N_INNER:.0f} per step), "
-          f"K5 launches {da.LAUNCHES['quantized_decode_attention']}")
+          f"launches {da.LAUNCHES}")
     print(ka.table(sort_by="cuda_time_total", row_limit=20))
     print(ka.table(sort_by="cpu_time_total", row_limit=20))
     print(json.dumps({"tick_us": tick_us, "device_busy_us": busy,

@@ -1,2 +1,2 @@
 """Model code of the port: transformer blocks, KV-cache decode, the
-continuous-batching server."""
+continuous-batching server and its page pool."""

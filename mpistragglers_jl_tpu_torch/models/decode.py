@@ -19,8 +19,8 @@ Differences from the reference, all deliberate:
 
 The int8 decode-kernel routing gate (``use_decode_kernel``,
 ``KERNEL_MIN_BATCH``, ``_route_kernel``, ``_kernel_viable``,
-``_kernel_possible``) is the reference's, verbatim, so the port routes
-exactly the calls the JAX package routes.
+``_kernel_possible``, ``_paged_kernel_possible``) is the reference's,
+verbatim, so the port routes exactly the calls the JAX package routes.
 """
 
 from __future__ import annotations
@@ -107,6 +107,22 @@ def _kernel_possible(cfg, quantize_kv: bool, use_kernel=_UNSET) -> bool:
         quantize_kv and use_kernel is not False
         and cfg.head_dim % 128 == 0
     )
+
+
+def _paged_kernel_possible(cfg, quantize_kv: bool, page_tokens: int,
+                           use_kernel=_UNSET) -> bool:
+    """Could the paged serving tick route the paged int8 kernel?
+    ``_kernel_possible``, plus a GQA group of at most 8 and a page size
+    the reference's paged kernel streams
+    (``ops.decode_attention.paged_block_viable``). The scheduler
+    resolves it once, at construction."""
+    if not _kernel_possible(cfg, quantize_kv, use_kernel):
+        return False
+    if cfg.n_heads // cfg.kv_heads > 8 or cfg.n_heads % cfg.kv_heads:
+        return False
+    from ..ops.decode_attention import paged_block_viable
+
+    return paged_block_viable(page_tokens)
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-// Int8 KV-cache decode attention for Hopper (sm_90a).
+// Int8 KV-cache decode attention for Hopper (sm_90a): the dense kernel
+// and its paged mode.
 //
-// Replaces the TPU kernel `_kernel` in mpistragglers_jl_tpu/ops/
-// decode_attention.py (launched by `quantized_decode_attention`): one
-// query token per row attends a (B, L, Hkv, D) int8 K/V cache with f32
-// per-(row, position, head) scales, GQA group g = H / Hkv <= 8.
+// Replaces two TPU kernels of mpistragglers_jl_tpu/ops/decode_attention.py:
+// `_kernel` (K5, launched by `quantized_decode_attention`) and
+// `_paged_kernel` (K6, launched by `_paged_call`). One query token per
+// row attends an int8 K/V cache with f32 per-(position, head) scales,
+// GQA group g = H / Hkv <= 8:
 //   s = (q . k) * scale * k_s      p = softmax over the visible keys
 //   o = sum p * v_s * v / max(l, 1e-20)
 // Visibility is the reference's: positional (kpos <= pos, and
@@ -13,10 +15,21 @@
 // it (ring warm-up, the causal frontier, the window's lower edge) are
 // never read.
 //
+// Layouts. Dense (K5): k, v (B, L, Hkv, D), scales (B, L, Hkv); key t of
+// row b is cache row b*L + t. Paged (K6, ring only): k, v are a pool
+// (n_pages*P, Hkv, D) shared by all rows, scales (n_pages*P, Hkv), and
+// a (B, max_pages) int32 page table maps ring page j of row b to a pool
+// page; key slot t of row b is pool row pt[b, t/P]*P + t%P, W =
+// max_pages*P. The block loads its page-table row into shared memory
+// once and addresses every key through it, so a 32-key tile may
+// straddle pages and every page size P >= 1 is taken. A page id outside
+// the pool is never dereferenced: its keys count as masked.
+//
 // What bounds it: bytes. One launch at the serving shape (B=8,
 // L=W=1024, Hkv=2, D=128, g=4) reads 4,194,304 B of int8 K/V, 131,072 B
-// of scales and writes/reads 32 KB of q and out, about 4.36 MB, or
-// 1.30 us at 3.35 TB/s; its 34 MFLOP are negligible beside that.
+// of scales and writes/reads 32 KB of q and out (paged: plus 512 B of
+// page table), about 4.36 MB, or 1.30 us at 3.35 TB/s; its 34 MFLOP
+// are negligible beside that.
 //
 // Design (simple first; split-K and TMA are later work):
 // * one block per (kv head h, row b): 8 warps, warp i carries the
@@ -30,9 +43,10 @@
 //   by 4 floats, so the 16-byte shared reads are conflict-free), the
 //   tile max and sum are warp shuffles; PV: lane j owns 4 columns per
 //   128 and broadcasts p_j with a shuffle;
-// * positions come from a device (B,) int32 vector: no host sync;
+// * positions (and the page table) come from device memory: no host
+//   sync;
 // * the kernel allocates nothing and runs on the caller's stream; the
-//   C entry returns cudaGetLastError() for the wrapper to check.
+//   C entries return cudaGetLastError() for the wrapper to check.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +96,9 @@ __device__ __forceinline__ void stash_i8x16(float* dst, int4 r) {
   }
 }
 
-template <typename T, int DV>
+// Dense: pt == nullptr, P and n_pages unused. Paged: L == W ==
+// max_pages * P, ring == 1, window == 0.
+template <typename T, int DV, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_int8_kernel(const T* __restrict__ q,
                                  const int8_t* __restrict__ k,
@@ -90,8 +106,10 @@ __global__ void __launch_bounds__(kThreads)
                                  const float* __restrict__ ks,
                                  const float* __restrict__ vs,
                                  const int* __restrict__ pos,
+                                 const int* __restrict__ pt,
                                  T* __restrict__ out, int L, int Hkv, int g,
-                                 float scale, int window, int ring) {
+                                 float scale, int window, int ring, int P,
+                                 int n_pages) {
   constexpr int D = DV * 128;
   constexpr int KS = D + 4;   // padded K row stride, in floats
   constexpr int CH = D / 16;  // 16-byte chunks per cache row
@@ -100,6 +118,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = Qs + kMaxGroup * D;               // [kTile][KS]
   float* Vs = Ks + kTile * KS;                  // [kTile][D]
   float* Ss = Vs + kTile * D;                   // k_s[kTile], v_s[kTile]
+  int* Pt = reinterpret_cast<int*>(Ss + 2 * kTile);  // [max_pages], paged
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -118,12 +137,27 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* qb = q + ((size_t)b * H + (size_t)h * g) * D;
   for (int e = tid; e < g * D; e += kThreads) Qs[e] = to_f32(qb[e]);
+  if (PAGED) {
+    const int max_pages = L / P;
+    const int* ptb = pt + (size_t)b * max_pages;
+    for (int e = tid; e < max_pages; e += kThreads) Pt[e] = ptb[e];
+    __syncthreads();  // the first fetch below reads Pt
+  }
 
-  const size_t row = (size_t)Hkv * D;  // bytes between cache positions
-  const int8_t* kb = k + (size_t)b * L * row + (size_t)h * D;
-  const int8_t* vb = v + (size_t)b * L * row + (size_t)h * D;
-  const float* ksb = ks + (size_t)b * L * Hkv + h;
-  const float* vsb = vs + (size_t)b * L * Hkv + h;
+  // cache row of key slot t (t <= hi), or -1 when its page lies
+  // outside the pool (the key then counts as masked)
+  auto cache_row = [&](int t) -> long long {
+    if (!PAGED) return (long long)b * L + t;
+    const int pg = Pt[t / P];
+    return (unsigned)pg < (unsigned)n_pages ? (long long)pg * P + t % P
+                                             : -1ll;
+  };
+
+  const size_t row = (size_t)Hkv * D;  // bytes between cache rows
+  const int8_t* kh = k + (size_t)h * D;
+  const int8_t* vh = v + (size_t)h * D;
+  const float* ksh = ks + h;
+  const float* vsh = vs + h;
 
   int4 kr[DV], vr[DV];
   float sr = 0.f;
@@ -134,9 +168,10 @@ __global__ void __launch_bounds__(kThreads)
       const int c = tid + kThreads * u;
       const int r = c / CH, col = (c % CH) * 16;
       const int t = base + r;
-      if (t <= hi) {
-        kr[u] = *reinterpret_cast<const int4*>(kb + (size_t)t * row + col);
-        vr[u] = *reinterpret_cast<const int4*>(vb + (size_t)t * row + col);
+      const long long cr = t <= hi ? cache_row(t) : -1ll;
+      if (cr >= 0) {
+        kr[u] = *reinterpret_cast<const int4*>(kh + cr * row + col);
+        vr[u] = *reinterpret_cast<const int4*>(vh + cr * row + col);
       } else {
         kr[u] = make_int4(0, 0, 0, 0);
         vr[u] = make_int4(0, 0, 0, 0);
@@ -144,7 +179,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (tid < 2 * kTile) {
       const int t = base + (tid & (kTile - 1));
-      sr = t <= hi ? (tid < kTile ? ksb : vsb)[(size_t)t * Hkv] : 0.f;
+      const long long cr = t <= hi ? cache_row(t) : -1ll;
+      sr = cr >= 0 ? (tid < kTile ? ksh : vsh)[cr * Hkv] : 0.f;
     }
   };
   // registers -> shared, dequantised to f32
@@ -172,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it + 1 < n_tiles) fetch(base + kTile);  // in flight meanwhile
     if (warp < g) {
-      const bool valid = base + lane <= hi;
+      const bool valid = base + lane <= hi && cache_row(base + lane) >= 0;
       const float4* k4 = reinterpret_cast<const float4*>(Ks + lane * KS);
       const float4* q4 = reinterpret_cast<const float4*>(Qs + warp * D);
       float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
@@ -221,54 +257,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* ks, const void* vs, const void* pos, void* out,
-                   int B, int L, int Hkv, int g, float scale, int window,
-                   int ring, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *pos, *pt;
+  void* out;
+  int B, L, Hkv, g;
+  float scale;
+  int window, ring, P, n_pages;
+  cudaStream_t stream;
+};
+
+template <typename T, int DV, bool PAGED>
+cudaError_t launch(const Args& a) {
   constexpr int D = DV * 128;
   const size_t smem =
-      sizeof(float) * (kMaxGroup * D + kTile * (D + 4) + kTile * D + 2 * kTile);
-  auto kern = decode_attention_int8_kernel<T, DV>;
+      sizeof(float) * (kMaxGroup * D + kTile * (D + 4) + kTile * D + 2 * kTile)
+      + (PAGED ? sizeof(int) * (size_t)(a.L / a.P) : 0);
+  auto kern = decode_attention_int8_kernel<T, DV, PAGED>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<T*>(out), L, Hkv, g, scale, window, ring);
+  kern<<<dim3(a.Hkv, a.B), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const int8_t*>(a.k),
+      static_cast<const int8_t*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.pt), static_cast<T*>(a.out), a.L, a.Hkv,
+      a.g, a.scale, a.window, a.ring, a.P, a.n_pages);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* ks, const void* vs, const void* pos,
-                     void* out, int B, int L, int Hkv, int g, float scale,
-                     int window, int ring, cudaStream_t st) {
+template <typename T, bool PAGED>
+cudaError_t dispatch(int D, const Args& a) {
   switch (D) {
     case 128:
-      return launch<T, 1>(q, k, v, ks, vs, pos, out, B, L, Hkv, g, scale,
-                          window, ring, st);
+      return launch<T, 1, PAGED>(a);
     case 256:
-      return launch<T, 2>(q, k, v, ks, vs, pos, out, B, L, Hkv, g, scale,
-                          window, ring, st);
+      return launch<T, 2, PAGED>(a);
     case 384:
-      return launch<T, 3>(q, k, v, ks, vs, pos, out, B, L, Hkv, g, scale,
-                          window, ring, st);
+      return launch<T, 3, PAGED>(a);
     case 512:
-      return launch<T, 4>(q, k, v, ks, vs, pos, out, B, L, Hkv, g, scale,
-                          window, ring, st);
+      return launch<T, 4, PAGED>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <bool PAGED>
+int run(int D, int is_bf16, const Args& a) {
+  if (a.g < 1 || a.g > kMaxGroup || a.B < 1 || a.L < 1 || a.Hkv < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16, PAGED>(D, a)
+                       : dispatch<float, PAGED>(D, a));
+}
+
 }  // namespace
 
-// q (B, 1, Hkv*g, D) f32 or bf16; k, v (B, L, Hkv, D) int8; ks, vs
+// K5. q (B, 1, Hkv*g, D) f32 or bf16; k, v (B, L, Hkv, D) int8; ks, vs
 // (B, L, Hkv) f32; pos (B,) int32; out like q. All contiguous, all on
 // the current device. window <= 0 means no window. Returns the CUDA
 // error code of the launch (0 on success).
@@ -278,17 +323,28 @@ extern "C" int k5_decode_attention_int8(const void* q, const void* k,
                                         void* out, int B, int L, int Hkv,
                                         int g, int D, float scale, int window,
                                         int ring, int is_bf16, void* stream) {
-  if (g < 1 || g > kMaxGroup || B < 1 || L < 1 || Hkv < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, ks, vs, pos, out, B, L,
-                                        Hkv, g, scale, window, ring, st)
-              : dispatch<float>(D, q, k, v, ks, vs, pos, out, B, L, Hkv, g,
-                                scale, window, ring, st);
-  return (int)e;
+  const Args a{q, k, v, ks, vs, pos, /*pt=*/nullptr, out,
+               B, L, Hkv, g, scale, window, ring, /*P=*/1, /*n_pages=*/0,
+               static_cast<cudaStream_t>(stream)};
+  return run<false>(D, is_bf16, a);
 }
 
-extern "C" const char* k5_error_string(int code) {
+// K6, ring mode through a page table. q (B, 1, Hkv*g, D) f32 or bf16;
+// k, v (n_pages*P, Hkv, D) int8; ks, vs (n_pages*P, Hkv) f32; pt
+// (B, max_pages) int32; pos (B,) int32; out like q. All contiguous, all
+// on the current device. Returns the CUDA error code of the launch.
+extern "C" int k6_paged_decode_attention_int8(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* pos, const void* pt, void* out, int B,
+    int max_pages, int P, int n_pages, int Hkv, int g, int D, float scale,
+    int is_bf16, void* stream) {
+  if (P < 1 || max_pages < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, ks, vs, pos, pt, out,
+               B, /*L=*/max_pages * P, Hkv, g, scale, /*window=*/0,
+               /*ring=*/1, P, n_pages, static_cast<cudaStream_t>(stream)};
+  return run<true>(D, is_bf16, a);
+}
+
+extern "C" const char* decode_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

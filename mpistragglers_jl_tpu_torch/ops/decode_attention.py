@@ -1,23 +1,27 @@
-"""Int8 KV-cache decode attention: the CUDA kernel, its plain PyTorch
-version, and the routing predicate.
+"""Int8 KV-cache decode attention: the CUDA kernels, their plain
+PyTorch versions, and the routing predicates.
 
-Counterpart of ``mpistragglers_jl_tpu/ops/decode_attention.py``. The
-TPU kernel there (``_kernel``, launched by
-``quantized_decode_attention``) becomes ``csrc/decode_attention.cu``:
-single-query GQA attention over an int8 ``(B, L, Hkv, D)`` cache with
-f32 ``(B, L, Hkv)`` scales, dequantised in registers, positions per
-row from a device vector. It is bound by bytes: at the serving shape
-(B=8, L=W=1024, Hkv=2, D=128, g=4) one launch moves about 4.36 MB,
-1.30 us at the H100's 3.35 TB/s. The source note says how the design
-meets that and what is left for later (split-K, TMA).
+Counterpart of ``mpistragglers_jl_tpu/ops/decode_attention.py``. Both
+TPU kernels there become ``csrc/decode_attention.cu``:
 
-:func:`quantized_decode_attention` runs the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a
-run can show its main path went through the kernel.
+* ``_kernel`` (K5): single-query GQA attention over an int8
+  ``(B, L, Hkv, D)`` cache with f32 ``(B, L, Hkv)`` scales, positional
+  or ring mask, dequantised in registers, positions per row from a
+  device vector;
+* ``_paged_kernel`` (K6, ``page_table=``): the same ring math over a
+  page pool shared by all rows, {"k","v"} int8 ``(n_pages * P, Hkv,
+  D)`` and {"k_s","v_s"} f32 ``(n_pages * P, Hkv)``, read in place
+  through a ``(B, max_pages)`` int32 page table, ``W = max_pages * P``.
 
-The paged mode (``page_table=``, the reference's ``_paged_kernel``)
-is ``ROADMAP.md`` Queue 1 item 7.
+Both are bound by bytes: at the serving shape (B=8, W=1024, Hkv=2,
+D=128, g=4) one launch moves about 4.36 MB, 1.30 us at the H100's
+3.35 TB/s. The source note says how the design meets that and what is
+left for later (split-K, TMA).
+
+:func:`quantized_decode_attention` runs the plain versions only for
+tensors on the CPU; for CUDA tensors it launches a kernel or raises.
+``LAUNCHES`` counts kernel launches (never plain-version calls), one
+entry per kernel, so a run can show its main path went through them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ __all__ = [
     "LAUNCHES",
     "DEFAULT_BLOCK_K",
     "decode_kernel_viable",
+    "paged_block_viable",
+    "paged_decode_attention_ref",
+    "paged_ring_view",
     "quantized_decode_attention",
     "quantized_decode_attention_ref",
 ]
@@ -38,7 +45,7 @@ _NEG = -1e30
 _MAX_GROUP = 8  # q rows per kv head the kernel carries (one per warp)
 
 # kernel name -> launches since the counter was last set to 0
-LAUNCHES = {"quantized_decode_attention": 0}
+LAUNCHES = {"quantized_decode_attention": 0, "paged_decode_attention": 0}
 
 # The routing predicate below keeps the reference's TPU block-picker
 # arithmetic (ops/decode_attention.py ``_pick_block_128`` with its
@@ -65,6 +72,18 @@ def decode_kernel_viable(L: int, Hkv: int, D: int) -> bool:
     return L <= max(cap, 128)
 
 
+def paged_block_viable(page_tokens: int) -> bool:
+    """Would the reference route pages of ``page_tokens`` rows to its
+    paged kernel where the parity tests run? Its interpreter takes any
+    multiple of 8 rows (a compiled TPU kernel needs 32), so the port
+    keeps ``P >= 8 and P % 8 == 0`` and both packages route the same
+    calls. The CUDA kernel addresses every key through the table and
+    takes any P; re-deriving the rule on the H100 is later work
+    (ROADMAP.md)."""
+    P = int(page_tokens)
+    return P >= 8 and P % 8 == 0
+
+
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
     """Scalar or (B,) positions -> a contiguous (B,) int32 tensor on
     ``device``; a tensor already there is never fetched to the host."""
@@ -72,7 +91,7 @@ def _pos_vector(pos, B: int, device) -> torch.Tensor:
     return p.expand(B).contiguous()
 
 
-def _check(q, cache_l, ring: bool, window):
+def _check(q, Hkv: int, ring: bool, window):
     if ring and window is not None:
         raise ValueError(
             "ring mode encodes the window in the cache layout; pass "
@@ -83,12 +102,23 @@ def _check(q, cache_l, ring: bool, window):
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"decode kernel is single-query, got T={T}")
-    Hkv = cache_l["k"].shape[2]
     if H % Hkv != 0 or H // Hkv > _MAX_GROUP:
         raise ValueError(
             f"GQA group {H}/{Hkv} must be a whole number <= {_MAX_GROUP}"
         )
     return B, H, D, Hkv
+
+
+def paged_ring_view(leaf, page_table, P: int):
+    """Gather every row's ring view out of a page-pool leaf: page
+    ``page_table[b, j]`` supplies ring slots ``[j*P, (j+1)*P)`` of row
+    b. ``leaf`` ``(n_pages * P, ...)`` -> ``(B, max_pages * P, ...)``,
+    a new tensor."""
+    B, max_pages = page_table.shape
+    tail = leaf.shape[1:]
+    pages = leaf.reshape((leaf.shape[0] // P, P) + tail)
+    return pages[page_table.reshape(-1).long()].reshape(
+        (B, max_pages * P) + tail)
 
 
 def quantized_decode_attention_ref(q, cache_l: dict, pos, scale,
@@ -99,7 +129,7 @@ def quantized_decode_attention_ref(q, cache_l: dict, pos, scale,
     Masked keys get p = 0 and the normaliser is clamped at 1e-20, so a
     row with nothing visible returns zeros, as the kernel does.
     Returns ``(B, 1, H, D)`` in q's dtype."""
-    B, H, D, Hkv = _check(q, cache_l, ring, window)
+    B, H, D, Hkv = _check(q, cache_l["k"].shape[2], ring, window)
     L = cache_l["k"].shape[1]
     g = H // Hkv
     posv = _pos_vector(pos, B, q.device)[:, None]
@@ -123,22 +153,78 @@ def quantized_decode_attention_ref(q, cache_l: dict, pos, scale,
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
+def paged_decode_attention_ref(q, pool: dict, pos, scale, page_table,
+                               page_tokens: int):
+    """Plain PyTorch version of the paged kernel, same function: a
+    page-block gather of every row's ``(B, W, ...)`` ring view, then
+    :func:`quantized_decode_attention_ref` in ring mode."""
+    _check_paged(q, pool, page_table, page_tokens)
+    view = {kk: paged_ring_view(a, page_table, page_tokens)
+            for kk, a in pool.items()}
+    return quantized_decode_attention_ref(q, view, pos, scale, ring=True)
+
+
+def _check_paged(q, pool, page_table, P: int):
+    B, H, D, Hkv = _check(q, pool["k"].shape[1], True, None)
+    N = pool["k"].shape[0]
+    if P < 1 or N % P != 0:
+        raise ValueError(f"page pool of {N} rows is not a multiple of "
+                         f"page_tokens {P}")
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page table must be (B={B}, max_pages), got "
+                         f"{tuple(page_table.shape)}")
+    return B, H, D, Hkv, N // P
+
+
+def _check_leaves(q, named):
+    """Kernel inputs: on q's device, of the stated dtype and shape,
+    contiguous; q itself bf16 or f32 with a head_dim the kernel has."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    D = q.shape[-1]
+    if D % 128 != 0 or D > 512:
+        raise ValueError(f"kernel takes head_dim in 128..512 step 128, "
+                         f"got {D}")
+    for name, t, dt, shape in named:
+        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name!r}: want {dt} {shape} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name!r} must be contiguous")
+
+
 def _kernel_lib():
     from ._build import load
 
     lib = load("decode_attention")
-    fn = lib.k5_decode_attention_int8
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 5 + [ctypes.c_float] + [ci] * 3 + [vp]
-        fn.restype = ci
-        lib.k5_error_string.argtypes = [ci]
-        lib.k5_error_string.restype = ctypes.c_char_p
+    if lib.k5_decode_attention_int8.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        k5 = lib.k5_decode_attention_int8
+        k5.argtypes = [vp] * 7 + [ci] * 5 + [cf] + [ci] * 3 + [vp]
+        k5.restype = ci
+        k6 = lib.k6_paged_decode_attention_int8
+        k6.argtypes = [vp] * 8 + [ci] * 7 + [cf, ci, vp]
+        k6.restype = ci
+        lib.decode_attention_error_string.argtypes = [ci]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _launched(lib, err: int, name: str) -> None:
+    """Raise on a refused launch, else count it."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            + lib.decode_attention_error_string(err).decode()
+        )
+    LAUNCHES[name] += 1
+
+
 def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
-                               *, ring: bool = False, page_table=None):
+                               *, ring: bool = False, page_table=None,
+                               page_tokens: int | None = None):
     """Single-query grouped attention against an int8 cache layer,
     the reference's signature and layouts (see
     :func:`quantized_decode_attention_ref` for the function).
@@ -147,38 +233,34 @@ def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
     on the current stream (bf16 or f32 q; contiguous leaves; ``pos``
     may be a device vector, so a decode step never syncs) or raise;
     there is no fallback. ``ring=True`` reads the O(W) ring layout
-    (L == W), where ``window`` must be None."""
+    (L == W), where ``window`` must be None.
+
+    ``page_table=`` (ring mode only, with ``page_tokens=P``) reads the
+    paged ring layout: ``cache_l`` leaves are page pools shared by all
+    rows and ``page_table`` the ``(B, max_pages)`` int32 map from row
+    b's ring page j to its pool page (:func:`paged_decode_attention_ref`
+    is the function)."""
     if page_table is not None:
-        raise NotImplementedError(
-            "the paged kernel (page_table=) is ROADMAP.md Queue 1 "
-            "item 7, not yet ported"
-        )
+        if not ring or window is not None:
+            raise ValueError("page_table reads the ring layout: pass "
+                             "ring=True and window=None")
+        if page_tokens is None:
+            raise ValueError("page_table needs page_tokens")
+        return _paged(q, cache_l, pos, scale, page_table, int(page_tokens))
     if q.device.type == "cpu":
         return quantized_decode_attention_ref(q, cache_l, pos, scale,
                                               window, ring=ring)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    B, H, D, Hkv = _check(q, cache_l, ring, window)
     kc, vc, ks, vs = (cache_l[n] for n in ("k", "v", "k_s", "v_s"))
+    B, H, D, Hkv = _check(q, kc.shape[2], ring, window)
     L = kc.shape[1]
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if D % 128 != 0 or D > 512:
-        raise ValueError(f"kernel takes head_dim in 128..512 step 128, "
-                         f"got {D}")
-    for name, t, dt, shape in (
+    _check_leaves(q, (
         ("k", kc, torch.int8, (B, L, Hkv, D)),
         ("v", vc, torch.int8, (B, L, Hkv, D)),
         ("k_s", ks, torch.float32, (B, L, Hkv)),
         ("v_s", vs, torch.float32, (B, L, Hkv)),
-    ):
-        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"cache leaf {name!r}: want {dt} {shape} on {q.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"cache leaf {name!r} must be contiguous")
+    ))
     qc = q.contiguous()
     posv = _pos_vector(pos, B, q.device)
     out = torch.empty_like(qc)
@@ -190,10 +272,36 @@ def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
         int(bool(ring)), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            "decode-attention kernel launch failed: "
-            + lib.k5_error_string(err).decode()
-        )
-    LAUNCHES["quantized_decode_attention"] += 1
+    _launched(lib, err, "quantized_decode_attention")
+    return out
+
+
+def _paged(q, pool, pos, scale, page_table, P: int):
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, pool, pos, scale, page_table,
+                                          P)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, H, D, Hkv, n_pages = _check_paged(q, pool, page_table, P)
+    kc, vc, ks, vs = (pool[n] for n in ("k", "v", "k_s", "v_s"))
+    N, max_pages = kc.shape[0], page_table.shape[1]
+    _check_leaves(q, (
+        ("k", kc, torch.int8, (N, Hkv, D)),
+        ("v", vc, torch.int8, (N, Hkv, D)),
+        ("k_s", ks, torch.float32, (N, Hkv)),
+        ("v_s", vs, torch.float32, (N, Hkv)),
+        ("page_table", page_table, torch.int32, (B, max_pages)),
+    ))
+    qc = q.contiguous()
+    posv = _pos_vector(pos, B, q.device)
+    out = torch.empty_like(qc)
+    lib = _kernel_lib()
+    err = lib.k6_paged_decode_attention_int8(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), posv.data_ptr(), page_table.data_ptr(),
+        out.data_ptr(), B, max_pages, P, n_pages, Hkv, H // Hkv, D,
+        float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _launched(lib, err, "paged_decode_attention")
     return out

@@ -1,11 +1,12 @@
 """The port's int8 decode attention (mpistragglers_jl_tpu_torch/ops/
-decode_attention.py) against the JAX package's Pallas kernel, run in
-interpret mode, and its einsum paths, on the same numpy inputs.
+decode_attention.py), dense and paged, against the JAX package's Pallas
+kernels, run in interpret mode, and its einsum paths, on the same numpy
+inputs.
 
 On the CPU the port's wrapper runs its plain PyTorch version, which is
 what these tests hold against the reference (f32, max abs 2e-5: the two
-sum in different orders). The CUDA kernel against the plain version is
-in tests/test_torch_gpu.py.
+sum in different orders). The CUDA kernels against the plain versions
+are in tests/test_torch_gpu.py.
 """
 
 import jax.numpy as jnp
@@ -18,10 +19,12 @@ from mpistragglers_jl_tpu.models.decode import (
     _cached_attention as jax_cached_attention,
 )
 from mpistragglers_jl_tpu.models.serving import (
+    _paged_gather as jax_paged_gather,
     _ring_attention_rows as jax_ring_rows,
 )
 from mpistragglers_jl_tpu.ops.decode_attention import (
     _pick_block_128,
+    paged_block_viable as jax_paged_block_viable,
     quantized_decode_attention as jax_qda,
 )
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
@@ -169,9 +172,20 @@ def test_argument_errors():
     qt, ct = torch.as_tensor(q), _torch(cache)
     with pytest.raises(ValueError, match="ring"):
         da.quantized_decode_attention(qt, ct, 0, 1.0, 64, ring=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        da.quantized_decode_attention(qt, ct, 0, 1.0, ring=True,
-                                      page_table=torch.zeros(1, 1))
+    pt = torch.zeros(1, 1, dtype=torch.int32)
+    pool = {k: v[0] for k, v in ct.items()}
+    with pytest.raises(ValueError, match="ring=True"):
+        da.quantized_decode_attention(qt, pool, 0, 1.0, page_table=pt,
+                                      page_tokens=128)
+    with pytest.raises(ValueError, match="needs page_tokens"):
+        da.quantized_decode_attention(qt, pool, 0, 1.0, ring=True,
+                                      page_table=pt)
+    with pytest.raises(ValueError, match="not a multiple"):
+        da.quantized_decode_attention(qt, pool, 0, 1.0, ring=True,
+                                      page_table=pt, page_tokens=100)
+    with pytest.raises(ValueError, match="page table must be"):
+        da.quantized_decode_attention(qt, pool, 0, 1.0, ring=True,
+                                      page_table=pt[0], page_tokens=128)
     with pytest.raises(ValueError, match="single-query"):
         da.quantized_decode_attention(qt.expand(1, 2, 4, 128), ct, 0, 1.0)
 
@@ -182,3 +196,68 @@ def test_viability_predicate_matches_reference_block_picker(Hkv, D):
               8200, 12800, 16384, 20000):
         want = _pick_block_128(L, da.DEFAULT_BLOCK_K, Hkv, D) is not None
         assert da.decode_kernel_viable(L, Hkv, D) == want, (L, Hkv, D)
+
+
+def _paged_inputs(B, W, P, Hq, Hkv, D, seed):
+    """A pool of B * W/P + 3 pages (page 0 the null page), a page table
+    from a seeded permutation with two pages shared by rows 1 and 2,
+    and null entries past row 0's budget (it is in warm-up)."""
+    rng = np.random.default_rng(seed)
+    mp = W // P
+    n_pages = B * mp + 3
+    kq, ks = jax_kv_quantize(jnp.asarray(
+        rng.standard_normal((n_pages * P, Hkv, D)), jnp.float32))
+    vq, vs = jax_kv_quantize(jnp.asarray(
+        rng.standard_normal((n_pages * P, Hkv, D)), jnp.float32))
+    pool = {"k": np.array(kq), "k_s": np.array(ks),
+            "v": np.array(vq), "v_s": np.array(vs)}
+    pt = rng.permutation(np.arange(1, n_pages))[:B * mp].reshape(B, mp)
+    pt = pt.astype(np.int32)
+    pt[1, :2] = pt[2, :2]
+    pt[0, 1:] = 0
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
+    pos = np.asarray([P // 2, W - 1, W, 3 * W + 17], np.int32)[:B]
+    return q, pool, pt, pos
+
+
+@pytest.mark.parametrize("P", [8, 16, 64])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (8, 1)])
+def test_paged_matches_pallas_paged_kernel(P, Hq, Hkv):
+    """The paged plain version (the port's wrapper on the CPU) against
+    the reference's ``_paged_kernel`` interpreted: rows in warm-up with
+    null pages past their budget, at W - 1, at W and wrapped, two pages
+    shared by two rows. f32, max abs 2e-5."""
+    B, W, D = 4, 128, 128
+    q, pool, pt, pos = _paged_inputs(B, W, P, Hq, Hkv, D, seed=P + Hq + Hkv)
+    scale = D ** -0.5
+    got = da.quantized_decode_attention(
+        torch.as_tensor(q), _torch(pool), torch.as_tensor(pos), scale,
+        ring=True, page_table=torch.as_tensor(pt), page_tokens=P)
+    want = jax_qda(jnp.asarray(q), _jax(pool), jnp.asarray(pos), scale,
+                   ring=True, page_table=jnp.asarray(pt), page_tokens=P,
+                   interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
+def test_paged_equals_dense_ring_on_the_gathered_view():
+    """The paged function is the ring function on each row's gathered
+    view, exactly, and the gather itself is the reference's."""
+    q, pool, pt, pos = _paged_inputs(4, 128, 16, 8, 2, 128, seed=9)
+    args = (torch.as_tensor(q), _torch(pool), torch.as_tensor(pos), 0.1)
+    ptt = torch.as_tensor(pt)
+    view = {k: da.paged_ring_view(v, ptt, 16) for k, v in args[1].items()}
+    want = da.quantized_decode_attention_ref(args[0], view, args[2], 0.1,
+                                             ring=True)
+    got = da.paged_decode_attention_ref(*args, ptt, 16)
+    assert torch.equal(got, want)
+    jview = jax_paged_gather(_jax(pool), jnp.asarray(pt), 128, 16)
+    for k in view:
+        np.testing.assert_array_equal(view[k].numpy(), np.asarray(jview[k]))
+
+
+def test_paged_block_viability_matches_reference():
+    """Where the parity tests run (interpret mode) both packages route
+    the same page sizes."""
+    for P in range(0, 200):
+        assert da.paged_block_viable(P) == jax_paged_block_viable(P), P

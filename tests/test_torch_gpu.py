@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch
-versions. Every test here is ``gpu``-marked and skips without a card
+"""The port's CUDA kernels (dense K5 and paged K6) on the card, against
+their plain PyTorch versions, and the serving routes that launch them. Every test here is ``gpu``-marked and skips without a card
 (the kernels have no CPU mode). This file imports no JAX, so it also
 runs where only PyTorch is installed:
 
@@ -110,3 +110,118 @@ def test_scheduler_kernel_route_equals_einsum_route():
                                      quantize_kv=True, device=dev)
               .cpu().numpy()[0].tolist() for p in prompts]
     assert streams[0] == oracle
+
+
+def _paged_case(B, W, P, Hkv, D, gen, dev):
+    """A pool of B * W/P + 4 pages (page 0 the null page), a page table
+    from a seeded permutation with pages shared by rows 1 and 2 and
+    null entries past the budget of the rows in warm-up."""
+    mp = W // P
+    n_pages = B * mp + 4
+    pool = _cache(1, n_pages * P, Hkv, D, gen, dev)
+    pool = {k: t[0] for k, t in pool.items()}
+    pt = torch.randperm(n_pages - 1, generator=gen)[:B * mp] + 1
+    pt = pt.reshape(B, mp).to(torch.int32)
+    pos = torch.tensor([0, 7, 31, 32, W - 1, W, 5000, 3 * W + 1],
+                       dtype=torch.int32)[:B]
+    pt[2, :3] = pt[1, :3]
+    for b in range(B):
+        if pos[b] < W:
+            pt[b, int(pos[b]) // P + 1:] = 0
+    return pool, pt.to(dev), pos.to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,W", [(16, 1024), (24, 960), (64, 1024)])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 2), (8, 1)])
+def test_paged_kernel_matches_plain_version(dtype, P, W, Hq, Hkv):
+    dev = _card()
+    gen = torch.Generator().manual_seed(P * 10 + Hkv)
+    dt = getattr(torch, dtype)
+    B, D = 8, 128
+    pool, pt, pos = _paged_case(B, W, P, Hkv, D, gen, dev)
+    q = torch.randn(B, 1, Hq, D, generator=gen).to(dt).to(dev)
+    got = da.quantized_decode_attention(q, pool, pos, D ** -0.5, ring=True,
+                                        page_table=pt, page_tokens=P)
+    want = da.paged_decode_attention_ref(q.float(), pool, pos, D ** -0.5,
+                                         pt, P)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    rtol = 0.0 if dt == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+
+
+def test_paged_kernel_counts_launches_and_rejects_bad_leaves():
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    pool, pt, pos = _paged_case(4, 256, 16, 2, 128, gen, dev)
+    q = torch.randn(4, 1, 4, 128, generator=gen).to(dev)
+    before = dict(da.LAUNCHES)
+    da.quantized_decode_attention(q, pool, pos, 0.1, ring=True,
+                                  page_table=pt, page_tokens=16)
+    assert da.LAUNCHES["paged_decode_attention"] == (
+        before["paged_decode_attention"] + 1)
+    assert (da.LAUNCHES["quantized_decode_attention"]
+            == before["quantized_decode_attention"])
+    with pytest.raises(ValueError, match="page_table"):
+        da.quantized_decode_attention(q, pool, pos, 0.1, ring=True,
+                                      page_table=pt.long(), page_tokens=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.quantized_decode_attention(q, pool, pos, 0.1, ring=True,
+                                      page_table=pt.t().contiguous().t(),
+                                      page_tokens=16)
+    bad = dict(pool, k_s=pool["k_s"].double())
+    with pytest.raises(ValueError, match="k_s"):
+        da.quantized_decode_attention(q, bad, pos, 0.1, ring=True,
+                                      page_table=pt, page_tokens=16)
+
+
+def test_paged_scheduler_kernel_route_equals_einsum_route():
+    """f32 paged serving on the card, a shared prefix that both holders
+    wrap past: the kernel tick and the gather tick give the same
+    streams with copy-on-write copies, the paged kernel launches once
+    per layer per decode step, K5 never, and the pools drain."""
+    dev = _card()
+    cfg = TransformerConfig(vocab=97, d_model=256, n_heads=2, n_kv_heads=1,
+                            n_layers=2, d_ff=256, attn_window=128)
+    params = init_params(cfg, seed=31, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    sys_prompt = torch.randint(1, 97, (32,), generator=gen)
+    prompts = [torch.cat([sys_prompt, torch.randint(1, 97, (n,),
+                                                    generator=gen)]).numpy()
+               for n in (20, 30)]
+    prompts += [torch.randint(1, 97, (n,), generator=gen).numpy()
+                for n in (5, 9, 3)]
+    budgets = [120, 110, 10, 12, 8]
+    streams = []
+    for toggle in (None, False):
+        td.use_decode_kernel(toggle)
+        try:
+            sched = ServingScheduler(params, cfg, slots=4, n_inner=4,
+                                     prompt_chunk=16, max_prompt=64,
+                                     quantize_kv=True, page_tokens=16,
+                                     device=dev)
+        finally:
+            td.use_decode_kernel(None)
+        assert sched.use_kernel == (toggle is None)
+        for k in da.LAUNCHES:
+            da.LAUNCHES[k] = 0
+        first = sched.submit(prompts[0], max_new=budgets[0])
+        while not first.tokens:
+            sched.step()
+        reqs = [first] + [sched.submit(p, max_new=n)
+                          for p, n in zip(prompts[1:], budgets[1:])]
+        sched.run()
+        want = (cfg.n_layers * sched.n_inner * sched.decode_ticks
+                if toggle is None else 0)
+        assert da.LAUNCHES["paged_decode_attention"] == want
+        assert da.LAUNCHES["quantized_decode_attention"] == 0
+        assert sched.pool.share_hits == 2 and sched.pool.cow_copies > 0
+        sched.pool.check()
+        assert sched.pool.used == 0 and sched.pool.reserved == 0
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+    for i in (0, 1):
+        o = td.generate_ring_dense(params, prompts[i][None], budgets[i], cfg,
+                                   quantize_kv=True, device=dev)
+        assert streams[0][i] == o.cpu().numpy()[0].tolist()

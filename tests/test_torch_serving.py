@@ -181,7 +181,7 @@ def test_prompt_overrunning_the_reference_arena_matches_oracle(
     kw = dict(slots=3, n_inner=2, prompt_chunk=8, max_prompt=30,
               quantize_kv=quantize_kv)
     sched, got = _serve(ServingScheduler, TPARAMS, TCFG, work, **kw)
-    assert sched.L_arena == 32
+    assert sched.L_arena == 37  # max_prompt + prompt_chunk - 1
     for (p, n), toks in zip(work, got):
         assert toks == _oracle(JPARAMS, JCFG, p, n, quantize_kv)
     _, want = _serve(JaxScheduler, JPARAMS, JCFG, work[2:], **kw)
@@ -237,8 +237,22 @@ def test_validation_and_later_slices_named():
     with pytest.raises(ValueError, match="ring cache"):
         ServingScheduler(TPARAMS, dataclasses.replace(TCFG, attn_window=None),
                          slots=1, device="cpu")
-    later = [({"page_tokens": 2}, "item 7"), ({"qos": object()}, "item 10"),
+    with pytest.raises(ValueError, match="divide the attention window"):
+        ServingScheduler(TPARAMS, TCFG, slots=1, page_tokens=4,
+                         device="cpu")  # W=6
+    with pytest.raises(ValueError, match="cache_pages without"):
+        ServingScheduler(TPARAMS, TCFG, slots=1, cache_pages=8,
+                         device="cpu")
+    with pytest.raises(ValueError, match="cannot hold even one"):
+        ServingScheduler(TPARAMS, TCFG, slots=1, page_tokens=2,
+                         cache_pages=3, device="cpu")  # needs W/P + 1 = 4
+    paged = ServingScheduler(TPARAMS, TCFG, slots=2, page_tokens=3,
+                             device="cpu")
+    assert paged.paged and paged.pool.n_pages == 2 * 2 + 1
+    assert not sched.paged and sched.pool is None
+    later = [({"qos": object()}, "item 10"),
              ({"cache": object()}, "item 10"),
+             ({"page_tokens": 2, "cache": object()}, "item 10"),
              ({"registry": object()}, "item 9"),
              ({"trace": object()}, "item 9"),
              ({"temperature": 0.5}, "item 8")]

@@ -3,11 +3,14 @@
 Drives the port's two serving paths (the int8 continuous-batching
 server ``mpistragglers_jl_tpu_torch.models.serving.ServingScheduler``
 on the slot ring and on the paged cache) at the full width of the
-widest model the repo serves, and holds every CUDA kernel of those
-paths against its plain PyTorch version:
+widest model the repo serves, and its training path (the single-device
+train step of ``models/transformer.py`` over flash attention) at the
+full width of ``benchmarks/transformer_train_bench.py``, and holds every
+CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
-2. build the kernels from the source in this checkout;
+2. build the kernels from the sources in this checkout, one ``nvcc``
+   per source, all started together (``_build.build``);
 3. K5 against its plain version at the serving shape, bf16 and f32,
    ring and positional (with and without window) masks, GQA groups
    1, 4 and 8;
@@ -37,7 +40,26 @@ paths against its plain PyTorch version:
    256-token system prompt; share hits, prefill chunks, decode
    tokens/s, ms/step, peak memory, launches (all counts set to 0 just
    before);
-10. K6 timing at the serving shape, as phase 6.
+10. K6 timing at the serving shape, as phase 6;
+11. the flash kernels' build report (registers and spills per kernel);
+12. K1-K4 against their plain versions: bf16 and f32, (B, L, H, Hkv, D)
+    in (2, 512, 8, 8, 128), (2, 384, 8, 2, 128), (1, 300, 4, 1, 64),
+    causal or not, window None or 128;
+13. training parity in f32 at full width, batch 2: the loss and every
+    gradient with ``attn_impl="flash"`` against ``"reference"``;
+14. training main path: bf16, batch 8, sequence 2048, one warm-up and
+    5 timed SGD steps; every launch count set to 0 just before and read
+    just after; ms/step, tokens/s, model TFLOP/s, MFU against a raw
+    bf16 matmul chain, the loss falling, peak memory; before it, the
+    first step's loss and attention-projection gradients against the
+    reference attention's, with two broken attentions as controls;
+15. the fused backward (K4) at the same width, one step's gradients
+    against the split backward's, launches counted (set to 0 before);
+16. K1-K4 at the bench shape, the main path's (bf16, B=8, L=2048, H=8,
+    D=128, causal): against their plain versions as in phase 12, then
+    timed beside their bounds, the plain versions and
+    ``F.scaled_dot_product_attention`` forward and backward (a
+    yardstick only: the port never calls it).
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
@@ -48,7 +70,9 @@ without a CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,15 +81,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpistragglers_jl_tpu_torch.bench.kernel_bounds import flash_bounds
 from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL
+from mpistragglers_jl_tpu_torch.bench.train_profile import (
+    BATCH,
+    LR,
+    SEQ,
+    TRAIN,
+    model_flops_per_step,
+    train_batch,
+)
 from mpistragglers_jl_tpu_torch.models import decode as td
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.transformer import (
     TransformerConfig,
+    _leaves,
+    forward_dense,
     init_params,
+    loss_and_grads,
+    make_train_step,
+    nll_loss,
 )
 from mpistragglers_jl_tpu_torch.ops import _build
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
+from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
 
 SLOTS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -78,6 +117,36 @@ TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -8)}
 K5 = "quantized_decode_attention"
 K6 = "paged_decode_attention"
 PAGE = 64  # the paged main path's page size
+# flash kernel launch counter -> (name, line of the TPU kernel in
+# mpistragglers_jl_tpu/ops/flash_attention.py)
+FLASH = {"flash_fwd": ("K1", 169), "flash_bwd_dq": ("K2", 266),
+         "flash_bwd_dkv": ("K3", 303), "flash_bwd_fused": ("K4", 348)}
+# flash kernels against their plain versions on the same inputs, both
+# in f32 (the kernels widen bf16 inputs exactly): the JAX package's own
+# bounds, |got - want| <= tol + tol * |want|, 2e-5 for o and lse, 5e-5
+# for gradients; a bf16 output adds one bf16 rounding, 2**-8 |want|
+FLASH_OUT, FLASH_GRAD = 2e-5, 5e-5
+# training at full width, flash against reference attention (phase 13,
+# f32, TF32 off): the loss within 1e-5 relative, each gradient leaf's
+# largest difference within 1e-3 of the leaf's largest value (f32 sums
+# over 2048 positions and 8 layers, in different orders)
+TRAIN_F32_LOSS, TRAIN_F32_GRAD = 1e-5, 1e-3
+# bf16 main path against the reference attention on the same batch
+# (both attentions sum in f32 and round o, dq, dk, dv to bf16 once; the
+# rest of the step rounds to bf16 alike): the first loss within
+# TRAIN_BF16_ORACLE relative, and each layer's wq, wk, wv, wo gradient
+# within TRAIN_BF16_ATTN_GRAD relative Frobenius difference. Phase 14
+# prints two controls that must break both limits: the attention output
+# zeroed, and the reference with a window of L/2 (far keys dropped).
+# On an H100 80GB HBM3 at 700 W the sound readings were 2.9e-6 (loss)
+# and 1.4e-2 (gradients), the controls 2.8e-4 and 5.6e-4 (loss) and
+# 0.68 (gradients, window); each limit sits near the geometric middle.
+TRAIN_BF16_ORACLE = 3e-5
+TRAIN_BF16_ATTN_GRAD = 1e-1
+# fused against split backward in bf16 (phase 15): K4 and K3 round the
+# same f32 dk, dv sums (added in other orders) to bf16 once; each leaf's
+# relative Frobenius difference within 2e-2, about five bf16 roundings
+FUSED_BF16_GRAD = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -90,8 +159,13 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _zero_launches() -> None:
-    for name in da.LAUNCHES:
-        da.LAUNCHES[name] = 0
+    for counts in (da.LAUNCHES, fa.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launch_counts() -> dict:
+    return {**da.LAUNCHES, **fa.LAUNCHES}
 
 
 def _cache(B, L, Hkv, D, gen, dev):
@@ -351,7 +425,7 @@ def phase_serving_bf16(dev):
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
     dt = _timed_ticks(sched, ticks)
-    launches = dict(da.LAUNCHES)
+    launches = _launch_counts()
     want = cfg.n_layers * n_inner * sched.decode_ticks
     _require(launches[K5] == want and launches[K6] == 0,
              f"main path launched K5 {launches[K5]} times (want {want}) "
@@ -399,7 +473,7 @@ def phase_paged_serving_bf16(dev):
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
     dt = _timed_ticks(sched, ticks)
-    launches = dict(da.LAUNCHES)
+    launches = _launch_counts()
     pool = sched.pool
     want = cfg.n_layers * n_inner * sched.decode_ticks
     print(f"  share hits {pool.share_hits} (want 28), prefill chunks "
@@ -537,13 +611,380 @@ def phase_paged_timing(dev) -> dict:
         views, q, pos, nbytes, "K6")
 
 
-def _kernel_row(name, replaces_line, launches, err, tim):
+def _flash_build_report() -> None:
+    """Registers and spills of every flash kernel instantiation, from
+    the ptxas output of the build."""
+    if "flash_attention" not in _build.build_logs:
+        print("  (library reused from an earlier build: no compiler output)")
+        return
+    kern = None
+    for line in _build.build_logs["flash_attention"].splitlines():
+        m = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                      line)
+        if m:
+            kern = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}"
+                    f", D={m.group(3)}>")
+        elif kern and ("registers" in line or "spill" in line):
+            print(f"  {kern}: {line.strip()}")
+
+
+def _share_used(got, want, tol) -> tuple[float, float]:
+    """(max abs error, share of the limit used by the worst element) of
+    a flash kernel output against its f32 plain result; a bf16 output
+    may add one bf16 rounding."""
+    rtol = tol + (2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0)
+    _require(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), (diff / (tol + rtol * want.float().abs())
+                               ).max().item()
+
+
+def _flash_pairs(fwd_out, args, args_ref) -> dict:
+    """kernel name -> [(kernel output, plain output)] for K1-K4 on the
+    same inputs: ``fwd_out`` is K1's (o, lse) on ``args[:3]``, and
+    ``args_ref`` are ``args`` with f32 copies of q, k, v and dO."""
+    meta = args[6:]
+    return {
+        "flash_fwd": list(zip(fwd_out, fa._fwd_ref(*args_ref[:3], *meta))),
+        "flash_bwd_dq": [(fa._bwd_dq(*args), fa._bwd_dq_ref(*args_ref))],
+        "flash_bwd_dkv": list(zip(fa._bwd_dkv(*args),
+                                  fa._bwd_dkv_ref(*args_ref))),
+        "flash_bwd_fused": list(zip(fa._bwd_fused_sums(*args),
+                                    fa._bwd_fused_ref(*args_ref))),
+    }
+
+
+def _hold_flash(pairs, label, worst) -> None:
+    """Hold every flash kernel output against its plain result (o, lse
+    to FLASH_OUT, gradients to FLASH_GRAD), print the share of the limit
+    each kernel uses, fail above 1, and fold each kernel's largest abs
+    error into ``worst``."""
+    torch.cuda.synchronize()
+    used = {}
+    for name, outs in pairs.items():
+        tol = FLASH_OUT if name == "flash_fwd" else FLASH_GRAD
+        for got, want in outs:
+            err, u = _share_used(got, want, tol)
+            worst[name] = max(worst[name], err)
+            used[name] = max(used.get(name, 0.0), u)
+    ok = all(u <= 1.0 for u in used.values())
+    print(f"  {label:58s} limit used "
+          + " ".join(f"{FLASH[n][0]} {u:.3f}" for n, u in used.items())
+          + (" ok" if ok else " FAIL"))
+    _require(ok, f"flash kernel disagrees with its plain version: {label} "
+                 f"{used}")
+
+
+def phase_flash_vs_plain(dev) -> dict:
+    """K1-K4 against their plain versions on the same inputs (the plain
+    versions take f32 copies). Returns each kernel's largest abs
+    error."""
+    gen = torch.Generator().manual_seed(11)
+    worst = {name: 0.0 for name in FLASH}
+    for B, L, H, Hkv, D in ((2, 512, 8, 8, 128), (2, 384, 8, 2, 128),
+                            (1, 300, 4, 1, 64)):
+        base = [torch.randn(B * h, L, D, generator=gen)
+                for h in (H, Hkv, Hkv, H)]
+        for dt in (torch.bfloat16, torch.float32):
+            q3, k3, v3, do3 = (t.to(dt).to(dev) for t in base)
+            f32 = [t.float() for t in (q3, k3, v3, do3)]
+            for causal in (True, False):
+                for window in (None, 128):
+                    meta = (D ** -0.5, causal, window, H // Hkv)
+                    o, lse = fa._fwd(q3, k3, v3, *meta)
+                    delta = fa._delta(do3, o)
+                    args = (q3, k3, v3, do3, lse, delta) + meta
+                    args_ref = tuple(f32) + (lse, delta) + meta
+                    label = (f"B={B} L={L} H={H} Hkv={Hkv} D={D} "
+                             f"{'bf16' if dt == torch.bfloat16 else 'f32 '} "
+                             f"causal={int(causal)} window={window}")
+                    _hold_flash(_flash_pairs((o, lse), args, args_ref),
+                                label, worst)
+    print("  worst abs error " + " ".join(
+        f"{FLASH[n][0]} {e:.3e}" for n, e in worst.items()))
+    return worst
+
+
+def _train_cfg(dtype, **kw):
+    return TransformerConfig(**TRAIN, dtype=dtype, **kw)
+
+
+def _leaf_errors(grads, want, relative_norm: bool):
+    """Per leaf of two gradient trees: the largest difference over the
+    largest value, or the relative Frobenius difference."""
+    out = []
+    for a, b in zip(_leaves(grads), _leaves(want)):
+        a, b = a.float(), b.float()
+        if relative_norm:
+            out.append(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+        else:
+            out.append(((a - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30)).item())
+    return out
+
+
+def phase_train_parity_f32(dev) -> None:
+    """One SGD step's loss and gradients at full width, batch 2, f32:
+    flash (K1-K3) against the reference attention."""
+    cfg = _train_cfg(torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    inp, tgt = (t[:2] for t in train_batch(cfg.vocab, dev))
+    _zero_launches()
+    loss_f, g_f = loss_and_grads(params, inp, tgt, cfg)
+    launches = dict(fa.LAUNCHES)
+    loss_r, g_r = loss_and_grads(
+        params, inp, tgt, dataclasses.replace(cfg, attn_impl="reference"))
+    rel = abs(loss_f.item() - loss_r.item()) / abs(loss_r.item())
+    errs = _leaf_errors(g_f, g_r, relative_norm=False)
+    print(f"  loss flash {loss_f.item():.6f} reference {loss_r.item():.6f} "
+          f"rel err {rel:.3e} (limit {TRAIN_F32_LOSS:.0e}); worst grad leaf "
+          f"{max(errs):.3e} of its max (limit {TRAIN_F32_GRAD:.0e}) over "
+          f"{len(errs)} leaves; launches {launches}")
+    _require(rel <= TRAIN_F32_LOSS and max(errs) <= TRAIN_F32_GRAD,
+             f"f32 flash training disagrees with the reference: loss rel "
+             f"{rel}, grad {max(errs)}")
+    want = cfg.n_layers
+    _require(launches == {"flash_fwd": want, "flash_bwd_dq": want,
+                          "flash_bwd_dkv": want, "flash_bwd_fused": 0},
+             f"f32 step launched {launches}")
+
+
+def _raw_matmul_tflops(dev, n=8192, chain=20) -> float:
+    """A chain of dependent bf16 n x n matmuls, timed with CUDA events:
+    the card's raw matmul rate in this call, the MFU denominator."""
+    gen = torch.Generator().manual_seed(12)
+    a = torch.randn(n, n, generator=gen).to(torch.bfloat16).to(dev)
+    b = (torch.randn(n, n, generator=gen) / n ** 0.5).to(
+        torch.bfloat16).to(dev)
+
+    def run(_):
+        u = a
+        for _ in range(chain):
+            u = torch.matmul(u, b)
+        return u
+
+    ms = _time_ms(run, 3, n_warm=1)
+    return 2.0 * n ** 3 * chain / (ms * 1e-3) / 1e12
+
+
+def _attn_grad_errors(grads, want) -> list:
+    """Relative Frobenius difference of every layer's wq, wk, wv and wo
+    gradient."""
+    return [((a[k].float() - b[k].float()).norm()
+             / b[k].float().norm().clamp_min(1e-30)).item()
+            for a, b in zip(grads["layers"], want["layers"])
+            for k in ("wq", "wk", "wv", "wo")]
+
+
+def _oracle_readings(params, inp, tgt, cfg) -> dict:
+    """The main path's first-step loss and attention gradients
+    (``cfg``, K1-K3) against the reference attention's on the same
+    batch, and the same two readings for two broken attentions (the
+    controls): the output zeroed (``wo`` = 0) and far keys dropped (a
+    window of L/2)."""
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    loss_r, g_r = loss_and_grads(params, inp, tgt, ref)
+    loss_f, g_f = loss_and_grads(params, inp, tgt, cfg)
+    loss_w, g_w = loss_and_grads(
+        params, inp, tgt, dataclasses.replace(ref, attn_window=SEQ // 2))
+    no_attn = {**params, "layers": [{**lp, "wo": torch.zeros_like(lp["wo"])}
+                                    for lp in params["layers"]]}
+    with torch.no_grad():
+        loss_z = nll_loss(forward_dense(no_attn, inp, ref), tgt)
+
+    def rel(x):
+        return abs(x.item() - loss_r.item()) / abs(loss_r.item())
+
+    return {"loss_oracle": loss_r.item(), "loss_rel": rel(loss_f),
+            "attn_grad_rel": max(_attn_grad_errors(g_f, g_r)),
+            "ctrl_window_loss_rel": rel(loss_w),
+            "ctrl_window_attn_grad_rel": max(_attn_grad_errors(g_w, g_r)),
+            "ctrl_zero_loss_rel": rel(loss_z)}
+
+
+def phase_train_bf16(dev):
+    """The training main path. Returns (launches, report, params,
+    batch) for phase 15."""
+    cfg = _train_cfg(torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    inp, tgt = train_batch(cfg.vocab, dev)
+    oracle = _oracle_readings(params, inp, tgt, cfg)
+    step = make_train_step(cfg, lr=LR, donate=True)
+    timed = 5
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    params, loss0 = step(params, inp, tgt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(timed):
+        params, loss = step(params, inp, tgt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = timed + 1
+    want = {"flash_fwd": cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps, "flash_bwd_fused": 0,
+            K5: 0, K6: 0}
+    print(f"  {steps} steps (1 warm-up, {timed} timed), launches "
+          f"{ {FLASH.get(k, (k,))[0]: v for k, v in launches.items()} }")
+    _require(launches == want, f"main path launched {launches}, want {want}")
+    loss_first, loss_last = loss0.item(), losses[-1].item()
+    loss_oracle = oracle["loss_oracle"]
+    rel = abs(loss_first - loss_oracle) / abs(loss_oracle)
+    print(f"  against the reference attention: first loss rel err "
+          f"{rel:.3e} (limit {TRAIN_BF16_ORACLE:.0e}), worst attention "
+          f"gradient leaf {oracle['attn_grad_rel']:.3e} (limit "
+          f"{TRAIN_BF16_ATTN_GRAD:.0e}); controls: attention zeroed, loss "
+          f"{oracle['ctrl_zero_loss_rel']:.3e}; window L/2, loss "
+          f"{oracle['ctrl_window_loss_rel']:.3e}, attention gradient "
+          f"{oracle['ctrl_window_attn_grad_rel']:.3e}")
+    _require(np.isfinite(loss_first) and np.isfinite(loss_last),
+             "non-finite loss")
+    _require(loss_last < loss_first,
+             f"the loss did not fall: {loss_first} -> {loss_last}")
+    _require(rel <= TRAIN_BF16_ORACLE,
+             f"first loss {loss_first} vs the reference-attention oracle "
+             f"{loss_oracle}: rel err {rel}")
+    _require(oracle["attn_grad_rel"] <= TRAIN_BF16_ATTN_GRAD,
+             f"attention gradients vs the reference attention's: "
+             f"{oracle['attn_grad_rel']}")
+    _require(min(oracle["ctrl_zero_loss_rel"],
+                 oracle["ctrl_window_loss_rel"]) > TRAIN_BF16_ORACLE
+             and oracle["ctrl_window_attn_grad_rel"] > TRAIN_BF16_ATTN_GRAD,
+             f"a broken attention passes the oracle limits: {oracle}")
+    raw = _raw_matmul_tflops(dev)
+    flops = model_flops_per_step(cfg, BATCH, SEQ)
+    rep = {
+        "ms_per_step": dt * 1e3,
+        "tokens_per_s": BATCH * SEQ / dt,
+        "model_tflops_per_s": flops / dt / 1e12,
+        "mfu_vs_raw_matmul": flops / dt / 1e12 / raw,
+        "raw_bf16_tflops_per_s": raw,
+        "params_m": n_params / 1e6,
+        "loss_first": loss_first,
+        "loss_last": loss_last,
+        "loss_oracle": loss_oracle,
+        "loss_vs_oracle_rel_err": rel,
+        "attn_grad_vs_oracle_rel_err": oracle["attn_grad_rel"],
+        "ctrl_zero_loss_rel_err": oracle["ctrl_zero_loss_rel"],
+        "ctrl_window_loss_rel_err": oracle["ctrl_window_loss_rel"],
+        "ctrl_window_attn_grad_rel_err": oracle["ctrl_window_attn_grad_rel"],
+        "warmup_step_s": warm_s,
+        "peak_mem_gb": peak / 1e9,
+    }
+    print(f"  {rep['ms_per_step']:.2f} ms/step, {rep['tokens_per_s']:.1f} "
+          f"tokens/s, {rep['model_tflops_per_s']:.2f} model TFLOP/s, MFU "
+          f"{rep['mfu_vs_raw_matmul']:.4f} of a raw bf16 matmul chain at "
+          f"{raw:.1f} TFLOP/s; {rep['params_m']:.1f} M params")
+    print(f"  loss {loss_first:.5f} -> {loss_last:.5f}; oracle "
+          f"{loss_oracle:.5f}; warm-up step {warm_s:.2f} s; peak "
+          f"memory {rep['peak_mem_gb']:.3f} GB")
+    return launches, rep, params, (inp, tgt)
+
+
+def phase_fused_bf16(params, batch):
+    """One step's gradients through the fused backward (K4) against
+    the split backward (K2, K3), bf16 at full width. Returns the fused
+    step's launches."""
+    cfg = _train_cfg(torch.bfloat16)
+    inp, tgt = batch
+    _zero_launches()
+    loss_f, g_f = loss_and_grads(params, inp, tgt,
+                                 dataclasses.replace(cfg, flash_bwd="fused"))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_fused": cfg.n_layers,
+            K5: 0, K6: 0}
+    _require(launches == want, f"fused step launched {launches}")
+    loss_s, g_s = loss_and_grads(params, inp, tgt, cfg)
+    errs = _leaf_errors(g_f, g_s, relative_norm=True)
+    print(f"  K4 {launches['flash_bwd_fused']} launches, K2 0, K3 0; loss "
+          f"{loss_f.item():.5f} (split {loss_s.item():.5f}); worst grad "
+          f"leaf relative difference {max(errs):.3e} (limit "
+          f"{FUSED_BF16_GRAD:.0e}) over {len(errs)} leaves")
+    _require(loss_f.item() == loss_s.item(),
+             "the same forward gave another loss")
+    _require(max(errs) <= FUSED_BF16_GRAD,
+             f"fused and split gradients differ: {max(errs)}")
+    return launches
+
+
+def phase_flash_bench_shape(dev) -> tuple[dict, dict]:
+    """K1-K4 at the bench shape, the main path's (bf16, B=8, L=2048,
+    H=8, D=128, causal): each held against its plain version on the same
+    inputs (f32 copies) as in phase 12, then us per launch beside the
+    plain versions and SDPA's forward (for K1) and backward (for K2+K3
+    and for K4, since one call computes dq, dk and dv together). Inputs
+    are 168 MB, past L2. Returns (largest abs error, timing row) per
+    kernel."""
+    H = TRAIN["n_heads"]
+    B, L, D = BATCH, SEQ, TRAIN["d_model"] // H
+    gen = torch.Generator().manual_seed(13)
+    q3, k3, v3, do3 = (torch.randn(B * H, L, D, generator=gen)
+                       .to(torch.bfloat16).to(dev) for _ in range(4))
+    meta = (D ** -0.5, True, None, 1)
+    o, lse = fa._fwd(q3, k3, v3, *meta)
+    args = (q3, k3, v3, do3, lse, fa._delta(do3, o)) + meta
+    args_ref = tuple(t.float() for t in (q3, k3, v3, do3)) + args[4:]
+    errs = {name: 0.0 for name in FLASH}
+    _hold_flash(_flash_pairs((o, lse), args, args_ref),
+                f"B={B} L={L} H={H} Hkv={H} D={D} bf16 causal=1 "
+                "window=None", errs)
+    print("  abs error " + " ".join(f"{FLASH[n][0]} {e:.3e}"
+                                    for n, e in errs.items()))
+    del args_ref
+    torch.cuda.empty_cache()
+    calls = {"flash_fwd": (fa._fwd, fa._fwd_ref, (q3, k3, v3) + meta),
+             "flash_bwd_dq": (fa._bwd_dq, fa._bwd_dq_ref, args),
+             "flash_bwd_dkv": (fa._bwd_dkv, fa._bwd_dkv_ref, args),
+             "flash_bwd_fused": (fa._bwd_fused_sums, fa._bwd_fused_ref,
+                                 args)}
+    qh, kh, vh, doh = (t.view(B, H, L, D) for t in (q3, k3, v3, do3))
+    sdpa_fwd = _time_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), 20, n_warm=3)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = _time_ms(lambda i: torch.autograd.grad(
+        out, (qg, kg, vg), doh, retain_graph=True), 20, n_warm=3)
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+               "flash_bwd_dkv": sdpa_bwd, "flash_bwd_fused": sdpa_bwd}
+    bounds = flash_bounds(B=B, L=L, H=H, D=D)
+    rows = {}
+    for name, (kern, plain, a) in calls.items():
+        ms = _time_ms(lambda i: kern(*a), 10, n_warm=2)
+        plain_ms = _time_ms(lambda i: plain(*a), 3, n_warm=1)
+        bnd = bounds[FLASH[name][0]]
+        rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library[name],
+                      "bound_ms": bnd["bound_ms"],
+                      "bound_by": bnd["bound_by"]}
+        print(f"  {FLASH[name][0]} {ms * 1e3:.1f} us/launch, bound "
+              f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['ops']} ops at 989 "
+              f"TFLOP/s; {bnd['bytes']} B at 3.35 TB/s), "
+              f"{ms / bnd['bound_ms']:.1f}x; plain {plain_ms * 1e3:.1f} us; "
+              f"SDPA {'forward' if name == 'flash_fwd' else 'backward'} "
+              f"{library[name] * 1e3:.1f} us")
+    return errs, rows
+
+
+def _kernel_row(name, replaces_line, launches, err, tim,
+                source="decode_attention.cu",
+                reference="ops/decode_attention.py"):
     return {
         "name": name,
         "route": "cuda",
-        "source": "mpistragglers_jl_tpu_torch/ops/csrc/decode_attention.cu",
-        "replaces": ("mpistragglers_jl_tpu/ops/decode_attention.py:"
-                     f"{replaces_line}"),
+        "source": f"mpistragglers_jl_tpu_torch/ops/csrc/{source}",
+        "replaces": f"mpistragglers_jl_tpu/{reference}:{replaces_line}",
         "launches": launches,
         "max_abs_err": err,
         "ms": tim["ms"],
@@ -575,13 +1016,14 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    _build.load("decode_attention")
+    _build.build("decode_attention", "flash_attention")
     t_build = time.perf_counter() - t0
-    print(f"[2] built decode_attention.cu (K5 and K6) in {t_build:.1f} s")
-    for kname, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kname}: {line.strip()}")
+    print(f"[2] built decode_attention.cu (K5 and K6) and "
+          f"flash_attention.cu (K1-K4), one nvcc each in parallel, in "
+          f"{t_build:.1f} s")
+    for line in _build.build_logs.get("decode_attention", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  decode_attention: {line.strip()}")
 
     print("[3] K5 against plain version, B=8 L=W=1024 D=128")
     err5 = phase_kernel_vs_plain(dev)
@@ -615,12 +1057,47 @@ def main() -> int:
           "D=128")
     tim6 = phase_paged_timing(dev)
 
+    print("[11] flash_attention.cu (K1-K4), built in phase 2: registers "
+          "and spills")
+    _flash_build_report()
+
+    print("[12] K1-K4 against their plain versions, bf16 and f32")
+    err_flash = phase_flash_vs_plain(dev)
+    torch.cuda.empty_cache()
+
+    print("[13] training parity, f32, full width, batch 2, L=2048: flash "
+          "against reference attention")
+    phase_train_parity_f32(dev)
+    torch.cuda.empty_cache()
+
+    print(f"[14] training main path: bf16, batch {BATCH}, L={SEQ}, flash "
+          f"attention, SGD lr {LR}")
+    launches14, train, params, batch = phase_train_bf16(dev)
+
+    print("[15] fused backward (K4), bf16, full width: one step's "
+          "gradients against the split backward")
+    launches15 = phase_fused_bf16(params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    print(f"[16] K1-K4 at the main path's shape, bf16, B={BATCH} L={SEQ} "
+          "H=8 D=128, causal: against their plain versions, then timing")
+    err16, tim_flash = phase_flash_bench_shape(dev)
+    err_flash = {n: max(e, err16[n]) for n, e in err_flash.items()}
+
     kernels = [_kernel_row(K5, 134, launches5[K5], err5, tim5),
                _kernel_row(K6, 105, launches9[K6], err6, tim6)]
+    for kname, (_, line) in FLASH.items():
+        launched = (launches15 if kname == "flash_bwd_fused"
+                    else launches14)[kname]
+        kernels.append(_kernel_row(
+            kname, line, launched, err_flash[kname], tim_flash[kname],
+            source="flash_attention.cu", reference="ops/flash_attention.py"))
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
     print(json.dumps({"serving_bf16": serve,
                       "paged_serving_bf16": serve_paged,
+                      "train_bf16": train,
                       "build_s": t_build,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,19 @@
-"""The least time an H100 could take for each TPU kernel not yet ported,
-at the shape its caller in the repo uses: the larger of the bytes the
-function must move (each input read once, each output written once)
-over the card's 3.35 TB/s and its matrix operations over the bf16
-tensor-core peak of 989 TFLOP/s (H100 SXM data sheet).
+"""The least time an H100 could take for each TPU kernel of the repo,
+at the shape its caller uses: the larger of the bytes the function must
+move (each input read once, each output written once) over the card's
+3.35 TB/s and its matrix operations over the bf16 tensor-core peak of
+989 TFLOP/s (H100 SXM data sheet).
 
 * K1–K4, the flash-attention kernels of ``ops/flash_attention.py``, at
   the default configuration of ``benchmarks/transformer_train_bench.py``
   (batch 8, seq 2048, d_model 1024, 8 heads of 128, MHA, bf16, causal,
-  no window; the blocks of 1024 give ``nq = 2``). Operations count the
-  causally visible (query, key) pairs only, ``L (L + 1) / 2`` per head:
-  2 * D per pair for each product the kernel forms (K1: QK, PV; K2:
-  QK, dO V, dS K; K3: QK, dO V, P dO, dS Q; K4: all five). Exponentials
-  are not counted.
+  no window). Operations count the causally visible (query, key) pairs
+  only, ``L (L + 1) / 2`` per head: 2 * D per pair for each product the
+  kernel forms (K1: QK, PV; K2: QK, dO V, dS K; K3: QK, dO V, P dO,
+  dS Q; K4: all five). Exponentials are not counted. K4's f32 dk/dv
+  sums count as written once, the port's layout (the reference writes
+  one partial per block of 1024 queries; K4 is bound by operations
+  either way).
 * K7, the attribution variants of ``benchmarks/decode_kernel_attrib.py``
   at their own shape (B=1, L=16384, H=8, Hkv=2, D=128, bf16 q, every
   key visible): the bytes and operations of the fullest variant, which
@@ -37,19 +39,18 @@ def _bound(nbytes: int, nops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def flash_bounds(B=8, L=2048, H=8, D=128, block=1024) -> dict:
+def flash_bounds(B=8, L=2048, H=8, D=128) -> dict:
     """K1–K4 at one causal (B, L, H, D) bf16 attention call."""
     BH = B * H
     act = BH * L * D * 2  # one bf16 (B, L, H, D) tensor
     stat = BH * L * 4  # one f32 per-row statistic (lse, delta)
     pairs = BH * L * (L + 1) // 2  # causally visible (query, key) pairs
-    nq = L // block
-    partial = BH * nq * L * D * 4  # one f32 (BH, nq, Lk, D) partial
+    f32_sum = BH * L * D * 4  # one f32 (BH, Lk, D) dk or dv sum
     return {
         "K1": _bound(3 * act + act + stat, 2 * 2 * D * pairs),
         "K2": _bound(4 * act + 2 * stat + act, 3 * 2 * D * pairs),
         "K3": _bound(4 * act + 2 * stat + 2 * act, 4 * 2 * D * pairs),
-        "K4": _bound(4 * act + 2 * stat + act + 2 * partial,
+        "K4": _bound(4 * act + 2 * stat + act + 2 * f32_sum,
                      5 * 2 * D * pairs),
     }
 

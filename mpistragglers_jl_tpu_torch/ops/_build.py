@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries land in
 ``ops/csrc/_build/`` (git-ignored) under a name that carries a hash of
 the source, so an edited kernel is never served from a stale library.
-Nothing builds at import: the first :func:`load` builds what it needs.
+Nothing builds at import: the first :func:`load` builds what it needs;
+:func:`build` starts one ``nvcc`` per missing source, all at once, and
+waits for them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load"]
+__all__ = ["build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -27,7 +29,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> compiler output of the build this process ran (ptxas -v)
 build_logs: dict[str, str] = {}
@@ -47,23 +49,39 @@ def _nvcc() -> str:
     )
 
 
-def _build(name: str) -> Path:
-    """The library of ``csrc/<name>.cu``, compiled unless it exists."""
+def _lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives, by source hash."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half
-    return out
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Compile every named source whose library does not exist yet: one
+    ``nvcc`` each, all started together, then wait for them all."""
+    with _lock:
+        procs = {}
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            build_logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n"
+                              f"{build_logs[name]}")
+            else:
+                os.replace(tmp, out)  # atomic: readers never see half
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -71,5 +89,6 @@ def load(name: str) -> ctypes.CDLL:
     needed."""
     with _lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(_build(name)))
+            build(name)
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
         return _loaded[name]

@@ -3,9 +3,9 @@
 Counterpart of ``mpistragglers_jl_tpu/parallel/ring_attention.py``.
 Slice 1 ports the GQA grouping helpers (``_group_scores``,
 ``_group_pv``), the band mask, and the ``"reference"`` per-device
-attention the unquantized generator prefills through. Ring and
-Ulysses sequence parallelism, and the ``"flash"`` kernel, are later
-slices (``ROADMAP.md`` Queue 1 items 13 and 18).
+attention; slice 3 resolves ``"flash"`` to the flash-attention kernels.
+Ring and Ulysses sequence parallelism are a later slice (``ROADMAP.md``
+Queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -55,16 +55,15 @@ def _band_mask(qpos, kpos, causal, window):
 
 
 def resolve_attention_impl(impl: str):
-    """Resolve a per-device attention by name. ``"flash"`` is kernel K1
-    of the reference (``ops/flash_attention.py``), not yet ported."""
+    """Resolve a per-device attention by name: the materialising
+    ``"reference"`` oracle or ``"flash"`` (``ops/flash_attention.py``,
+    kernels K1-K4)."""
+    if impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention
     if impl == "reference":
         return reference_attention
-    if impl == "flash":
-        raise NotImplementedError(
-            'attn_impl="flash" needs the flash-attention kernel K1, '
-            "which is ROADMAP.md Queue 1 item 13 (not yet ported); use "
-            'attn_impl="reference"'
-        )
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

@@ -191,15 +191,41 @@ def test_generate_device_defaults_to_cuda():
 
 
 def test_sampling_and_flash_are_named_as_later_work():
+    """Sampling still raises naming its roadmap item; the flash prefill
+    is ported, so a flash config generates the reference config's
+    greedy stream."""
     tcfg = TransformerConfig(**SMALL)
     tp = init_params(tcfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         td.generate_ring_dense(tp, np.ones((1, 3), np.int32), 2, tcfg,
                                temperature=0.7, device="cpu")
-    flash = dataclasses.replace(tcfg, attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="K1"):
-        td.generate_ring_dense(tp, np.ones((1, 3), np.int32), 2, flash,
-                               device="cpu")
+    flash = dataclasses.replace(tcfg, attn="ulysses", attn_impl="flash")
+    prompt = np.arange(1, 10, dtype=np.int32)[None]
+    torch.testing.assert_close(
+        td.generate_ring_dense(tp, prompt, 6, flash, device="cpu"),
+        td.generate_ring_dense(tp, prompt, 6, tcfg, device="cpu"),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fields", [SMALL, WIDE])
+def test_prefill_dense_flash_matches_jax(fields):
+    """prefill_dense through the flash attention (K1's plain version on
+    the CPU) against the reference's flash prefill: logits within 1e-4,
+    the cache within 1e-5 (f32)."""
+    fields = dict(fields, attn="ulysses", attn_impl="flash")
+    jcfg, tcfg, jp, tp = _pair(fields, seed=13)
+    prompt = np.random.default_rng(14).integers(
+        1, fields["vocab"], (2, 11)).astype(np.int32)
+    jc = jd.init_cache(jcfg, 2, 16)
+    tc = td.init_cache(tcfg, 2, 16, device="cpu")
+    jl, jc = jd.prefill_dense(jp, jnp.asarray(prompt), jc, jcfg)
+    tl, tc = td.prefill_dense(tp, torch.as_tensor(prompt), tc, tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=1e-4)
+    for jl_, tl_ in zip(jc, tc):
+        for k in jl_:
+            np.testing.assert_allclose(tl_[k].numpy(), np.asarray(jl_[k]),
+                                       rtol=0, atol=1e-5)
 
 
 def test_routing_gate_agrees_with_jax():

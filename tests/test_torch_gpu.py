@@ -1,13 +1,19 @@
-"""The port's CUDA kernels (dense K5 and paged K6) on the card, against
-their plain PyTorch versions, and the serving routes that launch them. Every test here is ``gpu``-marked and skips without a card
-(the kernels have no CPU mode). This file imports no JAX, so it also
-runs where only PyTorch is installed:
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions, and the routes that launch them: the decode kernels (dense K5
+and paged K6) with the serving scheduler, and the flash-attention
+kernels (K1-K4) with the train step. Every test here is ``gpu``-marked
+and skips without a card (the kernels have no CPU mode). This file
+imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Tolerances: f32 q within 1e-5 absolute of the plain version (the two
-sum in f32 in different orders); a bf16 output within 1e-5 + 2**-8 of
-the f32 plain result on the same q (one bf16 rounding of the value).
+Tolerances: decode kernels with f32 q within 1e-5 absolute of the plain
+version (the two sum in f32 in different orders); a bf16 output within
+1e-5 + 2**-8 of the f32 plain result on the same q (one bf16 rounding
+of the value). Flash kernels: f32 o and lse within 2e-5 + 2e-5 |want|,
+f32 gradients within 5e-5 + 5e-5 |want| (the JAX package's own bounds,
+tests/test_flash_attention.py); a bf16 output adds one bf16 rounding,
+2**-8 |want|. The plain versions run in f32 with TF32 off.
 """
 
 import pytest
@@ -18,8 +24,11 @@ from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
+    loss_and_grads,
+    make_train_step,
 )
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
+from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
 
@@ -27,6 +36,8 @@ pytestmark = pytest.mark.gpu
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -225,3 +236,138 @@ def test_paged_scheduler_kernel_route_equals_einsum_route():
         o = td.generate_ring_dense(params, prompts[i][None], budgets[i], cfg,
                                    quantize_kv=True, device=dev)
         assert streams[0][i] == o.cpu().numpy()[0].tolist()
+
+
+# ---------------------------------------------------------------- flash
+
+
+def _flash_case(B, L, H, Hkv, D, dt, seed, dev):
+    """(B*H, L, D) q3 and do3, (B*Hkv, L, D) k3 and v3, from a seeded
+    generator, in ``dt`` on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def mk(h):
+        return torch.randn(B * h, L, D, generator=gen).to(dt).to(dev)
+
+    return mk(H), mk(Hkv), mk(Hkv), mk(H)
+
+
+def _close(got, want, atol, label):
+    rtol = atol + (2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=label)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,Hkv,D,causal,window", [
+    (2, 200, 4, 2, 64, True, None),
+    (1, 130, 2, 2, 128, False, None),
+    (2, 257, 4, 1, 128, True, 64),
+    (1, 64, 2, 1, 64, False, 40),
+])
+def test_flash_kernels_match_plain_versions(dtype, B, L, H, Hkv, D, causal,
+                                            window):
+    """K1-K4 against their plain versions on the same inputs: the
+    plain versions take the f32 copies, so a bf16 kernel output is held
+    against the exact f32 result."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q3, k3, v3, do3 = _flash_case(B, L, H, Hkv, D, dt, L + D, dev)
+    g, scale = H // Hkv, D ** -0.5
+    f32 = [t.float() for t in (q3, k3, v3, do3)]
+    meta = (scale, causal, window, g)
+    o, lse = fa._fwd(q3, k3, v3, *meta)
+    o_ref, lse_ref = fa._fwd_ref(*f32[:3], *meta)
+    _close(o, o_ref, 2e-5, "K1 o")
+    _close(lse, lse_ref, 2e-5, "K1 lse")
+    delta = fa._delta(do3, o)
+    args = (q3, k3, v3, do3, lse, delta) + meta
+    args_ref = tuple(f32) + (lse, delta) + meta
+    _close(fa._bwd_dq(*args), fa._bwd_dq_ref(*args_ref), 5e-5, "K2 dq")
+    for got, want, name in zip(fa._bwd_dkv(*args), fa._bwd_dkv_ref(*args_ref),
+                               ("K3 dk", "K3 dv")):
+        _close(got, want, 5e-5, name)
+    for got, want, name in zip(fa._bwd_fused_sums(*args),
+                               fa._bwd_fused_ref(*args_ref),
+                               ("K4 dq", "K4 dk", "K4 dv")):
+        _close(got, want, 5e-5, name)
+    torch.cuda.synchronize()
+
+
+def test_flash_counts_launches_and_rejects_bad_inputs():
+    dev = _card()
+    q3, k3, v3, do3 = _flash_case(1, 96, 4, 2, 64, torch.bfloat16, 5, dev)
+    q = q3.reshape(1, 4, 96, 64).transpose(1, 2).requires_grad_()
+    k = k3.reshape(1, 2, 96, 64).transpose(1, 2).requires_grad_()
+    v = v3.reshape(1, 2, 96, 64).transpose(1, 2).requires_grad_()
+    for impl, want in (("auto", {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                 "flash_bwd_dkv": 1, "flash_bwd_fused": 0}),
+                       ("fused", {"flash_fwd": 1, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0,
+                                  "flash_bwd_fused": 1})):
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        o = fa.flash_attention(q, k, v, causal=True, bwd_impl=impl)
+        torch.autograd.grad(o.float().sum(), (q, k, v))
+        assert fa.LAUNCHES == want, impl
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._fwd(q3[..., :32].contiguous(), k3[..., :32].contiguous(),
+                v3[..., :32].contiguous(), 0.1, True, None, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._fwd(q3, k3.transpose(0, 1).contiguous().transpose(0, 1), v3,
+                0.1, True, None, 2)
+    with pytest.raises(ValueError, match="'k'"):
+        fa._fwd(q3, k3.float(), v3, 0.1, True, None, 2)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_flash_attention_matches_reference_attention(B):
+    """flash_attention on model-layout (B, L, H, D) tensors, a batch of
+    one included, against the reference attention: output and grads,
+    f32 (2e-5 and 5e-5)."""
+    from mpistragglers_jl_tpu_torch.parallel.ring_attention import (
+        reference_attention,
+    )
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(B)
+    q, k, v, w = (torch.randn(B, 100, h, 64, generator=gen).to(dev)
+                  for h in (4, 2, 2, 4))
+    outs = []
+    for fn in (fa.flash_attention, reference_attention):
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qg, kg, vg, causal=True, window=70)
+        outs.append((o,) + torch.autograd.grad((o * w).sum(), (qg, kg, vg)))
+    for got, want, tol in zip(outs[0], outs[1], (2e-5, 5e-5, 5e-5, 5e-5)):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_train_step_matches_reference_attention():
+    """f32 training on the card: loss and grads through K1-K3 (split)
+    and K4 (fused) against the reference attention, and one SGD step
+    launching each kernel once per layer."""
+    dev = _card()
+    fields = dict(vocab=97, d_model=256, n_heads=4, n_kv_heads=2,
+                  n_layers=2, d_ff=256, attn="ulysses", attn_window=48)
+    gen = torch.Generator().manual_seed(9)
+    tok = torch.randint(0, 97, (2, 129), generator=gen).to(dev)
+    inp, tgt = tok[:, :-1], tok[:, 1:]
+    params = init_params(TransformerConfig(**fields), seed=3, device=dev)
+    loss_r, g_r = loss_and_grads(params, inp, tgt,
+                                 TransformerConfig(**fields))
+    for bwd in ("auto", "fused"):
+        cfg = TransformerConfig(**fields, attn_impl="flash", flash_bwd=bwd)
+        loss, grads = loss_and_grads(params, inp, tgt, cfg)
+        torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=0)
+        for a, b in zip(grads["layers"], g_r["layers"]):
+            for name in a:
+                torch.testing.assert_close(a[name], b[name], rtol=1e-4,
+                                           atol=1e-5, msg=f"{bwd} {name}")
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    step = make_train_step(TransformerConfig(**fields, attn_impl="flash"),
+                           lr=1e-2, donate=True)
+    _, loss = step(params, inp, tgt)
+    assert torch.isfinite(loss)
+    assert fa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                           "flash_bwd_dkv": 2, "flash_bwd_fused": 0}

@@ -24,7 +24,10 @@ def _port_modules():
 def test_port_modules_import_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke"]
     assert {"mpistragglers_jl_tpu_torch.ops.decode_attention",
-            "mpistragglers_jl_tpu_torch.models.paging"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.ops.flash_attention",
+            "mpistragglers_jl_tpu_torch.models.paging",
+            "mpistragglers_jl_tpu_torch.models.transformer",
+            "mpistragglers_jl_tpu_torch.bench.train_profile"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -3,10 +3,14 @@
 Drives the port's two serving paths (the int8 continuous-batching
 server ``mpistragglers_jl_tpu_torch.models.serving.ServingScheduler``
 on the slot ring and on the paged cache) at the full width of the
-widest model the repo serves, and its training path (the single-device
+widest model the repo serves, its training path (the single-device
 train step of ``models/transformer.py`` over flash attention) at the
-full width of ``benchmarks/transformer_train_bench.py``, and holds every
-CUDA kernel of those paths against its plain PyTorch version:
+full width of ``benchmarks/transformer_train_bench.py``, its
+long-context generation (``models/decode.py`` ``generate_dense``) and
+speculative decoding (``models/speculative.py``) at the width of that
+file's decode rungs, and the attribution bench of the decode kernel
+(``bench/decode_kernel_attrib.py``), and holds every CUDA kernel of
+those paths against its plain PyTorch version:
 
 1. card name and power limit;
 2. build the kernels from the sources in this checkout, one ``nvcc``
@@ -59,7 +63,33 @@ CUDA kernel of those paths against its plain PyTorch version:
     D=128, causal): against their plain versions as in phase 12, then
     timed beside their bounds, the plain versions and
     ``F.scaled_dot_product_attention`` forward and backward (a
-    yardstick only: the port never calls it).
+    yardstick only: the port never calls it);
+17. K7 (the attribution variants dma, dot, dequant, full_nosm) and K5
+    in positional mode against their plain versions: bf16 and f32,
+    (B, L, block_k) in (1, 16384, 4096), (2, 1024, 256), (4, 1000, 160);
+18. long-context generation parity in f32 at the decode rung's full
+    width (``generate_dense``, B=4, prompt 2048, n_new 32): int8 streams
+    identical on the kernel route (AUTO at B=4) and the einsum route,
+    K5 launched 8 x 31 and 0 times; the f32-cache stream equal to the
+    argmax of ``forward_dense`` teacher-forced on prompt + stream, with
+    the reference attention (not K1);
+19. the long-context main path at ``bench_decode``'s shape (bf16, B=1,
+    prompt 16384): first K1 against its plain version at the prefill
+    shapes of this phase and phase 21 (B=1, L=16384 and 2048, H=8 over
+    Hkv=2, D=128, causal); then prefill alone (K1 = 8 launches), decode
+    ms/token by slope (n_new 128 -> 256, after a warm-up run) for the
+    bf16 cache, int8 AUTO (K5 = 0) and int8 with K5 forced (K5 = 8 x
+    (n_new - 1)), then int8 AUTO at B=4 (K5 = 8 x 127 in the 128-token
+    run); counts set to 0 just before each run;
+20. the port's attribution bench (``bench/decode_kernel_attrib.py``):
+    every K7 variant and K5 at B=1, L=16384 as CUDA-graph chains, then
+    K5 at B=4 and 8, each at or above its byte bound; K7's plain version
+    and SDPA over the dequantised cache timed beside it; the launch
+    counts hold the eager calls, not the graph replays;
+21. speculative decoding: in f32 both drafters' streams equal
+    ``generate_dense``'s (prompt 512, n_new 64); in bf16 at
+    ``bench_spec_decode``'s shape (prompt 2048, n_new 256, k 4) the
+    reference's keys for both drafters.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
@@ -73,7 +103,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
-import subprocess
 import sys
 import time
 
@@ -81,6 +110,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
+from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import flash_bounds
 from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL
 from mpistragglers_jl_tpu_torch.bench.train_profile import (
@@ -93,6 +124,9 @@ from mpistragglers_jl_tpu_torch.bench.train_profile import (
 )
 from mpistragglers_jl_tpu_torch.models import decode as td
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
+from mpistragglers_jl_tpu_torch.models.speculative import (
+    generate_speculative_dense,
+)
 from mpistragglers_jl_tpu_torch.models.transformer import (
     TransformerConfig,
     _leaves,
@@ -116,6 +150,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -8)}
 K5 = "quantized_decode_attention"
 K6 = "paged_decode_attention"
+K7 = "decode_attention_attrib"
 PAGE = 64  # the paged main path's page size
 # flash kernel launch counter -> (name, line of the TPU kernel in
 # mpistragglers_jl_tpu/ops/flash_attention.py)
@@ -147,6 +182,21 @@ TRAIN_BF16_ATTN_GRAD = 1e-1
 # same f32 dk, dv sums (added in other orders) to bf16 once; each leaf's
 # relative Frobenius difference within 2e-2, about five bf16 roundings
 FUSED_BF16_GRAD = 2e-2
+# phase 19: bench_decode's prompt and n_new; the slope's step delta is
+# cut from the reference's 384 to 128 to keep the script short
+LONG_PROMPT, LONG_NEW, SLOPE_STEPS = 16384, 128, 128
+# phase 18: (B, prompt, n_new) of the f32 long-context parity
+GEN_PARITY = (4, 2048, 32)
+# phase 21: (prompt, n_new) of the f32 parity and of bench_spec_decode
+SPEC_F32, SPEC_BF16, SPEC_K = (512, 64), (2048, 256), 4
+SPEC_DRAFT_LAYERS = 2  # bench_spec_decode's truncated-layer drafter
+# phase 17: K7 and K5 at (B, L, block_k); the bench's flagship, a
+# smaller batch, and a length that leaves the last segment short
+ATTRIB_CASES = ((1, 16384, 4096), (2, 1024, 256), (4, 1000, 160))
+# K7's dot, dequant and full_nosm against their plain versions: f32
+# sums over up to 16384 keys in other orders; within 1e-5 of the
+# largest value plus 1e-5 relative (dma is exact: integer sums)
+ATTRIB_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -833,7 +883,7 @@ def phase_train_bf16(dev):
     want = {"flash_fwd": cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps, "flash_bwd_fused": 0,
-            K5: 0, K6: 0}
+            K5: 0, K6: 0, K7: 0}
     print(f"  {steps} steps (1 warm-up, {timed} timed), launches "
           f"{ {FLASH.get(k, (k,))[0]: v for k, v in launches.items()} }")
     _require(launches == want, f"main path launched {launches}, want {want}")
@@ -904,7 +954,7 @@ def phase_fused_bf16(params, batch):
     launches = _launch_counts()
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_bwd_fused": cfg.n_layers,
-            K5: 0, K6: 0}
+            K5: 0, K6: 0, K7: 0}
     _require(launches == want, f"fused step launched {launches}")
     loss_s, g_s = loss_and_grads(params, inp, tgt, cfg)
     errs = _leaf_errors(g_f, g_s, relative_norm=True)
@@ -977,14 +1027,360 @@ def phase_flash_bench_shape(dev) -> tuple[dict, dict]:
     return errs, rows
 
 
-def _kernel_row(name, replaces_line, launches, err, tim,
-                source="decode_attention.cu",
-                reference="ops/decode_attention.py"):
+def _hold_attrib(got, want, mode, label) -> float:
+    """Hold a K7 output against its plain version: ``dma`` exactly
+    (integer sums in f32), the others within ATTRIB_TOL of the largest
+    value plus ATTRIB_TOL relative. Returns the max abs error."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if mode == "dma":
+        used = 0.0 if err == 0 else float("inf")
+    else:
+        lim = ATTRIB_TOL * want.abs().max() + ATTRIB_TOL * want.abs()
+        used = (diff / lim.clamp_min(1e-30)).max().item()
+    ok = bool(torch.isfinite(got).all()) and used <= 1.0
+    print(f"  {label} K7 {mode:9s} max_abs_err={err:.3e} limit used "
+          f"{used:.3f} {'ok' if ok else 'FAIL'}")
+    _require(ok, f"K7 {mode} disagrees with its plain version: {label} "
+                 f"err={err} limit used {used}")
+    return err
+
+
+def phase_attrib_vs_plain(dev) -> tuple[float, float]:
+    """K7's four variants and K5 in positional mode against their plain
+    versions: bf16 and f32 q, (B, L, block_k) in ATTRIB_CASES (the last
+    with a short last segment), K5 at positions L - 1 and earlier.
+    Returns the largest abs errors (K7, K5)."""
+    gen = torch.Generator().manual_seed(17)
+    H, Hkv, D = DECODE["n_heads"], DECODE["n_kv_heads"], 128
+    scale = D ** -0.5
+    worst7 = worst5 = 0.0
+    for B, L, bk in ATTRIB_CASES:
+        cache = _cache(B, L, Hkv, D, gen, dev)
+        q32 = torch.randn(B, 1, H, D, generator=gen).to(dev)
+        pos = torch.tensor([L - 1, 0, L // 2, 37][:B], dtype=torch.int32,
+                           device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q = q32.to(dt)
+            label = f"B={B} L={L:5d} bk={bk:4d} {str(dt):14s}"
+            for mode in da.ATTRIB_MODES:
+                got = da.decode_attention_attrib(q, cache, pos, scale, mode,
+                                                 bk)
+                want = da.decode_attention_attrib_ref(q.float(), cache, pos,
+                                                      scale, mode, bk)
+                worst7 = max(worst7, _hold_attrib(got, want, mode, label))
+            got = da.quantized_decode_attention(q, cache, pos, scale)
+            want = da.quantized_decode_attention_ref(q.float(), cache, pos,
+                                                     scale)
+            worst5 = max(worst5, _hold(got, want, dt, f"{label} K5 pos"))
+    return worst7, worst5
+
+
+def _prompt(vocab, B, Tp, seed=0):
+    """Prompts as the reference's decode benches draw them."""
+    return np.random.default_rng(seed).integers(0, vocab, (B, Tp))
+
+
+def _generate(params, prompt, n_new, cfg, dev, **kw):
+    """generate_dense with every launch count set to 0 just before and
+    read just after: (tokens, seconds, launches)."""
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    toks = td.generate_dense(params, prompt, n_new, cfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launch_counts()
+    _require(tuple(toks.shape) == (len(prompt), n_new)
+             and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+             f"generate_dense gave {tuple(toks.shape)} tokens or tokens "
+             "outside the vocabulary")
+    return toks, dt, launches
+
+
+def _want_launches(launches, k1, k5, what) -> None:
+    got = {n: launches[n] for n in ("flash_fwd", K5)}
+    want = {"flash_fwd": k1, K5: k5}
+    others = {n: v for n, v in launches.items()
+              if n not in want and v}
+    print(f"  {what}: K1 {got['flash_fwd']} (want {k1}), K5 {got[K5]} "
+          f"(want {k5}), others {others or 0}")
+    _require(got == want and not others,
+             f"{what} launched {launches}, want K1 {k1}, K5 {k5}")
+
+
+def phase_generate_parity_f32(dev) -> None:
+    """Long-context generation parity at full width, f32, TF32 off: B=4,
+    prompt 2048, n_new 32. The int8 streams on the kernel route (AUTO at
+    B=4) and the einsum route must be identical; the f32-cache stream
+    must be the argmax of forward_dense teacher-forced on prompt +
+    stream, through the reference attention (no K1)."""
+    cfg = TransformerConfig(**DECODE, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    B, Tp, n_new = GEN_PARITY
+    prompt = _prompt(cfg.vocab, B, Tp)
+    streams = []
+    for toggle, route in ((None, "kernel"), (False, "einsum")):
+        td.use_decode_kernel(toggle)
+        try:
+            toks, _, launches = _generate(params, prompt, n_new, cfg, dev,
+                                          quantize_kv=True)
+        finally:
+            td.use_decode_kernel(None)
+        _want_launches(launches, cfg.n_layers,
+                       cfg.n_layers * (n_new - 1) if toggle is None else 0,
+                       f"int8 {route} route")
+        streams.append(toks)
+    same = int((streams[0] == streams[1]).all(dim=1).sum())
+    print(f"  int8 streams identical on both routes: {same}/{B}")
+    _require(same == B, "int8 kernel and einsum routes disagree")
+    fp, _, _ = _generate(params, prompt, n_new, cfg, dev)
+    full = torch.cat([torch.as_tensor(prompt, device=dev),
+                      fp[:, :-1].long()], dim=1)
+    # the oracle attends through the reference attention, not K1
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    with torch.no_grad():
+        want = forward_dense(params, full, ref)[:, Tp - 1:].argmax(-1)
+    agree = int((want == fp.long()).sum())
+    print(f"  f32-cache stream vs teacher-forced forward_dense argmax "
+          f"(reference attention): {agree}/{B * n_new} tokens")
+    _require(agree == B * n_new,
+             "the f32-cache stream differs from the teacher-forced argmax")
+    del params
+
+
+def phase_prefill_flash(dev) -> float:
+    """K1 at the prefill shapes of phases 19 and 21 (bf16, B=1, H=8
+    over Hkv=2, D=128, causal; L=16384 and 2048) against its plain
+    version on f32 copies of the same inputs, one q head at a time (the
+    plain scores of one head at 16k are 1.07 GB). Returns K1's largest
+    abs error."""
+    gen = torch.Generator().manual_seed(19)
+    H, Hkv = DECODE["n_heads"], DECODE["n_kv_heads"]
+    D, g = DECODE["d_model"] // H, H // Hkv
+    worst = {"flash_fwd": 0.0}
+    for L in (LONG_PROMPT, SPEC_BF16[0]):
+        q3, k3, v3 = (torch.randn(h, L, D, generator=gen)
+                      .to(torch.bfloat16).to(dev) for h in (H, Hkv, Hkv))
+        meta = (D ** -0.5, True, None)
+        o, lse = fa._fwd(q3, k3, v3, *meta, g)
+        pairs = []
+        for h in range(H):
+            want = fa._fwd_ref(q3[h:h + 1].float(), k3[h // g:h // g + 1]
+                               .float(), v3[h // g:h // g + 1].float(),
+                               *meta, 1)
+            pairs += [(o[h:h + 1], want[0]), (lse[h:h + 1], want[1])]
+        _hold_flash({"flash_fwd": pairs},
+                    f"B=1 L={L} H={H} Hkv={Hkv} D={D} bf16 causal=1 "
+                    "window=None", worst)
+    return worst["flash_fwd"]
+
+
+def phase_long_context_bf16(dev):
+    """The long-context main path at bench_decode's shape (bf16, B=1,
+    prompt 16384): prefill alone, then decode ms/token by slope over
+    SLOPE_STEPS for the bf16 cache, int8 under AUTO (einsum at B=1) and
+    int8 with K5 forced; then int8 AUTO at B=4 (K5 routed), by slope
+    too. Each variant's first call is a short warm-up run, as the
+    reference compiles before it times. Every run sets the launch
+    counts to 0 just before it and reads them just after. Returns the
+    report."""
+    cfg = TransformerConfig(**DECODE, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    Tp, n1 = LONG_PROMPT, LONG_NEW
+    prompt = _prompt(cfg.vocab, 1, Tp)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tp = torch.as_tensor(prompt, device=dev)
+    cache0 = td.init_cache(cfg, 1, Tp + n1, device=dev)
+    prefill_s = None
+    with torch.no_grad():
+        for _ in range(2):  # the first one warms up
+            torch.cuda.synchronize()
+            _zero_launches()
+            t0 = time.perf_counter()
+            logits, _ = td.prefill_dense(params, tp, cache0, cfg)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            _want_launches(_launch_counts(), cfg.n_layers, 0, "prefill")
+            _require(bool(torch.isfinite(logits[:, -1]).all()),
+                     "non-finite prefill logits")
+            del logits
+    del cache0
+    totals, streams = {}, {}
+    B4 = 4
+    for name, B, q8, toggle in (("bf16", 1, False, None),
+                                ("int8", 1, True, None),
+                                ("int8_kernel", 1, True, True),
+                                ("int8_b4", B4, True, None)):
+        kernel = bool(toggle) or B >= td.KERNEL_MIN_BATCH
+        pr = _prompt(cfg.vocab, B, Tp)
+        td.use_decode_kernel(toggle)
+        try:
+            # a short warm-up on the n1 run's cache length (one the
+            # block picker accepts, so the forced route takes K5), then
+            # the pair
+            for nn in (4, n1, n1 + SLOPE_STEPS):
+                toks, dt, launches = _generate(
+                    params, pr, nn, cfg, dev, quantize_kv=q8,
+                    max_len=Tp + max(nn, n1))
+                _want_launches(
+                    launches, cfg.n_layers,
+                    cfg.n_layers * (nn - 1) if q8 and kernel else 0,
+                    f"{name} cache, B={B}, n_new {nn}, {dt:.3f} s")
+                totals[name, nn] = dt
+        finally:
+            td.use_decode_kernel(None)
+        streams[name] = toks
+    slope = {name: (totals[name, n1 + SLOPE_STEPS] - totals[name, n1])
+             / SLOPE_STEPS * 1e3 for name in streams}
+    agree = {name: int((streams[name] == streams["bf16"]).sum())
+             for name in ("int8", "int8_kernel")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache_mb = (2 * cfg.n_layers * (Tp + n1) * cfg.kv_heads * cfg.head_dim
+                * 2 / 2 ** 20)
+    rep = {
+        "metric": "decode-rung",
+        "prompt_len": Tp,
+        "n_new": n1,
+        "batch": 1,
+        "n_kv_heads": cfg.kv_heads,
+        "kv_cache_mib": cache_mb,
+        "kv_cache_vs_mha": cfg.kv_heads / cfg.n_heads,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": Tp / prefill_s,
+        "generate_total_s": totals["bf16", n1],
+        "decode_ms_per_token": slope["bf16"],
+        "decode_tokens_per_s": 1e3 / slope["bf16"],
+        "kv_cache_mib_int8": cache_mb * (1 + 4 / cfg.head_dim) / 2,
+        "decode_ms_per_token_int8": slope["int8"],
+        "int8_decode_speedup": slope["bf16"] / slope["int8"],
+        "decode_ms_per_token_int8_kernel": slope["int8_kernel"],
+        "decode_slope_steps": SLOPE_STEPS,
+        "chains_min_of": 1,
+        "int8_b4_generate_total_s": totals["int8_b4", n1],
+        "int8_b4_decode_ms_per_step": slope["int8_b4"],
+        "tokens_equal_to_bf16_stream": agree,
+        "peak_mem_gb": peak / 1e9,
+    }
+    print(f"  prefill {prefill_s:.3f} s ({rep['prefill_tokens_per_s']:.0f} "
+          f"tokens/s); decode ms/token by slope: bf16 {slope['bf16']:.3f}, "
+          f"int8 {slope['int8']:.3f}, int8 + K5 {slope['int8_kernel']:.3f};"
+          f" B=4 int8 AUTO (K5) {slope['int8_b4']:.3f} ms/step; peak "
+          f"{rep['peak_mem_gb']:.2f} GB; tokens equal to the bf16-cache "
+          f"stream {agree} of {n1 + SLOPE_STEPS}")
+    del params
+    return rep
+
+
+def phase_attribution(dev):
+    """The port's attribution bench (K7) at its shapes: the flagship
+    with all variants, then B=4 and B=8 with the full kernel. Launch
+    counts set to 0 just before, read just after: they hold the eager
+    calls that ran (the graph replays timed beside them are not
+    counted). Every variant at or above its byte bound. Returns
+    (flagship result, K7 launches, plain and SDPA times)."""
+    torch.cuda.empty_cache()
+    _zero_launches()
+    results = attrib.main()
+    calls = _launch_counts()
+    print(f"  launches {{K5: {calls[K5]}, K7: {calls[K7]}}} (eager calls; "
+          f"{results[0]['graph_replays']} replays per variant of a graph of "
+          f"{attrib.INNER} calls not counted)")
+    for r in results:
+        keys = ["kernel_full_ms"] + (list(attrib.VARIANTS.values())
+                                     if "kernel_dma_ms" in r else [])
+        print(f"  {r['shape']}: bound {r['bound_ms'] * 1e3:.2f} us; "
+              + ", ".join(f"{k[:-3]} {r[k] * 1e3:.2f} us" for k in keys)
+              + f"; einsum bf16 {r['einsum_bf16_ms'] * 1e3:.2f} us, int8 "
+              f"{r['einsum_int8_ms'] * 1e3:.2f} us; kernel_vs_bf16 "
+              f"{r['kernel_vs_bf16']:.3f}")
+        for k in keys:
+            _require(r[k] >= r["bound_ms"],
+                     f"{r['shape']} {k} {r[k]} ms is under its byte bound "
+                     f"{r['bound_ms']} ms: it moved less than the cache")
+    _require(calls[K7] > 0, "the bench never ran K7")
+    B, L, H, Hkv, D = 1, LONG_PROMPT, DECODE["n_heads"], DECODE["n_kv_heads"], 128
+    q, cache = attrib.inputs(B, L, H, Hkv, D, dev)
+    scale = D ** -0.5
+    plain = _time_ms(lambda i: da.decode_attention_attrib_ref(
+        q, cache, L - 1, scale, "full_nosm", 4096), 5, n_warm=1)
+    g = H // Hkv
+    kd, vd = ((cache[n].to(torch.bfloat16) * cache[n + "_s"][..., None]
+               .to(torch.bfloat16)).repeat_interleave(g, 2).transpose(1, 2)
+              .contiguous() for n in ("k", "v"))
+    qh = q.transpose(1, 2).contiguous()
+    lib = _time_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kd, vd, scale=scale), 100)
+    print(f"  full_nosm plain version {plain * 1e3:.1f} us; SDPA over the "
+          f"dequantised {L}-key cache {lib * 1e3:.2f} us (a yardstick)")
+    return results[0], calls[K7], {"plain_ms": plain, "library_ms": lib}
+
+
+def phase_speculative(dev):
+    """Speculative decoding: in f32 (TF32 off), prompt 512, n_new 64,
+    both drafters' streams equal generate_dense's; in bf16 at
+    bench_spec_decode's shape (prompt 2048, n_new 256, k 4), the
+    reference's keys for both drafters. Returns the bf16 report."""
+    k = SPEC_K
+    cfg = TransformerConfig(**DECODE, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    Tp, n_new = SPEC_F32
+    prompt = _prompt(cfg.vocab, 1, Tp)
+    greedy, _, _ = _generate(params, prompt, n_new, cfg, dev)
+    for dl in (None, SPEC_DRAFT_LAYERS):
+        toks, fwd = generate_speculative_dense(params, prompt, n_new, cfg,
+                                               k=k, draft_layers=dl,
+                                               device=dev)
+        same = bool(torch.equal(toks.to(greedy.dtype), greedy))
+        print(f"  f32, drafter {dl or 'n-gram'}: stream equal to "
+              f"generate_dense: {same}, {fwd} verify forwards for "
+              f"{n_new - 1} decoded tokens")
+        _require(same, f"f32 speculative stream (draft_layers={dl}) "
+                       "differs from generate_dense")
+    del params
+    cfg = TransformerConfig(**DECODE, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    Tp, n_new = SPEC_BF16
+    prompt = _prompt(cfg.vocab, 1, Tp)
+    _generate(params, prompt, 8, cfg, dev)  # warm-up
+    greedy, greedy_s, _ = _generate(params, prompt, n_new, cfg, dev)
+    rep = {"metric": "spec-decode-rung", "prompt_len": Tp, "n_new": n_new,
+           "draft_k": k, "greedy_total_s": greedy_s}
+    for dl in (None, SPEC_DRAFT_LAYERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, fwd = generate_speculative_dense(params, prompt, n_new, cfg,
+                                               k=k, draft_layers=dl,
+                                               device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        r = {"stream_exact_vs_greedy": bool(torch.equal(
+                 toks.to(greedy.dtype), greedy)),
+             "verify_forwards": fwd,
+             "tokens_per_forward": (n_new - 1) / max(fwd, 1),
+             "spec_total_s": dt, "spec_speedup": greedy_s / dt}
+        _require(tuple(toks.shape) == (1, n_new) and 0 < fwd < n_new,
+                 f"speculative run gave {tuple(toks.shape)} tokens in {fwd} "
+                 "forwards")
+        print(f"  bf16, drafter {dl or 'n-gram'}: {r}")
+        if dl is None:
+            rep.update(r)
+        else:
+            rep["model_draft"] = {"draft_layers": dl, **r}
+    del params
+    return rep
+
+
+def _kernel_row(name, replaces, launches, err, tim,
+                source="decode_attention.cu"):
     return {
         "name": name,
         "route": "cuda",
         "source": f"mpistragglers_jl_tpu_torch/ops/csrc/{source}",
-        "replaces": f"mpistragglers_jl_tpu/{reference}:{replaces_line}",
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
         "ms": tim["ms"],
@@ -1005,12 +1401,7 @@ def main() -> int:
     # f32 parity needs full-precision products, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    name, smi = attrib.card()
     print(f"[1] device: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(smi)
@@ -1018,7 +1409,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build("decode_attention", "flash_attention")
     t_build = time.perf_counter() - t0
-    print(f"[2] built decode_attention.cu (K5 and K6) and "
+    print(f"[2] built decode_attention.cu (K5, K6, K7) and "
           f"flash_attention.cu (K1-K4), one nvcc each in parallel, in "
           f"{t_build:.1f} s")
     for line in _build.build_logs.get("decode_attention", "").splitlines():
@@ -1085,19 +1476,71 @@ def main() -> int:
     err16, tim_flash = phase_flash_bench_shape(dev)
     err_flash = {n: max(e, err16[n]) for n, e in err_flash.items()}
 
-    kernels = [_kernel_row(K5, 134, launches5[K5], err5, tim5),
-               _kernel_row(K6, 105, launches9[K6], err6, tim6)]
+    print("[17] K7's variants and K5 positional against their plain "
+          "versions, bf16 and f32, (B, L, block_k) in "
+          f"{ATTRIB_CASES}")
+    err7, err5_pos = phase_attrib_vs_plain(dev)
+    err5 = max(err5, err5_pos)
+    torch.cuda.empty_cache()
+
+    print("[18] long-context generation parity, f32, full width, B=4, "
+          "prompt 2048, n_new 32: int8 kernel vs einsum route, f32 cache "
+          "vs teacher-forced forward_dense")
+    phase_generate_parity_f32(dev)
+    torch.cuda.empty_cache()
+
+    print(f"[19] long-context main path: bf16, B=1, prompt {LONG_PROMPT}, "
+          f"decode slope n_new {LONG_NEW} -> {LONG_NEW + SLOPE_STEPS}; "
+          "then int8 AUTO at B=4; first K1 at the prefill shapes against "
+          "its plain version")
+    err_flash["flash_fwd"] = max(err_flash["flash_fwd"],
+                                 phase_prefill_flash(dev))
+    torch.cuda.empty_cache()
+    long_ctx = phase_long_context_bf16(dev)
+    torch.cuda.empty_cache()
+
+    print("[20] the attribution bench (K7): B=1 L=16384 H=8 Hkv=2 D=128, "
+          "all variants; then B=4 and B=8, the full kernel")
+    flag, launches7, tim7 = phase_attribution(dev)
+    torch.cuda.empty_cache()
+
+    print("[21] speculative decoding: f32 parity, then bf16 at "
+          "bench_spec_decode's shape")
+    spec = phase_speculative(dev)
+    torch.cuda.empty_cache()
+
+    kernels = [
+        _kernel_row(K5, "mpistragglers_jl_tpu/ops/decode_attention.py:134",
+                    launches5[K5], err5, tim5),
+        _kernel_row(K6, "mpistragglers_jl_tpu/ops/decode_attention.py:105",
+                    launches9[K6], err6, tim6),
+    ]
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
                     else launches14)[kname]
         kernels.append(_kernel_row(
-            kname, line, launched, err_flash[kname], tim_flash[kname],
-            source="flash_attention.cu", reference="ops/flash_attention.py"))
+            kname, f"mpistragglers_jl_tpu/ops/flash_attention.py:{line}",
+            launched, err_flash[kname], tim_flash[kname],
+            source="flash_attention.cu"))
+    # K7's time is its fullest variant's (full_nosm); all four beside it
+    variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
+    kernels.append({
+        **_kernel_row(K7, "benchmarks/decode_kernel_attrib.py:149",
+                      launches7, err7, {"ms": variants["full_nosm"],
+                                        "bound_ms": flag["bound_ms"],
+                                        "bound_by": flag["bound_by"],
+                                        **tim7}),
+        "variants": variants,
+        "launches_are": "eager calls; CUDA-graph replays not counted",
+    })
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
     print(json.dumps({"serving_bf16": serve,
                       "paged_serving_bf16": serve_paged,
                       "train_bf16": train,
+                      "long_context_bf16": long_ctx,
+                      "attribution": flag,
+                      "speculative_bf16": spec,
                       "build_s": t_build,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))

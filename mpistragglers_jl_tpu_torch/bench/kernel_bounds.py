@@ -16,8 +16,9 @@ move (each input read once, each output written once) over the card's
   either way).
 * K7, the attribution variants of ``benchmarks/decode_kernel_attrib.py``
   at their own shape (B=1, L=16384, H=8, Hkv=2, D=128, bf16 q, every
-  key visible): the bytes and operations of the fullest variant, which
-  reads what K5 reads.
+  key visible) and at B = 4 and 8 (the bench's batched sweep): the
+  bytes and operations of the fullest variant, which reads what K5
+  reads.
 
 Pure arithmetic, no card needed:
 
@@ -64,7 +65,8 @@ def attrib_bound(B=1, L=16384, H=8, Hkv=2, D=128) -> dict:
 
 
 def main() -> int:
-    rows = {**flash_bounds(), **attrib_bound()}
+    rows = {**flash_bounds(),
+            **{f"K7 B={B}": attrib_bound(B=B)["K7"] for B in (1, 4, 8)}}
     for name, r in rows.items():
         print(f"{name}: {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}; "
               f"{r['bytes']} B, {r['ops']} ops)")

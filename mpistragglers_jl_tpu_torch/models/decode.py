@@ -1,5 +1,6 @@
 """Inference for the flagship transformer: KV caches, the incremental
-forward, and the ring-cache generator that is the serving oracle.
+forward, the positional-cache generator (``generate_dense``) and the
+ring-cache generator that is the serving oracle.
 
 Counterpart of ``mpistragglers_jl_tpu/models/decode.py`` (dense FFN,
 single device). Prefill and decode are one incremental forward at two
@@ -40,7 +41,9 @@ __all__ = [
     "init_cache",
     "init_ring_cache",
     "ring_from_cache",
+    "decode_step_dense",
     "decode_step_ring_dense",
+    "generate_dense",
     "generate_ring_dense",
     "use_decode_kernel",
 ]
@@ -447,6 +450,81 @@ def _eos_clamp(nxt, tok, done, eos_id):
     return torch.where(done, torch.full_like(nxt, eos_id), nxt), done
 
 
+def _decode_loop(params, tok, c, Tp: int, n_new: int, cfg, *, ring,
+                 use_kernel, eos_id):
+    """The greedy decode loop shared by both generators: ``tok`` (B,)
+    is the prefill's pick, then ``n_new - 1`` decode forwards (the last
+    token emitted is never fed back). Returns (B, n_new) int32
+    tokens."""
+    done = torch.zeros_like(tok, dtype=torch.bool)
+    toks = []
+    for pos in range(Tp, Tp + n_new - 1):
+        lg, c = _incremental_forward(
+            params, tok[:, None], c, pos, cfg, prefill=False, ring=ring,
+            decode_kernel=use_kernel,
+        )
+        nxt, done = _eos_clamp(_pick_token(lg[:, 0]), tok, done, eos_id)
+        toks.append(tok)
+        tok = nxt
+    toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+def _generation_setup(prompt, n_new: int, temperature, quantize_kv, cfg,
+                      device):
+    """Checks and routing shared by both generators: (device, prompt as
+    int64 on it, use_kernel), the routing resolved once per call."""
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    _check_sampling(temperature)
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    use_kernel = (_kernel_possible(cfg, quantize_kv)
+                  and _route_kernel(_UNSET, prompt.shape[0]))
+    return dev, prompt, use_kernel
+
+
+def decode_step_dense(params, token, cache, pos: int,
+                      cfg: TransformerConfig):
+    """One decode step against the positional cache: ``token`` (B,) at
+    global position ``pos`` (a host int below the cache's max_len; a
+    write past it raises). The cache updates in place. Returns
+    (logits (B, V), cache)."""
+    logits, cache = _incremental_forward(
+        params, token[:, None], cache, int(pos), cfg, prefill=False,
+    )
+    return logits[:, 0], cache
+
+
+def generate_dense(params, prompt, n_new: int, cfg: TransformerConfig,
+                   max_len: int | None = None, *,
+                   temperature: float = 0.0, eos_id: int | None = None,
+                   quantize_kv: bool = False, device=None):
+    """Greedy generation over the positional ``max_len`` cache (default
+    ``Tp + n_new``): exact prefill through ``cfg.attn_impl`` (flash runs
+    K1), then one decode forward per token, int8 caches through K5 when
+    routed. ``prompt`` (B, Tp) int tokens -> (B, n_new) int32 tokens;
+    rows that emit ``eos_id`` keep emitting it. ``device`` defaults to
+    ``cuda``; ``params`` must live there."""
+    dev, prompt, use_kernel = _generation_setup(
+        prompt, n_new, temperature, quantize_kv, cfg, device)
+    B, Tp = prompt.shape
+    if max_len is None:
+        max_len = Tp + n_new
+    if max_len < Tp + n_new:
+        raise ValueError(
+            f"max_len {max_len} < prompt {Tp} + n_new {n_new}: decode "
+            "positions would not fit the cache"
+        )
+    with torch.no_grad():
+        c = init_cache(cfg, B, max_len, quantize_kv=quantize_kv, device=dev)
+        logits, c = prefill_dense(params, prompt, c, cfg)
+        tok = _pick_token(logits[:, -1])
+        del logits  # the (B, Tp, V) prefill logits, before the loop
+        return _decode_loop(params, tok, c, Tp, n_new, cfg, ring=False,
+                            use_kernel=use_kernel, eos_id=eos_id)
+
+
 def generate_ring_dense(params, prompt, n_new: int,
                         cfg: TransformerConfig, *,
                         temperature: float = 0.0, eos_id: int | None = None,
@@ -459,15 +537,10 @@ def generate_ring_dense(params, prompt, n_new: int,
     chunked admission, so a scheduler slot reproduces this stream as
     an identity. ``device`` defaults to ``cuda``; ``params`` must live
     there."""
-    if n_new < 1:
-        raise ValueError(f"n_new must be >= 1, got {n_new}")
     W = _check_ring_cfg(cfg)
-    _check_sampling(temperature)
-    dev = resolve_device(device)
-    prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    dev, prompt, use_kernel = _generation_setup(
+        prompt, n_new, temperature, quantize_kv, cfg, device)
     B, Tp = prompt.shape
-    use_kernel = (_kernel_possible(cfg, quantize_kv)
-                  and _route_kernel(_UNSET, B))
     with torch.no_grad():
         c = init_cache(cfg, B, Tp, quantize_kv=quantize_kv, device=dev)
         if quantize_kv:
@@ -477,17 +550,6 @@ def generate_ring_dense(params, prompt, n_new: int,
         else:
             logits, c = prefill_dense(params, prompt, c, cfg)
         c = [_ring_from_cache(cl, Tp, W) for cl in c]
-        tok = _pick_token(logits[:, -1])
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        toks = []
-        for pos in range(Tp, Tp + n_new - 1):
-            lg, c = _incremental_forward(
-                params, tok[:, None], c, pos, cfg, prefill=False,
-                ring=True, decode_kernel=use_kernel,
-            )
-            nxt, done = _eos_clamp(_pick_token(lg[:, 0]), tok, done,
-                                   eos_id)
-            toks.append(tok)
-            tok = nxt
-        toks.append(tok)
-    return torch.stack(toks, dim=1)
+        return _decode_loop(params, _pick_token(logits[:, -1]), c, Tp,
+                            n_new, cfg, ring=True, use_kernel=use_kernel,
+                            eos_id=eos_id)

@@ -13,15 +13,22 @@ TPU kernels there become ``csrc/decode_attention.cu``:
   D)`` and {"k_s","v_s"} f32 ``(n_pages * P, Hkv)``, read in place
   through a ``(B, max_pages)`` int32 page table, ``W = max_pages * P``.
 
-Both are bound by bytes: at the serving shape (B=8, W=1024, Hkv=2,
+So does K7, the attribution variants of
+``benchmarks/decode_kernel_attrib.py`` (``variant(mode)``): K5 with
+everything after the tile load stripped to ``dma``, ``dot``,
+``dequant`` or ``full_nosm`` (:func:`decode_attention_attrib`), a
+template mode of the same kernel.
+
+All are bound by bytes: at the serving shape (B=8, W=1024, Hkv=2,
 D=128, g=4) one launch moves about 4.36 MB, 1.30 us at the H100's
 3.35 TB/s. The source note says how the design meets that and what is
 left for later (split-K, TMA).
 
 :func:`quantized_decode_attention` runs the plain versions only for
 tensors on the CPU; for CUDA tensors it launches a kernel or raises.
-``LAUNCHES`` counts kernel launches (never plain-version calls), one
-entry per kernel, so a run can show its main path went through them.
+``LAUNCHES`` counts kernel launches that run (never plain-version calls,
+never calls recorded into a CUDA graph), one entry per kernel, so a run
+can show its main path went through them.
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ import ctypes
 import torch
 
 __all__ = [
+    "ATTRIB_MODES",
     "LAUNCHES",
     "DEFAULT_BLOCK_K",
+    "decode_attention_attrib",
+    "decode_attention_attrib_ref",
     "decode_kernel_viable",
     "paged_block_viable",
     "paged_decode_attention_ref",
@@ -45,31 +55,45 @@ _NEG = -1e30
 _MAX_GROUP = 8  # q rows per kv head the kernel carries (one per warp)
 
 # kernel name -> launches since the counter was last set to 0
-LAUNCHES = {"quantized_decode_attention": 0, "paged_decode_attention": 0}
+LAUNCHES = {"quantized_decode_attention": 0, "paged_decode_attention": 0,
+            "decode_attention_attrib": 0}
+
+# K7's variants, by the reference's names -> the kernel's Mode
+ATTRIB_MODES = {"dma": 1, "dot": 2, "dequant": 3, "full_nosm": 4}
+_TILE = 32  # keys per tile of the kernel
 
 # The routing predicate below keeps the reference's TPU block-picker
-# arithmetic (ops/decode_attention.py ``_pick_block_128`` with its
-# calibrated scoped-VMEM budget) so the port routes exactly the calls
-# the JAX package routes. The CUDA kernel itself takes any length:
-# re-deriving the gate for the H100 is later work (ROADMAP.md).
+# arithmetic (its calibrated scoped-VMEM budget) so the port routes
+# exactly the calls the JAX package routes. The CUDA kernel itself
+# takes any length: re-deriving the gate for the H100 is later work
+# (ROADMAP.md).
 _VMEM_PER_ROW_HEAD = 11.3
 _VMEM_CAP = 12 * 2 ** 20
 DEFAULT_BLOCK_K = 8192
 
 
-def decode_kernel_viable(L: int, Hkv: int, D: int) -> bool:
-    """Would the reference route a cache of length ``L`` to its kernel?
-    True iff its ``_pick_block_128(L, DEFAULT_BLOCK_K, Hkv, D)`` finds
-    a block: a multiple of 128 dividing L within the budget, or the
-    whole length when that fits."""
+def _pick_block_128(L: int, block: int, Hkv: int = 2,
+                    D: int = 128) -> int | None:
+    """The reference's k-block picker, copied: the largest multiple of
+    128 <= ``block`` dividing L within the TPU's calibrated VMEM
+    budget, else the whole length when that fits, else None."""
     cap = int(_VMEM_CAP / (Hkv * D * _VMEM_PER_ROW_HEAD))
-    b = min(DEFAULT_BLOCK_K, L, max(cap, 128))
+    b = min(block, L, max(cap, 128))
     b -= b % 128
     while b >= 128:
         if L % b == 0:
-            return True
+            return b
         b -= 128
-    return L <= max(cap, 128)
+    if L <= max(cap, 128):
+        return L
+    return None
+
+
+def decode_kernel_viable(L: int, Hkv: int, D: int) -> bool:
+    """Would the reference route a cache of length ``L`` to its kernel?
+    True iff :func:`_pick_block_128` finds a block at
+    ``DEFAULT_BLOCK_K``."""
+    return _pick_block_128(L, DEFAULT_BLOCK_K, Hkv, D) is not None
 
 
 def paged_block_viable(page_tokens: int) -> bool:
@@ -207,19 +231,25 @@ def _kernel_lib():
         k6 = lib.k6_paged_decode_attention_int8
         k6.argtypes = [vp] * 8 + [ci] * 7 + [cf, ci, vp]
         k6.restype = ci
+        k7 = lib.k7_decode_attention_attrib
+        k7.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 5 + [cf, ci, vp]
+        k7.restype = ci
         lib.decode_attention_error_string.argtypes = [ci]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launched(lib, err: int, name: str) -> None:
-    """Raise on a refused launch, else count it."""
+    """Raise on a refused launch, else count it. A call during CUDA-graph
+    capture only records the kernel into the graph, so it is not
+    counted; nor are the graph's replays."""
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: "
             + lib.decode_attention_error_string(err).decode()
         )
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
@@ -304,4 +334,90 @@ def _paged(q, pool, pos, scale, page_table, P: int):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _launched(lib, err, "paged_decode_attention")
+    return out
+
+
+def _check_attrib(mode: str, block_k: int) -> None:
+    if mode not in ATTRIB_MODES:
+        raise ValueError(f"mode must be one of {sorted(ATTRIB_MODES)}, got "
+                         f"{mode!r}")
+    if block_k < _TILE or block_k % _TILE:
+        raise ValueError(f"block_k must be a positive multiple of {_TILE}, "
+                         f"got {block_k}")
+
+
+def decode_attention_attrib_ref(q, cache_l: dict, pos, scale, mode: str,
+                                block_k: int):
+    """Plain PyTorch version of K7, the same function: for kv head h,
+    q head i of its group and ``s_l = (q_i . k_l) * scale`` over every
+    key l (``pos`` is not read: the reference runs the variants at
+    ``pos = L - 1``), with segments ``[j * block_k, (j + 1) * block_k)``
+    cut at L:
+
+    * ``dma``: ``out[b, 0, 0] = sum_j (k[b, j*bk, 0, 0] + v[b, j*bk, 0,
+      0])``;
+    * ``dot``: ``out[b, h*g+i, 0] = sum_j max_{l in seg j} s_l``;
+    * ``dequant``: the same with ``s_l * k_s[l, h]``;
+    * ``full_nosm``: ``out[b, h*g+i, :] = sum_l s_l * k_s[l, h] *
+      v_s[l, h] * v_l``;
+
+    every other entry 0. q ``(B, 1, H, D)``; returns ``(B, H, D)`` f32
+    (the reference's rows without its 8-row group padding)."""
+    del pos
+    _check_attrib(mode, block_k)
+    B, H, D, Hkv = _check(q, cache_l["k"].shape[2], False, None)
+    L, g = cache_l["k"].shape[1], H // Hkv
+    kf, vf = cache_l["k"].float(), cache_l["v"].float()
+    out = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    if mode == "dma":
+        starts = torch.arange(0, L, block_k, device=q.device)
+        out[:, 0, 0] = (kf[:, starts, 0, 0] + vf[:, starts, 0, 0]).sum(1)
+        return out
+    q5 = q.float().reshape(B, Hkv, g, D)
+    s = torch.einsum("bhgd,blhd->bhgl", q5, kf) * scale
+    if mode != "dot":
+        s = s * cache_l["k_s"].permute(0, 2, 1)[:, :, None, :]
+    if mode == "full_nosm":
+        pv = s * cache_l["v_s"].permute(0, 2, 1)[:, :, None, :]
+        return torch.einsum("bhgl,blhd->bhgd", pv, vf).reshape(B, H, D)
+    seg = sum(c.amax(dim=-1) for c in s.split(block_k, dim=-1))
+    out[:, :, 0] = seg.reshape(B, H)
+    return out
+
+
+def decode_attention_attrib(q, cache_l: dict, pos, scale, mode: str,
+                            block_k: int):
+    """K7: one of the reference's stripped decode kernels (``mode`` in
+    :data:`ATTRIB_MODES`) over the positional int8 cache, every key
+    visible; :func:`decode_attention_attrib_ref` is the function.
+
+    CPU tensors run the plain version. CUDA tensors launch K5's kernel
+    in the mode's template instance, on the current stream, or raise.
+    ``block_k`` (a multiple of 32) closes the segments of ``dma``,
+    ``dot`` and ``dequant``. Returns ``(B, H, D)`` f32."""
+    if q.device.type == "cpu":
+        return decode_attention_attrib_ref(q, cache_l, pos, scale, mode,
+                                           block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_attrib(mode, block_k)
+    kc, vc, ks, vs = (cache_l[n] for n in ("k", "v", "k_s", "v_s"))
+    B, H, D, Hkv = _check(q, kc.shape[2], False, None)
+    L = kc.shape[1]
+    _check_leaves(q, (
+        ("k", kc, torch.int8, (B, L, Hkv, D)),
+        ("v", vc, torch.int8, (B, L, Hkv, D)),
+        ("k_s", ks, torch.float32, (B, L, Hkv)),
+        ("v_s", vs, torch.float32, (B, L, Hkv)),
+    ))
+    qc = q.contiguous()
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    lib = _kernel_lib()
+    err = lib.k7_decode_attention_attrib(
+        ATTRIB_MODES[mode], int(block_k), qc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(), B, L,
+        Hkv, H // Hkv, D, float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _launched(lib, err, "decode_attention_attrib")
     return out

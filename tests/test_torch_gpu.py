@@ -371,3 +371,124 @@ def test_flash_train_step_matches_reference_attention():
     assert torch.isfinite(loss)
     assert fa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2,
                            "flash_bwd_dkv": 2, "flash_bwd_fused": 0}
+
+
+# ------------------------------------------------ K7 and long-context decode
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,bk", [(1, 2048, 512), (2, 1000, 160),
+                                    (3, 96, 32)])
+def test_attrib_variants_match_plain_versions(dtype, B, L, bk):
+    """K7's four variants against their plain versions: dma exactly
+    (integer sums), the others within 1e-5 of the largest value plus
+    1e-5 relative (f32 sums in other orders); L % bk != 0 leaves a
+    short last segment."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(B * 1000 + L)
+    dt = getattr(torch, dtype)
+    cache = _cache(B, L, 2, 128, gen, dev)
+    q = torch.randn(B, 1, 8, 128, generator=gen).to(dt).to(dev)
+    for mode in da.ATTRIB_MODES:
+        before = da.LAUNCHES["decode_attention_attrib"]
+        got = da.decode_attention_attrib(q, cache, L - 1, 128 ** -0.5, mode,
+                                         bk)
+        want = da.decode_attention_attrib_ref(q.float(), cache, L - 1,
+                                              128 ** -0.5, mode, bk)
+        torch.cuda.synchronize()
+        assert da.LAUNCHES["decode_attention_attrib"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (B, 8, 128)
+        if mode == "dma":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(
+                got, want, rtol=1e-5,
+                atol=1e-5 * want.abs().max().item(), msg=mode)
+
+
+def test_attrib_rejects_bad_block_and_mode():
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    cache = _cache(1, 256, 2, 128, gen, dev)
+    q = torch.randn(1, 1, 8, 128, generator=gen).to(dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        da.decode_attention_attrib(q, cache, 255, 0.1, "dot", 48)
+    with pytest.raises(ValueError, match="mode"):
+        da.decode_attention_attrib(q, cache, 255, 0.1, "full", 64)
+
+
+def test_graph_capture_and_replay_are_not_counted():
+    """A call recorded into a CUDA graph does not run, so neither it
+    nor the graph's replays add to LAUNCHES; the replay still computes
+    the eager call's result."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(7)
+    cache = _cache(1, 1024, 2, 128, gen, dev)
+    q = torch.randn(1, 1, 8, 128, generator=gen).to(dev)
+    pos = torch.tensor([1023], dtype=torch.int32, device=dev)
+    want = da.decode_attention_attrib(q, cache, pos, 0.1, "full_nosm", 256)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention_attrib(q, cache, pos, 0.1, "full_nosm", 256)
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(da.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.decode_attention_attrib(q, cache, pos, 0.1, "full_nosm",
+                                         256)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert da.LAUNCHES == before
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_positional_at_16k(dtype):
+    """K5 in positional mode at the long-context length, rows at the
+    end of the cache, mid-way and near the start, with and without a
+    window."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(16)
+    dt = getattr(torch, dtype)
+    B, L = 4, 16384
+    cache = _cache(B, L, 2, 128, gen, dev)
+    q = torch.randn(B, 1, 8, 128, generator=gen).to(dt).to(dev)
+    pos = torch.tensor([L - 1, 8191, 31, 16000], dtype=torch.int32,
+                       device=dev)
+    rtol = 0.0 if dt == torch.float32 else 2.0 ** -8
+    for kw in ({}, {"window": 1000}):
+        got = da.quantized_decode_attention(q, cache, pos, 128 ** -0.5, **kw)
+        want = da.quantized_decode_attention_ref(q.float(), cache, pos,
+                                                 128 ** -0.5, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5,
+                                   msg=str(kw))
+
+
+def test_generate_dense_kernel_route_equals_einsum_route():
+    """f32 generation on the positional int8 cache: the kernel route
+    (AUTO at B=4, and forced at B=1) gives the einsum route's greedy
+    streams, launching K5 once per layer per decode step."""
+    dev = _card()
+    cfg = TransformerConfig(vocab=97, d_model=256, n_heads=2, n_kv_heads=1,
+                            n_layers=2, d_ff=256, attn="ulysses",
+                            attn_impl="flash")
+    params = init_params(cfg, seed=41, device=dev)
+    gen = torch.Generator().manual_seed(6)
+    for B, kernel_toggle in ((4, None), (1, True)):
+        prompt = torch.randint(1, 97, (B, 300), generator=gen)
+        streams = []
+        for toggle in (kernel_toggle, False):
+            td.use_decode_kernel(toggle)
+            try:
+                da.LAUNCHES["quantized_decode_attention"] = 0
+                streams.append(td.generate_dense(params, prompt, 20, cfg,
+                                                 quantize_kv=True,
+                                                 device=dev))
+            finally:
+                td.use_decode_kernel(None)
+            want = cfg.n_layers * 19 if toggle is not False else 0
+            assert da.LAUNCHES["quantized_decode_attention"] == want
+        assert torch.equal(streams[0], streams[1]), B

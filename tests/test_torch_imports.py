@@ -27,7 +27,10 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.ops.flash_attention",
             "mpistragglers_jl_tpu_torch.models.paging",
             "mpistragglers_jl_tpu_torch.models.transformer",
-            "mpistragglers_jl_tpu_torch.bench.train_profile"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.bench.train_profile",
+            "mpistragglers_jl_tpu_torch.bench.decode_kernel_attrib",
+            "mpistragglers_jl_tpu_torch.bench.configs",
+            "mpistragglers_jl_tpu_torch.models.speculative"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -40,15 +40,17 @@ def _bound(nbytes: int, nops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def flash_bounds(B=8, L=2048, H=8, D=128) -> dict:
-    """K1–K4 at one causal (B, L, H, D) bf16 attention call."""
+def flash_bounds(B=8, L=2048, H=8, D=128, Hkv=None) -> dict:
+    """K1–K4 at one causal (B, L, H, D) bf16 attention call; K1's K and
+    V carry ``Hkv`` heads (GQA; default H)."""
     BH = B * H
     act = BH * L * D * 2  # one bf16 (B, L, H, D) tensor
+    kv = act * (Hkv or H) // H  # one bf16 (B, L, Hkv, D) tensor
     stat = BH * L * 4  # one f32 per-row statistic (lse, delta)
     pairs = BH * L * (L + 1) // 2  # causally visible (query, key) pairs
     f32_sum = BH * L * D * 4  # one f32 (BH, Lk, D) dk or dv sum
     return {
-        "K1": _bound(3 * act + act + stat, 2 * 2 * D * pairs),
+        "K1": _bound(2 * act + 2 * kv + stat, 2 * 2 * D * pairs),
         "K2": _bound(4 * act + 2 * stat + act, 3 * 2 * D * pairs),
         "K3": _bound(4 * act + 2 * stat + 2 * act, 4 * 2 * D * pairs),
         "K4": _bound(4 * act + 2 * stat + act + 2 * f32_sum,

@@ -2,7 +2,8 @@
 // kernels.
 //
 // Replaces the four TPU kernels of mpistragglers_jl_tpu/ops/flash_attention.py:
-//   K1 `_fwd_kernel`       -> flash_fwd_kernel       (o, lse)
+//   K1 `_fwd_kernel`       -> tc::flash_fwd_wgmma_kernel (bf16, wgmma)
+//                             and flash_fwd_kernel (f32) (o, lse)
 //   K2 `_bwd_dq_kernel`    -> flash_bwd_dq_kernel    (dq)
 //   K3 `_bwd_dkv_kernel`   -> flash_bwd_dkv_kernel   (dk, dv per q head)
 //   K4 `_bwd_fused_kernel` -> flash_bwd_fused_kernel (dq + f32 dk, dv sums)
@@ -18,17 +19,19 @@
 // Precision as the reference's: every product (Q.K^T, P.V, dO.V^T, dS.K,
 // P^T.dO, dS^T.Q) takes f32 operands (bf16 inputs are widened, exactly)
 // and sums in f32; only the stored o, dq, dk and dv round to the input
-// type. No product rounds P or dS to bf16, so these kernels run on the
-// f32 FMA units, not the tensor cores.
+// type. K1's bf16 kernel gets that precision on the tensor cores (its
+// note below: exact bf16 products for Q.K^T, P split into two bf16
+// halves for P.V). The f32 forward and K2-K4 round neither P nor dS to
+// bf16 and run on the f32 FMA units.
 //
 // What bounds them: operations. One causal call at the training shape
 // (B=8, L=2048, H=8, D=128) needs 68.8 GFLOP (K1) to 171.9 GFLOP (K4)
 // over the visible (query, key) pairs, and moves 25-60 MB; at the H100's
 // bf16 tensor-core peak that is 70-174 us, at its 67 TFLOP/s f32 FMA peak
-// 1.0-2.6 ms, the floor of this design.
+// 1.0-2.6 ms, the floor of the FMA kernels.
 //
-// Design (simple first; tensor cores, TMA and warp specialisation are
-// later work):
+// Design of the FMA kernels (simple first; K2 and K3 move onto K1's
+// tensor-core tiles next):
 // * one block of 256 threads per (BH row, 64-query tile) for K1, K2, K4,
 //   and per (BH row, 64-key tile) for K3, looping over the other axis in
 //   64-row tiles: the TPU's sequential inner grid axis becomes this loop;
@@ -50,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -255,6 +260,371 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0) lse[(size_t)bh * sh.Lq + qr] = Ms[r] + logf(l);
   }
 }
+
+// ------------------------------------------- K1, bf16, tensor cores
+//
+// The bf16 forward runs on Hopper's warpgroup MMA (wgmma, bf16 operands,
+// f32 accumulators), with the reference's precision:
+// * S = Q.K^T: bf16 x bf16 products are exact in f32, as the
+//   reference's bf16 dot with an f32 result is; only the order of the
+//   f32 sums differs.
+// * O += P.V: the reference takes P in f32, and P rounded to bf16
+//   alone misses the f32 tolerance. P is split into hi = bf16(P) and
+//   lo = bf16(P - hi), |P - hi - lo| <= 2^-17 P, and both go through
+//   the tensor cores against the exact bf16 V. Row max, row sum (from
+//   the f32 P), the rescale and the final division stay f32.
+// Masking is -1e30 with p = 0 and the skipped tiles are `tile_runs`'s,
+// as in the f32 kernel, so every L, causal or window, GQA and D in
+// {64, 128} are taken.
+//
+// Design:
+// * one block of one warpgroup (4 warps) per (BH row, 64-query tile);
+//   warp w owns query rows 16w .. 16w + 15 of every accumulator. Query
+//   tiles are issued longest-first (blockIdx.y counts down from the last
+//   tile), so the causal tail of short tiles fills the card's last wave;
+// * Q, K and V tiles are bf16 in shared memory as 64-column panels of
+//   128-byte rows, 16-byte pieces XOR-swizzled by (row mod 8): the
+//   128-byte swizzle the wgmma descriptors name, so the tensor cores read
+//   Q and K (K-major) and V (MN-major) straight from shared memory, and
+//   no ldmatrix runs; 16-byte cp.async loads; K double-buffered, V in
+//   one buffer refilled once the tile's P.V is done, so a block needs
+//   65 KB at D = 128 and, at 168 registers, three blocks fit an SM
+//   (286 us at the train shape on an H100 80GB HBM3 at 700 W, against
+//   311 us for two blocks with V double-buffered);
+// * S = Q.K^T is m64n64k16 from shared memory; O += P.V is m64nDk16 with
+//   P's hi and lo halves as register A fragments built from the score
+//   accumulators (no shared-memory round trip);
+// * per key tile: Q.K^T, wait, softmax, P.V, wait, while the next K
+//   tile loads (the next V loads between the end of P.V and the next
+//   tile's start); the three blocks on an SM overlap one's softmax and
+//   loads with the others' products.
+// What bounds it: operations, 68.8 GFLOP at the train shape (B=8,
+// L=2048, H=8, D=128, causal), 69.5 us at 989 TFLOP/s; the hi/lo split
+// issues the P.V half twice, 1.5x the reference's tensor-core work
+// (104 us). Issuing tile t's Q.K^T beside tile t-1's P.V (so the
+// softmax overlaps P.V within the warpgroup) made ptxas serialise the
+// wgmmas and ran slower; that, TMA loads from a producer warp and two
+// consumer warpgroups per block (128-query tiles) are left for later.
+
+namespace tc {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);  // x in the low half
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading byte offset (between 64-column panels of an MN-major operand;
+// unused K-major), stride byte offset (between 8-row groups)
+__device__ __forceinline__ unsigned long long gmma_desc(unsigned addr,
+                                                        unsigned lbo,
+                                                        unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((unsigned long long)((sbo & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of the generic proxy (cp.async) made visible to
+// the tensor cores' async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// s (+)= Q.K^T over k16, m64n64, both operands from shared memory
+__device__ __forceinline__ void wg_qk(float (&s)[8][4],
+                                      unsigned long long da,
+                                      unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(s[0][0]), "+f"(s[0][1]), "+f"(s[0][2]), "+f"(s[0][3]),
+        "+f"(s[1][0]), "+f"(s[1][1]), "+f"(s[1][2]), "+f"(s[1][3]),
+        "+f"(s[2][0]), "+f"(s[2][1]), "+f"(s[2][2]), "+f"(s[2][3]),
+        "+f"(s[3][0]), "+f"(s[3][1]), "+f"(s[3][2]), "+f"(s[3][3]),
+        "+f"(s[4][0]), "+f"(s[4][1]), "+f"(s[4][2]), "+f"(s[4][3]),
+        "+f"(s[5][0]), "+f"(s[5][1]), "+f"(s[5][2]), "+f"(s[5][3]),
+        "+f"(s[6][0]), "+f"(s[6][1]), "+f"(s[6][2]), "+f"(s[6][3]),
+        "+f"(s[7][0]), "+f"(s[7][1]), "+f"(s[7][2]), "+f"(s[7][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// o += P.V over k16, m64n64 (D = 64) or m64n128 (D = 128), P from
+// registers, V MN-major from shared memory
+template <int D>
+__device__ __forceinline__ void wg_pv(float (&o)[D / 8][4],
+                                      const unsigned (&a)[4],
+                                      unsigned long long db);
+
+template <>
+__device__ __forceinline__ void wg_pv<64>(float (&o)[8][4],
+                                          const unsigned (&a)[4],
+                                          unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
+      " {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wg_pv<128>(float (&o)[16][4],
+                                           const unsigned (&a)[4],
+                                           unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"
+      " {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]),
+        "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]), "+f"(o[1][3]),
+        "+f"(o[2][0]), "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]),
+        "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+        "+f"(o[4][0]), "+f"(o[4][1]), "+f"(o[4][2]), "+f"(o[4][3]),
+        "+f"(o[5][0]), "+f"(o[5][1]), "+f"(o[5][2]), "+f"(o[5][3]),
+        "+f"(o[6][0]), "+f"(o[6][1]), "+f"(o[6][2]), "+f"(o[6][3]),
+        "+f"(o[7][0]), "+f"(o[7][1]), "+f"(o[7][2]), "+f"(o[7][3]),
+        "+f"(o[8][0]), "+f"(o[8][1]), "+f"(o[8][2]), "+f"(o[8][3]),
+        "+f"(o[9][0]), "+f"(o[9][1]), "+f"(o[9][2]), "+f"(o[9][3]),
+        "+f"(o[10][0]), "+f"(o[10][1]), "+f"(o[10][2]), "+f"(o[10][3]),
+        "+f"(o[11][0]), "+f"(o[11][1]), "+f"(o[11][2]), "+f"(o[11][3]),
+        "+f"(o[12][0]), "+f"(o[12][1]), "+f"(o[12][2]), "+f"(o[12][3]),
+        "+f"(o[13][0]), "+f"(o[13][1]), "+f"(o[13][2]), "+f"(o[13][3]),
+        "+f"(o[14][0]), "+f"(o[14][1]), "+f"(o[14][2]), "+f"(o[14][3]),
+        "+f"(o[15][0]), "+f"(o[15][1]), "+f"(o[15][2]), "+f"(o[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// byte offset of element (r, c) in a tile of rows of D bf16 held as
+// 64-column panels of 128-byte rows (panel = 64 rows x 128 B), 16-byte
+// pieces swizzled by (r mod 8): the descriptors' 128-byte swizzle
+__device__ __forceinline__ int pan(int r, int c) {
+  return (c >> 6) * (kTile * 128) + r * 128 +
+         ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+template <int D>
+__device__ __forceinline__ void load_panels(char* dst,
+                                            const __nv_bfloat16* src, int r0,
+                                            int L) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int u = 0; u < kTile * CPR / kThreads; ++u) {
+    const int p = threadIdx.x + kThreads * u;
+    const int r = p / CPR, c = (p % CPR) * 8;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + pan(r, c), ok ? src + (size_t)(r0 + r) * D + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, Shape sh) {
+  constexpr int TB = kTile * D * 2;  // bytes of one tile
+  constexpr int NT = kTile / 8;
+  constexpr int ND = D / 8;
+  constexpr unsigned PANEL = kTile * 128;  // bytes of one 64-column panel
+  extern __shared__ float4 smem4[];
+  // the swizzle is of address bits: tiles start on 1024-byte boundaries
+  char* base = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~(uintptr_t)1023);
+  char* Qs = base;
+  char* Ks = Qs + TB;      // [2 stages]
+  char* Vs = Ks + 2 * TB;  // one stage: refilled once P.V is done
+
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kTile;  // longest first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const __nv_bfloat16* kb = k + (size_t)(bh / sh.g) * sh.Lk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bh / sh.g) * sh.Lk * D;
+
+  const int nk = (sh.Lk + kTile - 1) / kTile;
+  int kt_hi = nk - 1, kt_lo = 0;
+  if (sh.causal) kt_hi = min(kt_hi, (q0 + kTile - 1) / kTile);
+  if (sh.window > 0) kt_lo = max(0, (q0 - sh.window + 1) / kTile);
+
+  load_panels<D>(Qs, q + (size_t)bh * sh.Lq * D, q0, sh.Lq);
+  if (kt_lo <= kt_hi) {
+    load_panels<D>(Ks, kb, kt_lo * kTile, sh.Lk);
+    load_panels<D>(Vs, vb, kt_lo * kTile, sh.Lk);
+  }
+  cp_async_commit();
+
+  float oacc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+    oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};  // rows gr, gr + 8
+  const int qr0 = q0 + 16 * warp + gr;
+  const unsigned qa = smem_u32(Qs);
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt < kt_hi)
+      load_panels<D>(Ks + (stage ^ 1) * TB, kb, (kt + 1) * kTile, sh.Lk);
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait<1>();  // this tile's K and V have landed
+    fence_async_smem();
+    __syncthreads();
+    const int k0 = kt * kTile;
+    const unsigned ka = smem_u32(Ks + stage * TB);
+    const unsigned va = smem_u32(Vs);
+    // S = Q K^T: s[j] holds keys 8j + 2tq (+1) of rows gr, gr + 8
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const unsigned off = (kk >> 2) * PANEL + (kk & 3) * 32;
+      wg_qk(s, gmma_desc(qa + off, 16, 1024), gmma_desc(ka + off, 16, 1024),
+            kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    // scale, mask, online softmax over the quad that shares a row
+    const bool full = k0 + kTile <= sh.Lk &&
+                      (!sh.causal || k0 + kTile - 1 <= q0) &&
+                      (sh.window <= 0 || q0 + kTile - 1 - k0 < sh.window);
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qp = qr0 + 8 * hr;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[j][2 * hr + e] * sh.scale;
+          if (!full && !visible(qp, k0 + 8 * j + 2 * tq + e, sh)) x = kNeg;
+          s[j][2 * hr + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[hr], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * hr + e];
+          const float p = (full || x > kNeg) ? expf(x - m_new) : 0.f;
+          s[j][2 * hr + e] = p;
+          sum += p;
+        }
+      corr[hr] = expf(m_r[hr] - m_new);
+      l_r[hr] = l_r[hr] * corr[hr] + sum;  // this thread's share
+      m_r[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      oacc[j][0] *= corr[0];
+      oacc[j][1] *= corr[0];
+      oacc[j][2] *= corr[1];
+      oacc[j][3] *= corr[1];
+    }
+    // O += P V, P = hi + lo as register A fragments
+    unsigned ph[kTile / 16][4], plo[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // a0: row gr, keys 2tq; a1: row gr+8; a2, a3: keys 8 + 2tq
+        const float x0 = s[2 * kk + (r >> 1)][2 * (r & 1)];
+        const float x1 = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+        __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(hi);
+        ph[kk][r] = *reinterpret_cast<unsigned*>(&hi);
+        plo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const unsigned long long dv = gmma_desc(va + kk * 2048, PANEL, 1024);
+      wg_pv<D>(oacc, ph[kk], dv);
+      wg_pv<D>(oacc, plo[kk], dv);
+    }
+    wg_commit();
+    wg_wait0();
+    __syncthreads();  // every warp is done with this K stage and V
+    if (kt < kt_hi) load_panels<D>(Vs, vb, (kt + 1) * kTile, sh.Lk);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-20f);
+    const int qp = qr0 + 8 * hr;
+    if (qp < sh.Lq) {
+      __nv_bfloat16* orow = o + ((size_t)bh * sh.Lq + qp) * D;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(oacc[j][2 * hr] / l,
+                                  oacc[j][2 * hr + 1] / l);
+      if (tq == 0) lse[(size_t)bh * sh.Lq + qp] = m_r[hr] + logf(l);
+    }
+  }
+}
+
+}  // namespace tc
 
 // ------------------------------------------------ shared backward step
 
@@ -533,11 +903,22 @@ cudaError_t launch(Kernel which, const Args& a) {
   cudaError_t e;
   switch (which) {
     case kFwd: {
-      auto kern = flash_fwd_kernel<T, D>;
-      if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-      kern<<<dim3(nq, a.BH), kThreads, smem, a.stream>>>(
-          q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.out_lse),
-          a.sh);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        // bf16: the tensor-core kernel, Q, two K stages and V in bf16
+        // (and room to align them to 1024 bytes)
+        const size_t tc_smem = (size_t)4 * kTile * D * 2 + 1024;
+        auto kern = tc::flash_fwd_wgmma_kernel<D>;
+        if ((e = prepare(kern, tc_smem)) != cudaSuccess) return e;
+        kern<<<dim3(a.BH, nq), tc::kThreads, tc_smem, a.stream>>>(
+            q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.out_lse),
+            a.sh);
+      } else {
+        auto kern = flash_fwd_kernel<T, D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(nq, a.BH), kThreads, smem, a.stream>>>(
+            q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.out_lse),
+            a.sh);
+      }
       break;
     }
     case kDq: {

@@ -21,19 +21,27 @@ template mode of the same kernel.
 
 All are bound by bytes: at the serving shape (B=8, W=1024, Hkv=2,
 D=128, g=4) one launch moves about 4.36 MB, 1.30 us at the H100's
-3.35 TB/s. The source note says how the design meets that and what is
-left for later (split-K, TMA).
+3.35 TB/s. K5 and K7 split the key range (flash-decoding): a grid of
+(Hkv, B, n_split) blocks, each over a chunk of whole 32-key tiles, then
+a combine kernel that folds the splits' partial softmax states.
+:func:`split_plan` picks the chunk on the host from the shapes alone,
+so a call never syncs and stays capturable in a CUDA graph; the wrapper
+allocates the partials with ``torch.empty``. K6 runs the same kernel
+with one split. The source note says how the design meets the bound
+and what is left for later (K6's split over pages, TMA).
 
 :func:`quantized_decode_attention` runs the plain versions only for
 tensors on the CPU; for CUDA tensors it launches a kernel or raises.
-``LAUNCHES`` counts kernel launches that run (never plain-version calls,
-never calls recorded into a CUDA graph), one entry per kernel, so a run
-can show its main path went through them.
+``LAUNCHES`` counts wrapper calls whose kernels ran, one per call even
+where a split kernel and its combine are two launches (never
+plain-version calls, never calls recorded into a CUDA graph), one entry
+per kernel, so a run can show its main path went through them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,6 +57,8 @@ __all__ = [
     "paged_ring_view",
     "quantized_decode_attention",
     "quantized_decode_attention_ref",
+    "sm_count",
+    "split_plan",
 ]
 
 _NEG = -1e30
@@ -61,6 +71,9 @@ LAUNCHES = {"quantized_decode_attention": 0, "paged_decode_attention": 0,
 # K7's variants, by the reference's names -> the kernel's Mode
 ATTRIB_MODES = {"dma": 1, "dot": 2, "dequant": 3, "full_nosm": 4}
 _TILE = 32  # keys per tile of the kernel
+# split_plan's floor: at least this many tiles a split, so the block's
+# warps have tiles to share
+_SPLIT_MIN_TILES = 4
 
 # The routing predicate below keeps the reference's TPU block-picker
 # arithmetic (its calibrated scoped-VMEM budget) so the port routes
@@ -106,6 +119,45 @@ def paged_block_viable(page_tokens: int) -> bool:
     (ROADMAP.md)."""
     P = int(page_tokens)
     return P >= 8 and P % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``, read once per device from its
+    properties on the host (no sync with the card)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def split_plan(B: int, Hkv: int, L: int, block_k: int | None = None, *,
+               n_sm: int) -> tuple[int, int]:
+    """K5's and K7's split of the key range: ``(chunk, n_split)``.
+
+    Split s covers keys ``[s * chunk, (s + 1) * chunk)``; ``chunk`` is a
+    whole number of 32-key tiles and ``n_split = ceil(L / chunk)``. The
+    plan reads only these integers, never a tensor (nor the positions),
+    so a decode step never syncs with the card. It aims the grid of
+    ``Hkv * B * n_split`` blocks at about one block per SM of a card
+    with ``n_sm`` SMs (one block of K5 fills an SM's shared memory;
+    :func:`sm_count`), with at least four tiles a split, and one split
+    when ``B * Hkv`` alone fills the card. K7 passes its ``block_k``:
+    the chunk then divides it, so no split straddles two ``block_k``
+    segments."""
+    tiles = -(-int(L) // _TILE)
+    want = max(1, int(n_sm) // (int(B) * int(Hkv)))
+    per = max(_SPLIT_MIN_TILES, -(-tiles // want))
+    if block_k is None:
+        per = min(per, tiles)
+    else:
+        seg = int(block_k) // _TILE
+        per = min((d for d in range(per, seg + 1) if seg % d == 0),
+                  default=seg)
+    chunk = per * _TILE
+    return chunk, -(-int(L) // chunk)
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
@@ -226,17 +278,32 @@ def _kernel_lib():
     if lib.k5_decode_attention_int8.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         k5 = lib.k5_decode_attention_int8
-        k5.argtypes = [vp] * 7 + [ci] * 5 + [cf] + [ci] * 3 + [vp]
+        k5.argtypes = [vp] * 10 + [ci] * 5 + [cf] + [ci] * 5 + [vp]
         k5.restype = ci
         k6 = lib.k6_paged_decode_attention_int8
         k6.argtypes = [vp] * 8 + [ci] * 7 + [cf, ci, vp]
         k6.restype = ci
         k7 = lib.k7_decode_attention_attrib
-        k7.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 5 + [cf, ci, vp]
+        k7.argtypes = [ci] * 2 + [vp] * 9 + [ci] * 5 + [cf] + [ci] * 3 + [vp]
         k7.restype = ci
         lib.decode_attention_error_string.argtypes = [ci]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _split_scratch(q, B: int, Hkv: int, g: int, D: int, n_split: int):
+    """The split kernel's f32 partials as data pointers (acc, m, l):
+    ``(B, Hkv, n_split, g, D)`` then ``(B, Hkv, n_split, g)`` twice, cut
+    from one ``torch.empty`` on q's device (inside a CUDA-graph capture,
+    from the graph's pool); acc first, so its rows stay 16-byte
+    aligned. Null pointers and no allocation for one split. The buffer
+    is returned too, to live until the launch is enqueued."""
+    if n_split == 1:
+        return (None, None, None), None
+    n = B * Hkv * n_split * g
+    buf = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+    base = buf.data_ptr()
+    return (base, base + 4 * n * D, base + 4 * n * (D + 1)), buf
 
 
 def _launched(lib, err: int, name: str) -> None:
@@ -259,11 +326,12 @@ def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
     the reference's signature and layouts (see
     :func:`quantized_decode_attention_ref` for the function).
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel
-    on the current stream (bf16 or f32 q; contiguous leaves; ``pos``
-    may be a device vector, so a decode step never syncs) or raise;
-    there is no fallback. ``ring=True`` reads the O(W) ring layout
-    (L == W), where ``window`` must be None.
+    CPU tensors run the plain version. CUDA tensors launch the split
+    kernel and its combine (:func:`split_plan`) on the current stream
+    (bf16 or f32 q; contiguous leaves; ``pos`` may be a device vector,
+    so a decode step never syncs) or raise; there is no fallback.
+    ``ring=True`` reads the O(W) ring layout (L == W), where ``window``
+    must be None.
 
     ``page_table=`` (ring mode only, with ``page_tokens=P``) reads the
     paged ring layout: ``cache_l`` leaves are page pools shared by all
@@ -294,12 +362,14 @@ def quantized_decode_attention(q, cache_l: dict, pos, scale, window=None,
     qc = q.contiguous()
     posv = _pos_vector(pos, B, q.device)
     out = torch.empty_like(qc)
+    chunk, n_split = split_plan(B, Hkv, L, n_sm=sm_count(q.device))
+    (acc, m, l), _keep = _split_scratch(q, B, Hkv, H // Hkv, D, n_split)
     lib = _kernel_lib()
     err = lib.k5_decode_attention_int8(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), posv.data_ptr(), out.data_ptr(), B, L, Hkv,
-        H // Hkv, D, float(scale), 0 if window is None else int(window),
-        int(bool(ring)), int(q.dtype == torch.bfloat16),
+        vs.data_ptr(), posv.data_ptr(), out.data_ptr(), m, l, acc, B, L,
+        Hkv, H // Hkv, D, float(scale), 0 if window is None else int(window),
+        int(bool(ring)), chunk, n_split, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _launched(lib, err, "quantized_decode_attention")
@@ -392,9 +462,11 @@ def decode_attention_attrib(q, cache_l: dict, pos, scale, mode: str,
     visible; :func:`decode_attention_attrib_ref` is the function.
 
     CPU tensors run the plain version. CUDA tensors launch K5's kernel
-    in the mode's template instance, on the current stream, or raise.
-    ``block_k`` (a multiple of 32) closes the segments of ``dma``,
-    ``dot`` and ``dequant``. Returns ``(B, H, D)`` f32."""
+    in the mode's template instance on K5's split grid
+    (:func:`split_plan` with ``block_k``), then its combine, on the
+    current stream, or raise. ``block_k`` (a multiple of 32) closes the
+    segments of ``dma``, ``dot`` and ``dequant``. Returns ``(B, H, D)``
+    f32."""
     if q.device.type == "cpu":
         return decode_attention_attrib_ref(q, cache_l, pos, scale, mode,
                                            block_k)
@@ -412,11 +484,15 @@ def decode_attention_attrib(q, cache_l: dict, pos, scale, mode: str,
     ))
     qc = q.contiguous()
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    chunk, n_split = split_plan(B, Hkv, L, block_k,
+                                n_sm=sm_count(q.device))
+    (acc, m, l), _keep = _split_scratch(q, B, Hkv, H // Hkv, D, n_split)
     lib = _kernel_lib()
     err = lib.k7_decode_attention_attrib(
         ATTRIB_MODES[mode], int(block_k), qc.data_ptr(), kc.data_ptr(),
-        vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(), B, L,
-        Hkv, H // Hkv, D, float(scale), int(q.dtype == torch.bfloat16),
+        vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        m, l, acc, B, L, Hkv, H // Hkv, D, float(scale), chunk, n_split,
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _launched(lib, err, "decode_attention_attrib")

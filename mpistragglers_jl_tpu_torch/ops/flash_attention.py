@@ -5,7 +5,13 @@ Counterpart of ``mpistragglers_jl_tpu/ops/flash_attention.py``. Its four
 TPU kernels become ``csrc/flash_attention.cu``:
 
 * ``_fwd_kernel`` (K1): O and the per-row logsumexp, online softmax over
-  key tiles, tiles wholly outside the causal/sliding band skipped;
+  key tiles, tiles wholly outside the causal/sliding band skipped. bf16
+  inputs run on the tensor cores (``wgmma`` from swizzled bf16 tiles in
+  shared memory, cp.async double-buffered K/V, query tiles longest
+  first) at the reference's precision: Q.K^T from exact bf16 products
+  summed in f32, and P.V with P split into two bf16 halves (hi + lo,
+  within 2^-17 of the f32 P) against the exact bf16 V. f32 inputs keep
+  the f32 FMA kernel;
 * ``_bwd_dq_kernel`` (K2): dq from P recomputed from the logsumexp;
 * ``_bwd_dkv_kernel`` (K3): dk, dv per q head, sweeping query tiles;
 * ``_bwd_fused_kernel`` (K4): dq plus f32 dk/dv accumulated over the

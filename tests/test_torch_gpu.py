@@ -492,3 +492,85 @@ def test_generate_dense_kernel_route_equals_einsum_route():
             want = cfg.n_layers * 19 if toggle is not False else 0
             assert da.LAUNCHES["quantized_decode_attention"] == want
         assert torch.equal(streams[0], streams[1]), B
+
+
+# ------------------------------------------ K5 split-K and K1 on the tensor
+# cores
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,kw,positions", [
+    # 64 splits of 256 keys; one row at the end, one that leaves every
+    # split past 5461 empty, and a window cutting a chunk in two
+    (1, 16384, {}, [16383]),
+    (1, 16384, {"window": 1000}, [5461]),
+    (4, 16384, {"window": 1000}, [16383, 8191, 31, 5461]),
+    # a ragged length: the last chunk is short
+    (3, 1000, {}, [999, 500, 0]),
+    (3, 1000, {"window": 77}, [999, 421, 5]),
+    # the ring in warm-up, at W - 1, at W, wrapped, and a row with
+    # nothing visible
+    (8, 1024, {"ring": True}, [0, 31, 32, 1023, 1024, 5000, 2047, -1]),
+])
+def test_kernel_split_matches_plain_version(dtype, B, L, kw, positions):
+    dev = _card()
+    gen = torch.Generator().manual_seed(B * 7 + L)
+    dt = getattr(torch, dtype)
+    cache = _cache(B, L, 2, 128, gen, dev)
+    q = torch.randn(B, 1, 8, 128, generator=gen).to(dt).to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    assert da.split_plan(B, 2, L, n_sm=da.sm_count(dev))[1] > 1
+    got = da.quantized_decode_attention(q, cache, pos, 128 ** -0.5, **kw)
+    want = da.quantized_decode_attention_ref(q.float(), cache, pos,
+                                             128 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    rtol = 0.0 if dt == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+    if -1 in positions:
+        assert bool((got[positions.index(-1)] == 0).all())
+
+
+def test_kernel_split_captures_into_a_graph():
+    """One K5 call with 64 splits, its scratch allocated inside the
+    capture: replays equal the eager output, and neither the capture
+    nor the replays count as launches."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(8)
+    cache = _cache(1, 16384, 2, 128, gen, dev)
+    q = torch.randn(1, 1, 8, 128, generator=gen).to(torch.bfloat16).to(dev)
+    pos = torch.tensor([16383], dtype=torch.int32, device=dev)
+    want = da.quantized_decode_attention(q, cache, pos, 0.1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.quantized_decode_attention(q, cache, pos, 0.1)
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(da.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.quantized_decode_attention(q, cache, pos, 0.1)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert da.LAUNCHES == before
+
+
+@pytest.mark.parametrize("L", [16384, 2048])
+def test_flash_fwd_bf16_at_the_prefill_shapes(L):
+    """K1's bf16 kernel at the long-context and speculative prefill
+    shapes (B=1, H=8 over Hkv=2, D=128, causal), held one q head at a
+    time against the plain version on f32 copies."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(L)
+    q3, k3, v3 = (torch.randn(h, L, 128, generator=gen).to(torch.bfloat16)
+                  .to(dev) for h in (8, 2, 2))
+    o, lse = fa._fwd(q3, k3, v3, 128 ** -0.5, True, None, 4)
+    for h in range(8):
+        o_ref, lse_ref = fa._fwd_ref(q3[h:h + 1].float(),
+                                     k3[h // 4:h // 4 + 1].float(),
+                                     v3[h // 4:h // 4 + 1].float(),
+                                     128 ** -0.5, True, None, 1)
+        _close(o[h:h + 1], o_ref, 2e-5, f"K1 o head {h}")
+        _close(lse[h:h + 1], lse_ref, 2e-5, f"K1 lse head {h}")

@@ -49,9 +49,9 @@ those paths against its plain PyTorch version:
    before);
 10. K6 timing at the serving shape, as phase 6;
 11. the flash kernels' build report (registers and spills per kernel);
-12. K1-K4 against their plain versions: bf16 (K1 on the tensor cores)
-    and f32, (B, L, H, Hkv, D) in (2, 512, 8, 8, 128), (2, 384, 8, 2,
-    128), (1, 300, 4, 1, 64), causal or not, window None or 128;
+12. K1-K4 against their plain versions: bf16 (K1-K3 on the tensor
+    cores) and f32, (B, L, H, Hkv, D) in (2, 512, 8, 8, 128), (2, 384,
+    8, 2, 128), (1, 300, 4, 1, 64), causal or not, window None or 128;
 13. training parity in f32 at full width, batch 2: the loss and every
     gradient with ``attn_impl="flash"`` against ``"reference"``;
 14. training main path: bf16, batch 8, sequence 2048, one warm-up and
@@ -66,8 +66,11 @@ those paths against its plain PyTorch version:
 15. the fused backward (K4) at the same width, one step's gradients
     against the split backward's, launches counted (set to 0 before);
 16. K1-K4 at the bench shape, the main path's (bf16, B=8, L=2048, H=8,
-    D=128, causal): against their plain versions as in phase 12, then
-    timed beside their first designs' times, their bounds, the plain
+    D=128, causal): against their plain versions as in phase 12, with
+    a control that must break the limit (K2's and K3's gradients from
+    P and dS in bf16 alone, plain torch on the same inputs), then
+    timed beside their first designs' times, their bounds (for K1-K3
+    also the tensor work their hi/lo products issue), the plain
     versions and ``F.scaled_dot_product_attention`` forward and
     backward (a yardstick only: the port never calls it);
 17. K7 (the attribution variants dma, dot, dequant, full_nosm) and K5
@@ -746,7 +749,7 @@ def _flash_build_report() -> None:
     for line in _build.build_logs["flash_attention"].splitlines():
         m = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
                       line)
-        tc = re.search(r"(flash_fwd_wgmma_kernel)ILi(\d+)E", line)
+        tc = re.search(r"(flash_[a-z_]+_wgmma_kernel)ILi(\d+)E", line)
         if m:
             kern = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}"
                     f", D={m.group(3)}>")
@@ -801,6 +804,29 @@ def _hold_flash(pairs, label, worst) -> None:
           + (" ok" if ok else " FAIL"))
     _require(ok, f"flash kernel disagrees with its plain version: {label} "
                  f"{used}")
+
+
+def _bf16_only_control(args_ref) -> dict:
+    """K2's and K3's gradients as a tensor-core kernel without the hi/lo
+    split would form them, in plain torch on the kernels' inputs: P and
+    dS rounded to bf16, the products summed in f32, the gradients
+    rounded to bf16. Returns each gradient's share of FLASH_GRAD (with
+    the bf16 rounding allowance, as ``_hold_flash`` holds K2 and K3)
+    against the plain versions; each must exceed 1, or the limit could
+    not tell such a kernel from one that keeps the reference's
+    precision."""
+    q, k, _, do = args_ref[:4]
+    scale, g = args_ref[6], args_ref[9]
+    p, ds = (t.to(torch.bfloat16).float()
+             for t in fa._probs_and_ds(*args_ref))
+    got = {"dq": ds @ fa._kv_rows(k, g) * scale,
+           "dk": ds.transpose(1, 2) @ q * scale,
+           "dv": p.transpose(1, 2) @ do}
+    del p, ds
+    want = dict(zip(("dk", "dv"), fa._bwd_dkv_ref(*args_ref)),
+                dq=fa._bwd_dq_ref(*args_ref))
+    return {n: _share_used(got[n].to(torch.bfloat16), want[n],
+                           FLASH_GRAD)[1] for n in got}
 
 
 def phase_flash_vs_plain(dev) -> dict:
@@ -1116,7 +1142,8 @@ def phase_fused_bf16(params, batch):
 def phase_flash_bench_shape(dev) -> tuple[dict, dict]:
     """K1-K4 at the bench shape, the main path's (bf16, B=8, L=2048,
     H=8, D=128, causal): each held against its plain version on the same
-    inputs (f32 copies) as in phase 12, then us per launch beside the
+    inputs (f32 copies) as in phase 12, a bf16-only control of K2 and K3
+    that must exceed the limit, then us per launch beside the
     plain versions and SDPA's forward (for K1) and backward (for K2+K3
     and for K4, since one call computes dq, dk and dv together). Inputs
     are 168 MB, past L2. Returns (largest abs error, timing row) per
@@ -1136,6 +1163,11 @@ def phase_flash_bench_shape(dev) -> tuple[dict, dict]:
                 "window=None", errs)
     print("  abs error " + " ".join(f"{FLASH[n][0]} {e:.3e}"
                                     for n, e in errs.items()))
+    ctl = _bf16_only_control(args_ref)
+    print("  control, P and dS in bf16 alone (must exceed 1): limit used "
+          + " ".join(f"{n} {u:.2f}" for n, u in ctl.items()))
+    _require(min(ctl.values()) > 1.0,
+             f"FLASH_GRAD cannot tell bf16-only P and dS: {ctl}")
     del args_ref
     torch.cuda.empty_cache()
     calls = {"flash_fwd": (fa._fwd, fa._fwd_ref, (q3, k3, v3) + meta),
@@ -1162,11 +1194,16 @@ def phase_flash_bench_shape(dev) -> tuple[dict, dict]:
                       "library_ms": library[name],
                       "bound_ms": bnd["bound_ms"],
                       "bound_by": bnd["bound_by"]}
+        hi_lo = ""
+        if "hi_lo_bound_ms" in bnd:  # the bf16 tensor-core kernels
+            hi_lo = (f", hi/lo tensor work {bnd['hi_lo_bound_ms'] * 1e3:.2f}"
+                     f" us ({ms / bnd['hi_lo_bound_ms']:.1f}x)")
         print(f"  {FLASH[name][0]} {ms * 1e3:.1f} us/launch (first design "
               f"{OLD_US[FLASH[name][0]]} us), bound "
               f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['ops']} ops at 989 "
               f"TFLOP/s; {bnd['bytes']} B at 3.35 TB/s), "
-              f"{ms / bnd['bound_ms']:.1f}x; plain {plain_ms * 1e3:.1f} us; "
+              f"{ms / bnd['bound_ms']:.1f}x{hi_lo}; plain "
+              f"{plain_ms * 1e3:.1f} us; "
               f"SDPA {'forward' if name == 'flash_fwd' else 'backward'} "
               f"{library[name] * 1e3:.1f} us")
     return errs, rows

@@ -154,33 +154,26 @@ def _worker(tree: Path) -> dict:
     }
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--baseline", type=Path,
-                    help="root of the baseline checkout")
-    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
-    args = ap.parse_args()
+def run_alternating(script: Path, baseline: Path, name: str) -> int:
+    """The parent of an A/B bench: ``script --worker TREE`` once per
+    tree, in the order baseline, this, this, baseline; prints the card,
+    each worker's JSON line and a summary of every ``*_us`` key."""
     if not torch.cuda.is_available():
-        print("decode_serving_ab: no CUDA device; this bench runs only on "
-              "the GPU", file=sys.stderr)
+        print(f"{name}: no CUDA device; this bench runs only on the GPU",
+              file=sys.stderr)
         return 2
-    if args.worker is not None:
-        print(json.dumps(_worker(args.worker.resolve())))
-        return 0
-    if args.baseline is None:
-        ap.error("--baseline DIR is required")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    base = args.baseline.resolve()
+    base = baseline.resolve()
     runs = []
     for label, tree in (("baseline", base), ("this", THIS_TREE),
                         ("this", THIS_TREE), ("baseline", base)):
         out = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--worker",
-             str(tree)], capture_output=True, text=True, check=True,
+            [sys.executable, str(script), "--worker", str(tree)],
+            capture_output=True, text=True, check=True,
             timeout=900).stdout.strip().splitlines()[-1]
         runs.append({"run": label, **json.loads(out)})
         print(json.dumps(runs[-1]))
@@ -189,6 +182,21 @@ def main() -> int:
                        for k in keys} for label in ("baseline", "this")}
     print(json.dumps({"card": smi, **summary}))
     return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", type=Path,
+                    help="root of the baseline checkout")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        print(json.dumps(_worker(args.worker.resolve())))
+        return 0
+    if args.baseline is None:
+        ap.error("--baseline DIR is required")
+    return run_alternating(Path(__file__).resolve(), args.baseline,
+                           "decode_serving_ab")
 
 
 if __name__ == "__main__":

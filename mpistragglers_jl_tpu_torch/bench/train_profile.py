@@ -36,11 +36,12 @@ from .serving_profile import _busy_us
 TRAIN = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
              attn="ulysses", attn_impl="flash")
 BATCH, SEQ, LR = 8, 2048, 1e-3
-# the CUDA kernel of each flash launch counter, by a part of its name
-# (K1's bf16 and f32 kernels both start flash_fwd_)
+# the CUDA kernels of each flash launch counter, by a part of their
+# names: K1-K3 have a bf16 tensor-core kernel (flash_*_wgmma_kernel) and
+# an f32 FMA kernel (flash_*_kernel), and both start with the prefix
 FLASH_KERNELS = {"flash_fwd": "flash_fwd_",
-                 "flash_bwd_dq": "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_",
+                 "flash_bwd_dkv": "flash_bwd_dkv_",
                  "flash_bwd_fused": "flash_bwd_fused_kernel"}
 
 

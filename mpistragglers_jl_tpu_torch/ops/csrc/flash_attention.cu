@@ -4,8 +4,11 @@
 // Replaces the four TPU kernels of mpistragglers_jl_tpu/ops/flash_attention.py:
 //   K1 `_fwd_kernel`       -> tc::flash_fwd_wgmma_kernel (bf16, wgmma)
 //                             and flash_fwd_kernel (f32) (o, lse)
-//   K2 `_bwd_dq_kernel`    -> flash_bwd_dq_kernel    (dq)
-//   K3 `_bwd_dkv_kernel`   -> flash_bwd_dkv_kernel   (dk, dv per q head)
+//   K2 `_bwd_dq_kernel`    -> tc::flash_bwd_dq_wgmma_kernel (bf16, wgmma)
+//                             and flash_bwd_dq_kernel (f32) (dq)
+//   K3 `_bwd_dkv_kernel`   -> tc::flash_bwd_dkv_wgmma_kernel (bf16, wgmma)
+//                             and flash_bwd_dkv_kernel (f32) (dk, dv per q
+//                             head)
 //   K4 `_bwd_fused_kernel` -> flash_bwd_fused_kernel (dq + f32 dk, dv sums)
 //
 // Layouts as the reference's: q (BH, Lq, D), k and v (BH/g, Lk, D) with
@@ -19,19 +22,24 @@
 // Precision as the reference's: every product (Q.K^T, P.V, dO.V^T, dS.K,
 // P^T.dO, dS^T.Q) takes f32 operands (bf16 inputs are widened, exactly)
 // and sums in f32; only the stored o, dq, dk and dv round to the input
-// type. K1's bf16 kernel gets that precision on the tensor cores (its
-// note below: exact bf16 products for Q.K^T, P split into two bf16
-// halves for P.V). The f32 forward and K2-K4 round neither P nor dS to
+// type. The bf16 kernels of K1-K3 get that precision on the tensor cores
+// (K1's note below): Q.K^T and dO.V^T are exact bf16 products, and every
+// product that takes P or dS as an operand runs on P's or dS's two bf16
+// halves, hi and lo. The f32 kernels and K4 round neither P nor dS to
 // bf16 and run on the f32 FMA units.
 //
 // What bounds them: operations. One causal call at the training shape
 // (B=8, L=2048, H=8, D=128) needs 68.8 GFLOP (K1) to 171.9 GFLOP (K4)
 // over the visible (query, key) pairs, and moves 25-60 MB; at the H100's
 // bf16 tensor-core peak that is 70-174 us, at its 67 TFLOP/s f32 FMA peak
-// 1.0-2.6 ms, the floor of the FMA kernels.
+// 1.0-2.6 ms, the floor of the FMA kernels. The hi/lo halves make the
+// bf16 kernels issue more tensor work than the function needs: 1.5x for
+// K1 (104 us), 4/3 for K2 (139 us), 1.5x for K3 (209 us). On an H100
+// 80GB HBM3 at 700 W, at that shape (chip_smoke.py phase 16,
+// bench/flash_bwd_ab.py): K1 281-295 us, K2 323-357 us, K3 482-491 us;
+// the FMA kernels of K2 and K3 took 5956 and 6986 us.
 //
-// Design of the FMA kernels (simple first; K2 and K3 move onto K1's
-// tensor-core tiles next):
+// Design of the FMA kernels (the f32 routes and K4):
 // * one block of 256 threads per (BH row, 64-query tile) for K1, K2, K4,
 //   and per (BH row, 64-key tile) for K3, looping over the other axis in
 //   64-row tiles: the TPU's sequential inner grid axis becomes this loop;
@@ -464,6 +472,91 @@ __device__ __forceinline__ void load_panels(char* dst,
   }
 }
 
+constexpr unsigned kPanel = kTile * 128;  // bytes of one 64-column panel
+
+// the first 1024-byte boundary in dynamic shared memory: the swizzle is
+// of address bits, so every tile starts on one
+__device__ __forceinline__ char* aligned_base(float4* smem) {
+  return reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~(uintptr_t)1023);
+}
+
+// the key tiles [lo, hi] of the band that query tile q0 sees: the tiles
+// `tile_runs` keeps, from the causal diagonal and the window
+__device__ __forceinline__ void band_key_tiles(int q0, const Shape& sh,
+                                               int& lo, int& hi) {
+  hi = (sh.Lk + kTile - 1) / kTile - 1;
+  lo = 0;
+  if (sh.causal) hi = min(hi, (q0 + kTile - 1) / kTile);
+  if (sh.window > 0) lo = max(0, (q0 - sh.window + 1) / kTile);
+}
+
+// is every (query, key) pair of the tile pair visible and inside the
+// lengths? Then no element needs its mask.
+__device__ __forceinline__ bool tile_full(int q0, int k0, const Shape& sh) {
+  return q0 + kTile <= sh.Lq && k0 + kTile <= sh.Lk &&
+         (!sh.causal || k0 + kTile - 1 <= q0) &&
+         (sh.window <= 0 || q0 + kTile - 1 - k0 < sh.window);
+}
+
+// P = exp(scale s - lse) of query qp and key kp, as `probs_and_ds` forms
+// it: the score masked to -1e30, and 0 past Lq or Lk
+__device__ __forceinline__ float prob(float s, int qp, int kp, float lse,
+                                      bool full, const Shape& sh) {
+  float x = s * sh.scale;
+  if (full) return expf(x - lse);
+  if (!visible(qp, kp, sh)) x = kNeg;
+  return qp < sh.Lq && kp < sh.Lk ? expf(x - lse) : 0.f;
+}
+
+// s = A.B^T over D, m64n64: A and B 64-row tiles in panels (K-major),
+// issued into the open wgmma group
+template <int D>
+__device__ __forceinline__ void wg_rows(float (&s)[8][4], unsigned a,
+                                        unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned off = (kk >> 2) * kPanel + (kk & 3) * 32;
+    wg_qk(s, gmma_desc(a + off, 16, 1024), gmma_desc(b + off, 16, 1024),
+          kk > 0);
+  }
+}
+
+// a 64 x 64 accumulator x (rows gr, gr + 8 of each warp; x[j] holds
+// columns 8j + 2tq, + 1) as register A fragments of its four k16 steps,
+// split into hi = bf16(x) and lo = bf16(x - hi)
+__device__ __forceinline__ void split_frags(const float (&x)[8][4],
+                                            unsigned (&hi)[4][4],
+                                            unsigned (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // a0: row gr, columns 2tq; a1: row gr+8; a2, a3: columns 8 + 2tq
+      const float x0 = x[2 * kk + (r >> 1)][2 * (r & 1)];
+      const float x1 = x[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][r] = *reinterpret_cast<unsigned*>(&h);
+      lo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+}
+
+// acc += (hi + lo).B over 64 rows of k: B a 64-row tile in panels read
+// MN-major, each k16 step issued for hi, then lo
+template <int D>
+__device__ __forceinline__ void wg_hi_lo(float (&acc)[D / 8][4],
+                                         const unsigned (&hi)[4][4],
+                                         const unsigned (&lo)[4][4],
+                                         unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const unsigned long long db = gmma_desc(b + kk * 2048, kPanel, 1024);
+    wg_pv<D>(acc, hi[kk], db);
+    wg_pv<D>(acc, lo[kk], db);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 3)
     flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -474,12 +567,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   constexpr int TB = kTile * D * 2;  // bytes of one tile
   constexpr int NT = kTile / 8;
   constexpr int ND = D / 8;
-  constexpr unsigned PANEL = kTile * 128;  // bytes of one 64-column panel
   extern __shared__ float4 smem4[];
-  // the swizzle is of address bits: tiles start on 1024-byte boundaries
-  char* base = reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~(uintptr_t)1023);
-  char* Qs = base;
+  char* Qs = aligned_base(smem4);
   char* Ks = Qs + TB;      // [2 stages]
   char* Vs = Ks + 2 * TB;  // one stage: refilled once P.V is done
 
@@ -491,10 +580,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const __nv_bfloat16* kb = k + (size_t)(bh / sh.g) * sh.Lk * D;
   const __nv_bfloat16* vb = v + (size_t)(bh / sh.g) * sh.Lk * D;
 
-  const int nk = (sh.Lk + kTile - 1) / kTile;
-  int kt_hi = nk - 1, kt_lo = 0;
-  if (sh.causal) kt_hi = min(kt_hi, (q0 + kTile - 1) / kTile);
-  if (sh.window > 0) kt_lo = max(0, (q0 - sh.window + 1) / kTile);
+  int kt_lo, kt_hi;
+  band_key_tiles(q0, sh, kt_lo, kt_hi);
 
   load_panels<D>(Qs, q + (size_t)bh * sh.Lq * D, q0, sh.Lq);
   if (kt_lo <= kt_hi) {
@@ -527,18 +614,11 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const unsigned off = (kk >> 2) * PANEL + (kk & 3) * 32;
-      wg_qk(s, gmma_desc(qa + off, 16, 1024), gmma_desc(ka + off, 16, 1024),
-            kk > 0);
-    }
+    wg_rows<D>(s, qa, ka);
     wg_commit();
     wg_wait0();
     // scale, mask, online softmax over the quad that shares a row
-    const bool full = k0 + kTile <= sh.Lk &&
-                      (!sh.causal || k0 + kTile - 1 <= q0) &&
-                      (sh.window <= 0 || q0 + kTile - 1 - k0 < sh.window);
+    const bool full = tile_full(q0, k0, sh);
     float corr[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -578,26 +658,10 @@ __global__ void __launch_bounds__(kThreads, 3)
       oacc[j][3] *= corr[1];
     }
     // O += P V, P = hi + lo as register A fragments
-    unsigned ph[kTile / 16][4], plo[kTile / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        // a0: row gr, keys 2tq; a1: row gr+8; a2, a3: keys 8 + 2tq
-        const float x0 = s[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float x1 = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
-        __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(hi);
-        ph[kk][r] = *reinterpret_cast<unsigned*>(&hi);
-        plo[kk][r] = pack_bf16(x0 - hf.x, x1 - hf.y);
-      }
+    unsigned ph[4][4], plo[4][4];
+    split_frags(s, ph, plo);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const unsigned long long dv = gmma_desc(va + kk * 2048, PANEL, 1024);
-      wg_pv<D>(oacc, ph[kk], dv);
-      wg_pv<D>(oacc, plo[kk], dv);
-    }
+    wg_hi_lo<D>(oacc, ph, plo, va);
     wg_commit();
     wg_wait0();
     __syncthreads();  // every warp is done with this K stage and V
@@ -620,6 +684,284 @@ __global__ void __launch_bounds__(kThreads, 3)
             __floats2bfloat162_rn(oacc[j][2 * hr] / l,
                                   oacc[j][2 * hr + 1] / l);
       if (tq == 0) lse[(size_t)bh * sh.Lq + qp] = m_r[hr] + logf(l);
+    }
+  }
+}
+
+// ------------------------------------------- K2, bf16, tensor cores
+//
+// dq = scale . sum_keys dS . K, the reference's precision as in K1: S =
+// Q.K^T and dP = dO.V^T from exact bf16 products summed in f32; P =
+// exp(scale S - lse) (0 where masked or past Lq, Lk), dS = P (dP - delta)
+// in f32; dS.K with dS split into bf16 hi + lo. One warpgroup per (BH
+// row, 64-query tile), query tiles longest first; Q and dO stay in shared
+// memory as A operands; K and V stream through two cp.async stages. Each
+// K tile is B twice: K-major for S, MN-major for dq += dS.K (as K1's V).
+// Per key tile: S and dP in one wgmma group, wait; P and dS in the
+// accumulators' layout; dS's hi and lo as register fragments; dS.K,
+// wait. Rows gr, gr + 8 of each warp keep their lse and delta in
+// registers. What bounds it: operations, 103.1 GFLOP at the train shape
+// (B=8, L=2048, H=8, D=128, causal), 104 us at 989 TFLOP/s; the hi/lo
+// split issues dS.K twice, 4/3 of that (139 us). At D = 128 it holds 224
+// registers and 97 KB of shared memory, two blocks an SM, which overlap
+// one's exponentials and loads with the other's products: 323-357 us at
+// the train shape on an H100 80GB HBM3 at 700 W (the FMA kernel: 5956
+// us).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Shape sh) {
+  constexpr int TB = kTile * D * 2;
+  constexpr int ND = D / 8;
+  extern __shared__ float4 smem4[];
+  char* Qs = aligned_base(smem4);
+  char* Os = Qs + TB;      // dO
+  char* Ks = Os + TB;      // [2 stages]
+  char* Vs = Ks + 2 * TB;  // [2 stages]
+
+  const int bh = blockIdx.x;
+  const int nq = gridDim.y;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kTile;  // longest first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const size_t q_off = (size_t)bh * sh.Lq * D;
+  const __nv_bfloat16* kb = k + (size_t)(bh / sh.g) * sh.Lk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bh / sh.g) * sh.Lk * D;
+
+  int kt_lo, kt_hi;
+  band_key_tiles(q0, sh, kt_lo, kt_hi);
+
+  load_panels<D>(Qs, q + q_off, q0, sh.Lq);
+  load_panels<D>(Os, dout + q_off, q0, sh.Lq);
+  if (kt_lo <= kt_hi) {
+    load_panels<D>(Ks, kb, kt_lo * kTile, sh.Lk);
+    load_panels<D>(Vs, vb, kt_lo * kTile, sh.Lk);
+  }
+  cp_async_commit();
+
+  const int qr0 = q0 + 16 * warp + gr;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = qr0 + 8 * hr;
+    const bool in = qp < sh.Lq;
+    lse_r[hr] = in ? lse[(size_t)bh * sh.Lq + qp] : 0.f;
+    dl_r[hr] = in ? delta[(size_t)bh * sh.Lq + qp] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const unsigned qa = smem_u32(Qs), oa = smem_u32(Os);
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {
+      load_panels<D>(Ks + (stage ^ 1) * TB, kb, (kt + 1) * kTile, sh.Lk);
+      load_panels<D>(Vs + (stage ^ 1) * TB, vb, (kt + 1) * kTile, sh.Lk);
+    }
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait<1>();  // this tile's K and V have landed
+    fence_async_smem();
+    __syncthreads();
+    const int k0 = kt * kTile;
+    const unsigned ka = smem_u32(Ks + stage * TB);
+    const unsigned va = smem_u32(Vs + stage * TB);
+    // s[j], dp[j]: keys 8j + 2tq (+1) of rows gr, gr + 8
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    wg_fence();
+    wg_rows<D>(s, qa, ka);   // S = Q K^T
+    wg_rows<D>(dp, oa, va);  // dP = dO V^T
+    wg_commit();
+    wg_wait0();
+    const bool full = tile_full(q0, k0, sh);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hr = i >> 1;
+        const float p = prob(s[j][i], qr0 + 8 * hr,
+                             k0 + 8 * j + 2 * tq + (i & 1), lse_r[hr], full,
+                             sh);
+        s[j][i] = p * (dp[j][i] - dl_r[hr]);  // dS
+      }
+    unsigned dh[4][4], dlo[4][4];
+    split_frags(s, dh, dlo);
+    wg_fence();
+    wg_hi_lo<D>(acc, dh, dlo, ka);  // dq += dS K
+    wg_commit();
+    wg_wait0();
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qp = qr0 + 8 * hr;
+    if (qp >= sh.Lq) continue;
+    __nv_bfloat16* row = dq + ((size_t)bh * sh.Lq + qp) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * hr] * sh.scale,
+                                acc[j][2 * hr + 1] * sh.scale);
+  }
+}
+
+// ------------------------------------------- K3, bf16, tensor cores
+//
+// dv = sum_queries P^T . dO and dk = scale . sum_queries dS^T . Q per q
+// head, with K2's precision, transposed: one warpgroup per (BH row,
+// 64-key tile), key tile 0 first (under causal it sees the most query
+// tiles); K and V stay in shared memory as A operands; Q, dO and the
+// query tile's lse and delta stream through two cp.async stages. Each Q
+// and dO tile is B twice: K-major for S^T = K.Q^T and dP^T = V.dO^T,
+// MN-major for dk += dS^T.Q and dv += P^T.dO. The accumulators hold key
+// rows, so lse and delta are read by column from shared memory. The query
+// tiles run from the band: from the key tile's own under causal, up to
+// the last within the window. Per query tile: S^T and dP^T in one wgmma
+// group, wait; P^T and dS^T in the accumulators' layout, each as hi and
+// lo fragments; dv's and dk's products in one group, wait. What bounds
+// it: operations, 137.5 GFLOP at the train shape, 139 us at 989
+// TFLOP/s; the hi/lo split issues both products that take P or dS twice,
+// 1.5x (209 us). At D = 128, dk and dv hold 128 f32 accumulators a
+// thread and S^T and dP^T 64 more, which turn into the four fragment
+// sets as they are read: 255 registers and a 4-byte spill, 98 KB of
+// shared memory, two blocks an SM: 482-491 us at the train shape on an
+// H100 80GB HBM3 at 700 W (the FMA kernel: 6986 us). The same kernel
+// with tile_full() and prob() written out held no spill and took 524-537
+// us in the same call (bench/flash_bwd_ab.py).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dkq,
+                               __nv_bfloat16* __restrict__ dvq, Shape sh) {
+  constexpr int TB = kTile * D * 2;
+  constexpr int ND = D / 8;
+  extern __shared__ float4 smem4[];
+  char* Ks = aligned_base(smem4);
+  char* Vs = Ks + TB;
+  char* Qs = Vs + TB;      // [2 stages]
+  char* Os = Qs + 2 * TB;  // [2 stages] dO
+  float* Ls = reinterpret_cast<float*>(Os + 2 * TB);  // [2 stages][64] lse
+  float* Dl = Ls + 2 * kTile;                         // [2 stages][64] delta
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const size_t kv_off = (size_t)(bh / sh.g) * sh.Lk * D;
+  const __nv_bfloat16* qb = q + (size_t)bh * sh.Lq * D;
+  const __nv_bfloat16* ob = dout + (size_t)bh * sh.Lq * D;
+  // threads 0-63 copy lse, 64-127 delta: one float each per query tile
+  const float* stat = (tid < kTile ? lse : delta) + (size_t)bh * sh.Lq;
+  float* stat_s = (tid < kTile ? Ls : Dl) + (tid & (kTile - 1));
+
+  const int nq = (sh.Lq + kTile - 1) / kTile;
+  int qt_lo = 0, qt_hi = nq - 1;
+  if (sh.causal) qt_lo = blockIdx.y;
+  if (sh.window > 0)
+    qt_hi = min(qt_hi, (k0 + kTile - 2 + sh.window) / kTile);
+
+  auto load_query_tile = [&](int st, int qt) {
+    const int q0 = qt * kTile;
+    load_panels<D>(Qs + st * TB, qb, q0, sh.Lq);
+    load_panels<D>(Os + st * TB, ob, q0, sh.Lq);
+    const int r = q0 + (tid & (kTile - 1));
+    const bool ok = r < sh.Lq;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(stat_s + st * kTile)),
+                 "l"(ok ? stat + r : stat), "r"(ok ? 4 : 0));
+  };
+
+  load_panels<D>(Ks, k + kv_off, k0, sh.Lk);
+  load_panels<D>(Vs, v + kv_off, k0, sh.Lk);
+  if (qt_lo <= qt_hi) load_query_tile(0, qt_lo);
+  cp_async_commit();
+
+  const int kr0 = k0 + 16 * warp + gr;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const unsigned ka = smem_u32(Ks), va = smem_u32(Vs);
+
+  for (int qt = qt_lo; qt <= qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    if (qt < qt_hi) load_query_tile(stage ^ 1, qt + 1);
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait<1>();  // this tile's Q, dO, lse and delta have landed
+    fence_async_smem();
+    __syncthreads();
+    const int q0 = qt * kTile;
+    const unsigned qa = smem_u32(Qs + stage * TB);
+    const unsigned oa = smem_u32(Os + stage * TB);
+    const float* lse_s = Ls + stage * kTile;
+    const float* dl_s = Dl + stage * kTile;
+    // st[j], dpt[j]: queries 8j + 2tq (+1) of key rows gr, gr + 8
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    wg_fence();
+    wg_rows<D>(st, ka, qa);   // S^T = K Q^T
+    wg_rows<D>(dpt, va, oa);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait0();
+    const bool full = tile_full(q0, k0, sh);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e;
+        const float l = lse_s[c], dl = dl_s[c];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 2 * hr + e;
+          const float p = prob(st[j][i], q0 + c, kr0 + 8 * hr, l, full, sh);
+          st[j][i] = p;                      // P^T
+          dpt[j][i] = p * (dpt[j][i] - dl);  // dS^T
+        }
+      }
+    unsigned ph[4][4], plo[4][4], dh[4][4], dlo[4][4];
+    split_frags(st, ph, plo);
+    split_frags(dpt, dh, dlo);
+    wg_fence();
+    wg_hi_lo<D>(dv, ph, plo, oa);  // dv += P^T dO
+    wg_hi_lo<D>(dk, dh, dlo, qa);  // dk += dS^T Q
+    wg_commit();
+    wg_wait0();
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kp = kr0 + 8 * hr;
+    if (kp >= sh.Lk) continue;
+    const size_t row = ((size_t)bh * sh.Lk + kp) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = 8 * j + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dkq + row + c) =
+          __floats2bfloat162_rn(dk[j][2 * hr] * sh.scale,
+                                dk[j][2 * hr + 1] * sh.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvq + row + c) =
+          __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
     }
   }
 }
@@ -870,8 +1212,25 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
+// dynamic shared memory of a kernel's block. The tensor-core kernels
+// (bf16 K1-K3) hold bf16 64 x D tiles, what follows them, and room to
+// align the tiles to 1024 bytes; the FMA kernels hold f32 tiles with
+// padded rows.
+template <typename T, int D>
 size_t smem_bytes(Kernel which) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const size_t tile = (size_t)kTile * D * 2;
+    switch (which) {
+      case kFwd:  // Q, two K stages, V
+        return 4 * tile + 1024;
+      case kDq:  // Q, dO, two K and two V stages
+        return 6 * tile + 1024;
+      case kDkv:  // K, V, two Q and two dO stages, two of lse and delta
+        return 6 * tile + 4 * kTile * sizeof(float) + 1024;
+      default:
+        break;
+    }
+  }
   const size_t tile = (size_t)kTile * (D + 1), score = (size_t)kTile * kSS;
   switch (which) {
     case kFwd:
@@ -891,7 +1250,7 @@ cudaError_t prepare(F kern, size_t smem) {
 
 template <typename T, int D>
 cudaError_t launch(Kernel which, const Args& a) {
-  const size_t smem = smem_bytes<D>(which);
+  const size_t smem = smem_bytes<T, D>(which);
   const int nq = (a.sh.Lq + kTile - 1) / kTile;
   const int nk = (a.sh.Lk + kTile - 1) / kTile;
   const T* q = static_cast<const T*>(a.q);
@@ -904,12 +1263,9 @@ cudaError_t launch(Kernel which, const Args& a) {
   switch (which) {
     case kFwd: {
       if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        // bf16: the tensor-core kernel, Q, two K stages and V in bf16
-        // (and room to align them to 1024 bytes)
-        const size_t tc_smem = (size_t)4 * kTile * D * 2 + 1024;
         auto kern = tc::flash_fwd_wgmma_kernel<D>;
-        if ((e = prepare(kern, tc_smem)) != cudaSuccess) return e;
-        kern<<<dim3(a.BH, nq), tc::kThreads, tc_smem, a.stream>>>(
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(a.BH, nq), tc::kThreads, smem, a.stream>>>(
             q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.out_lse),
             a.sh);
       } else {
@@ -922,18 +1278,33 @@ cudaError_t launch(Kernel which, const Args& a) {
       break;
     }
     case kDq: {
-      auto kern = flash_bwd_dq_kernel<T, D>;
-      if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-      kern<<<dim3(nq, a.BH), kThreads, smem, a.stream>>>(
-          q, k, v, dout, lse, delta, static_cast<T*>(a.d1), a.sh);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        auto kern = tc::flash_bwd_dq_wgmma_kernel<D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(a.BH, nq), tc::kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, static_cast<T*>(a.d1), a.sh);
+      } else {
+        auto kern = flash_bwd_dq_kernel<T, D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(nq, a.BH), kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, static_cast<T*>(a.d1), a.sh);
+      }
       break;
     }
     case kDkv: {
-      auto kern = flash_bwd_dkv_kernel<T, D>;
-      if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-      kern<<<dim3(nk, a.BH), kThreads, smem, a.stream>>>(
-          q, k, v, dout, lse, delta, static_cast<T*>(a.d1),
-          static_cast<T*>(a.d2), a.sh);
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        auto kern = tc::flash_bwd_dkv_wgmma_kernel<D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(a.BH, nk), tc::kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, static_cast<T*>(a.d1),
+            static_cast<T*>(a.d2), a.sh);
+      } else {
+        auto kern = flash_bwd_dkv_kernel<T, D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(nk, a.BH), kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, static_cast<T*>(a.d1),
+            static_cast<T*>(a.d2), a.sh);
+      }
       break;
     }
     case kFused: {

@@ -5,17 +5,28 @@ Counterpart of ``mpistragglers_jl_tpu/ops/flash_attention.py``. Its four
 TPU kernels become ``csrc/flash_attention.cu``:
 
 * ``_fwd_kernel`` (K1): O and the per-row logsumexp, online softmax over
-  key tiles, tiles wholly outside the causal/sliding band skipped. bf16
-  inputs run on the tensor cores (``wgmma`` from swizzled bf16 tiles in
-  shared memory, cp.async double-buffered K/V, query tiles longest
-  first) at the reference's precision: Q.K^T from exact bf16 products
-  summed in f32, and P.V with P split into two bf16 halves (hi + lo,
-  within 2^-17 of the f32 P) against the exact bf16 V. f32 inputs keep
-  the f32 FMA kernel;
-* ``_bwd_dq_kernel`` (K2): dq from P recomputed from the logsumexp;
-* ``_bwd_dkv_kernel`` (K3): dk, dv per q head, sweeping query tiles;
+  key tiles, tiles wholly outside the causal/sliding band skipped;
+* ``_bwd_dq_kernel`` (K2): dq from P recomputed from the logsumexp, one
+  query tile against the band's key tiles;
+* ``_bwd_dkv_kernel`` (K3): dk, dv per q head, one key tile against the
+  band's query tiles;
 * ``_bwd_fused_kernel`` (K4): dq plus f32 dk/dv accumulated over the
   query tiles in one sweep.
+
+bf16 inputs to K1, K2 and K3 run on Hopper's tensor cores: ``wgmma``
+from swizzled bf16 tiles in shared memory, cp.async double-buffered
+streams, one warpgroup per 64-row tile (``tc::flash_fwd_wgmma_kernel``,
+``tc::flash_bwd_dq_wgmma_kernel``, ``tc::flash_bwd_dkv_wgmma_kernel``).
+They keep the reference's precision: Q.K^T and dO.V^T from exact bf16
+products summed in f32, and every product that takes P or dS (P.V,
+dS.K, P^T.dO, dS^T.Q) runs on its two bf16 halves, hi + lo within 2^-17
+of the f32 value. What bounds them is operations; the halves add 1.5x
+(K1, K3) and 4/3 (K2) to the tensor work. At the training shape (bf16,
+B=8, L=2048, H=8, D=128, causal) on an H100 80GB HBM3 at 700 W they
+take 281-295, 323-357 and 482-491 us (``chip_smoke.py`` phase 16,
+``bench/flash_bwd_ab.py``), against 5197, 5956 and 6986 us for the f32
+FMA kernels they replaced there. f32 inputs, and K4, keep the FMA
+kernels.
 
 As in the reference, ``delta = rowsum(dO * O)``, the GQA group sum and
 the reduction of K4's f32 sums stay outside the kernels, in PyTorch.

@@ -264,6 +264,8 @@ def _close(got, want, atol, label):
     (1, 130, 2, 2, 128, False, None),
     (2, 257, 4, 1, 128, True, 64),
     (1, 64, 2, 1, 64, False, 40),
+    # the main path's head width and length, causal, GQA
+    (1, 2048, 4, 2, 128, True, None),
 ])
 def test_flash_kernels_match_plain_versions(dtype, B, L, H, Hkv, D, causal,
                                             window):

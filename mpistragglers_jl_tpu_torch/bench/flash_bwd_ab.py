@@ -1,6 +1,7 @@
-"""K2 and K3, the split flash backward, at the training shape, timed
-alike in this tree and in a baseline checkout of the port (``--baseline
-DIR``, e.g. an earlier commit unpacked with ``git archive``).
+"""K2 and K3, the split flash backward, and K4, the fused one, at the
+training shape, timed alike in this tree and in a baseline checkout of
+the port (``--baseline DIR``, e.g. an earlier commit unpacked with
+``git archive``).
 
 Each tree runs in a process of its own, in the order baseline, this,
 this, baseline, so a drift of the card during the call shows as the
@@ -9,13 +10,14 @@ builds that tree's ``ops/csrc/flash_attention.cu`` on first use, and
 times at the training shape (bf16, B=8, L=2048, H=8, D=128, causal, the
 inputs of ``chip_smoke.py`` phase 16) as that phase does: 20 eager calls
 after 3 warm-up calls, timed with CUDA events, per call. It times K2,
-K3 and SDPA's backward (dq, dk and dv together), which neither tree
+K3, K4 and SDPA's backward (dq, dk and dv together), which neither tree
 changes and so shows the card's drift, three rounds each, interleaved.
-Each process also holds K2's and K3's outputs against its tree's plain
-versions (``max_abs_err``) and, when it built the library, reports
-ptxas's registers and spills of the tensor-core kernels (``ptxas``).
-Only the wrappers' signatures are called, which every tree of the port
-shares.
+Each process also holds K2's, K3's and K4's outputs against its tree's
+plain versions (``max_abs_err``) and, when it built the library,
+reports ptxas's registers and spills of the tensor-core kernels
+(``ptxas``). Only the wrappers' signatures are called, which every tree
+of the port shares (K4's wrapper is ``_bwd_fused_grads``, in older
+trees ``_bwd_fused_sums``; both take the same arguments).
 
     python -m mpistragglers_jl_tpu_torch.bench.flash_bwd_ab --baseline DIR
 
@@ -86,8 +88,10 @@ def _worker(tree: Path) -> dict:
     o, lse = fa._fwd(q3, k3, v3, *meta)
     args = (q3, k3, v3, do3, lse, fa._delta(do3, o)) + meta
     args_ref = tuple(t.float() for t in (q3, k3, v3, do3)) + args[4:]
-    got = [fa._bwd_dq(*args), *fa._bwd_dkv(*args)]
-    want = [fa._bwd_dq_ref(*args_ref), *fa._bwd_dkv_ref(*args_ref)]
+    k4 = getattr(fa, "_bwd_fused_grads", None) or fa._bwd_fused_sums
+    got = [fa._bwd_dq(*args), *fa._bwd_dkv(*args), *k4(*args)]
+    want = [fa._bwd_dq_ref(*args_ref), *fa._bwd_dkv_ref(*args_ref),
+            *fa._bwd_fused_ref(*args_ref)]
     err = [(a.float() - b.float()).abs().max().item()
            for a, b in zip(got, want)]
     del args_ref, got, want
@@ -97,6 +101,7 @@ def _worker(tree: Path) -> dict:
     out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     fns = {"k2_us": lambda: fa._bwd_dq(*args),
            "k3_us": lambda: fa._bwd_dkv(*args),
+           "k4_us": lambda: k4(*args),
            "sdpa_bwd_us": lambda: torch.autograd.grad(
                out, (qh, kh, vh), doh, retain_graph=True)}
     times = {name: [] for name in fns}
@@ -107,7 +112,8 @@ def _worker(tree: Path) -> dict:
         "tree": str(tree),
         "source_sha256": hashlib.sha256(src.read_bytes()).hexdigest()[:12],
         **times,
-        "k2_max_abs_err": err[0], "k3_max_abs_err": max(err[1:]),
+        "k2_max_abs_err": err[0], "k3_max_abs_err": max(err[1:3]),
+        "k4_max_abs_err": max(err[3:]),
         "ptxas": _ptxas(build.build_logs.get("flash_attention", "")) or None,
     }
 

@@ -10,13 +10,14 @@ move (each input read once, each output written once) over the card's
   no window). Operations count the causally visible (query, key) pairs
   only, ``L (L + 1) / 2`` per head: 2 * D per pair for each product the
   kernel forms (K1: QK, PV; K2: QK, dO V, dS K; K3: QK, dO V, P dO,
-  dS Q; K4: all five). Exponentials are not counted. K4's f32 dk/dv
-  sums count as written once, the port's layout (the reference writes
-  one partial per block of 1024 queries; K4 is bound by operations
-  either way). Beside the bound of the function, K1-K3 print the
-  tensor work their bf16 kernels issue (``hi_lo``): every product that
-  takes P or dS as an operand runs twice, on its bf16 hi and lo halves
-  (K1: 3 products' worth, 1.5x; K2: 4, 4/3x; K3: 6, 1.5x).
+  dS Q; K4: all five). Exponentials are not counted. K4 writes dq, dk
+  and dv in bf16, as the port's kernel does (its f32 dq sum is scratch;
+  the reference writes f32 dk/dv partials per block of 1024 queries;
+  K4 is bound by operations either way). Beside the bound of the
+  function, K1-K4 print the tensor work their bf16 kernels issue
+  (``hi_lo``): every product that takes P or dS as an operand runs
+  twice, on its bf16 hi and lo halves (K1: 3 products' worth, 1.5x; K2:
+  4, 4/3x; K3: 6, 1.5x; K4: 8, 1.6x).
 * K7, the attribution variants of ``benchmarks/decode_kernel_attrib.py``
   at their own shape (B=1, L=16384, H=8, Hkv=2, D=128, bf16 q, every
   key visible) and at B = 4 and 8 (the bench's batched sweep): the
@@ -55,14 +56,12 @@ def flash_bounds(B=8, L=2048, H=8, D=128, Hkv=None) -> dict:
     kv = act * (Hkv or H) // H  # one bf16 (B, L, Hkv, D) tensor
     stat = BH * L * 4  # one f32 per-row statistic (lse, delta)
     pairs = BH * L * (L + 1) // 2  # causally visible (query, key) pairs
-    f32_sum = BH * L * D * 4  # one f32 (BH, Lk, D) dk or dv sum
     prod = 2 * D * pairs  # operations of one product over the band
     return {
         "K1": _bound(2 * act + 2 * kv + stat, 2 * prod, 3 * prod),
         "K2": _bound(4 * act + 2 * stat + act, 3 * prod, 4 * prod),
         "K3": _bound(4 * act + 2 * stat + 2 * act, 4 * prod, 6 * prod),
-        "K4": _bound(4 * act + 2 * stat + act + 2 * f32_sum,
-                     5 * 2 * D * pairs),
+        "K4": _bound(4 * act + 2 * stat + 3 * act, 5 * prod, 8 * prod),
     }
 
 

@@ -62,8 +62,20 @@
 //   nothing visible returns zeros.
 // * Both launches go on the caller's stream; each is checked with
 //   cudaGetLastError() and the C entries return the first error.
-// * K6 runs the same template with one split, so every in-block change
-//   reaches it; its own split over pages is later work, as is TMA.
+// * K6 runs the same template over the same split grid: its chunk comes
+//   from `paged_split_plan` (ops/decode_attention.py), K5's chunk rounded
+//   up to whole pages where that at most doubles it, and its partials
+//   fold through the same combine. The block addresses every key through
+//   its row of the page table, so a split may start anywhere. TMA is
+//   later work.
+// * What one block costs (H100 80GB HBM3, 700 W; chip_smoke.py phase 10,
+//   K6 at the serving shape with 1 to 32 splits): at D = 128 the block
+//   holds 128 registers and no local memory, and its 143 KB ring allows
+//   one block an SM. A warp's 32-key tile is about 10 us of latency (one
+//   warp walks it alone: ~3000 dependent instructions, shuffles and
+//   shared-memory loads), and launch, merge and combine about 7 us: 17-18
+//   us with one tile a warp (128 or 256 slots a split), 28 us with two or
+//   with a second wave of blocks, 46 us with four (one split).
 //
 // K7, the attribution variants of benchmarks/decode_kernel_attrib.py
 // (`variant(mode)`), is the template's MODE parameter: the same grid,
@@ -178,7 +190,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Dense: pt == nullptr, P and n_pages unused. Paged: L == W ==
-// max_pages * P, ring == 1, window == 0, n_split == 1. block_k is read
+// max_pages * P, ring == 1, window == 0. block_k is read
 // by the K7 modes only; they read neither pos, window nor ring. With
 // n_split == 1 the block writes `out`; otherwise its partial goes to
 // pm, pl (B, Hkv, n_split, g) and pacc (B, Hkv, n_split, g, D).
@@ -704,23 +716,25 @@ extern "C" int k7_decode_attention_attrib(
   }
 }
 
-// K6, ring mode through a page table, one split. q (B, 1, Hkv*g, D) f32
-// or bf16; k, v (n_pages*P, Hkv, D) int8; ks, vs (n_pages*P, Hkv) f32;
-// pt (B, max_pages) int32; pos (B,) int32; out like q. All contiguous,
-// all on the current device. Returns the CUDA error code of the launch.
+// K6, ring mode through a page table. q (B, 1, Hkv*g, D) f32 or bf16;
+// k, v (n_pages*P, Hkv, D) int8; ks, vs (n_pages*P, Hkv) f32; pt
+// (B, max_pages) int32; pos (B,) int32; out like q. All contiguous, all
+// on the current device. Split s covers ring slots [s*chunk,
+// (s+1)*chunk) of W = max_pages*P (chunk a multiple of 32, n_split =
+// ceil(W / chunk)); scratch as K5's. Launches the split kernel and,
+// with n_split > 1, the combine. Returns the first CUDA error code.
 extern "C" int k6_paged_decode_attention_int8(
     const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* pos, const void* pt, void* out, int B,
-    int max_pages, int P, int n_pages, int Hkv, int g, int D, float scale,
-    int is_bf16, void* stream) {
+    const void* vs, const void* pos, const void* pt, void* out, void* pm,
+    void* pl, void* pacc, int B, int max_pages, int P, int n_pages, int Hkv,
+    int g, int D, float scale, int chunk, int n_split, int is_bf16,
+    void* stream) {
   if (P < 1 || max_pages < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
-  const int L = max_pages * P;
   const Args a{q, k, v, ks, vs, pos, pt, out,
-               /*pm=*/nullptr, /*pl=*/nullptr, /*pacc=*/nullptr,
-               B, L, Hkv, g, scale, /*window=*/0,
-               /*ring=*/1, P, n_pages, /*block_k=*/0,
-               /*chunk=*/(L + kTile - 1) / kTile * kTile, /*n_split=*/1,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(pm), static_cast<float*>(pl),
+               static_cast<float*>(pacc), B, max_pages * P, Hkv, g, scale,
+               /*window=*/0, /*ring=*/1, P, n_pages, /*block_k=*/0, chunk,
+               n_split, static_cast<cudaStream_t>(stream)};
   return run<true>(D, is_bf16, a);
 }
 

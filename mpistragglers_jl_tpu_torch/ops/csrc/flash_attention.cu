@@ -9,7 +9,9 @@
 //   K3 `_bwd_dkv_kernel`   -> tc::flash_bwd_dkv_wgmma_kernel (bf16, wgmma)
 //                             and flash_bwd_dkv_kernel (f32) (dk, dv per q
 //                             head)
-//   K4 `_bwd_fused_kernel` -> flash_bwd_fused_kernel (dq + f32 dk, dv sums)
+//   K4 `_bwd_fused_kernel` -> tc::flash_bwd_fused_wgmma_kernel (bf16,
+//                             wgmma) and flash_bwd_fused_kernel (f32)
+//                             (dq, and dk, dv summed over the GQA group)
 //
 // Layouts as the reference's: q (BH, Lq, D), k and v (BH/g, Lk, D) with
 // q row b reading kv row b / g (GQA; K and V are never repeated in
@@ -22,11 +24,11 @@
 // Precision as the reference's: every product (Q.K^T, P.V, dO.V^T, dS.K,
 // P^T.dO, dS^T.Q) takes f32 operands (bf16 inputs are widened, exactly)
 // and sums in f32; only the stored o, dq, dk and dv round to the input
-// type. The bf16 kernels of K1-K3 get that precision on the tensor cores
+// type. The bf16 kernels of K1-K4 get that precision on the tensor cores
 // (K1's note below): Q.K^T and dO.V^T are exact bf16 products, and every
 // product that takes P or dS as an operand runs on P's or dS's two bf16
-// halves, hi and lo. The f32 kernels and K4 round neither P nor dS to
-// bf16 and run on the f32 FMA units.
+// halves, hi and lo. The f32 kernels round neither P nor dS to bf16 and
+// run on the f32 FMA units.
 //
 // What bounds them: operations. One causal call at the training shape
 // (B=8, L=2048, H=8, D=128) needs 68.8 GFLOP (K1) to 171.9 GFLOP (K4)
@@ -34,15 +36,17 @@
 // bf16 tensor-core peak that is 70-174 us, at its 67 TFLOP/s f32 FMA peak
 // 1.0-2.6 ms, the floor of the FMA kernels. The hi/lo halves make the
 // bf16 kernels issue more tensor work than the function needs: 1.5x for
-// K1 (104 us), 4/3 for K2 (139 us), 1.5x for K3 (209 us). On an H100
-// 80GB HBM3 at 700 W, at that shape (chip_smoke.py phase 16,
-// bench/flash_bwd_ab.py): K1 281-295 us, K2 323-357 us, K3 482-491 us;
-// the FMA kernels of K2 and K3 took 5956 and 6986 us.
+// K1 (104 us), 4/3 for K2 (139 us), 1.5x for K3 (209 us), 1.6x for K4
+// (278 us). On an H100 80GB HBM3 at 700 W, at that shape (chip_smoke.py
+// phase 16, bench/flash_bwd_ab.py): K1 281-295 us, K2 323-357 us, K3
+// 482-491 us, K4 854-872 us; the FMA kernels of K2, K3 and K4 took
+// 5956, 6986 and 9004-9102 us.
 //
-// Design of the FMA kernels (the f32 routes and K4):
-// * one block of 256 threads per (BH row, 64-query tile) for K1, K2, K4,
-//   and per (BH row, 64-key tile) for K3, looping over the other axis in
-//   64-row tiles: the TPU's sequential inner grid axis becomes this loop;
+// Design of the FMA kernels (the f32 routes):
+// * one block of 256 threads per (BH row, 64-query tile) for K1 and K2,
+//   per (BH row, 64-key tile) for K3 and per (kv row, 64-key tile) for
+//   K4, looping over the other axis in 64-row tiles: the TPU's
+//   sequential inner grid axis becomes this loop;
 // * a tile wholly outside the band (above the causal diagonal, or left of
 //   the window) is skipped, the reference's `_block_run` at 64 x 64; the
 //   tile's own rows and columns are masked as `_block_mask` does, and rows
@@ -50,10 +54,13 @@
 // * tiles live in shared memory as f32, rows padded by one float so the
 //   column reads of K, V, Q and dO are conflict-free; each thread owns a
 //   4 x (D/16) or 4 x 4 register block of every product;
-// * K4 adds each (query tile, key tile)'s dk and dv contributions into one
-//   f32 (BH, Lk, D) sum per q head with atomics (zeroed by the caller), so
-//   its partial memory does not grow with the number of query tiles; the
-//   order of those additions varies from run to run;
+// * K4 (both routes) is key-major: a block holds its key tile's dk and
+//   dv across the g q heads of its kv head and their query tiles, so the
+//   GQA group sum happens in registers and dk, dv are written once; each
+//   (query tile, key tile)'s dq contribution dS.K is added into an f32
+//   (BH, Lq, D) sum with atomics (zeroed by the caller), which a small
+//   pass scales and casts to dq; the order of those additions varies from
+//   run to run;
 // * the kernels allocate nothing and run on the caller's stream; the C
 //   entries return cudaGetLastError() for the wrapper to check.
 
@@ -72,9 +79,6 @@ constexpr int kSS = kTile + 1; // padded row stride of a score tile
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -966,6 +970,256 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// d += A.B over k16, m64n64, A and B both from shared memory and both
+// MN-major: A a one-panel tile whose rows are k and whose 64 columns are
+// A's rows (M), B a 64-column panel of a tile read as wg_pv reads V
+__device__ __forceinline__ void wg_ss_mn(float (&d)[8][4],
+                                         unsigned long long da,
+                                         unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31},"
+      " %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db));
+}
+
+// register A fragments of a 64 x 64 tile (split_frags' layout: this
+// warp's rows 16 warp + gr, + 8, columns of k16 step kk) stored into a
+// one-panel tile in shared memory, rows as rows
+__device__ __forceinline__ void store_frags(char* dst,
+                                            const unsigned (&f)[4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<unsigned*>(
+          dst + pan(16 * warp + gr + 8 * (r & 1),
+                    16 * kk + 8 * (r >> 1) + 2 * tq)) = f[kk][r];
+}
+
+// ------------------------------------------- K4, bf16, tensor cores
+//
+// The fused backward, key-major (the FA2/FA3 order): one warpgroup per
+// (kv row, 64-key tile), key tile 0 first, looping over the g q heads of
+// its kv head and, for each, over the band's query tiles (K3's range).
+// K and V stay in shared memory; Q, dO and the tile's lse and delta
+// stream through two cp.async stages, as in K3. Per (query tile, key
+// tile) pair, S^T = K.Q^T and dP^T = V.dO^T are formed once, in one
+// wgmma group; P^T and dS^T follow in the accumulators' layout (K3's
+// precision: exact bf16 products, P and dS in f32); dv += P^T.dO and dk
+// += dS^T.Q run on P's and dS's hi and lo halves from registers. dk and
+// dv stay in f32 registers across every q head and query tile, so the
+// GQA sum is in registers and each is written once, in bf16. The dq
+// contribution dS.K needs dS with query rows, which the registers hold
+// by key rows: once the dk and dv products are done with the stage's Q
+// and dO tiles, dS^T's hi and lo are stored over them as one-panel tiles
+// (rows = keys) and read back as the A operand MN-major (wgmma's
+// transpose), against K read MN-major as K2 reads it; in 64-column
+// chunks of D (32 accumulators a thread, beside dk's and dv's 128 at D =
+// 128), each chunk added with 16-byte atomics into the zeroed f32 (BH,
+// Lq, D) dq sum. Tensor work per pair: Q.K^T and dO.V^T once, the three
+// products that take P or dS twice: 8 units against the split pair's 10
+// (K2: 4, K3: 6). What bounds it: operations, 171.9 GFLOP at the train
+// shape (B=8, L=2048, H=8, D=128, causal), 174 us at 989 TFLOP/s; the
+// hi/lo tensor work 1.6x that (278 us); the dq sum adds 4 bytes of f32
+// atomics per (query, key tile, column), 1.1 GB at that shape. At D =
+// 128 it holds 255 registers with a 4-byte spill (as K3) and 98 KB of
+// shared memory, two blocks an SM: 854-872 us at the train shape on an
+// H100 80GB HBM3 at 700 W, against 913-943 us with 8-byte atomics and
+// 1067-1123 us for two warpgroups over 128-key tiles (half the atomics,
+// one block an SM, the warpgroups in lockstep), each in the same call
+// (bench/flash_bwd_ab.py); the split pair K2 + K3 took 797-815 us.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_fused_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const __nv_bfloat16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dqa,
+                                 __nv_bfloat16* __restrict__ dko,
+                                 __nv_bfloat16* __restrict__ dvo, Shape sh) {
+  constexpr int TB = kTile * D * 2;
+  constexpr int ND = D / 8;
+  extern __shared__ float4 smem4[];
+  char* Ks = aligned_base(smem4);
+  char* Vs = Ks + TB;
+  char* Qs = Vs + TB;      // [2 stages]: Q, then dS^T's hi
+  char* Os = Qs + 2 * TB;  // [2 stages]: dO, then dS^T's lo
+  float* Ls = reinterpret_cast<float*>(Os + 2 * TB);  // [2 stages][64] lse
+  float* Dl = Ls + 2 * kTile;                         // [2 stages][64] delta
+
+  const int bkv = blockIdx.x;  // q rows bkv * g .. bkv * g + g - 1
+  const int k0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const size_t kv_off = (size_t)bkv * sh.Lk * D;
+  // threads 0-63 copy lse, 64-127 delta: one float each per query tile
+  float* stat_s = (tid < kTile ? Ls : Dl) + (tid & (kTile - 1));
+
+  const int nq = (sh.Lq + kTile - 1) / kTile;
+  int qt_lo = 0, qt_hi = nq - 1;
+  if (sh.causal) qt_lo = blockIdx.y;
+  if (sh.window > 0)
+    qt_hi = min(qt_hi, (k0 + kTile - 2 + sh.window) / kTile);
+  const int n_qt = qt_hi - qt_lo + 1;
+  const int n_it = n_qt > 0 ? sh.g * n_qt : 0;
+  // iteration it: q row bkv * g + it / n_qt, query tile qt_lo + it % n_qt
+
+  auto load_query_tile = [&](int st, int it) {
+    const int bh = bkv * sh.g + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * kTile;
+    const size_t q_off = (size_t)bh * sh.Lq * D;
+    load_panels<D>(Qs + st * TB, q + q_off, q0, sh.Lq);
+    load_panels<D>(Os + st * TB, dout + q_off, q0, sh.Lq);
+    const float* stat = (tid < kTile ? lse : delta) + (size_t)bh * sh.Lq;
+    const int r = q0 + (tid & (kTile - 1));
+    const bool ok = r < sh.Lq;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(stat_s + st * kTile)),
+                 "l"(ok ? stat + r : stat), "r"(ok ? 4 : 0));
+  };
+
+  load_panels<D>(Ks, k + kv_off, k0, sh.Lk);
+  load_panels<D>(Vs, v + kv_off, k0, sh.Lk);
+  if (n_it > 0) load_query_tile(0, 0);
+  cp_async_commit();
+
+  const int kr0 = k0 + 16 * warp + gr;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const unsigned ka = smem_u32(Ks), va = smem_u32(Vs);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) load_query_tile(stage ^ 1, it + 1);
+    cp_async_commit();  // possibly empty: one group per tile
+    cp_async_wait<1>();  // this tile's Q, dO, lse and delta have landed
+    fence_async_smem();
+    __syncthreads();
+    const int bh = bkv * sh.g + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * kTile;
+    char* Qst = Qs + stage * TB;
+    char* Ost = Os + stage * TB;
+    const unsigned qa = smem_u32(Qst), oa = smem_u32(Ost);
+    const float* lse_s = Ls + stage * kTile;
+    const float* dl_s = Dl + stage * kTile;
+    // st[j], dpt[j]: queries 8j + 2tq (+1) of key rows gr, gr + 8
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    wg_fence();
+    wg_rows<D>(st, ka, qa);   // S^T = K Q^T
+    wg_rows<D>(dpt, va, oa);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait0();
+    const bool full = tile_full(q0, k0, sh);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e;
+        const float l = lse_s[c], dl = dl_s[c];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = 2 * hr + e;
+          const float p = prob(st[j][i], q0 + c, kr0 + 8 * hr, l, full, sh);
+          st[j][i] = p;                      // P^T
+          dpt[j][i] = p * (dpt[j][i] - dl);  // dS^T
+        }
+      }
+    unsigned ph[4][4], plo[4][4], dh[4][4], dlo[4][4];
+    split_frags(st, ph, plo);
+    split_frags(dpt, dh, dlo);
+    wg_fence();
+    wg_hi_lo<D>(dv, ph, plo, oa);  // dv += P^T dO
+    wg_hi_lo<D>(dk, dh, dlo, qa);  // dk += dS^T Q
+    wg_commit();
+    wg_wait0();
+    __syncthreads();  // every warp's products are done with Q and dO
+    store_frags(Qst, dh);
+    store_frags(Ost, dlo);
+    fence_async_smem();
+    __syncthreads();  // dS^T's halves are in place for the tensor cores
+    // dq += dS K, 64 columns of D at a time: rows gr, gr + 8 of this
+    // warp's 16 queries, columns 8j + 2tq (+1) of the chunk
+    const int qr = q0 + 16 * warp + gr;
+    float* dq_row = dqa + ((size_t)bh * sh.Lq + qr) * D + 2 * tq;
+#pragma unroll 1
+    for (int c = 0; c < D / 64; ++c) {
+      float dq[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+      const unsigned kc = ka + c * kPanel;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned off = kk * 2048;
+        const unsigned long long db = gmma_desc(kc + off, kPanel, 1024);
+        wg_ss_mn(dq, gmma_desc(qa + off, kPanel, 1024), db);  // hi
+        wg_ss_mn(dq, gmma_desc(oa + off, kPanel, 1024), db);  // lo
+      }
+      wg_commit();
+      wg_wait0();
+      // lanes tq and tq ^ 1 trade a pair: an even tq then holds four
+      // columns of row gr, an odd one four of row gr + 8, added as one
+      // 16-byte atomic
+      const int odd = tq & 1;
+      float* row = dq_row + (size_t)8 * odd * D + 64 * c - 2 * odd;
+      const bool in = qr + 8 * odd < sh.Lq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // each sends the row its partner adds
+        const float r0 =
+            __shfl_xor_sync(0xffffffffu, odd ? dq[j][0] : dq[j][2], 1);
+        const float r1 =
+            __shfl_xor_sync(0xffffffffu, odd ? dq[j][1] : dq[j][3], 1);
+        if (in)
+          atomicAdd(reinterpret_cast<float4*>(row + 8 * j),
+                    odd ? make_float4(r0, r1, dq[j][2], dq[j][3])
+                        : make_float4(dq[j][0], dq[j][1], r0, r1));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kp = kr0 + 8 * hr;
+    if (kp >= sh.Lk) continue;
+    const size_t row = ((size_t)bkv * sh.Lk + kp) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = 8 * j + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dko + row + c) =
+          __floats2bfloat162_rn(dk[j][2 * hr] * sh.scale,
+                                dk[j][2 * hr + 1] * sh.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvo + row + c) =
+          __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
+    }
+  }
+}
+
 }  // namespace tc
 
 // ------------------------------------------------ shared backward step
@@ -1118,6 +1372,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- K4
 
+// Key-major (see the FMA note at the top): dk, dv of one kv row's key
+// tile over its group's q heads and their query tiles; each pair's dS.K
+// added into the f32 dq sum.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1125,78 +1382,94 @@ __global__ void __launch_bounds__(kThreads)
                            const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           T* __restrict__ dq, float* __restrict__ dkp,
-                           float* __restrict__ dvp, Shape sh) {
+                           float* __restrict__ dqa, T* __restrict__ dko,
+                           T* __restrict__ dvo, Shape sh) {
   constexpr int DS = D + 1, NJ = D / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;               // [64][DS]
-  float* Os = Qs + kTile * DS;    // [64][DS] dO
-  float* Ks = Os + kTile * DS;    // [64][DS]
+  float* Ks = smem;               // [64][DS]
   float* Vs = Ks + kTile * DS;    // [64][DS]
-  float* Ps = Vs + kTile * DS;    // [64][kSS] P
+  float* Qs = Vs + kTile * DS;    // [64][DS]
+  float* Os = Qs + kTile * DS;    // [64][DS] dO
+  float* Ps = Os + kTile * DS;    // [64][kSS] P
   float* Ds = Ps + kTile * kSS;   // [64][kSS] dS
   float* LSEs = Ds + kTile * kSS;
   float* DLs = LSEs + kTile;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int bkv = blockIdx.y, k0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t q_off = (size_t)bh * sh.Lq * D;
-  const size_t kv_off = (size_t)(bh / sh.g) * sh.Lk * D;
+  const size_t kv_off = (size_t)bkv * sh.Lk * D;
 
-  load_tile<T, D>(Qs, DS, q + q_off, q0, sh.Lq);
-  load_tile<T, D>(Os, DS, dout + q_off, q0, sh.Lq);
-  load_rows(LSEs, lse + (size_t)bh * sh.Lq, q0, sh.Lq);
-  load_rows(DLs, delta + (size_t)bh * sh.Lq, q0, sh.Lq);
-  float acc[4][NJ];
+  load_tile<T, D>(Ks, DS, k + kv_off, k0, sh.Lk);
+  load_tile<T, D>(Vs, DS, v + kv_off, k0, sh.Lk);
+  // rows ty + 16 i are KEY rows here, columns tx + 16 j of D
+  float dk[4][NJ], dv[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int nk = (sh.Lk + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_runs(q0, k0, sh)) continue;
-    __syncthreads();
-    load_tile<T, D>(Ks, DS, k + kv_off, k0, sh.Lk);
-    load_tile<T, D>(Vs, DS, v + kv_off, k0, sh.Lk);
-    __syncthreads();
-    probs_and_ds<D, true>(Ps, Ds, Qs, Os, Ks, Vs, LSEs, DLs, q0, k0, sh, ty,
-                          tx);
-    __syncthreads();
-    score_times<D, false>(acc, Ds, Ks, DS, ty, tx);  // dq += dS K
-    // this query tile's dv and dk contributions to key rows k0 + ty + 16 i
-    float part[4][NJ];
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
+  const int nq = (sh.Lq + kTile - 1) / kTile;
+  for (int gi = 0; gi < sh.g; ++gi) {
+    const int bh = bkv * sh.g + gi;
+    const size_t q_off = (size_t)bh * sh.Lq * D;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kTile;
+      if (!tile_runs(q0, k0, sh)) continue;
+      __syncthreads();
+      load_tile<T, D>(Qs, DS, q + q_off, q0, sh.Lq);
+      load_tile<T, D>(Os, DS, dout + q_off, q0, sh.Lq);
+      load_rows(LSEs, lse + (size_t)bh * sh.Lq, q0, sh.Lq);
+      load_rows(DLs, delta + (size_t)bh * sh.Lq, q0, sh.Lq);
+      __syncthreads();
+      probs_and_ds<D, true>(Ps, Ds, Qs, Os, Ks, Vs, LSEs, DLs, q0, k0, sh,
+                            ty, tx);
+      __syncthreads();
+      score_times<D, true>(dv, Ps, Os, DS, ty, tx);  // dv += P^T dO
+      score_times<D, true>(dk, Ds, Qs, DS, ty, tx);  // dk += dS^T Q
+      // this pair's dq contribution to query rows q0 + ty + 16 i
+      float part[4][NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) part[i][j] = 0.f;
-      if (pass == 0)
-        score_times<D, true>(part, Ps, Os, DS, ty, tx);  // P^T dO
-      else
-        score_times<D, true>(part, Ds, Qs, DS, ty, tx);  // dS^T Q
-      float* dst = pass == 0 ? dvp : dkp;
-      const float mul = pass == 0 ? 1.f : sh.scale;
+      score_times<D, false>(part, Ds, Ks, DS, ty, tx);  // dS K
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int kr = k0 + ty + 16 * i;
-        if (kr >= sh.Lk) continue;
-        float* row = dst + ((size_t)bh * sh.Lk + kr) * D;
+        const int qr = q0 + ty + 16 * i;
+        if (qr >= sh.Lq) continue;
+        float* row = dqa + ((size_t)bh * sh.Lq + qr) * D;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          atomicAdd(row + tx + 16 * j, part[i][j] * mul);
+        for (int j = 0; j < NJ; ++j) atomicAdd(row + tx + 16 * j, part[i][j]);
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= sh.Lq) continue;
-    T* row = dq + ((size_t)bh * sh.Lq + qr) * D;
+    const int kr = k0 + ty + 16 * i;
+    if (kr >= sh.Lk) continue;
+    const size_t row = ((size_t)bkv * sh.Lk + kr) * D;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) put(row + tx + 16 * j, acc[i][j] * sh.scale);
+    for (int j = 0; j < NJ; ++j) {
+      put(dko + row + tx + 16 * j, dk[i][j] * sh.scale);
+      put(dvo + row + tx + 16 * j, dv[i][j]);
+    }
+  }
+}
+
+// K4's last pass: dq = scale * (the f32 dq sum), in dq's type; n4 is the
+// number of float4s (D is a multiple of 4)
+template <typename T>
+__global__ void __launch_bounds__(256)
+    dq_finish_kernel(const float4* __restrict__ acc, T* __restrict__ dq,
+                     size_t n4, float scale) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 a = acc[i];
+    T* o = dq + 4 * i;
+    put(o, a.x * scale);
+    put(o + 1, a.y * scale);
+    put(o + 2, a.z * scale);
+    put(o + 3, a.w * scale);
   }
 }
 
@@ -1207,13 +1480,14 @@ enum Kernel { kFwd, kDq, kDkv, kFused };
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *o, *out_lse, *d1, *d2, *d3;
+  float* acc;  // K4's f32 dq sum
   int BH;
   Shape sh;
   cudaStream_t stream;
 };
 
 // dynamic shared memory of a kernel's block. The tensor-core kernels
-// (bf16 K1-K3) hold bf16 64 x D tiles, what follows them, and room to
+// (bf16 K1-K4) hold bf16 64 x D tiles, what follows them, and room to
 // align the tiles to 1024 bytes; the FMA kernels hold f32 tiles with
 // padded rows.
 template <typename T, int D>
@@ -1225,10 +1499,9 @@ size_t smem_bytes(Kernel which) {
         return 4 * tile + 1024;
       case kDq:  // Q, dO, two K and two V stages
         return 6 * tile + 1024;
-      case kDkv:  // K, V, two Q and two dO stages, two of lse and delta
+      case kDkv:    // K, V, two Q and two dO stages, two of lse and delta
+      case kFused:  // the same; dS^T's halves go over a Q and a dO stage
         return 6 * tile + 4 * kTile * sizeof(float) + 1024;
-      default:
-        break;
     }
   }
   const size_t tile = (size_t)kTile * (D + 1), score = (size_t)kTile * kSS;
@@ -1308,11 +1581,26 @@ cudaError_t launch(Kernel which, const Args& a) {
       break;
     }
     case kFused: {
-      auto kern = flash_bwd_fused_kernel<T, D>;
-      if ((e = prepare(kern, smem)) != cudaSuccess) return e;
-      kern<<<dim3(nq, a.BH), kThreads, smem, a.stream>>>(
-          q, k, v, dout, lse, delta, static_cast<T*>(a.d1),
-          static_cast<float*>(a.d2), static_cast<float*>(a.d3), a.sh);
+      const int bhkv = a.BH / a.sh.g;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        auto kern = tc::flash_bwd_fused_wgmma_kernel<D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(bhkv, nk), tc::kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, a.acc, static_cast<T*>(a.d2),
+            static_cast<T*>(a.d3), a.sh);
+      } else {
+        auto kern = flash_bwd_fused_kernel<T, D>;
+        if ((e = prepare(kern, smem)) != cudaSuccess) return e;
+        kern<<<dim3(nk, bhkv), kThreads, smem, a.stream>>>(
+            q, k, v, dout, lse, delta, a.acc, static_cast<T*>(a.d2),
+            static_cast<T*>(a.d3), a.sh);
+      }
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      const size_t n4 = (size_t)a.BH * a.sh.Lq * D / 4;
+      const int blocks = (int)(n4 < 256 * 4096 ? (n4 + 255) / 256 : 4096);
+      dq_finish_kernel<T><<<blocks, 256, 0, a.stream>>>(
+          reinterpret_cast<const float4*>(a.acc), static_cast<T*>(a.d1), n4,
+          a.sh.scale);
       break;
     }
   }
@@ -1351,7 +1639,7 @@ Args make_args(int BH, int g, int Lq, int Lk, float scale, int causal,
 }  // namespace
 
 // All tensors contiguous on the current device; q, k, v, do, o, dq, dk, dv
-// of one type (f32 or bf16, is_bf16); lse, delta and K4's dk/dv sums f32.
+// of one type (f32 or bf16, is_bf16); lse, delta and K4's dq sum f32.
 // q (BH, Lq, D); k, v (BH/g, Lk, D); lse, delta (BH, Lq). window <= 0 means
 // no window. Each returns the CUDA error code of its launch (0 on success).
 
@@ -1390,17 +1678,18 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run(kDkv, D, is_bf16, a);
 }
 
-// K4: dq (BH, Lq, D); dk, dv per q head added into the ZEROED f32
-// (BH, Lk, D) sums dkp, dvp.
+// K4: dq (BH, Lq, D); dk, dv summed over the GQA group, (BH/g, Lk, D).
+// dqa is an f32 (BH, Lq, D) scratch, ZEROED by the caller: the fused
+// kernel adds into it, then a second launch writes dq from it.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, void* dq, void* dkp,
-                               void* dvp, int BH, int g, int Lq, int Lk,
-                               int D, float scale, int causal, int window,
-                               int is_bf16, void* stream) {
+                               const void* delta, void* dqa, void* dq,
+                               void* dk, void* dv, int BH, int g, int Lq,
+                               int Lk, int D, float scale, int causal,
+                               int window, int is_bf16, void* stream) {
   Args a = make_args(BH, g, Lq, Lk, scale, causal, window, stream);
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta;
-  a.d1 = dq, a.d2 = dkp, a.d3 = dvp;
+  a.acc = static_cast<float*>(dqa), a.d1 = dq, a.d2 = dk, a.d3 = dv;
   return run(kFused, D, is_bf16, a);
 }
 

@@ -27,8 +27,9 @@ a combine kernel that folds the splits' partial softmax states.
 :func:`split_plan` picks the chunk on the host from the shapes alone,
 so a call never syncs and stays capturable in a CUDA graph; the wrapper
 allocates the partials with ``torch.empty``. K6 runs the same kernel
-with one split. The source note says how the design meets the bound
-and what is left for later (K6's split over pages, TMA).
+and combine over :func:`paged_split_plan`'s chunks, K5's cut to whole
+pages where a page divides them. The source note says how the design
+meets the bound and what is left for later (TMA).
 
 :func:`quantized_decode_attention` runs the plain versions only for
 tensors on the CPU; for CUDA tensors it launches a kernel or raises.
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -55,6 +57,7 @@ __all__ = [
     "paged_block_viable",
     "paged_decode_attention_ref",
     "paged_ring_view",
+    "paged_split_plan",
     "quantized_decode_attention",
     "quantized_decode_attention_ref",
     "sm_count",
@@ -158,6 +161,27 @@ def split_plan(B: int, Hkv: int, L: int, block_k: int | None = None, *,
                   default=seg)
     chunk = per * _TILE
     return chunk, -(-int(L) // chunk)
+
+
+def paged_split_plan(B: int, Hkv: int, W: int, P: int, *,
+                     n_sm: int) -> tuple[int, int]:
+    """K6's split of the ring's ``W = max_pages * P`` slots: ``(chunk,
+    n_split)``, from the shapes alone, as :func:`split_plan`.
+
+    It starts from K5's chunk at the same ``(B, Hkv, W)`` and card and
+    rounds it up to whole units of ``lcm(P, 32)`` slots (whole pages and
+    whole 32-key tiles) where that at most doubles it, so no split reads
+    part of a page and the grid never holds more blocks than K5's (one
+    block fills an SM: a second wave of blocks costs as much as the
+    first). Otherwise (pages longer than twice the chunk) the chunk stays
+    K5's, a whole number of tiles, and a page spans splits, which the
+    kernel's page-table lookup per key allows."""
+    chunk, _ = split_plan(B, Hkv, W, n_sm=n_sm)
+    unit = math.lcm(int(P), _TILE)
+    whole = -(-chunk // unit) * unit
+    if whole <= 2 * chunk:
+        chunk = whole
+    return chunk, -(-int(W) // chunk)
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
@@ -281,7 +305,7 @@ def _kernel_lib():
         k5.argtypes = [vp] * 10 + [ci] * 5 + [cf] + [ci] * 5 + [vp]
         k5.restype = ci
         k6 = lib.k6_paged_decode_attention_int8
-        k6.argtypes = [vp] * 8 + [ci] * 7 + [cf, ci, vp]
+        k6.argtypes = [vp] * 11 + [ci] * 7 + [cf] + [ci] * 3 + [vp]
         k6.restype = ci
         k7 = lib.k7_decode_attention_attrib
         k7.argtypes = [ci] * 2 + [vp] * 9 + [ci] * 5 + [cf] + [ci] * 3 + [vp]
@@ -395,12 +419,15 @@ def _paged(q, pool, pos, scale, page_table, P: int):
     qc = q.contiguous()
     posv = _pos_vector(pos, B, q.device)
     out = torch.empty_like(qc)
+    chunk, n_split = paged_split_plan(B, Hkv, max_pages * P, P,
+                                      n_sm=sm_count(q.device))
+    (acc, m, l), _keep = _split_scratch(q, B, Hkv, H // Hkv, D, n_split)
     lib = _kernel_lib()
     err = lib.k6_paged_decode_attention_int8(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), posv.data_ptr(), page_table.data_ptr(),
-        out.data_ptr(), B, max_pages, P, n_pages, Hkv, H // Hkv, D,
-        float(scale), int(q.dtype == torch.bfloat16),
+        out.data_ptr(), m, l, acc, B, max_pages, P, n_pages, Hkv, H // Hkv,
+        D, float(scale), chunk, n_split, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _launched(lib, err, "paged_decode_attention")

@@ -10,34 +10,42 @@ TPU kernels become ``csrc/flash_attention.cu``:
   query tile against the band's key tiles;
 * ``_bwd_dkv_kernel`` (K3): dk, dv per q head, one key tile against the
   band's query tiles;
-* ``_bwd_fused_kernel`` (K4): dq plus f32 dk/dv accumulated over the
-  query tiles in one sweep.
+* ``_bwd_fused_kernel`` (K4): dq, dk and dv in one sweep that forms S
+  and dP once per tile pair.
 
-bf16 inputs to K1, K2 and K3 run on Hopper's tensor cores: ``wgmma``
-from swizzled bf16 tiles in shared memory, cp.async double-buffered
-streams, one warpgroup per 64-row tile (``tc::flash_fwd_wgmma_kernel``,
-``tc::flash_bwd_dq_wgmma_kernel``, ``tc::flash_bwd_dkv_wgmma_kernel``).
-They keep the reference's precision: Q.K^T and dO.V^T from exact bf16
-products summed in f32, and every product that takes P or dS (P.V,
-dS.K, P^T.dO, dS^T.Q) runs on its two bf16 halves, hi + lo within 2^-17
-of the f32 value. What bounds them is operations; the halves add 1.5x
-(K1, K3) and 4/3 (K2) to the tensor work. At the training shape (bf16,
-B=8, L=2048, H=8, D=128, causal) on an H100 80GB HBM3 at 700 W they
-take 281-295, 323-357 and 482-491 us (``chip_smoke.py`` phase 16,
+bf16 inputs run on Hopper's tensor cores: ``wgmma`` from swizzled bf16
+tiles in shared memory, cp.async double-buffered streams, one
+warpgroup per 64-row tile (``tc::flash_fwd_wgmma_kernel``,
+``tc::flash_bwd_dq_wgmma_kernel``, ``tc::flash_bwd_dkv_wgmma_kernel``,
+``tc::flash_bwd_fused_wgmma_kernel``). They keep the reference's
+precision: Q.K^T and dO.V^T from exact bf16 products summed in f32, and
+every product that takes P or dS (P.V, dS.K, P^T.dO, dS^T.Q) runs on
+its two bf16 halves, hi + lo within 2^-17 of the f32 value. What bounds
+them is operations; the halves add 1.5x (K1, K3), 4/3 (K2) and 1.6x
+(K4) to the tensor work. At the training shape (bf16, B=8, L=2048, H=8,
+D=128, causal) on an H100 80GB HBM3 at 700 W, K1-K3 take 281-295,
+323-357 and 482-491 us (``chip_smoke.py`` phase 16,
 ``bench/flash_bwd_ab.py``), against 5197, 5956 and 6986 us for the f32
-FMA kernels they replaced there. f32 inputs, and K4, keep the FMA
+FMA kernels they replaced there; K4 854-872 us (9004-9102 us for the
+FMA kernel it replaced), which is not faster than K2 and K3 together
+(797-815 us), so ``bwd_impl="auto"`` stays split. f32 inputs keep FMA
 kernels.
 
-As in the reference, ``delta = rowsum(dO * O)``, the GQA group sum and
-the reduction of K4's f32 sums stay outside the kernels, in PyTorch.
+K4 is key-major, as FlashAttention-2 and -3 run the backward: a block
+holds one key tile's dk and dv in registers across the q heads of its
+kv head (so the GQA sum is in registers, and dk, dv come out per kv
+head) and adds each tile pair's dq contribution into an f32 ``(B*H,
+Lq, D)`` sum with atomics, which a second launch scales and casts to
+dq. The reference's ``(B*H, nq, Lk, D)`` f32 partials, which made its
+fused kernel the slower one on its chip, do not exist here.
+
+As in the reference, ``delta = rowsum(dO * O)`` and the split
+backward's GQA group sum stay outside the kernels, in PyTorch.
 
 Not ported: the TPU's block picking and VMEM guard (``_pick_block``,
 ``_check_vmem``, ``_grid_params``) and ``interpret``. ``block_q`` and
 ``block_k`` are accepted for the reference's signature; the CUDA tiles
-are the kernels' own (64 x 64). K4 adds its per-tile dk/dv
-contributions into one f32 ``(B*H, Lk, D)`` sum with atomics instead of
-writing the reference's ``(B*H, nq, Lk, D)`` partials, so its partial
-memory does not grow with the number of query tiles.
+are the kernels' own (64 x 64).
 
 The functions below run the plain versions only for tensors on the
 CPU; for CUDA tensors they launch a kernel or raise. ``LAUNCHES``
@@ -124,14 +132,14 @@ def _bwd_dkv_ref(q3, k3, v3, do3, lse, delta, scale, causal, window, g):
 
 
 def _bwd_fused_ref(q3, k3, v3, do3, lse, delta, scale, causal, window, g):
-    """Plain version of K4: dq in q's dtype and the f32 dk, dv sums
-    over every query, per q head (B*H, Lk, D)."""
+    """Plain version of K4: dq in q's dtype; dk, dv summed over the
+    GQA group in f32, (B*Hkv, Lk, D) in k's and v's dtypes."""
     p, ds = _probs_and_ds(q3, k3, v3, do3, lse, delta, scale, causal,
                           window, g)
     dq = (torch.matmul(ds, _kv_rows(k3, g)) * scale).to(q3.dtype)
     dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale
     dv = torch.matmul(p.transpose(1, 2), do3.float())
-    return dq, dk, dv
+    return dq, _group_sum(dk, g, k3.dtype), _group_sum(dv, g, v3.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +155,7 @@ def _kernel_lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [ci] * 5 + [cf] + [ci] * 3 + [vp]
         for fn, n_ptr in ((lib.flash_fwd, 5), (lib.flash_bwd_dq, 7),
-                          (lib.flash_bwd_dkv, 8), (lib.flash_bwd_fused, 9)):
+                          (lib.flash_bwd_dkv, 8), (lib.flash_bwd_fused, 10)):
             fn.argtypes = [vp] * n_ptr + tail
             fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
@@ -267,23 +275,24 @@ def _bwd_dkv(q3, k3, v3, do3, lse, delta, scale, causal, window, g):
     return dkq, dvq
 
 
-def _bwd_fused_sums(q3, k3, v3, do3, lse, delta, scale, causal, window, g):
-    """K4: dq in q's dtype and the f32 per-q-head dk, dv sums
-    (B*H, Lk, D)."""
+def _bwd_fused_grads(q3, k3, v3, do3, lse, delta, scale, causal, window,
+                     g):
+    """K4: dq (B*H, Lq, D) in q's dtype; dk, dv summed over the GQA
+    group, (B*Hkv, Lk, D) in k's and v's dtypes."""
     if not _device_route(q3):
         return _bwd_fused_ref(q3, k3, v3, do3, lse, delta, scale, causal,
                               window, g)
     BH, Lq, Lk, D = _check_kernel_inputs(
         q3, k3, g, _bwd_check(q3, k3, v3, do3, lse, delta, g))
+    # the kernel adds into the f32 dq sum: zeroed here, never inside it
+    dqa = torch.zeros((BH, Lq, D), dtype=torch.float32, device=q3.device)
     dq = torch.empty_like(q3)
-    # the kernel adds into these: zeroed here, never inside it
-    dkp = torch.zeros((BH, Lk, D), dtype=torch.float32, device=q3.device)
-    dvp = torch.zeros_like(dkp)
+    dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     _launch("flash_bwd_fused", [t.data_ptr() for t in
-                                (q3, k3, v3, do3, lse, delta, dq, dkp,
-                                 dvp)],
+                                (q3, k3, v3, do3, lse, delta, dqa, dq, dk,
+                                 dv)],
             q3, g, Lq, Lk, D, scale, causal, window)
-    return dq, dkp, dvp
+    return dq, dk, dv
 
 
 def _delta(do3, o3):
@@ -312,11 +321,10 @@ def _bwd(q3, k3, v3, o3, lse, do3, scale, causal, window, g):
 
 
 def _bwd_fused(q3, k3, v3, o3, lse, do3, scale, causal, window, g):
-    """Fused backward: K4 for dq and the f32 per-q-head dk/dv sums,
-    group summed and cast outside. Returns (dq, dk, dv)."""
-    dq, dkp, dvp = _bwd_fused_sums(q3, k3, v3, do3, lse, _delta(do3, o3),
-                                   scale, causal, window, g)
-    return dq, _group_sum(dkp, g, k3.dtype), _group_sum(dvp, g, v3.dtype)
+    """Fused backward: K4 alone, dk and dv group summed inside it.
+    Returns (dq, dk, dv)."""
+    return _bwd_fused_grads(q3, k3, v3, do3, lse, _delta(do3, o3), scale,
+                            causal, window, g)
 
 
 # --------------------------------------------------------------------------
@@ -381,7 +389,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
             f"bwd_impl must be 'auto'|'split'|'fused', got {bwd_impl!r}"
         )
     # "auto" is the split backward, as in the reference (whose fused
-    # kernel measured slower on its chip; the H100 times are in PERF.md)
+    # kernel measured slower on its chip). On an H100 the key-major K4
+    # ties the split pair at L=2048 and loses at L=4096 (PERF.md §5)
     fused_bwd = bwd_impl == "fused"
 
     def to3(x, L, h):

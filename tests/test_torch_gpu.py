@@ -152,6 +152,8 @@ def test_paged_kernel_matches_plain_version(dtype, P, W, Hq, Hkv):
     B, D = 8, 128
     pool, pt, pos = _paged_case(B, W, P, Hkv, D, gen, dev)
     q = torch.randn(B, 1, Hq, D, generator=gen).to(dt).to(dev)
+    # K6 splits the ring at these shapes, the combine folds the splits
+    assert da.paged_split_plan(B, Hkv, W, P, n_sm=da.sm_count(dev))[1] > 1
     got = da.quantized_decode_attention(q, pool, pos, D ** -0.5, ring=True,
                                         page_table=pt, page_tokens=P)
     want = da.paged_decode_attention_ref(q.float(), pool, pos, D ** -0.5,
@@ -289,7 +291,7 @@ def test_flash_kernels_match_plain_versions(dtype, B, L, H, Hkv, D, causal,
     for got, want, name in zip(fa._bwd_dkv(*args), fa._bwd_dkv_ref(*args_ref),
                                ("K3 dk", "K3 dv")):
         _close(got, want, 5e-5, name)
-    for got, want, name in zip(fa._bwd_fused_sums(*args),
+    for got, want, name in zip(fa._bwd_fused_grads(*args),
                                fa._bwd_fused_ref(*args_ref),
                                ("K4 dq", "K4 dk", "K4 dv")):
         _close(got, want, 5e-5, name)
@@ -551,6 +553,40 @@ def test_kernel_split_captures_into_a_graph():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = da.quantized_decode_attention(q, cache, pos, 0.1)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert da.LAUNCHES == before
+
+
+def test_paged_kernel_split_captures_into_a_graph():
+    """One K6 call at the serving shape (8 splits of 128 ring slots),
+    its scratch allocated inside the capture: replays equal the eager
+    output, and neither the capture nor the replays count as
+    launches."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(9)
+    pool, pt, pos = _paged_case(8, 1024, 64, 2, 128, gen, dev)
+    q = torch.randn(8, 1, 8, 128, generator=gen).to(torch.bfloat16).to(dev)
+
+    def call():
+        return da.quantized_decode_attention(q, pool, pos, 0.1, ring=True,
+                                             page_table=pt, page_tokens=64)
+
+    assert da.paged_split_plan(8, 2, 1024, 64,
+                               n_sm=da.sm_count(dev))[1] > 1
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(da.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
     for _ in range(2):
         got.zero_()
         graph.replay()

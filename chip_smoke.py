@@ -113,9 +113,30 @@ those paths against its plain PyTorch version:
 21. speculative decoding: in f32 both drafters' streams equal
     ``generate_dense``'s (prompt 512, n_new 64); in bf16 at
     ``bench_spec_decode``'s shape (prompt 2048, n_new 256, k 4) the
-    reference's keys for both drafters.
+    reference's keys for both drafters;
+22. the pool on CUDA streams (``pool.py`` over ``backends/cuda.py``): a
+    kmap2-style run, 8 workers, 100 epochs, ``nwait=6``, workers 3 and 6
+    slowed by ``delay_fn``: every result on the card echoes its epoch,
+    the stale workers are re-tasked; a CUDA sendbuf written right after
+    ``asyncmap`` returns does not reach a worker still out; a functional
+    ``nwait`` waits for a slowed worker; ``waitall`` quiesces;
+23. BASELINE config 2, uncoded GEMM 4096^3 f32 over 4 workers
+    (``bench/coded_gemm.py``): ms/epoch, MFU against a raw
+    ``torch.matmul``, the error against it;
+24. config 3, (8, 6) MDS-coded GEMM at 8192^3: ``"ready"`` and
+    ``"enqueue"`` at ``"highest"`` and ``"default"`` (ms/epoch, MFU, the
+    error, the products' and the decode's own times), then the per-worker
+    rung with workers 2 and 5 delayed 0.5 s: every epoch returns at k
+    while they are out, and ``vs_baseline`` from a ``nwait=n`` epoch;
+25. config 4, LT-coded GEMM at 16384^2 over 16 workers, workers 3 and 11
+    delayed 0.5 s: decoded on the device, checked against the host peel
+    of the same epoch;
+26. config 5, ``CodedSGD.synthetic`` at 1e6 x 1024, 16 workers, s=2,
+    workers 2 and 9 delayed 0.5 s, 5 epochs: the loss falls, and one
+    coded step equals the uncoded full-batch step from the same ``w``.
 
-Prints a ``{"kernels": [...]}`` JSON line and, last,
+Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
+``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -128,12 +149,16 @@ import dataclasses
 import json
 import re
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
+from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import flash_bounds
@@ -1783,6 +1808,172 @@ def phase_speculative(dev):
     return rep
 
 
+# phase 22: a kmap2-style pool run on CUDA streams (test/kmap2.jl:32-54
+# at n=8 with nwait=6); workers 3 and 6 stall 20 ms before every task
+POOL_N, POOL_EPOCHS, POOL_NWAIT = 8, 100, 6
+POOL_SLOW, POOL_DELAY_S = (3, 6), 0.02
+# phases 24-26: the injected delays are cut from the reference benches'
+# 1-5 s to 0.5 s and config 5's epochs from 10 to 5 (PERF.md §4); no
+# shape is cut
+CODED_DELAY_S, CONFIG5_EPOCHS = 0.5, 5
+
+
+def _pool_kmap2(dev) -> dict:
+    tasks = {}  # worker -> tasks it ran (the reference worker's t)
+
+    def work(i, payload, epoch):
+        tasks[i] = tasks.get(i, 0) + 1
+        z = payload[:1] * 0
+        return torch.cat([z + (i + 1), z + tasks[i], payload[:1]])
+
+    backend = CUDADeviceBackend(
+        work, POOL_N, devices=[dev],
+        delay_fn=lambda i, e: POOL_DELAY_S if i in POOL_SLOW else 0.0)
+    try:
+        pool = AsyncPool(POOL_N)
+        sendbuf = np.zeros(1)
+        recvbuf = np.zeros(3 * POOL_N)
+        stale = 0
+        t0 = time.perf_counter()
+        for epoch in range(1, POOL_EPOCHS + 1):
+            sendbuf[0] = epoch
+            repochs = asyncmap(pool, sendbuf, backend, recvbuf,
+                               nwait=POOL_NWAIT)
+            chunks = recvbuf.reshape(POOL_N, 3)
+            heard = np.flatnonzero(repochs > 0)
+            _require(all(chunks[i][0] == i + 1 and chunks[i][2] == repochs[i]
+                         for i in heard),
+                     f"epoch {epoch}: an echo disagrees with repochs")
+            _require(int((repochs == epoch).sum()) >= POOL_NWAIT,
+                     f"epoch {epoch}: fewer than {POOL_NWAIT} fresh")
+            stale += int((repochs[list(POOL_SLOW)] < epoch).sum())
+        ms = (time.perf_counter() - t0) * 1e3 / POOL_EPOCHS
+        _require(all(r is not None and r.device.type == "cuda"
+                     for r in pool.results), "a result is not on the card")
+        slow_tasks = [tasks[i] for i in POOL_SLOW]
+        # stale at most epochs, and re-tasked on every stale arrival
+        _require(stale > 0 and all(1 < t < POOL_EPOCHS for t in slow_tasks),
+                 f"slowed workers ran {slow_tasks} tasks, stale {stale}")
+        waitall(pool, backend, timeout=30)
+        _require(not pool.active.any(), "waitall left workers active")
+        slow = POOL_SLOW[0]
+        for epoch in range(POOL_EPOCHS + 1, POOL_EPOCHS + 11):
+            repochs = asyncmap(pool, sendbuf, backend, epoch=epoch,
+                               nwait=lambda e, r: r[slow] == e)
+            _require(repochs[slow] == epoch,
+                     "the functional nwait returned before its worker")
+        waitall(pool, backend, timeout=30)
+        _require(not pool.active.any(), "waitall left workers active")
+        return {"ms_per_epoch": ms, "stale_arrivals_of_slowed": stale,
+                "tasks_of_slowed": slow_tasks,
+                "tasks_of_fast": tasks[0]}
+    finally:
+        backend.shutdown()
+
+
+def _pool_cuda_snapshot(dev) -> None:
+    """A 64 MB CUDA sendbuf overwritten on the current stream right after
+    asyncmap returns: the worker still out (gated) reads its own copy."""
+    gate = threading.Event()
+
+    def delay(i, epoch):
+        if i == 1 and not gate.wait(60):
+            raise TimeoutError("gate never opened")
+        return 0.0
+
+    backend = CUDADeviceBackend(lambda i, p, e: p[-2:].clone(), 2,
+                                devices=[dev], delay_fn=delay)
+    try:
+        pool = AsyncPool(2)
+        big = torch.ones(1 << 24, device=dev)
+        asyncmap(pool, big, backend, nwait=1)
+        _require(bool(pool.active[1]), "the gated worker was not out")
+        big.fill_(99.0)
+        gate.set()
+        waitall(pool, backend, timeout=60)
+        got = pool.results[1].cpu()
+        _require(torch.equal(got, torch.ones(2)),
+                 f"a write after asyncmap reached a worker's copy: {got}")
+    finally:
+        backend.shutdown()
+
+
+def phase_pool_streams(dev) -> dict:
+    rep = _pool_kmap2(dev)
+    _pool_cuda_snapshot(dev)
+    print(f"  kmap2 on streams: {POOL_EPOCHS} epochs, {rep['ms_per_epoch']:.3f}"
+          f" ms/epoch, slowed workers ran {rep['tasks_of_slowed']} tasks "
+          f"(stale arrivals {rep['stale_arrivals_of_slowed']}), a fast one "
+          f"{rep['tasks_of_fast']}; functional nwait, waitall, CUDA sendbuf "
+          "snapshot ok")
+    return rep
+
+
+def _coded_line(label, r) -> None:
+    print(f"  {label}: {r['ms_per_epoch']:.3f} ms/epoch, MFU "
+          f"{r['mfu_vs_raw_matmul']:.3f} of a raw torch.matmul, rel err "
+          f"{r['rel_err']:.2e}" + (f", decode {r['decode_ms']:.3f} ms, "
+                                    f"products {r['products_ms']:.3f} ms"
+                                    if "decode_ms" in r else ""))
+
+
+def phase_coded(dev) -> dict:
+    """Configs 2-5 through bench/coded_gemm.py at their full shapes."""
+    out = {}
+    print("[23] config 2: uncoded GEMM 4096^3 f32, 4 workers, nwait=n")
+    r = coded_bench.config2(dev)
+    _coded_line("config 2", r)
+    _require(r["ok"], f"config 2 error {r['rel_err']}")
+    out["config2"] = r
+    torch.cuda.empty_cache()
+    print("[24] config 3: (8, 6) MDS-coded GEMM 8192^3 (A padded to 8196 "
+          "rows), nwait=6")
+    r = coded_bench.config3(dev, delay_s=CODED_DELAY_S)
+    for name, rung in r["rungs"].items():
+        _coded_line(name, rung)
+    st = r["straggler_rung"]
+    print(f"  per-worker, workers {st['stragglers']} delayed "
+          f"{st['delay_s']} s: {st['ms_per_epoch_median']:.3f} ms/epoch "
+          f"(median), decoded from {st['decoded_from']}, out at every "
+          f"return {st['stragglers_out_at_return']}; nwait=n epoch "
+          f"{st['nwait_n_epoch_ms']:.1f} ms, vs_baseline "
+          f"{st['vs_baseline']:.2f}")
+    _require(r["ok"], "config 3 failed: " + json.dumps(
+        {k: v.get("ok") for k, v in r["rungs"].items()}
+        | {"straggler": st["ok"]}))
+    out["config3"] = r
+    torch.cuda.empty_cache()
+    print("[25] config 4: LT-coded GEMM 16384^2, 16 workers, k=8, workers "
+          f"3 and 11 delayed {CODED_DELAY_S} s")
+    r = coded_bench.config4(dev, delay_s=CODED_DELAY_S, epochs=2, chains=2,
+                            raw_reps=2)
+    _coded_line("config 4", r)
+    print(f"  fresh at return {r['fresh_at_return']}, host peel vs device "
+          f"{r['host_peel_vs_device']:.2e} ({r['host_peel_s']:.2f} s), "
+          f"nwait=n epoch {r['nwait_n_epoch_ms']:.1f} ms, vs_baseline "
+          f"{r['vs_baseline']:.2f}")
+    _require(r["ok"], f"config 4 failed: err {r['rel_err']}, host vs "
+                      f"device {r['host_peel_vs_device']}")
+    out["config4"] = r
+    torch.cuda.empty_cache()
+    print("[26] config 5: gradient-coded SGD, synthetic 1e6 x 1024, 16 "
+          f"workers, s=2, workers 2 and 9 delayed {CODED_DELAY_S} s")
+    r = coded_bench.config5(dev, delay_s=CODED_DELAY_S,
+                            epochs=CONFIG5_EPOCHS)
+    print(f"  {r['ms_per_epoch']:.3f} ms/epoch (bound {r['bound_ms']:.3f} "
+          f"ms), loss {r['loss_after_warmup']:.5f} -> "
+          f"{r['loss_after_epochs']:.5f}, coded step vs full batch "
+          f"{r['coded_step_vs_full_batch']:.2e}, nwait=n epoch "
+          f"{r['nwait_n_epoch_ms']:.1f} ms, vs_baseline "
+          f"{r['vs_baseline']:.2f}")
+    _require(r["ok"], "config 5 failed: " + json.dumps(
+        {k: r[k] for k in ("loss_after_warmup", "loss_after_epochs",
+                           "coded_step_vs_full_batch")}))
+    out["config5"] = r
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -1924,6 +2115,11 @@ def main() -> int:
     spec = phase_speculative(dev)
     torch.cuda.empty_cache()
 
+    print(f"[22] the pool on CUDA streams: {POOL_N} workers, "
+          f"{POOL_EPOCHS} epochs, nwait={POOL_NWAIT}, workers {POOL_SLOW} "
+          f"slowed {POOL_DELAY_S} s")
+    coded = {"pool": phase_pool_streams(dev), **phase_coded(dev)}
+
     # K5's row: the serving shape's time (phase 6), with the long-context
     # shape's beside it (phase 20: graph replays; SDPA at the same B)
     tim5["at_16k_ms"] = {f"B={B}": {"ms": r["kernel_full_ms"],
@@ -1960,6 +2156,7 @@ def main() -> int:
     })
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
+    print(json.dumps({"coded": coded, "card": smi}))
     print(json.dumps({"serving_bf16": serve,
                       "paged_serving_bf16": serve_paged,
                       "train_bf16": train,

@@ -1,2 +1,4 @@
-"""Kernels of the port: each hand-written CUDA kernel beside its plain
-PyTorch version (``csrc/`` holds the sources, ``_build`` builds them)."""
+"""Device operations of the port: the hand-written CUDA kernels beside
+their plain PyTorch versions (``csrc/`` holds the sources, ``_build``
+builds them), and the coded-computation layer over the pool (GEMM, MDS
+and LT codes, gradient codes), which runs plain PyTorch products."""

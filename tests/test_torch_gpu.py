@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions, and the routes that launch them: the decode kernels (dense K5
 and paged K6) with the serving scheduler, and the flash-attention
-kernels (K1-K4) with the train step. Every test here is ``gpu``-marked
-and skips without a card (the kernels have no CPU mode). This file
+kernels (K1-K4) with the train step; and the pool on CUDA streams with
+the coded GEMM over it (snapshots, stream ordering, bf16 bytes). Every
+test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -612,3 +613,116 @@ def test_flash_fwd_bf16_at_the_prefill_shapes(L):
                                      128 ** -0.5, True, None, 1)
         _close(o[h:h + 1], o_ref, 2e-5, f"K1 o head {h}")
         _close(lse[h:h + 1], lse_ref, 2e-5, f"K1 lse head {h}")
+
+
+# -- the pool on CUDA streams and the coded GEMM (backends/cuda.py,
+# ops/coded_gemm.py): f32 products within 1e-5 of max|C| of the f32
+# reference product (TF32 off); a bf16 recvbuf holds the exact bits.
+
+
+def test_cuda_sendbuf_is_snapshot_before_asyncmap_returns():
+    """A worker still out (gated) reads its own copy of a CUDA sendbuf
+    that the caller overwrites right after asyncmap returns."""
+    import threading
+
+    from mpistragglers_jl_tpu_torch import (AsyncPool, CUDADeviceBackend,
+                                            asyncmap, waitall)
+
+    dev = _card()
+    gate = threading.Event()
+
+    def delay(i, epoch):
+        if i == 1 and not gate.wait(60):
+            raise TimeoutError("gate never opened")
+        return 0.0
+
+    backend = CUDADeviceBackend(lambda i, p, e: p[-4:].clone(), 2,
+                                devices=[dev], delay_fn=delay)
+    try:
+        pool = AsyncPool(2)
+        buf = torch.ones(1 << 24, device=dev)
+        asyncmap(pool, buf, backend, nwait=1)
+        assert pool.active[1]
+        buf.fill_(7.0)
+        gate.set()
+        waitall(pool, backend, timeout=60)
+        assert pool.results[1].device.type == "cuda"
+        assert torch.equal(pool.results[1].cpu(), torch.ones(4))
+    finally:
+        backend.shutdown()
+
+
+def _mats_on(dev, m, c, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(m, c, generator=gen).to(dev),
+            torch.randn(c, d, generator=gen).to(dev))
+
+
+def test_enqueue_results_read_by_a_decode_on_another_stream():
+    """"enqueue" arrival posts completions before the stacked product has
+    run; a decode on another stream orders itself after it."""
+    from mpistragglers_jl_tpu_torch import AsyncPool, CodedGemm, asyncmap
+
+    dev = _card()
+    A, B = _mats_on(dev, 1536, 1024, 2048, 1)
+    want = A @ B
+    cg = CodedGemm(A, 8, 6, devices=[dev], batch=True,
+                   batch_arrival="enqueue")
+    side = torch.cuda.Stream()
+    try:
+        pool = AsyncPool(8)
+        for epoch in range(1, 4):
+            asyncmap(pool, B * epoch, cg.backend, nwait=6)
+            with torch.cuda.stream(side):
+                got = cg.result_device(pool)
+            torch.cuda.current_stream().wait_stream(side)
+            err = (got - want * epoch).abs().max() / (want * epoch).abs().max()
+            assert float(err) <= 1e-5
+    finally:
+        cg.backend.shutdown()
+
+
+def test_bf16_recvbuf_round_trips_bit_exactly_from_the_card():
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, CUDADeviceBackend, asyncmap
+
+    dev = _card()
+    n = 4
+    backend = CUDADeviceBackend(
+        lambda i, p, e: (p / (i + 3)).to(torch.bfloat16), n, devices=[dev])
+    try:
+        pool = AsyncPool(n)
+        payload = torch.linspace(-3.1, 2.9, 257, device=dev)
+        recvbuf = np.zeros(257 * n, dtype=np.uint16)
+        asyncmap(pool, payload, backend, recvbuf, nwait=n)
+        for i in range(n):
+            want = (payload / (i + 3)).to(torch.bfloat16).view(torch.int16)
+            assert recvbuf.reshape(n, 257)[i].tobytes() == \
+                want.cpu().numpy().tobytes()
+    finally:
+        backend.shutdown()
+
+
+@pytest.mark.parametrize("batch", [False, True])
+def test_coded_gemm_on_the_card_equals_its_cpu_result(batch):
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, CodedGemm, asyncmap, waitall
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((1200, 640)).astype(np.float32)
+    B = rng.standard_normal((640, 384)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cg = CodedGemm(A, 8, 6, devices=[d], batch=batch)
+        try:
+            pool = AsyncPool(8)
+            asyncmap(pool, B, cg.backend, nwait=8)
+            out[d.type] = cg.result(pool)
+            waitall(pool, cg.backend)
+        finally:
+            cg.backend.shutdown()
+    scale = np.max(np.abs(out["cpu"]))
+    assert np.max(np.abs(out["cuda"] - out["cpu"])) <= 1e-5 * scale

@@ -30,7 +30,12 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.bench.train_profile",
             "mpistragglers_jl_tpu_torch.bench.decode_kernel_attrib",
             "mpistragglers_jl_tpu_torch.bench.configs",
-            "mpistragglers_jl_tpu_torch.models.speculative"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.models.speculative",
+            "mpistragglers_jl_tpu_torch.pool",
+            "mpistragglers_jl_tpu_torch.backends.cuda",
+            "mpistragglers_jl_tpu_torch.ops.coded_gemm",
+            "mpistragglers_jl_tpu_torch.models.logreg",
+            "mpistragglers_jl_tpu_torch.bench.coded_gemm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

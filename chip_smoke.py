@@ -8,9 +8,13 @@ train step of ``models/transformer.py`` over flash attention) at the
 full width of ``benchmarks/transformer_train_bench.py``, its
 long-context generation (``models/decode.py`` ``generate_dense``) and
 speculative decoding (``models/speculative.py``) at the width of that
-file's decode rungs, and the attribution bench of the decode kernel
-(``bench/decode_kernel_attrib.py``), and holds every CUDA kernel of
-those paths against its plain PyTorch version:
+file's decode rungs, the attribution bench of the decode kernel
+(``bench/decode_kernel_attrib.py``), the pool on CUDA streams with
+BASELINE configs 2-5, the mixture of experts (``models/moe.py``:
+training at ``benchmarks/moe_bench.py``'s width, generation) and
+gradient-coded transformer training over the pool
+(``models/coded_train.py``), and holds every CUDA kernel of those paths
+against its plain PyTorch version:
 
 1. card name and power limit;
 2. build the kernels from the sources in this checkout, one ``nvcc``
@@ -133,10 +137,36 @@ those paths against its plain PyTorch version:
     of the same epoch;
 26. config 5, ``CodedSGD.synthetic`` at 1e6 x 1024, 16 workers, s=2,
     workers 2 and 9 delayed 0.5 s, 5 epochs: the loss falls, and one
-    coded step equals the uncoded full-batch step from the same ``w``.
+    coded step equals the uncoded full-batch step from the same ``w``;
+27. the MoE layer on the card, f32, at the main path's token count
+    (T=16384, D=1024, 4 experts, d_ff 4096) at cf 1.25 and 0.5: the
+    gather form against the one-hot oracle (``switch_route``) and the
+    scatter-add combine; the table, experts and slots bit-equal, y and
+    the gradients of x and the router within their limits (the share
+    used printed), dropped rows exactly zero;
+28. the MoE training main path (``bench/moe_train.py``: bf16, batch 8,
+    sequence 2048, 4 experts at cf 1.25, aux 0.01, SGD lr 1e-3), after
+    its first step's loss and gradients in f32 at batch 2 against the
+    reference attention (phase 13's limits): one warm-up and 5 timed
+    steps between a reset of the counts and a read (K1-K3 8 x 6 each),
+    ms/step, tokens/s, MFU against activated FLOPs, peak memory,
+    ``routing_overhead_share`` against the dense step timed alternately
+    in the same process, drop rates at cf 1.25 and 0.5, aux at init;
+    the 12-step bf16 loss trajectory printed, and the same 12 steps in
+    f32 at batch 2 must fall beyond their noise;
+29. MoE generation parity, f32, full width (phase 18's model with 4
+    experts at cf 4, so nothing drops): as phase 18;
+30. coded transformer training (``bench/coded_train.py``: n=6, s=2,
+    chunks (2, 2049), workers 1 and 4 delayed 0.5 s): first 2 coded
+    epochs in f32 against direct full-batch SGD, each leaf's change
+    within its limit, and a broken control (one fresh worker left out of
+    the decode) that must miss it; then in bf16 3 coded epochs against 3
+    bulk-synchronous ones, the delayed workers out at every coded
+    return, K1-K3 launched at least 8 x 3 x 4 x 3 times.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
-``{"kernels": [...]}`` JSON line and, last,
+``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
+a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -159,8 +189,10 @@ import torch.nn.functional as F
 from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
 from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
+from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
+from mpistragglers_jl_tpu_torch.bench import moe_train as mt
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import flash_bounds
 from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL
 from mpistragglers_jl_tpu_torch.bench.train_profile import (
@@ -169,9 +201,11 @@ from mpistragglers_jl_tpu_torch.bench.train_profile import (
     SEQ,
     TRAIN,
     model_flops_per_step,
+    raw_matmul_tflops,
     train_batch,
 )
 from mpistragglers_jl_tpu_torch.models import decode as td
+from mpistragglers_jl_tpu_torch.models import moe
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.speculative import (
     generate_speculative_dense,
@@ -1063,10 +1097,11 @@ def _leaf_errors(grads, want, relative_norm: bool):
     return out
 
 
-def phase_train_parity_f32(dev) -> None:
+def phase_train_parity_f32(dev, cfg=None) -> None:
     """One SGD step's loss and gradients at full width, batch 2, f32:
-    flash (K1-K3) against the reference attention."""
-    cfg = _train_cfg(torch.float32)
+    flash (K1-K3) against the reference attention (``cfg``: the training
+    main path's by default; phase 28 passes its MoE config)."""
+    cfg = cfg or _train_cfg(torch.float32)
     params = init_params(cfg, seed=0, device=dev)
     inp, tgt = (t[:2] for t in train_batch(cfg.vocab, dev))
     _zero_launches()
@@ -1087,24 +1122,6 @@ def phase_train_parity_f32(dev) -> None:
     _require(launches == {"flash_fwd": want, "flash_bwd_dq": want,
                           "flash_bwd_dkv": want, "flash_bwd_fused": 0},
              f"f32 step launched {launches}")
-
-
-def _raw_matmul_tflops(dev, n=8192, chain=20) -> float:
-    """A chain of dependent bf16 n x n matmuls, timed with CUDA events:
-    the card's raw matmul rate in this call, the MFU denominator."""
-    gen = torch.Generator().manual_seed(12)
-    a = torch.randn(n, n, generator=gen).to(torch.bfloat16).to(dev)
-    b = (torch.randn(n, n, generator=gen) / n ** 0.5).to(
-        torch.bfloat16).to(dev)
-
-    def run(_):
-        u = a
-        for _ in range(chain):
-            u = torch.matmul(u, b)
-        return u
-
-    ms = _time_ms(run, 3, n_warm=1)
-    return 2.0 * n ** 3 * chain / (ms * 1e-3) / 1e12
 
 
 def _attn_grad_errors(grads, want) -> list:
@@ -1262,7 +1279,7 @@ def phase_train_bf16(dev):
                  oracle["ctrl_window_loss_rel"]) > TRAIN_BF16_ORACLE
              and oracle["ctrl_window_attn_grad_rel"] > TRAIN_BF16_ATTN_GRAD,
              f"a broken attention passes the oracle limits: {oracle}")
-    raw = _raw_matmul_tflops(dev)
+    raw = raw_matmul_tflops(dev)
     flops = model_flops_per_step(cfg, BATCH, SEQ)
     rep = {
         "ms_per_step": dt * 1e3,
@@ -1516,13 +1533,14 @@ def _want_launches(launches, k1, k5, what) -> None:
              f"{what} launched {launches}, want K1 {k1}, K5 {k5}")
 
 
-def phase_generate_parity_f32(dev) -> None:
+def phase_generate_parity_f32(dev, cfg=None) -> None:
     """Long-context generation parity at full width, f32, TF32 off: B=4,
     prompt 2048, n_new 32. The int8 streams on the kernel route (AUTO at
     B=4) and the einsum route must be identical; the f32-cache stream
     must be the argmax of forward_dense teacher-forced on prompt +
-    stream, through the reference attention (no K1)."""
-    cfg = TransformerConfig(**DECODE, dtype=torch.float32)
+    stream, through the reference attention (no K1). ``cfg``: the decode
+    rung's model by default; phase 29 passes its MoE config."""
+    cfg = cfg or TransformerConfig(**DECODE, dtype=torch.float32)
     params = init_params(cfg, seed=0, device=dev)
     B, Tp, n_new = GEN_PARITY
     prompt = _prompt(cfg.vocab, B, Tp)
@@ -1816,6 +1834,9 @@ POOL_SLOW, POOL_DELAY_S = (3, 6), 0.02
 # 1-5 s to 0.5 s and config 5's epochs from 10 to 5 (PERF.md §4); no
 # shape is cut
 CODED_DELAY_S, CONFIG5_EPOCHS = 0.5, 5
+# phase 28: timed MoE steps after the warm-up (the reference's chains
+# take 4); phase 30: coded and bulk epochs (bench/coded_train.py)
+MOE_STEPS, CODED_EPOCHS = 5, 3
 
 
 def _pool_kmap2(dev) -> dict:
@@ -1974,6 +1995,189 @@ def phase_coded(dev) -> dict:
     return out
 
 
+# phase 27: the MoE layer at the training main path's token count
+# (bench/moe_train.py's experts: d_model 1024, d_ff 4096, 4 experts),
+# f32 with TF32 off. Dispatch and combine move values exactly (the
+# one-hot oracle's products have one 1 and zeros), so y differs from the
+# oracle's only by the order of the oracle's sums: within 1e-5 of the
+# largest value. The gradients of x and wg sum over seats, tokens and
+# the router's softmax in other orders: within 1e-4 of the largest value
+# (the reference test's bound is 2e-4 on smaller shapes)
+MOE_Y_TOL, MOE_GRAD_TOL = 1e-5, 1e-4
+
+
+def _moe_layer_case(dev, seed=27):
+    """(x (T, D), layer params) on the card: the bench's expert shapes at
+    the main path's T, the router and biases drawn nonzero."""
+    rng = np.random.default_rng(seed)
+    E, D, Fd = mt.MOE["n_experts"], TRAIN["d_model"], TRAIN["d_ff"]
+    mp = moe.init_moe_layer(rng, D, Fd, E, TRAIN["n_layers"], torch.float32)
+    mp["be1"] = torch.from_numpy(rng.standard_normal((E, Fd)) * 0.1).float()
+    mp["be2"] = torch.from_numpy(rng.standard_normal((E, D)) * 0.1).float()
+    x = torch.from_numpy(rng.standard_normal((BATCH * SEQ, D),
+                                             dtype=np.float32))
+    return x.to(dev), {k: v.to(dev) for k, v in mp.items()}
+
+
+def _moe_grads(fn, x, mp, w):
+    """(y, aux, d(sum(y * w))/dx, .../dwg) of ``fn(x, wg) -> (y, aux)``."""
+    xg = x.clone().requires_grad_()
+    wg = mp["wg"].clone().requires_grad_()
+    y, aux = fn(xg, wg)
+    gx, gwg = torch.autograd.grad((y * w).sum(), (xg, wg))
+    return y.detach(), aux.detach(), gx, gwg
+
+
+def _moe_routing_case(dev, cf) -> dict:
+    x, mp = _moe_layer_case(dev)
+    T, D = x.shape
+    E = mp["wg"].shape[1]
+    C = moe._capacity(T, E, cf)
+    w = torch.randn(T, D, generator=torch.Generator().manual_seed(28)).to(dev)
+
+    def gather_form(xg, wg):
+        y, aux = moe.moe_ffn_dense(xg[None], {**mp, "wg": wg}, cf)
+        return y[0], aux
+
+    def one_hot(xg, wg):
+        dispatch, combine, aux = moe.switch_route(xg, wg, C)
+        xe = torch.einsum("td,tec->ecd", xg, dispatch)
+        ye = moe._expert_ffn(xe, mp) + mp["be2"][:, None, :]
+        return torch.einsum("ecd,tec->td", ye, combine), aux
+
+    y, aux, gx, gwg = _moe_grads(gather_form, x, mp, w)
+    y_o, aux_o, gx_o, gwg_o = _moe_grads(one_hot, x, mp, w)
+    with torch.no_grad():
+        table, expert, slot, gate, _ = moe._route_tables(x, mp["wg"], C)
+        dispatch = moe.switch_route(x, mp["wg"], C)[0]
+        occupied = dispatch.sum(0) > 0  # (E, C)
+        tok = torch.arange(T, device=dev, dtype=torch.float32)
+        table_o = torch.where(occupied, torch.einsum(
+            "tec,t->ec", dispatch, tok).round().long(), T)
+        kept = dispatch.sum((1, 2)) > 0
+        expert_o = dispatch.sum(2).argmax(1)
+        slot_o = dispatch.sum(1).argmax(1)
+        ye = moe._expert_ffn(moe._seat_gather(x, table), mp) \
+            + mp["be2"][:, None, :]
+        gate_pad = torch.cat([gate, gate.new_zeros(1)])
+        y_s = moe._scatter_combine(ye * gate_pad[table][..., None], table, T)
+    bit_equal = (torch.equal(table, table_o)
+                 and torch.equal(kept, slot < C)
+                 and torch.equal(expert[kept], expert_o[kept])
+                 and torch.equal(slot[kept], slot_o[kept]))
+    dropped = int((~kept).sum())
+
+    def share(a, b, tol):
+        return ((a - b).abs().max() / b.abs().max()).item() / tol
+
+    rep = {"capacity_factor": cf, "tokens": T, "capacity": C,
+           "dropped": dropped, "routing_bit_equal": bit_equal,
+           "dropped_rows_zero": bool((y[~kept] == 0).all()),
+           "y_share": share(y, y_o, MOE_Y_TOL),
+           "y_scatter_share": share(y, y_s, MOE_Y_TOL),
+           "grad_x_share": share(gx, gx_o, MOE_GRAD_TOL),
+           "grad_wg_share": share(gwg, gwg_o, MOE_GRAD_TOL),
+           "aux": aux.item(), "aux_oracle": aux_o.item()}
+    print(f"  cf {cf}: T={T}, C={C}, {dropped} dropped (rows zero: "
+          f"{rep['dropped_rows_zero']}); table, experts, slots bit-equal "
+          f"{bit_equal}; share of the limit used: y {rep['y_share']:.3f} "
+          f"(scatter-add {rep['y_scatter_share']:.3f}), dx "
+          f"{rep['grad_x_share']:.3f}, dwg {rep['grad_wg_share']:.3f}")
+    _require(bit_equal, f"cf {cf}: the gather form's routing differs from "
+                        "the one-hot oracle's")
+    _require(rep["dropped_rows_zero"], f"cf {cf}: a dropped row is nonzero")
+    _require(aux.item() == aux_o.item(), f"cf {cf}: aux differs")
+    _require(max(rep[k] for k in ("y_share", "y_scatter_share",
+                                  "grad_x_share", "grad_wg_share")) <= 1.0,
+             f"cf {cf}: the gather form disagrees with the oracles: {rep}")
+    return rep
+
+
+def phase_moe_routing(dev) -> dict:
+    rep = {f"cf_{cf}": _moe_routing_case(dev, cf) for cf in (1.25, 0.5)}
+    _require(rep["cf_0.5"]["dropped"] > 0, "cf 0.5 dropped no token")
+    return rep
+
+
+def phase_moe_train(dev) -> dict:
+    """The MoE training main path (bench/moe_train.py), after its first
+    step's loss and gradients in f32 at batch 2 against the reference
+    attention (phase 13's limits)."""
+    print("  f32, batch 2: the first step, flash against reference "
+          "attention")
+    phase_train_parity_f32(dev, mt.moe_config(torch.float32))
+    torch.cuda.empty_cache()
+    r = mt.bench_moe_train(dev, steps=MOE_STEPS, chains=2)
+    launches = r["launches"]
+    steps = r["launch_steps"]
+    want = {"flash_fwd": TRAIN["n_layers"] * steps,
+            "flash_bwd_dq": TRAIN["n_layers"] * steps,
+            "flash_bwd_dkv": TRAIN["n_layers"] * steps,
+            "flash_bwd_fused": 0, K5: 0, K6: 0, K7: 0}
+    print(f"  {steps} steps (1 warm-up, {MOE_STEPS} timed), launches "
+          f"{ {FLASH.get(k, (k,))[0]: v for k, v in launches.items()} }")
+    print(f"  {r['ms_per_step']:.2f} ms/step (dense {r['dense_ms_per_step']:.2f}"
+          f"), {r['tokens_per_s']:.1f} tokens/s, routing_overhead_share "
+          f"{r['routing_overhead_share']:.3f}, MFU (activated) "
+          f"{r['mfu_vs_raw_matmul']:.4f} of a raw bf16 matmul chain at "
+          f"{r['raw_bf16_tflops_per_s']:.1f} TFLOP/s; peak memory "
+          f"{r['peak_mem_gb']:.3f} GB; {r['params_m']:.1f} M params")
+    print(f"  drop rate {r['drop_rate']:.4f} at cf 1.25, "
+          f"{r['drop_rate_at_cf_0.5']:.4f} at cf 0.5; aux at init "
+          f"{r['aux_loss_at_init']:.4f}; trajectory {r['trajectory']} "
+          f"(drop {r['trajectory_drop']:.3e}, noise "
+          f"{r['trajectory_noise_med2nd']:.3e})")
+    _require(launches == want, f"MoE main path launched {launches}, "
+                               f"want {want}")
+    _require(bool(np.isfinite(r["trajectory"]).all()),
+             f"non-finite MoE loss: {r['trajectory']}")
+    # in bf16, lr * g is under half an ulp of nearly every weight (phase
+    # 14), so only the zero-init biases and the f32 router move and the
+    # bf16 trajectory is printed, not held; the same 12 steps in f32 at
+    # batch 2, where every weight moves, must fall beyond their noise
+    cfg = mt.moe_config(torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    inp, tgt = (t[:2] for t in train_batch(cfg.vocab, dev))
+    _, f32 = mt.trajectory(make_train_step(cfg, lr=LR, donate=True),
+                           params, inp, tgt)
+    del params
+    r["f32_batch2"] = f32
+    print(f"  f32, batch 2: trajectory {f32['trajectory']} (drop "
+          f"{f32['trajectory_drop']:.3e}, noise "
+          f"{f32['trajectory_noise_med2nd']:.3e})")
+    _require(f32["trajectory_ok"], "the f32 MoE loss trajectory does not "
+                                   "fall beyond its noise")
+    return r
+
+
+def phase_coded_train(dev) -> dict:
+    """Coded transformer training (bench/coded_train.py): the f32
+    exactness check and its broken control, then the bf16 run."""
+    ex = ct_bench.exactness_f32(dev, delay_s=CODED_DELAY_S)
+    print(f"  f32, {ex['epochs']} coded epochs (fresh {ex['fresh_sets']}) "
+          f"against direct full-batch SGD: worst leaf change "
+          f"{ex['worst_leaf_rel_err']:.3e} relative (limit {ex['tol']:.0e})"
+          f" over {len(ex['leaf_rel_err'])} leaves; control (one fresh "
+          f"worker left out of the decode) {ex['ctrl_best_leaf_rel_err']:.3e}"
+          f"-{ex['ctrl_worst_leaf_rel_err']:.3e}")
+    _require(ex["ok"], f"coded f32 training is not exact: {ex}")
+    torch.cuda.empty_cache()
+    r = ct_bench.bench_coded_train(dev, epochs=CODED_EPOCHS,
+                                   delay_s=CODED_DELAY_S)
+    print(f"  bf16: coded {r['coded_epoch_ms']} ms/epoch (fresh "
+          f"{r['fresh_sets']}, workers {r['stragglers']} out at every "
+          f"return: {r['stragglers_out_at_return']}), bulk "
+          f"{r['bulk_epoch_ms']} ms/epoch, vs_baseline "
+          f"{r['vs_baseline']:.2f}, {r['full_batch_tokens_per_s']:.1f} "
+          f"full-batch tokens/s; traced epoch idle share "
+          f"{r.get('device_idle_share')}; peak {r['peak_mem_gb']:.3f} GB; "
+          f"launches {r['launches']} (at least {r['launches_at_least']})")
+    _require(r["ok"], "coded training failed: " + json.dumps(
+        {k: r[k] for k in ("stragglers_out_at_return", "launches",
+                           "full_batch_loss_after")}))
+    return {"exactness_f32": ex, **r}
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -2120,6 +2324,30 @@ def main() -> int:
           f"slowed {POOL_DELAY_S} s")
     coded = {"pool": phase_pool_streams(dev), **phase_coded(dev)}
 
+    print("[27] MoE routing on the card, f32, T=16384 D=1024 E=4: the "
+          "gather form against the one-hot oracle and the scatter-add "
+          "combine, cf 1.25 and 0.5")
+    moe_routing = phase_moe_routing(dev)
+    torch.cuda.empty_cache()
+
+    print(f"[28] MoE training main path: bf16, batch {BATCH}, L={SEQ}, 4 "
+          f"experts, cf 1.25, aux 0.01, flash attention, SGD lr {LR}")
+    moe_train = phase_moe_train(dev)
+    torch.cuda.empty_cache()
+
+    print("[29] MoE generation parity, f32, full width, 4 experts at cf 4 "
+          "(no drops), B=4, prompt 2048, n_new 32: int8 kernel vs einsum "
+          "route, f32 cache vs teacher-forced forward_dense")
+    phase_generate_parity_f32(dev, TransformerConfig(
+        **DECODE, n_experts=4, capacity_factor=4.0, dtype=torch.float32))
+    torch.cuda.empty_cache()
+
+    print(f"[30] coded transformer training: {ct_bench.N} workers on CUDA "
+          f"streams, s={ct_bench.S}, chunks (2, 2049), workers "
+          f"{ct_bench.STRAGGLERS} delayed {CODED_DELAY_S} s")
+    coded_train = phase_coded_train(dev)
+    torch.cuda.empty_cache()
+
     # K5's row: the serving shape's time (phase 6), with the long-context
     # shape's beside it (phase 20: graph replays; SDPA at the same B)
     tim5["at_16k_ms"] = {f"B={B}": {"ms": r["kernel_full_ms"],
@@ -2165,6 +2393,8 @@ def main() -> int:
                       "speculative_bf16": spec,
                       "build_s": t_build,
                       "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"moe": {"routing": moe_routing, "train": moe_train},
+                      "coded_train": coded_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,6 +10,9 @@ inside it, the kernels per step, the share of device time in the flash
 kernels K1-K4, and the kernels that take the most time. ``--fused``
 traces the fused backward (K4) instead of the split one (K2, K3).
 
+``--moe`` traces the same step with every MLP replaced by
+``bench/moe_train.py``'s 4 experts (cf 1.25, aux 0.01).
+
 ``--pair`` compares the two backwards in one process, in the order
 split, fused, fused, split: each run takes two warm steps, then times
 five untraced steps (host clock around a synchronised loop, and CUDA
@@ -19,6 +22,7 @@ bench's batch and sequence (e.g. batch 4 at sequence 4096 keeps the
 tokens per step).
 
     python -m mpistragglers_jl_tpu_torch.bench.train_profile [--fused]
+        [--moe]
     python -m mpistragglers_jl_tpu_torch.bench.train_profile --pair \
         [--batch 4 --seq 4096]
 """
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import time
 
@@ -72,6 +77,44 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     )
     fwd = cfg.n_layers * per_layer + 2 * B * L * D * V  # + tied head
     return 3.0 * fwd  # fwd + 2x fwd for backward
+
+
+def _free_garbage() -> None:
+    """Collect unreachable objects (a pool backend and its owner hold
+    each other) and return the cached blocks, so a peak-memory reading
+    taken next holds this run's tensors only."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def raw_matmul_tflops(dev, n: int = 8192, chain: int = 20,
+                      reps: int = 3) -> float:
+    """A chain of ``chain`` dependent bf16 n x n matmuls after one
+    warm-up chain, ``reps`` chains timed with CUDA events: the card's
+    raw matmul rate in this process, the MFU denominator."""
+    gen = torch.Generator().manual_seed(12)
+    a = torch.randn(n, n, generator=gen).to(torch.bfloat16).to(dev)
+    b = (torch.randn(n, n, generator=gen) / n ** 0.5).to(
+        torch.bfloat16).to(dev)
+
+    def run():
+        u = a
+        for _ in range(chain):
+            u = torch.matmul(u, b)
+        return u
+
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    return 2.0 * n ** 3 * chain / (ms * 1e-3) / 1e12
 
 
 def train_batch(vocab: int, device, batch: int = BATCH, seq: int = SEQ):
@@ -138,6 +181,8 @@ def main() -> int:
                     help="the fused backward (K4) instead of K2 and K3")
     ap.add_argument("--pair", action="store_true",
                     help="split against fused in one process")
+    ap.add_argument("--moe", action="store_true",
+                    help="the mixture of experts of bench/moe_train.py")
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
     args = ap.parse_args()
@@ -146,6 +191,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    if args.moe:
+        from .moe_train import MOE
+
+        cfg = dataclasses.replace(cfg, **MOE)
     params = init_params(cfg, seed=0, device=dev)
     inp, tgt = train_batch(cfg.vocab, dev, args.batch, args.seq)
     shape = {"batch": args.batch, "seq": args.seq}
@@ -173,7 +222,7 @@ def main() -> int:
     params, loss, rep, prof = _traced_step(step, params, inp, tgt)
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=20))
-    print(json.dumps({"device": name, **shape,
+    print(json.dumps({"device": name, **shape, "moe": args.moe,
                       "bwd": "fused" if args.fused else "split", **rep,
                       "loss": float(loss)}))
     return 0

@@ -2,8 +2,11 @@
 forward, the positional-cache generator (``generate_dense``) and the
 ring-cache generator that is the serving oracle.
 
-Counterpart of ``mpistragglers_jl_tpu/models/decode.py`` (dense FFN,
-single device). Prefill and decode are one incremental forward at two
+Counterpart of ``mpistragglers_jl_tpu/models/decode.py`` (single
+device; with experts, every layer runs ``moe_ffn_dense`` at the capacity
+of the call's own token count, so a config that drops tokens may drop
+differently in prefill than in the full-sequence forward, as in the
+reference). Prefill and decode are one incremental forward at two
 chunk sizes; the O(W) ring cache keeps position ``p`` at slot
 ``p % W`` and slot ``s`` at decode position ``pos`` holds position
 ``kpos(s) = pos - ((pos - s) mod W)``, valid iff ``kpos >= 0``.
@@ -35,6 +38,7 @@ from ..parallel.ring_attention import (
     _group_scores,
     resolve_attention_impl,
 )
+from .moe import moe_ffn_dense
 from .transformer import TransformerConfig, _ln, _mlp, _rope
 
 __all__ = [
@@ -268,8 +272,8 @@ def _ring_cached_attention(q, cache_l, pos, scale, use_kernel=_UNSET):
 def _incremental_layer(x, lp, cache_l, qpos, off: int, cfg, *,
                        chunk_attn, ring=False, decode_kernel=_UNSET):
     """One layer of the incremental forward: write the chunk's K/V at
-    ``off`` (slot ``off % W`` in ring mode) in place, attend, MLP.
-    Returns (x, cache_l)."""
+    ``off`` (slot ``off % W`` in ring mode) in place, attend, MLP (or
+    the experts). Returns (x, cache_l)."""
     h = _ln(x, lp["ln1_s"], lp["ln1_b"])
     q = torch.einsum("bld,dhk->blhk", h, lp["wq"])
     k = torch.einsum("bld,dhk->blhk", h, lp["wk"])
@@ -291,6 +295,8 @@ def _incremental_layer(x, lp, cache_l, qpos, off: int, cfg, *,
                               use_kernel=decode_kernel)
     x = x + torch.einsum("blhk,hkd->bld", o, lp["wo"])
     h2 = _ln(x, lp["ln2_s"], lp["ln2_b"])
+    if cfg.n_experts:
+        return x + moe_ffn_dense(h2, lp, cfg.capacity_factor)[0], cache_l
     return x + _mlp(h2, lp) + lp["b2"], cache_l
 
 

@@ -475,6 +475,11 @@ class ServingScheduler:
                          "flight=, exporter=, trace=)", 9)
         _check_sampling(temperature)
         W = _check_ring_cfg(cfg)
+        if cfg.n_experts:
+            raise ValueError(
+                "serving scheduler covers dense-FFN configs (MoE: see "
+                "make_serving_scan's error note)"
+            )
         if slots < 1 or n_inner < 1:
             raise ValueError("slots and n_inner must be >= 1")
         if prompt_chunk > max_prompt:

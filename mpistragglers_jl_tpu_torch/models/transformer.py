@@ -7,15 +7,17 @@ draws in the same order, so both packages hold identical weights from
 one seed), the JAX-to-torch parameter carry-over, and the LayerNorm,
 RoPE and MLP blocks. Slice 3 adds training on one device:
 ``forward_dense``, ``nll_loss`` and the SGD and optimizer train steps.
-The parameter layout is the reference's nested dict: projections
-``(d_model, heads, head_dim)``, out-projection ``(heads, head_dim,
-d_model)``, tied embedding ``(vocab, d_model)``.
+Slice 9 adds the top-1 mixture of experts (``n_experts > 0``,
+``models/moe.py``) in place of every layer's MLP, with its Switch
+load-balance loss. The parameter layout is the reference's nested dict:
+projections ``(d_model, heads, head_dim)``, out-projection ``(heads,
+head_dim, d_model)``, tied embedding ``(vocab, d_model)``.
 
 The reference trains through one ``shard_map`` program over a
-``("dp", "sp", "tp")`` mesh; on one device (sp = tp = 1) that program is
-``forward_dense`` with the configured per-device attention, which is
-what the port runs. Sharded training is ``ROADMAP.md`` Queue 1 item 18,
-the mixture of experts item 15.
+``("dp", "sp", "tp")`` mesh (``("dp", "ep", "sp", "tp")`` with experts);
+on one device that program is ``forward_dense`` with the configured
+per-device attention and every expert resident, which is what the port
+runs. Sharded training is ``ROADMAP.md`` Queue 1 item 18.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..parallel.ring_attention import resolve_attention_impl
+from .moe import init_moe_layer, moe_ffn_dense
 
 __all__ = [
     "TransformerConfig",
@@ -47,7 +50,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config, dense FFN only. ``attn`` names the
+    """The reference's config. ``attn`` names the
     sharded attention of the reference's mesh program (inert on one
     device, where ``forward_dense`` runs ``attn_impl``: ``"reference"``
     or ``"flash"``). ``flash_bwd`` is the port's own field: the
@@ -67,8 +70,9 @@ class TransformerConfig:
     # sliding window (each position attends the previous attn_window
     # positions); the serving ring cache is this window
     attn_window: int | None = None
-    # the reference's mixture-of-experts fields; n_experts > 0 raises
-    # (ROADMAP.md Queue 1 item 15)
+    # n_experts > 0 replaces every layer's MLP with a top-1-routed
+    # mixture of experts (models/moe.py), all resident on the device;
+    # moe_aux_coef weighs the Switch load-balance loss in the train step
     n_experts: int = 0
     capacity_factor: float = 2.0
     moe_aux_coef: float = 0.0
@@ -85,11 +89,6 @@ class TransformerConfig:
             raise ValueError(
                 'attn_impl="flash" requires attn="ulysses" (ring '
                 "attention has no per-device full-sequence kernel)"
-            )
-        if self.n_experts:
-            raise NotImplementedError(
-                "n_experts > 0 (the mixture of experts, models/moe.py) is "
-                "ROADMAP.md Queue 1 item 15, not yet ported"
             )
         if self.flash_bwd not in ("auto", "split", "fused"):
             raise ValueError(
@@ -130,8 +129,9 @@ class TransformerConfig:
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device=None) -> dict:
     """Random parameters from ``np.random.default_rng(seed)``, drawn
-    in the reference's order (per layer wq, wk, wv, wo, w1, w2; then
-    the embedding) and rounded to ``cfg.dtype`` the same way, so the
+    in the reference's order (per layer wq, wk, wv, wo, then w1, w2 or,
+    with experts, wg, we1, we2; then the embedding) and rounded to
+    ``cfg.dtype`` the same way (the router ``wg`` stays f32), so the
     port and the JAX package hold identical weights from one seed.
     ``device`` defaults to ``cuda``."""
     dev = resolve_device(device)
@@ -162,11 +162,17 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             "wo": sd(H, Dh, D) / depth,
             "ln2_s": const(1.0, D),
             "ln2_b": const(0.0, D),
-            "w1": sd(D, Fd),
-            "b1": const(0.0, Fd),
-            "w2": sd(Fd, D) / depth,
-            "b2": const(0.0, D),
         }
+        if cfg.n_experts:
+            layer.update(init_moe_layer(rng, D, Fd, cfg.n_experts,
+                                        cfg.n_layers, dt))
+        else:
+            layer.update({
+                "w1": sd(D, Fd),
+                "b1": const(0.0, Fd),
+                "w2": sd(Fd, D) / depth,
+                "b2": const(0.0, D),
+            })
         layers.append(layer)
     params = {
         "emb": torch.as_tensor(
@@ -284,27 +290,35 @@ def forward_dense(params: dict, tokens, cfg: TransformerConfig):
 
 
 def _forward_dense_aux(params, tokens, cfg: TransformerConfig):
-    """Dense forward returning (logits, summed MoE aux loss); the aux
-    loss is 0, since the dense FFN is the only one ported."""
+    """Dense forward returning (logits, the layers' summed MoE aux loss
+    in f32; 0 without experts). Under ``remat`` the backward recomputes
+    each layer, routing included (it is deterministic)."""
     dev = params["emb"].device
     tokens = torch.as_tensor(tokens, device=dev).long()
     pos = torch.arange(tokens.shape[1], device=dev)
     x = params["emb"][tokens]
     attn_fn = _local_attention(cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     def one_layer(x, lp):
         x = x + _attn_block(x, lp, pos, attn_fn)
         h = _ln(x, lp["ln2_s"], lp["ln2_b"])
-        return x + _mlp(h, lp) + lp["b2"]
+        if cfg.n_experts:
+            y, a = moe_ffn_dense(h, lp, cfg.capacity_factor)
+            return x + y, a
+        return x + _mlp(h, lp) + lp["b2"], zero
 
+    aux = zero
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(one_layer, x, lp, use_reentrant=False)
+            x, a = checkpoint(one_layer, x, lp, use_reentrant=False)
         else:
-            x = one_layer(x, lp)
+            x, a = one_layer(x, lp)
+        if cfg.n_experts:
+            aux = aux + a
     x = _ln(x, params["lnf_s"], params["lnf_b"])
     logits = torch.einsum("bld,vd->blv", x, params["emb"])  # tied head
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux
 
 
 def nll_loss(logits, targets):
@@ -354,18 +368,22 @@ def _check_mesh(mesh) -> None:
 
 
 def loss_and_grads(params: dict, tokens, targets, cfg: TransformerConfig):
-    """(loss, grads) of the mean token NLL at ``params``: ``grads`` has
-    the structure of ``params``. The parameters' ``requires_grad`` flags
-    are restored on return."""
+    """(loss, grads) of the mean token NLL at ``params``, plus
+    ``moe_aux_coef`` times the summed aux loss when the config has
+    experts and a nonzero coefficient (the reference's one-member
+    ``_loss_local``): ``grads`` has the structure of ``params``. The
+    parameters' ``requires_grad`` flags are restored on return."""
     leaves = _leaves(params)
     flags = [p.requires_grad for p in leaves]
     try:
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            logits, _ = _forward_dense_aux(params, tokens, cfg)
+            logits, aux = _forward_dense_aux(params, tokens, cfg)
             loss = nll_loss(logits, targets)
             del logits
+            if cfg.n_experts and cfg.moe_aux_coef:
+                loss = loss + cfg.moe_aux_coef * aux
             grads = torch.autograd.grad(loss, leaves)
     finally:
         for p, f in zip(leaves, flags):

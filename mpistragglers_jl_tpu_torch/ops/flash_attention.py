@@ -56,6 +56,7 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -65,9 +66,11 @@ __all__ = ["LAUNCHES", "flash_attention"]
 
 _KERNEL_HEAD_DIMS = (64, 128)
 
-# kernel name -> launches since the counter was last set to 0
+# kernel name -> launches since the counter was last set to 0; pool
+# workers launch from their own threads, so an increment takes the lock
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_fused": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 # --------------------------------------------------------------------------
@@ -198,7 +201,13 @@ def _launch(name, ptrs, q3, g, Lq, Lk, D, scale, causal, window):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    LAUNCHES[name] += 1
+    _count(name)
+
+
+def _count(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _device_route(q3) -> bool:

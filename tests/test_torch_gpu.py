@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions, and the routes that launch them: the decode kernels (dense K5
 and paged K6) with the serving scheduler, and the flash-attention
-kernels (K1-K4) with the train step; and the pool on CUDA streams with
-the coded GEMM over it (snapshots, stream ordering, bf16 bytes). Every
+kernels (K1-K4) with the train step; the pool on CUDA streams with
+the coded GEMM over it (snapshots, stream ordering, bf16 bytes); and the
+mixture of experts and coded transformer training on the card. Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -726,3 +727,149 @@ def test_coded_gemm_on_the_card_equals_its_cpu_result(batch):
             cg.backend.shutdown()
     scale = np.max(np.abs(out["cpu"]))
     assert np.max(np.abs(out["cuda"] - out["cpu"])) <= 1e-5 * scale
+
+
+# -- slice 9: the mixture of experts and coded training on the card.
+# f32 with TF32 off: the MoE layer within 1e-5 of the largest value of
+# the CPU result (cuBLAS and the CPU sum in other orders), gradients
+# within 1e-4 of the largest value; the coded step's parameters within
+# 1e-5 absolute + 1e-4 relative of the CPU step's (flash kernels against
+# their plain versions, 2e-5 and 5e-5 bounds, scaled by lr).
+
+
+def _max_close(got, want, tol, what):
+    scale = want.abs().max().clamp_min(1e-30)
+    err = ((got.cpu() - want).abs().max() / scale).item()
+    assert err <= tol, f"{what}: {err} of the largest value"
+
+
+def test_moe_gather_form_on_the_card_equals_the_cpu():
+    """moe_ffn_dense's y, aux and gradients (x, router, experts) on the
+    card against the CPU, at a capacity that drops tokens; the routing
+    (experts, slots, table) bit-equal."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.models import moe as tm
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    mp = tm.init_moe_layer(rng, 128, 256, n_experts=4, n_layers=2,
+                           dtype=torch.float32)
+    mp["wg"] = torch.from_numpy(rng.standard_normal((128, 4))).float()
+    mp["be1"] = torch.from_numpy(rng.standard_normal((4, 256)) * 0.1).float()
+    mp["be2"] = torch.from_numpy(rng.standard_normal((4, 128)) * 0.1).float()
+    x = torch.from_numpy(rng.standard_normal((2, 96, 128))).float()
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        leaves = {k: v.to(d).requires_grad_() for k, v in mp.items()}
+        xd = x.to(d).requires_grad_()
+        routing = tm._route_tables(xd.reshape(-1, 128).detach(),
+                                   leaves["wg"].detach(), 48)
+        y, aux = tm.moe_ffn_dense(xd, leaves, capacity_factor=1.0)
+        grads = torch.autograd.grad((y ** 2).sum() + aux,
+                                    [xd] + [leaves[k] for k in sorted(mp)])
+        out[d.type] = ([r.cpu() for r in routing[:3]], y.detach().cpu(),
+                       aux.detach().cpu(), [g.cpu() for g in grads])
+    (rc, yc, ac, gc), (rg, yg, ag, gg) = out["cpu"], out["cuda"]
+    for a, b in zip(rg, rc):
+        assert torch.equal(a, b)
+    assert (rc[2] >= 48).any(), "no token dropped at capacity 48"
+    _max_close(yg, yc, 1e-5, "y")
+    assert abs(ag.item() - ac.item()) <= 1e-6
+    for name, a, b in zip(["x"] + sorted(mp), gg, gc):
+        _max_close(a, b, 1e-4, f"grad {name}")
+
+
+def test_coded_step_on_the_card_equals_the_cpu_step():
+    """One coded step of a tiny flash transformer over 3 CUDA-stream
+    workers (s = 1), against the same step on the CPU route."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, waitall
+    from mpistragglers_jl_tpu_torch.models import coded_train as tct
+    from mpistragglers_jl_tpu_torch.models.transformer import _leaves
+
+    dev = _card()
+    cfg = TransformerConfig(vocab=97, d_model=128, n_heads=2, n_layers=2,
+                            d_ff=256, attn="ulysses", attn_impl="flash")
+
+    def chunk(j):
+        return np.random.default_rng((3, j)).integers(0, 97, (2, 65))
+
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        params = init_params(cfg, seed=1, device=d)
+        tr = tct.CodedGradTrainer(tct.transformer_chunk_loss(cfg), params,
+                                  chunk, 3, 1, devices=[d])
+        try:
+            pool = AsyncPool(3)
+            new = tr.step(pool, params, lr=0.1, nwait=3)
+            waitall(pool, tr.backend)
+        finally:
+            tr.backend.shutdown()
+        got[d.type] = [p.cpu() for p in _leaves(new)]
+        assert all(p.device.type == d.type for p in _leaves(new))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_worker_backward_runs_on_the_worker_stream():
+    """Two pool workers each take a flash-attention gradient in their
+    dispatcher thread: the backward (K2, K3 and a probe node) runs on
+    that worker's stream, and the coordinator reads each gradient on the
+    default stream through consume, equal to the CPU's."""
+    import threading
+
+    from mpistragglers_jl_tpu_torch import (AsyncPool, CUDADeviceBackend,
+                                            asyncmap)
+    from mpistragglers_jl_tpu_torch.backends.cuda import consume
+
+    dev = _card()
+    seen = {}
+    lock = threading.Lock()
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, i):
+            ctx.i = i
+            return q.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            with lock:
+                seen[ctx.i] = torch.cuda.current_stream().cuda_stream
+            return g, None
+
+    def grad_of(x, i):
+        q = x.reshape(1, 256, 2, 64)
+        k, v = q * 0.5, q.flip(1)
+        o = fa.flash_attention(Probe.apply(q, i) if x.is_cuda else q, k, v,
+                               causal=True)
+        return torch.autograd.grad((o * o).sum(), x)[0]
+
+    def work(i, payload, epoch):
+        x = (payload * (i + 1)).detach().requires_grad_(True)
+        with torch.enable_grad():
+            return grad_of(x, i)
+
+    backend = CUDADeviceBackend(work, 2, devices=[dev])
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(256 * 2 * 64, generator=gen)
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    try:
+        pool = AsyncPool(2)
+        asyncmap(pool, x.to(dev), backend, nwait=2)
+        streams = [backend.stream(i).cuda_stream for i in range(2)]
+        assert seen == {0: streams[0], 1: streams[1]}
+        assert torch.cuda.current_stream().cuda_stream not in streams
+        assert fa.LAUNCHES["flash_bwd_dq"] == 2
+        assert fa.LAUNCHES["flash_bwd_dkv"] == 2
+        for i in range(2):
+            got = consume(pool.results[i])
+            xi = (x * (i + 1)).requires_grad_(True)
+            want = grad_of(xi, i)
+            torch.testing.assert_close(got.cpu(), want, atol=5e-5,
+                                       rtol=5e-5)
+    finally:
+        backend.shutdown()

@@ -35,7 +35,11 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.backends.cuda",
             "mpistragglers_jl_tpu_torch.ops.coded_gemm",
             "mpistragglers_jl_tpu_torch.models.logreg",
-            "mpistragglers_jl_tpu_torch.bench.coded_gemm"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.bench.coded_gemm",
+            "mpistragglers_jl_tpu_torch.models.moe",
+            "mpistragglers_jl_tpu_torch.models.coded_train",
+            "mpistragglers_jl_tpu_torch.bench.moe_train",
+            "mpistragglers_jl_tpu_torch.bench.coded_train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -11,14 +11,16 @@ speculative decoding (``models/speculative.py``) at the width of that
 file's decode rungs, the attribution bench of the decode kernel
 (``bench/decode_kernel_attrib.py``), the pool on CUDA streams with
 BASELINE configs 2-5, the mixture of experts (``models/moe.py``:
-training at ``benchmarks/moe_bench.py``'s width, generation) and
+training at ``benchmarks/moe_bench.py``'s width, generation),
 gradient-coded transformer training over the pool
-(``models/coded_train.py``), and holds every CUDA kernel of those paths
-against its plain PyTorch version:
+(``models/coded_train.py``), and sampled, instrumented serving on both
+caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), and holds
+every CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
 2. build the kernels from the sources in this checkout, one ``nvcc``
-   per source, all started together (``_build.build``);
+   per source, all started together (``_build.build``): the decode
+   kernels, the flash kernels and the sampling kernel;
 3. K5 (split-K: a split kernel and its combine) against its plain
    version at the serving shape (8 splits of 128 keys), bf16 and f32,
    ring (warm-up, W - 1, W, wrapped) and positional (with and without
@@ -164,9 +166,40 @@ against its plain PyTorch version:
     bulk-synchronous ones, the delayed workers out at every coded
     return, K1-K3 launched at least 8 x 3 x 4 x 3 times.
 
+31. the sampling kernel (``ops/csrc/sampling.cu``) against its plain
+    chain (``utils/prng.py``) at the serving shape (8 rows of the 32768
+    vocabulary), f32 and bf16 logits, top_k None, 1 and 50: every
+    entry's random bits and Gumbel noise bit-equal, the tokens equal;
+    then its time in a CUDA graph of one tick's 64 calls and eagerly,
+    the plain chain's time, and its bound (``bench/kernel_bounds.py``);
+32. sampled slot-ring serving parity in f32 at full width (temperature
+    0.8, top_k 50, a key per request, K5 routed): each stream equals
+    ``generate_ring_dense`` with the request's key; the sampling kernel
+    launched once per admission and once per inner step;
+33. the slot-ring main path (phase 5's workload) six times in one
+    process, in turns: greedy and dark, sampled and dark, sampled and
+    lit (a registry, a span recorder, a flight recorder, a TraceBook and
+    an ObsServer on loopback port 0), then the three again in reverse
+    order: ms/tick and decode tokens/s of each over 2 timed ticks,
+    kernels per inner step from one profiled 4-step tick of the first
+    greedy and sampled runs; counts set to 0 before each run (K5 8 x 64
+    per tick, the sampling kernel 8 + 64 per tick); lit, ``/metrics``
+    and ``/healthz`` scraped over HTTP between ticks, ``audit`` passing over the drained book (every request
+    retired once, the token counter equal to the streams), and a merged
+    Chrome trace written to a temporary directory with the scheduler's
+    tick track;
+34. the paged main path (phase 9's workload: pages of 64, a shared
+    256-token system prompt, 28 share hits) the same three ways, K6;
+35. phase 30's coded trainer (2 bf16 epochs, workers 1 and 4 delayed)
+    and config 3's (8, 6)-coded GEMM at 8192^3 (3 epochs) with a
+    registry, spans and an ``EpochTracer``: steps, decodes and recovered
+    workers in the registry, and the merged trace carrying the pool's
+    six or eight worker tracks beside the steps.
+
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
-a ``{"kernels": [...]}`` JSON line and, last,
+a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
+31-35's, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -179,22 +212,30 @@ import dataclasses
 import json
 import re
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+from mpistragglers_jl_tpu_torch import obs as tobs
 from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench import moe_train as mt
-from mpistragglers_jl_tpu_torch.bench.kernel_bounds import flash_bounds
-from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL
+from mpistragglers_jl_tpu_torch.bench.kernel_bounds import (
+    flash_bounds,
+    sampling_bounds,
+)
+from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL, _busy_us
 from mpistragglers_jl_tpu_torch.bench.train_profile import (
     BATCH,
     LR,
@@ -206,6 +247,10 @@ from mpistragglers_jl_tpu_torch.bench.train_profile import (
 )
 from mpistragglers_jl_tpu_torch.models import decode as td
 from mpistragglers_jl_tpu_torch.models import moe
+from mpistragglers_jl_tpu_torch.models.coded_train import (
+    CodedGradTrainer,
+    transformer_chunk_loss,
+)
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.speculative import (
     generate_speculative_dense,
@@ -222,6 +267,10 @@ from mpistragglers_jl_tpu_torch.models.transformer import (
 from mpistragglers_jl_tpu_torch.ops import _build
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
 from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
+from mpistragglers_jl_tpu_torch.ops import sampling
+from mpistragglers_jl_tpu_torch.ops.coded_gemm import CodedGemm
+from mpistragglers_jl_tpu_torch.utils import prng
+from mpistragglers_jl_tpu_torch.utils import trace as ttrace
 
 SLOTS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -234,6 +283,15 @@ TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -8)}
 K5 = "quantized_decode_attention"
 K6 = "paged_decode_attention"
 K7 = "decode_attention_attrib"
+SAMPLE = "sample_rows"
+# phases 31-34: sampled serving at temperature 0.8 with top_k 50; the
+# main-path runs of phases 33 and 34 (S=8, n_inner=64) time 3 ticks
+SAMPLE_T, SAMPLE_TOP_K = 0.8, 50
+SERVE_INNER, SERVE_TICKS = 64, 2
+SERVE_VARIANTS = ("greedy-dark", "sampled-dark", "sampled-lit")
+PROFILE_INNER = 4  # inner steps of the profiled tick
+# phase 35: epochs of the instrumented coded trainer and coded GEMM
+INSTR_EPOCHS = 2
 PAGE = 64  # the paged main path's page size
 # flash kernel launch counter -> (name, line of the TPU kernel in
 # mpistragglers_jl_tpu/ops/flash_attention.py)
@@ -315,13 +373,13 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _zero_launches() -> None:
-    for counts in (da.LAUNCHES, fa.LAUNCHES):
+    for counts in (da.LAUNCHES, fa.LAUNCHES, sampling.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _launch_counts() -> dict:
-    return {**da.LAUNCHES, **fa.LAUNCHES}
+    return {**da.LAUNCHES, **fa.LAUNCHES, **sampling.LAUNCHES}
 
 
 def _cache(B, L, Hkv, D, gen, dev):
@@ -1232,7 +1290,7 @@ def phase_train_bf16(dev):
     want = {"flash_fwd": cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
             "flash_bwd_dkv": cfg.n_layers * steps, "flash_bwd_fused": 0,
-            K5: 0, K6: 0, K7: 0}
+            K5: 0, K6: 0, K7: 0, SAMPLE: 0}
     print(f"  {steps} steps (1 warm-up, {timed} timed), launches "
           f"{ {FLASH.get(k, (k,))[0]: v for k, v in launches.items()} }")
     _require(launches == want, f"main path launched {launches}, want {want}")
@@ -1327,7 +1385,7 @@ def phase_fused_bf16(params, batch):
     launches = _launch_counts()
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_bwd_fused": cfg.n_layers,
-            K5: 0, K6: 0, K7: 0}
+            K5: 0, K6: 0, K7: 0, SAMPLE: 0}
     _require(launches == want, f"fused step launched {launches}")
     loss_s, g_s = loss_and_grads(params, inp, tgt, cfg)
     errs = _leaf_errors(g_f, g_s, relative_norm=True)
@@ -2178,6 +2236,430 @@ def phase_coded_train(dev) -> dict:
     return {"exactness_f32": ex, **r}
 
 
+# --------------------------------------------------------------------------
+# phases 31-36: sampling and the observability plane
+# --------------------------------------------------------------------------
+
+
+def _sampling_case(R, V, dt, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(R, V, generator=gen) * 3).to(dt).to(dev)
+    keys = torch.stack([prng.key(1000 * seed + r) for r in range(R)]).to(dev)
+    pos = torch.arange(R, dtype=torch.int32, device=dev) * 131 + 7
+    rows = torch.zeros(R, dtype=torch.int32, device=dev)
+    return logits, pos, keys, rows
+
+
+def phase_sampling_vs_plain(dev) -> tuple[float, dict]:
+    """The sampling kernel at the serving shape (S=8 rows of the vocab)
+    against its plain chain on the same inputs: every entry's bits and
+    Gumbel noise bit-equal, the tokens equal, f32 and bf16 logits, top_k
+    None, 1 and 50; then its time in a CUDA graph (a tick's 64 calls)
+    and eagerly, the plain chain's (eager: it reads the temperature from
+    the host), and the bound (bench/kernel_bounds.py)."""
+    R, V = SLOTS, MODEL["vocab"]
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for top_k in (None, 1, SAMPLE_TOP_K):
+            logits, pos, keys, rows = _sampling_case(R, V, dt, dev,
+                                                     seed=1 + (top_k or 0))
+            bits = torch.empty(R, V, dtype=torch.int32, device=dev)
+            noise = torch.empty(R, V, dtype=torch.float32, device=dev)
+            got = sampling.sample_rows(logits, pos, keys, rows, SAMPLE_T,
+                                       top_k, bits_out=bits,
+                                       noise_out=noise)
+            k = prng.fold_in(prng.fold_in(keys, pos), rows)
+            want_noise = prng.gumbel(k, (V,))
+            want = sampling.sample_rows_ref(logits, pos, keys, rows,
+                                            SAMPLE_T, top_k)
+            torch.cuda.synchronize()
+            same_bits = torch.equal(bits.long() & 0xFFFFFFFF,
+                                    prng.bits(k, (V,)))
+            err = (noise - want_noise).abs().max().item()
+            worst = max(worst, err)
+            print(f"  {str(dt)[6:]} top_k={top_k}: bits equal {same_bits}, "
+                  f"noise max |diff| {err:.3e}, tokens {got.tolist()} "
+                  f"(plain {want.tolist()})")
+            _require(same_bits and err == 0.0 and torch.equal(got, want),
+                     f"the sampling kernel disagrees with its plain chain "
+                     f"({dt}, top_k={top_k})")
+    logits, pos, keys, rows = _sampling_case(R, V, torch.bfloat16, dev, 9)
+    call = (lambda i: sampling.sample_rows(logits, pos, keys, rows,
+                                           SAMPLE_T, SAMPLE_TOP_K))
+    plain = (lambda i: sampling.sample_rows_ref(logits, pos, keys, rows,
+                                                SAMPLE_T, SAMPLE_TOP_K))
+    alone = (lambda i: sampling.sample_rows(logits, pos, keys, rows,
+                                            SAMPLE_T))
+    n0 = sampling.LAUNCHES["sample_rows"]
+    alone_ms = _graph_ms(alone, 64)
+    graph_ms = _graph_ms(call, 64)
+    eager_ms = _time_ms(call, 64)
+    plain_ms = _time_ms(plain, 10, n_warm=2)
+    bound = sampling_bounds(R, V, 2)
+    sampling.LAUNCHES["sample_rows"] = n0  # timing launches: not a path
+    tim = {"ms": graph_ms, "graph_ms": graph_ms, "eager_ms": eager_ms,
+           "kernel_alone_graph_ms": alone_ms,
+           "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"], "library_ms": None}
+    print(f"  R={R} V={V} bf16, top_k {SAMPLE_TOP_K}: kernel "
+          f"{graph_ms * 1e3:.2f} us in a CUDA graph (with torch.topk; "
+          f"{alone_ms * 1e3:.2f} us without top_k), "
+          f"{eager_ms * 1e3:.2f} us eager; plain chain "
+          f"{plain_ms * 1e3:.1f} us eager; bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: "
+          f"{bound['int32_ops']} int32, {bound['f32_ops']} f32 ops, "
+          f"{bound['bytes']} B)")
+    return worst, tim
+
+
+def phase_sampled_parity_f32(dev) -> None:
+    """Sampled slot-ring serving in f32 at full width on the kernel
+    route (K5 and the sampling kernel): each stream equals
+    ``generate_ring_dense`` with the request's key, and the sampling
+    kernel launched once per admission and once per inner step."""
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(11)
+    lens, budgets = [300, 77, 512, 5, 260, 128], [16, 24, 16, 20, 12, 24]
+    prompts = _prompts(rng, lens, cfg.vocab)
+    keys = [prng.key(500 + i) for i in range(len(prompts))]
+    sched = ServingScheduler(params, cfg, slots=4, n_inner=8,
+                             prompt_chunk=256, max_prompt=512,
+                             quantize_kv=True, temperature=SAMPLE_T,
+                             top_k=SAMPLE_TOP_K, device=dev)
+    _require(sched.use_kernel, "the S=4 int8 tick did not route K5")
+    _zero_launches()
+    reqs = [sched.submit(p, max_new=n, key=k)
+            for p, n, k in zip(prompts, budgets, keys)]
+    sched.run()
+    n = _launch_counts()
+    want = len(reqs) + sched.n_inner * sched.decode_ticks
+    print(f"  {sched.decode_ticks} decode ticks: sampling kernel "
+          f"{n[SAMPLE]} launches (want {want}), K5 {n[K5]}")
+    _require(n[SAMPLE] == want and n[K5] == cfg.n_layers * sched.n_inner
+             * sched.decode_ticks, f"launch counts {n}")
+    for i, (r, k) in enumerate(zip(reqs, keys)):
+        o = td.generate_ring_dense(params, r.prompt[None], budgets[i], cfg,
+                                   temperature=SAMPLE_T, top_k=SAMPLE_TOP_K,
+                                   key=k, quantize_kv=True, device=dev)
+        _require(r.finished and o.cpu().numpy()[0].tolist() == r.tokens,
+                 f"sampled request {i} differs from generate_ring_dense")
+    print(f"  {len(reqs)} sampled streams equal generate_ring_dense with "
+          "their keys")
+    del params
+
+
+def _get(url) -> tuple[int, bytes]:
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _kernels_per_step(sched) -> tuple[float, float]:
+    """One profiled tick of PROFILE_INNER inner steps (a 64-step tick's
+    trace takes the profiler tens of seconds to read): (kernels per
+    inner step, device idle share)."""
+    n_inner, sched.n_inner = sched.n_inner, PROFILE_INNER
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sched.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        sched.n_inner = n_inner
+    events = prof.events()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) for e in events)
+    return n / PROFILE_INNER, 1.0 - _busy_us(events) / wall_us
+
+
+def _serve_variant(dev, cfg, params, variant, paged, workload,
+                   profile_it):
+    """One of greedy-dark, sampled-dark and sampled-lit on a main-path
+    workload; returns its report (and, lit, the live instruments)."""
+    lit = variant == "sampled-lit"
+    sampled = variant != "greedy-dark"
+    kw = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K) if sampled else {}
+    obs = {}
+    if lit:
+        obs = {"registry": tobs.MetricsRegistry(),
+               "spans": tobs.SpanRecorder("serving"),
+               "flight": tobs.FlightRecorder(capacity=8192),
+               "trace": tobs.TraceBook()}
+        obs["exporter"] = tobs.ObsServer(obs["registry"],
+                                         flight=obs["flight"]).start()
+    torch.cuda.synchronize()
+    _zero_launches()
+    sched = ServingScheduler(
+        params, cfg, slots=SLOTS, n_inner=SERVE_INNER,
+        prompt_chunk=256 if paged else 512, max_prompt=512,
+        quantize_kv=True, page_tokens=PAGE if paged else None,
+        device=dev, **kw, **obs)
+    reqs = workload(sched, sampled)
+    t0 = time.perf_counter()
+    sched.step()  # admission (and a first tick of all 8)
+    torch.cuda.synchronize()
+    t_admit = time.perf_counter() - t0
+    scrapes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_TICKS):
+        sched.step()
+        if lit:  # scraped over HTTP while the scheduler runs
+            torch.cuda.synchronize()
+            dt_pause = time.perf_counter()
+            url = obs["exporter"].url
+            scrapes.append((_get(url + "/metrics"), _get(url + "/healthz")))
+            t0 += time.perf_counter() - dt_pause  # scrapes not timed
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _launch_counts()
+    ticks_timed = sched.decode_ticks
+    rep = {"ms_per_tick": dt / SERVE_TICKS * 1e3,
+           "decode_tokens_per_s": SLOTS * SERVE_INNER * SERVE_TICKS / dt,
+           "admit_tick_s": t_admit, "launches": launches,
+           "decode_ticks": ticks_timed}
+    if profile_it:
+        per_step, idle = _kernels_per_step(sched)
+        rep.update(kernels_per_inner_step=per_step,
+                   profiled_tick_idle_share=idle)
+    if lit:
+        sched.run()  # the audit closes over retired requests
+    else:
+        for r in reqs:
+            sched.cancel(r)
+    print(f"  {variant}: {rep['ms_per_tick']:.2f} ms/tick, "
+          f"{rep['decode_tokens_per_s']:.1f} decode tokens/s, "
+          + (f"{rep['kernels_per_inner_step']:.1f} kernels per inner step "
+             f"(profiled tick idle {rep['profiled_tick_idle_share']:.3f}); "
+             if profile_it else "")
+          + f"launches {launches}")
+    for r in reqs:
+        _require(r.finished and len(r.tokens) > SERVE_INNER
+                 and all(0 <= t < cfg.vocab for t in r.tokens),
+                 f"{variant}: request {r.id} short or out of vocab")
+    return rep, sched, reqs, obs, scrapes, ticks_timed
+
+
+def _check_lit(sched, reqs, obs, scrapes, tmp, label) -> dict:
+    """The lit run's proofs: scrapes answered during the run, the audit
+    closes, the merged Chrome trace holds the scheduler's tick track."""
+    reg, book = obs["registry"], obs["trace"]
+    ok_scrapes = all(m[0] == 200 and b"serving_ticks_total" in m[1]
+                     and h[0] == 200 for m, h in scrapes)
+    _require(scrapes and ok_scrapes, f"{label}: /metrics or /healthz "
+             f"failed during the run: {[(m[0], h[0]) for m, h in scrapes]}")
+    res = tobs.audit(book, None, reg)
+    kinds = [book.kinds(t) for t in book.ids()]
+    _require(res.ok and len(kinds) == len(reqs) and all(
+        k.count("retired") == 1 for k in kinds),
+        f"{label}: audit failed: {res.to_dict()}")
+    toks = reg.counter("serving_tokens_total").value
+    _require(toks == sum(len(r.tokens) for r in reqs),
+             f"{label}: serving_tokens_total {toks} != the streams")
+    path = f"{tmp}/{label}_trace.json"
+    n_ev = tobs.dump_merged_chrome_trace(path, recorders=[obs["spans"]])
+    with open(path) as f:
+        doc = json.load(f)
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("name") == "thread_name"}
+    ticks = sum(e["name"].startswith("tick ") for e in doc["traceEvents"]
+                if e.get("ph") == "X")
+    _require("scheduler" in tracks and ticks >= sched.decode_ticks,
+             f"{label}: merged trace lacks the scheduler's ticks: {tracks}")
+    obs["exporter"].close()
+    flight_ticks = sum(e.get("name", "").startswith("tick ")
+                       for e in obs["flight"].snapshot()["traceEvents"])
+    out = {"scrapes": len(scrapes), "audit_ok": res.ok,
+           "audit_checked": res.checked, "trace_events": n_ev,
+           "trace_tick_spans": ticks, "flight_tick_spans": flight_ticks,
+           "serving_tokens_total": toks,
+           "ttft_count": reg.histogram("serving_ttft_seconds").count}
+    print(f"  {label}: {len(scrapes)} scrapes of /metrics and /healthz "
+          f"during the run (200); audit ok over {len(kinds)} requests "
+          f"({', '.join(res.checked)}); merged trace {n_ev} events, "
+          f"{ticks} tick spans on the scheduler track")
+    return out
+
+
+def _ring_workload(cfg):
+    def submit(sched, sampled):
+        rng = np.random.default_rng(2)
+        return [sched.submit(p, max_new=SERVE_INNER * (SERVE_TICKS + 2),
+                             **({"key": prng.key(900 + i)} if sampled
+                                else {}))
+                for i, p in enumerate(_prompts(rng, [512] * SLOTS,
+                                               cfg.vocab))]
+    return submit
+
+
+def _paged_workload(cfg):
+    def submit(sched, sampled):
+        rng = np.random.default_rng(6)
+        sys_prompt = rng.integers(0, cfg.vocab, 256)
+        reqs = []
+        for i in range(SLOTS):
+            p = np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, 256)])
+            reqs.append(sched.submit(p, max_new=384, **(
+                {"key": prng.key(700 + i)} if sampled else {})))
+            if i == 0:
+                while not reqs[0].tokens:
+                    sched.step()  # resident, so the other 7 share
+        return reqs
+    return submit
+
+
+def phase_sampled_serving(dev, paged: bool) -> dict:
+    """The main path sampled and instrumented, beside greedy and
+    sampled dark runs of the same workload, in turns in one process
+    (A B C C B A, so drift over the phase falls on every variant)."""
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    workload = (_paged_workload if paged else _ring_workload)(cfg)
+    runs = {v: [] for v in SERVE_VARIANTS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, variant in enumerate(SERVE_VARIANTS + SERVE_VARIANTS[::-1]):
+            first = not runs[variant]
+            rep, sched, reqs, obs, scrapes, ticks = _serve_variant(
+                dev, cfg, params, variant, paged, workload,
+                profile_it=first and variant != "sampled-lit")
+            sampled = variant != "greedy-dark"
+            want = SLOTS + SERVE_INNER * ticks if sampled else 0
+            _require(rep["launches"][SAMPLE] == want,
+                     f"{variant}: the sampling kernel launched "
+                     f"{rep['launches'][SAMPLE]} times, want {want}")
+            attn = K6 if paged else K5
+            _require(rep["launches"][attn] == cfg.n_layers * SERVE_INNER
+                     * ticks, f"{variant}: {attn} launches "
+                     f"{rep['launches'][attn]}")
+            if paged:
+                rep["share_hits"] = sched.pool.share_hits
+                _require(sched.pool.share_hits == 28,
+                         f"{variant}: {sched.pool.share_hits} share hits")
+                sched.pool.check()
+            if variant == "sampled-lit":
+                rep["lit"] = _check_lit(
+                    sched, reqs, obs, scrapes, tmp,
+                    f"{'paged' if paged else 'ring'}_{i}")
+            runs[variant].append(rep)
+            del sched, reqs, obs
+            torch.cuda.empty_cache()
+    out = {}
+    for v, rs in runs.items():
+        ms = [r["ms_per_tick"] for r in rs]
+        out[v] = {"ms_per_tick": ms, "mean_ms_per_tick": float(np.mean(ms)),
+                  "decode_tokens_per_s": [r["decode_tokens_per_s"]
+                                          for r in rs],
+                  **{k: rs[0][k] for k in ("kernels_per_inner_step",
+                                           "profiled_tick_idle_share")
+                     if k in rs[0]},
+                  "runs": rs}
+    g, d, l_ = (out[v]["mean_ms_per_tick"] for v in SERVE_VARIANTS)
+    print(f"  mean ms/tick greedy-dark {g:.2f}, sampled-dark {d:.2f} "
+          f"({d / g:.3f}x), sampled-lit {l_:.2f} ({l_ / g:.3f}x); kernels "
+          f"per inner step greedy {out['greedy-dark']['kernels_per_inner_step']:.2f}, "
+          f"sampled {out['sampled-dark']['kernels_per_inner_step']:.2f}")
+    del params
+    return out
+
+
+def phase_instrumented_coded(dev) -> dict:
+    """Phase 30's coded trainer with a registry, spans and an
+    EpochTracer (2 coded bf16 epochs, workers 1 and 4 delayed), and
+    config 3's (8, 6)-coded GEMM at 8192^3 (batch, "ready") with a
+    registry, spans and an EpochTracer (3 epochs): the series and the
+    merged trace, which must carry the pool's worker tracks."""
+    out = {}
+    cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    reg, rec, tracer = (tobs.MetricsRegistry(), tobs.SpanRecorder("train"),
+                        ttrace.EpochTracer())
+    tr = CodedGradTrainer(
+        transformer_chunk_loss(cfg), params, ct_bench.chunk_fn(cfg.vocab),
+        ct_bench.N, ct_bench.S, devices=[dev],
+        delay_fn=lambda i, e: (CODED_DELAY_S if i in ct_bench.STRAGGLERS
+                               else 0.0),
+        tracer=tracer, registry=reg, spans=rec)
+    pool = AsyncPool(ct_bench.N)
+    _zero_launches()
+    try:
+        for _ in range(INSTR_EPOCHS):
+            params = tr.step(pool, params, lr=ct_bench.LR)
+        waitall(pool, tr.backend, timeout=ct_bench.DRAIN_S, tracer=tracer)
+        torch.cuda.synchronize()
+    finally:
+        tr.backend.shutdown()
+    launches = _launch_counts()
+    doc, n_ev = tobs.merged_chrome_trace(tracers=[tracer], recorders=[rec])
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("name") == "thread_name"}
+    workers = sorted(t for t in tracks if t.startswith("worker"))
+    steps = reg.counter("train_steps_total").value
+    recovered = {i: reg.counter("train_worker_recovered_total",
+                                worker=str(i)).value
+                 for i in range(ct_bench.N)}
+    need = cfg.n_layers * (ct_bench.S + 1) * (ct_bench.N - ct_bench.S)
+    print(f"  coded trainer: {steps:.0f} steps, recovered per worker "
+          f"{recovered}, step spans {len(rec.spans)}, merged trace "
+          f"{n_ev} events on tracks {sorted(tracks)}; K1-K3 launches "
+          f"{[launches[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]}")
+    _require(steps == INSTR_EPOCHS and len(rec.spans) == INSTR_EPOCHS
+             and len(workers) == ct_bench.N and "train" in tracks
+             and sum(recovered.values()) == INSTR_EPOCHS * (
+                 ct_bench.N - ct_bench.S)
+             and all(launches[k] >= need * INSTR_EPOCHS for k in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+             "the instrumented coded trainer's series or trace")
+    out["coded_train"] = {"steps": steps, "recovered": recovered,
+                          "tracks": sorted(tracks), "trace_events": n_ev,
+                          "launches": launches,
+                          "prometheus_lines": len(
+                              reg.to_prometheus().splitlines())}
+    del tr, params
+    torch.cuda.empty_cache()
+    m, n, k = coded_bench.MDS_M, coded_bench.MDS_N, coded_bench.MDS_K
+    A, B = coded_bench._operands(m, m, m, 0, dev)
+    A_pad = torch.zeros(-(-m // k) * k, m, device=dev)
+    A_pad[:m] = A
+    reg, rec, tracer = (tobs.MetricsRegistry(), tobs.SpanRecorder("gemm"),
+                        ttrace.EpochTracer())
+    cg = CodedGemm(A_pad, n, k, devices=[dev], batch=True, registry=reg)
+    pool = AsyncPool(n)
+    try:
+        for _ in range(INSTR_EPOCHS + 1):
+            t0 = time.perf_counter()
+            asyncmap(pool, B, cg.backend, nwait=k, tracer=tracer)
+            C = cg.result_device(pool)[:m]
+            torch.cuda.synchronize()
+            rec.add(f"coded gemm epoch {pool.epoch}", t0,
+                    time.perf_counter() - t0, track="gemm",
+                    fresh=len(pool.fresh_indices()))
+        err = coded_bench.rel_err(C, torch.matmul(A, B))
+        tol = coded_bench.REL_TOL["highest"] * coded_bench._cond(
+            cg.code.G, pool.fresh_indices()[:k].tolist())
+        waitall(pool, cg.backend, tracer=tracer)
+    finally:
+        cg.backend.shutdown()
+    doc, n_ev = tobs.merged_chrome_trace(tracers=[tracer], recorders=[rec])
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("name") == "thread_name"}
+    decodes = reg.counter("coded_gemm_decodes_total").value
+    print(f"  coded GEMM (config 3): {decodes:.0f} decodes, error "
+          f"{err:.2e}, merged trace {n_ev} events on tracks "
+          f"{sorted(tracks)}")
+    _require(decodes == INSTR_EPOCHS + 1 and err <= tol
+             and sum(t.startswith("worker") for t in tracks) == n
+             and "gemm" in tracks, "the instrumented coded GEMM")
+    out["coded_gemm"] = {"decodes": decodes, "rel_err": err,
+                         "tracks": sorted(tracks), "trace_events": n_ev}
+    return out
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -2215,11 +2697,11 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    _build.build("decode_attention", "flash_attention")
+    _build.build("decode_attention", "flash_attention", "sampling")
     t_build = time.perf_counter() - t0
-    print(f"[2] built decode_attention.cu (K5, K6, K7) and "
-          f"flash_attention.cu (K1-K4), one nvcc each in parallel, in "
-          f"{t_build:.1f} s; decode kernels at D=128:")
+    print(f"[2] built decode_attention.cu (K5, K6, K7), "
+          f"flash_attention.cu (K1-K4) and sampling.cu, one nvcc each in "
+          f"parallel, in {t_build:.1f} s; decode kernels at D=128:")
     _decode_build_report()
 
     print("[3] K5 against plain version, B=8 L=W=1024 D=128")
@@ -2348,6 +2830,37 @@ def main() -> int:
     coded_train = phase_coded_train(dev)
     torch.cuda.empty_cache()
 
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[31] the sampling kernel against its plain chain, S={SLOTS} "
+          f"rows of V={MODEL['vocab']}, f32 and bf16, top_k None/1/"
+          f"{SAMPLE_TOP_K}; then timed in a CUDA graph")
+    err_sample, tim_sample = phase_sampling_vs_plain(dev)
+
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[32] sampled serving parity, f32, full width, temperature "
+          f"{SAMPLE_T}, top_k {SAMPLE_TOP_K}: kernel route against "
+          "generate_ring_dense with each request's key")
+    phase_sampled_parity_f32(dev)
+    torch.cuda.empty_cache()
+
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[33] slot-ring main path sampled and instrumented: bf16, "
+          f"S={SLOTS}, n_inner={SERVE_INNER}, greedy-dark, sampled-dark, "
+          "sampled-lit (registry, spans, flight, trace, ObsServer)")
+    sampled_ring = phase_sampled_serving(dev, paged=False)
+
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[34] paged main path sampled and instrumented: bf16, pages of "
+          f"{PAGE}, a shared 256-token system prompt, the same three runs")
+    sampled_paged = phase_sampled_serving(dev, paged=True)
+
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[35] the coded trainer and config 3's coded GEMM with a "
+          f"registry, spans and an EpochTracer, {INSTR_EPOCHS} epochs")
+    instrumented = phase_instrumented_coded(dev)
+    torch.cuda.empty_cache()
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+
     # K5's row: the serving shape's time (phase 6), with the long-context
     # shape's beside it (phase 20: graph replays; SDPA at the same B)
     tim5["at_16k_ms"] = {f"B={B}": {"ms": r["kernel_full_ms"],
@@ -2382,6 +2895,16 @@ def main() -> int:
         "variants": variants,
         "launches_are": "eager calls; CUDA-graph replays not counted",
     })
+    kernels.append({
+        **_kernel_row(SAMPLE, "mpistragglers_jl_tpu/models/decode.py:726",
+                      sampled_ring["sampled-lit"]["runs"][0]["launches"][
+                          SAMPLE],
+                      err_sample, tim_sample, source="sampling.cu"),
+        "replaces_is": "the reference's XLA-fused _pick_token, not a "
+                       "pallas_call: a port-only kernel",
+        "launches_are": "the first slot-ring sampled-lit run of phase 33 "
+                        "(admissions + inner steps)",
+    })
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
     print(json.dumps({"coded": coded, "card": smi}))
@@ -2395,6 +2918,11 @@ def main() -> int:
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"moe": {"routing": moe_routing, "train": moe_train},
                       "coded_train": coded_train}))
+    print(json.dumps({"sampling": {"ring": sampled_ring,
+                                   "paged": sampled_paged,
+                                   "kernel": tim_sample},
+                      "instrumented_coded": instrumented,
+                      "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

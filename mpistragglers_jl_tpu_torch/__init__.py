@@ -13,7 +13,10 @@ and the workloads built on it — uncoded, MDS-coded and LT-coded GEMM
 (``models/logreg.py``). Beside it: the int8 continuous-batching server
 (``models/serving.py``), training and long-context generation over
 hand-written CUDA kernels (``ops/decode_attention.py``,
-``ops/flash_attention.py``). Entry points default to the GPU and raise
+``ops/flash_attention.py``), greedy or sampled (``utils/prng.py``,
+bit-equal to ``jax.random``, and the fused ``ops/sampling.py``), and
+the opt-in observability plane (``obs/``, ``utils/trace.py``) on the
+scheduler, the coded GEMM and the coded trainer. Entry points default to the GPU and raise
 when there is none unless the caller passes ``device="cpu"`` (or
 ``devices=[torch.device("cpu")]``), where every kernel wrapper runs its
 plain PyTorch version.

@@ -23,6 +23,20 @@ move (each input read once, each output written once) over the card's
   key visible) and at B = 4 and 8 (the bench's batched sweep): the
   bytes and operations of the fullest variant, which reads what K5
   reads.
+* The sampling kernel (``ops/csrc/sampling.cu``, the port's own, not a
+  TPU kernel's counterpart) at the serving shape: R = 8 rows of V =
+  32768 bf16 logits. Its work is integer and f32 arithmetic on the CUDA
+  cores, not tensor-core products: per entry Threefry-2x32 takes 71
+  int32 operations (20 rounds of add, rotate and xor, 5 key
+  injections, the counter's add) and the bits, the uniform and the two
+  logs' exponents 9 more; the uniform, two XLA logs (a Cephes
+  polynomial of 9 fused multiply-adds each), the scaling, mask and
+  running maximum about 55 f32 operations. The rates are the data
+  sheet's at its 1.98 GHz boost clock: 132 SMs x 64 int32 lanes a clock
+  (16.7 Tops/s) and x 128 f32 lanes a clock (33.4 Tops/s, the 67
+  TFLOP/s figure counting a fused multiply-add as two). The two pipes
+  run side by side, so the bound is the larger of the two times and the
+  bytes' (the logits read once, tokens written once).
 
 Pure arithmetic, no card needed:
 
@@ -35,6 +49,11 @@ import json
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+# per vocabulary entry of the sampling kernel (module docstring)
+SAMPLE_INT32_OPS = 80
+SAMPLE_F32_OPS = 55
 
 
 def _bound(nbytes: int, nops: int, hi_lo_ops: int | None = None) -> dict:
@@ -73,9 +92,27 @@ def attrib_bound(B=1, L=16384, H=8, Hkv=2, D=128) -> dict:
     return {"K7": _bound(nbytes, 4 * B * H * L * D)}
 
 
+def sampling_bounds(R=8, V=32768, logit_bytes=2) -> dict:
+    """The sampling kernel over (R, V) logits of ``logit_bytes`` each:
+    bytes (logits in; per row the key, position, fold index and token)
+    against its int32 and f32 operations on the CUDA cores."""
+    n = R * V
+    nbytes = n * logit_bytes + R * (16 + 4 + 4 + 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_int = n * SAMPLE_INT32_OPS / INT32_OPS_PER_S * 1e3
+    t_f32 = n * SAMPLE_F32_OPS / F32_OPS_PER_S * 1e3
+    t_ops = max(t_int, t_f32)
+    return {"bytes": nbytes, "int32_ops": n * SAMPLE_INT32_OPS,
+            "f32_ops": n * SAMPLE_F32_OPS, "ops": n * (
+                SAMPLE_INT32_OPS + SAMPLE_F32_OPS),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def main() -> int:
     rows = {**flash_bounds(),
-            **{f"K7 B={B}": attrib_bound(B=B)["K7"] for B in (1, 4, 8)}}
+            **{f"K7 B={B}": attrib_bound(B=B)["K7"] for B in (1, 4, 8)},
+            "sample_rows R=8 V=32768 bf16": sampling_bounds()}
     for name, r in rows.items():
         hi_lo = (f"; hi/lo tensor work {r['hi_lo_bound_ms'] * 1e3:.2f} us"
                  if "hi_lo_ops" in r else "")

@@ -33,10 +33,13 @@ N_INNER = 16
 
 
 def _busy_us(events) -> float:
-    """Union of the device kernels' intervals, in microseconds."""
+    """Union of the device kernels' intervals, in microseconds (user
+    annotations, which span whole ranges on the device timeline, are
+    not kernels)."""
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
     )
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:

@@ -24,13 +24,17 @@ parameter tree such as the flagship transformer's:
 Under stragglers the trajectory is that of bulk-synchronous full-batch
 training, up to the decode's float sums.
 
-``registry=`` and ``spans=`` (the training metrics and Perfetto spans)
-are ``ROADMAP.md`` Queue 1 item 9 and raise; ``tracer=`` is passed to
-every ``asyncmap``/``waitall``, which take it duck-typed.
+Observability is opt-in, as in the reference: ``tracer=`` (an
+``utils/trace.py`` ``EpochTracer``) is passed to every
+``asyncmap``/``waitall``; ``registry=`` records per-step wall clock,
+which k of n workers each decode recovered from, and the tracer's
+stale and re-task totals; ``spans=`` draws one span per step beside the
+tracer's worker tracks in the merged Perfetto timeline.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -50,6 +54,74 @@ from .transformer import (
 )
 
 __all__ = ["CodedGradTrainer", "transformer_chunk_loss"]
+
+
+class _TrainObs:
+    """Instrument bundle for one trainer, resolved once at construction
+    (the reference's series and span): a dark trainer's step pays only
+    ``is None`` checks."""
+
+    def __init__(self, trainer: "CodedGradTrainer", registry, spans):
+        self.registry = registry
+        self.spans = spans
+        self._r = registry is not None
+        if not self._r:
+            return
+        registry.gauge(
+            "train_workers", help="pool size n of the gradient code"
+        ).set(trainer.n)
+        registry.gauge(
+            "train_code_tolerance",
+            help="stragglers s the cyclic code absorbs",
+        ).set(trainer.s)
+        self.m_steps = registry.counter("train_steps_total")
+        self.m_step_s = registry.histogram(
+            "train_step_seconds",
+            help="asyncmap -> decode -> update wall clock",
+        )
+        self.m_fresh_k = registry.gauge(
+            "train_decode_fresh_k",
+            help="fresh arrivals the last decode recovered from",
+        )
+        self.m_stale = registry.counter(
+            "train_stale_arrivals_total",
+            help="stale pool arrivals (bridged from the EpochTracer)",
+        )
+        self.m_retask = registry.counter(
+            "train_retasks_total",
+            help="immediate re-dispatches (bridged from the EpochTracer)",
+        )
+        self.m_recovered = [
+            registry.counter(
+                "train_worker_recovered_total",
+                help="steps whose decode consumed this worker's shard",
+                worker=str(i),
+            )
+            for i in range(trainer.n)
+        ]
+
+    def step_done(self, trainer: "CodedGradTrainer", fresh, t0: float,
+                  epoch_rec) -> None:
+        t1 = time.perf_counter()
+        if self._r:
+            self.m_steps.inc()
+            self.m_step_s.observe(t1 - t0)
+            self.m_fresh_k.set(len(fresh))
+            for i in fresh:
+                self.m_recovered[int(i)].inc()
+            if epoch_rec is not None:
+                self.m_stale.inc(epoch_rec.n_stale)
+                self.m_retask.inc(epoch_rec.n_retask)
+        if self.spans is not None:
+            args = {"fresh_k": len(fresh)}
+            if epoch_rec is not None:
+                args["epoch"] = epoch_rec.epoch
+                args["n_stale"] = epoch_rec.n_stale
+                args["n_retask"] = epoch_rec.n_retask
+            self.spans.add(
+                f"coded step ({len(fresh)}/{trainer.n})", t0, t1 - t0,
+                track="train", **args,
+            )
 
 
 def transformer_chunk_loss(cfg: TransformerConfig) -> Callable:
@@ -124,6 +196,10 @@ class CodedGradTrainer:
     built over the trainer's own copy of ``params0``'s tensors on the
     first device, and :meth:`step` copies the given parameters into
     them, steps, and returns them (updated in place).
+
+    Observability (opt-in, no cost when omitted): ``tracer=`` (an
+    ``EpochTracer``) threads through every ``asyncmap``/``waitall``;
+    ``registry=`` and ``spans=`` as the module docstring says.
     """
 
     def __init__(
@@ -142,11 +218,6 @@ class CodedGradTrainer:
         registry=None,
         spans=None,
     ):
-        if registry is not None or spans is not None:
-            raise NotImplementedError(
-                "training observability (registry=, spans=) is ROADMAP.md "
-                "Queue 1 item 9, not yet ported"
-            )
         devices = resolve_devices(devices)
         self.n, self.s = int(n_workers), int(s)
         self.code = GradientCode(self.n, self.s, seed=seed)
@@ -169,6 +240,9 @@ class CodedGradTrainer:
         )
         self.tracer = tracer
         self.last_fresh: np.ndarray = np.array([], dtype=np.int64)
+        self._obs = (_TrainObs(self, registry, spans)
+                     if registry is not None or spans is not None
+                     else None)
         if tx is not None:
             self._held = [t.detach().to(devices[0], copy=True)
                           for t in _leaves(params0)]
@@ -216,23 +290,34 @@ class CodedGradTrainer:
                 "pass lr for plain SGD, or construct with tx= for optax "
                 "(exactly one of the two)"
             )
+        obs = self._obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         dev = self.backend.devices[0]
         flat_w = self._flat.ravel(params, dev)
         asyncmap(pool, flat_w, self.backend, nwait=nwait, epoch=epoch,
                  tracer=self.tracer)
         g_flat = self._decode(pool, dev)
         if self.tx is None:
-            return self._flat.tree(self._flat.leaves(flat_w - lr * g_flat))
-        with torch.no_grad():
-            for p, src in zip(self._held, _leaves(params)):
-                if p is not src:
-                    p.copy_(src)
-        for p, g in zip(self._held, self._flat.leaves(g_flat)):
-            p.grad = g
-        self.opt_state.step()
-        for p in self._held:
-            p.grad = None
-        return self._flat.tree(self._held)
+            out = self._flat.tree(self._flat.leaves(flat_w - lr * g_flat))
+        else:
+            with torch.no_grad():
+                for p, src in zip(self._held, _leaves(params)):
+                    if p is not src:
+                        p.copy_(src)
+            for p, g in zip(self._held, self._flat.leaves(g_flat)):
+                p.grad = g
+            self.opt_state.step()
+            for p in self._held:
+                p.grad = None
+            out = self._flat.tree(self._held)
+        if obs is not None:
+            obs.step_done(
+                self, self.last_fresh, t0,
+                self.tracer.records[-1]
+                if self.tracer is not None and self.tracer.records
+                else None,
+            )
+        return out
 
     def full_batch_loss(self, params) -> float:
         """Mean chunk loss over all n chunks, each counted once (worker

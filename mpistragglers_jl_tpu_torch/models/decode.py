@@ -18,8 +18,13 @@ Differences from the reference, all deliberate:
 * an out-of-range write raises instead of clamping (the reference's
   ``dynamic_update_slice`` clamps the start index, which silently
   misplaces K/V, see ``models/serving.py``);
-* a Python loop replaces ``lax.scan``; only greedy decoding is ported
-  (sampling is ``ROADMAP.md`` Queue 1 item 8).
+* a Python loop replaces ``lax.scan``.
+
+Sampling (``temperature > 0``, ``top_k``, a ``key`` from
+``utils/prng.py``) draws the reference's tokens: ``utils/prng.py`` is
+bit-equal to ``jax.random``, and ``ops/sampling.py`` ``sample_rows``
+folds the key with the position and the batch row as ``_pick_token``
+does (one CUDA kernel on the card).
 
 The int8 decode-kernel routing gate (``use_decode_kernel``,
 ``KERNEL_MIN_BATCH``, ``_route_kernel``, ``_kernel_viable``,
@@ -38,6 +43,7 @@ from ..parallel.ring_attention import (
     _group_scores,
     resolve_attention_impl,
 )
+from ..ops.sampling import sample_rows
 from .moe import moe_ffn_dense
 from .transformer import TransformerConfig, _ln, _mlp, _rope
 
@@ -430,21 +436,56 @@ def decode_step_ring_dense(params, token, cache, pos: int,
     return logits[:, 0], cache
 
 
-def _check_sampling(temperature) -> None:
-    """Greedy only in this slice: ``temperature > 0`` raises naming the
-    roadmap item that ports sampling (with ``top_k`` and PRNG keys)."""
+def _check_sampling_params(temperature, top_k) -> None:
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling (temperature > 0) is ROADMAP.md Queue 1 item 8, "
-            "not yet ported"
-        )
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
 
 
-def _pick_token(logits):
-    """Greedy next token: the first maximal index, as ``jnp.argmax``."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _check_sampling(temperature, top_k, key) -> None:
+    """The reference's checks: a key only with ``temperature > 0``, and
+    always then."""
+    _check_sampling_params(temperature, top_k)
+    if temperature == 0.0 and key is not None:
+        raise ValueError("a PRNG key is only meaningful with "
+                         "temperature > 0 (greedy decoding is "
+                         "deterministic)")
+    if temperature > 0.0 and key is None:
+        raise ValueError("temperature > 0 needs a PRNG key "
+                         "(utils.prng.key)")
+
+
+def _pick_token(logits, pos=None, keys=None, rows=None,
+                temperature: float = 0.0, top_k: int | None = None):
+    """Next token per row of ``logits`` (B, V): greedy (the first
+    maximal index, as ``jnp.argmax``) at temperature 0, else sampled
+    with row b's key ``fold_in(fold_in(keys[b], pos[b]), rows[b])``
+    (``ops/sampling.py``; device tensors ``pos``, ``rows`` (B,) and
+    ``keys`` (B, 2)). Returns int32 (B,)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sample_rows(logits, pos, keys, rows, temperature, top_k)
+
+
+def _picker(B: int, dev, temperature: float, top_k, key):
+    """The generators' choice ``pick(logits, pos)`` at a host position:
+    greedy, or batch row b sampled with ``fold_in(fold_in(key, pos),
+    b)``, the reference's fold (``row0 = 0`` on one device)."""
+    if temperature == 0.0:
+        return lambda lg, pos: _pick_token(lg)
+    keys = torch.as_tensor(key).to(dev, torch.int64)
+    if tuple(keys.shape) != (2,):
+        raise ValueError(f"key must be one key of shape (2,), got "
+                         f"{tuple(keys.shape)}")
+    keys = keys.expand(B, 2).contiguous()
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+
+    def pick(lg, pos: int):
+        p = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        return _pick_token(lg, p, keys, rows, temperature, top_k)
+
+    return pick
 
 
 def _eos_clamp(nxt, tok, done, eos_id):
@@ -457,10 +498,11 @@ def _eos_clamp(nxt, tok, done, eos_id):
 
 
 def _decode_loop(params, tok, c, Tp: int, n_new: int, cfg, *, ring,
-                 use_kernel, eos_id):
-    """The greedy decode loop shared by both generators: ``tok`` (B,)
-    is the prefill's pick, then ``n_new - 1`` decode forwards (the last
-    token emitted is never fed back). Returns (B, n_new) int32
+                 use_kernel, eos_id, pick):
+    """The decode loop shared by both generators: ``tok`` (B,) is the
+    prefill's pick, then ``n_new - 1`` decode forwards, each token
+    chosen by ``pick(logits, pos)`` at the position it was fed at (the
+    last token emitted is never fed back). Returns (B, n_new) int32
     tokens."""
     done = torch.zeros_like(tok, dtype=torch.bool)
     toks = []
@@ -469,25 +511,27 @@ def _decode_loop(params, tok, c, Tp: int, n_new: int, cfg, *, ring,
             params, tok[:, None], c, pos, cfg, prefill=False, ring=ring,
             decode_kernel=use_kernel,
         )
-        nxt, done = _eos_clamp(_pick_token(lg[:, 0]), tok, done, eos_id)
+        nxt, done = _eos_clamp(pick(lg[:, 0], pos), tok, done, eos_id)
         toks.append(tok)
         tok = nxt
     toks.append(tok)
     return torch.stack(toks, dim=1)
 
 
-def _generation_setup(prompt, n_new: int, temperature, quantize_kv, cfg,
-                      device):
+def _generation_setup(prompt, n_new: int, temperature, top_k, key,
+                      quantize_kv, cfg, device):
     """Checks and routing shared by both generators: (device, prompt as
-    int64 on it, use_kernel), the routing resolved once per call."""
+    int64 on it, use_kernel, pick), the routing resolved once per
+    call."""
     if n_new < 1:
         raise ValueError(f"n_new must be >= 1, got {n_new}")
-    _check_sampling(temperature)
+    _check_sampling(temperature, top_k, key)
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
     use_kernel = (_kernel_possible(cfg, quantize_kv)
                   and _route_kernel(_UNSET, prompt.shape[0]))
-    return dev, prompt, use_kernel
+    pick = _picker(prompt.shape[0], dev, float(temperature), top_k, key)
+    return dev, prompt, use_kernel, pick
 
 
 def decode_step_dense(params, token, cache, pos: int,
@@ -504,16 +548,20 @@ def decode_step_dense(params, token, cache, pos: int,
 
 def generate_dense(params, prompt, n_new: int, cfg: TransformerConfig,
                    max_len: int | None = None, *,
-                   temperature: float = 0.0, eos_id: int | None = None,
+                   temperature: float = 0.0, top_k: int | None = None,
+                   key=None, eos_id: int | None = None,
                    quantize_kv: bool = False, device=None):
-    """Greedy generation over the positional ``max_len`` cache (default
+    """Generation over the positional ``max_len`` cache (default
     ``Tp + n_new``): exact prefill through ``cfg.attn_impl`` (flash runs
     K1), then one decode forward per token, int8 caches through K5 when
-    routed. ``prompt`` (B, Tp) int tokens -> (B, n_new) int32 tokens;
-    rows that emit ``eos_id`` keep emitting it. ``device`` defaults to
-    ``cuda``; ``params`` must live there."""
-    dev, prompt, use_kernel = _generation_setup(
-        prompt, n_new, temperature, quantize_kv, cfg, device)
+    routed. Greedy by default; ``temperature > 0`` samples (optionally
+    top-k truncated) with ``key`` (``utils/prng.py``), the first token
+    at position ``Tp - 1``, each later one at its own. ``prompt`` (B, Tp)
+    int tokens -> (B, n_new) int32 tokens; rows that emit ``eos_id``
+    keep emitting it. ``device`` defaults to ``cuda``; ``params`` must
+    live there."""
+    dev, prompt, use_kernel, pick = _generation_setup(
+        prompt, n_new, temperature, top_k, key, quantize_kv, cfg, device)
     B, Tp = prompt.shape
     if max_len is None:
         max_len = Tp + n_new
@@ -525,18 +573,21 @@ def generate_dense(params, prompt, n_new: int, cfg: TransformerConfig,
     with torch.no_grad():
         c = init_cache(cfg, B, max_len, quantize_kv=quantize_kv, device=dev)
         logits, c = prefill_dense(params, prompt, c, cfg)
-        tok = _pick_token(logits[:, -1])
+        tok = pick(logits[:, -1], Tp - 1)
         del logits  # the (B, Tp, V) prefill logits, before the loop
         return _decode_loop(params, tok, c, Tp, n_new, cfg, ring=False,
-                            use_kernel=use_kernel, eos_id=eos_id)
+                            use_kernel=use_kernel, eos_id=eos_id,
+                            pick=pick)
 
 
 def generate_ring_dense(params, prompt, n_new: int,
                         cfg: TransformerConfig, *,
-                        temperature: float = 0.0, eos_id: int | None = None,
+                        temperature: float = 0.0, top_k: int | None = None,
+                        key=None, eos_id: int | None = None,
                         quantize_kv: bool = False, device=None):
-    """Greedy sliding-window generation over the O(W) ring cache:
-    ``prompt`` (B, Tp) int tokens -> (B, n_new) int32 tokens.
+    """Sliding-window generation over the O(W) ring cache: ``prompt``
+    (B, Tp) int tokens -> (B, n_new) int32 tokens, greedy or sampled as
+    :func:`generate_dense`.
 
     With ``quantize_kv=True`` this is THE serving oracle: prefill
     attends the already-quantized cache exactly like the scheduler's
@@ -544,8 +595,8 @@ def generate_ring_dense(params, prompt, n_new: int,
     an identity. ``device`` defaults to ``cuda``; ``params`` must live
     there."""
     W = _check_ring_cfg(cfg)
-    dev, prompt, use_kernel = _generation_setup(
-        prompt, n_new, temperature, quantize_kv, cfg, device)
+    dev, prompt, use_kernel, pick = _generation_setup(
+        prompt, n_new, temperature, top_k, key, quantize_kv, cfg, device)
     B, Tp = prompt.shape
     with torch.no_grad():
         c = init_cache(cfg, B, Tp, quantize_kv=quantize_kv, device=dev)
@@ -556,6 +607,6 @@ def generate_ring_dense(params, prompt, n_new: int,
         else:
             logits, c = prefill_dense(params, prompt, c, cfg)
         c = [_ring_from_cache(cl, Tp, W) for cl in c]
-        return _decode_loop(params, _pick_token(logits[:, -1]), c, Tp,
+        return _decode_loop(params, pick(logits[:, -1], Tp - 1), c, Tp,
                             n_new, cfg, ring=True, use_kernel=use_kernel,
-                            eos_id=eos_id)
+                            eos_id=eos_id, pick=pick)

@@ -27,7 +27,16 @@ already-quantized cache), installs finished admissions into their
 slot, runs ``n_inner`` decode steps for all slots, and fetches the
 ``(S, n_inner)`` token block to the host ONCE. Rows that emit
 ``eos_id`` keep emitting it; the host strips the tail and retires the
-request. Greedy streams equal ``generate_ring_dense`` token for token.
+request. Greedy streams equal ``generate_ring_dense`` token for token;
+with ``temperature > 0`` every slot samples with its request's key
+(``utils/prng.py``, bit-equal to ``jax.random``) as row 0 of its own
+stream, so a sampled stream equals ``generate_ring_dense(..., key=)``
+and the JAX package's scheduler with the same key.
+
+Observability is opt-in, as in the reference: ``registry=``,
+``spans=``, ``flight=``, ``exporter=`` and ``trace=`` (``obs/``
+copies) record the reference's series, spans and request events; a
+dark scheduler does no work beyond ``is None`` checks.
 
 Cache writes are IN PLACE (``index_put_`` for the per-row writes, slice
 and page-block assignment for prefill chunks, installs and page
@@ -48,12 +57,15 @@ request does not share.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..obs.timeline import annotate as _annotate
+from ..utils import prng
 from ..ops.decode_attention import paged_ring_view, quantized_decode_attention
 from .decode import (
     _NEG,
@@ -61,7 +73,7 @@ from .decode import (
     _cache_pv,
     _cache_scores,
     _check_ring_cfg,
-    _check_sampling,
+    _check_sampling_params,
     _eos_clamp,
     _incremental_forward,
     _is_quantized,
@@ -209,22 +221,17 @@ def serving_decode_step_dense(params, tok, pos, caches,
         return _serving_forward(params, tok, pos, caches, cfg)
 
 
-def _pick_rows(lg):
-    """Per-row greedy token choice."""
-    return _pick_token(lg)
-
-
 def _scan_body(params, tok, pos, done, caches, cfg, eos_id, n_inner,
-               *, use_kernel=False, paged=None):
-    """``n_inner`` greedy decode steps for all S slots, on the device,
-    with no host sync. Returns (tok, pos, done, caches, toks (S,
-    n_inner))."""
+               pick, *, use_kernel=False, paged=None):
+    """``n_inner`` decode steps for all S slots, on the device, with no
+    host sync; ``pick(logits, pos)`` chooses each step's tokens.
+    Returns (tok, pos, done, caches, toks (S, n_inner))."""
     toks = torch.empty((tok.shape[0], n_inner), dtype=torch.int32,
                        device=tok.device)
     for t in range(n_inner):
         lg, caches = _serving_forward(params, tok, pos, caches, cfg,
                                       use_kernel=use_kernel, paged=paged)
-        nxt, done = _eos_clamp(_pick_rows(lg), tok, done, eos_id)
+        nxt, done = _eos_clamp(pick(lg, pos), tok, done, eos_id)
         toks[:, t] = nxt
         tok, pos = nxt, pos + 1
     return tok, pos, done, caches, toks
@@ -271,7 +278,7 @@ def _paged_scatter(cache_l: dict, view_l: dict, pt, P: int) -> None:
 
 
 def _serving_scan_paged(params, tok, pos, done, caches, pt, cfg, eos_id,
-                        n_inner, P: int, use_kernel: bool):
+                        n_inner, pick, P: int, use_kernel: bool):
     """The paged tick: ``n_inner`` decode steps for all slots through
     the ``(S, max_pages)`` int32 page table (tick-invariant: copy-on-
     write retargets it on the host between ticks). The kernel route
@@ -280,10 +287,10 @@ def _serving_scan_paged(params, tok, pos, done, caches, pt, cfg, eos_id,
     scatters them back."""
     if use_kernel:
         return _scan_body(params, tok, pos, done, caches, cfg, eos_id,
-                          n_inner, paged=(pt, P))
+                          n_inner, pick, paged=(pt, P))
     views = [_paged_gather(cl, pt, P) for cl in caches]
     tok, pos, done, views, toks = _scan_body(
-        params, tok, pos, done, views, cfg, eos_id, n_inner)
+        params, tok, pos, done, views, cfg, eos_id, n_inner, pick)
     for cl, vw in zip(caches, views):
         _paged_scatter(cl, vw, pt, P)
     return tok, pos, done, caches, toks
@@ -336,20 +343,28 @@ def _extend_chunk_dense(params, chunk, cache, offset: int, cfg):
 
 
 def _finish_admit_dense(cache, last_logits, true_len: int, last_off: int,
-                        W: int):
+                        W: int, pick):
     """Gather the last-W window of a filled positional cache into ring
-    rows and pick the first token from the last chunk's logits.
-    Returns (tok0 0-d int32 tensor, ring leaves (1, W, ...))."""
+    rows and pick the first token from the last chunk's logits at the
+    prompt's last position (``pick(logits (1, V), pos (1,))``).
+    Returns (tok0 (1,) int32 tensor, ring leaves (1, W, ...))."""
     ring = [_ring_from_cache(cl, true_len, W) for cl in cache]
-    tok0 = _pick_rows(last_logits[0, true_len - 1 - last_off])
+    lg = last_logits[0, true_len - 1 - last_off][None]
+    tok0 = pick(lg, torch.full((1,), true_len - 1, dtype=torch.int32,
+                               device=lg.device))
     return tok0, ring
 
 
-def _start_row(tok, pos, done, s: int, tok0, pos0: int) -> None:
-    """Set slot ``s``'s row state: first token, start position, live."""
-    tok[s] = tok0
+def _start_row(tok, pos, done, keys, s: int, tok0, pos0: int,
+               key) -> None:
+    """Set slot ``s``'s row state: first token, start position, live,
+    and its request's key on a sampling scheduler (``keys`` None when
+    greedy)."""
+    tok[s] = tok0[0]
     pos[s] = pos0
     done[s] = False
+    if keys is not None:
+        keys[s] = key
 
 
 def _place_dense(caches, ring, s: int) -> None:
@@ -361,6 +376,170 @@ def _place_dense(caches, ring, s: int) -> None:
 
 
 # --------------------------------------------------------------------------
+# observability (obs/ registry + timeline, strictly opt-in)
+# --------------------------------------------------------------------------
+
+
+class _ServingObs:
+    """Instrument bundle for one scheduler, resolved once at
+    construction so the tick only increments and observes: the
+    reference's ``_ServingObs`` (its series names, labels and buckets),
+    without the QoS and fleet-cache series of ``qos=``/``cache=``
+    (``ROADMAP.md`` Queue 1 item 10). Built only when a registry or a
+    span recorder is attached."""
+
+    def __init__(self, sched: "ServingScheduler", registry, spans):
+        self.registry = registry
+        self.spans = spans
+        self.annotate = _annotate
+        # tokens delivered in the current tick (admission first tokens
+        # plus the trimmed decode harvest: serving_tokens_total's
+        # population, so the per-tick rate and the counter cross-check)
+        self._tick_toks = 0
+        # last published page-pool tallies (delta counters)
+        self._last_share = 0
+        self._last_cow = 0
+        self._r = registry is not None
+        if not self._r:
+            return
+        registry.gauge(
+            "serving_slots", help="configured serving slots"
+        ).set(sched.S)
+        self.m_queue = registry.gauge(
+            "serving_queue_depth",
+            help="requests queued, not yet admitted",
+        )
+        self.m_active = registry.gauge(
+            "serving_active_slots", help="slots decoding or admitting"
+        )
+        self.m_ticks = registry.counter("serving_ticks_total")
+        self.m_tick_s = registry.histogram(
+            "serving_tick_seconds", help="scheduler tick wall clock"
+        )
+        self.m_tokens = registry.counter(
+            "serving_tokens_total",
+            help="tokens delivered into request streams (first tokens "
+            "+ decode harvest, post-retirement trim)",
+        )
+        self.m_tok_rate = registry.gauge(
+            "serving_tokens_per_s",
+            help="tokens delivered / tick wall, last tick",
+        )
+        self.m_ttft = registry.histogram(
+            "serving_ttft_seconds", help="submit -> first token"
+        )
+        self.m_intertoken = registry.histogram(
+            "serving_intertoken_seconds",
+            help="mean per-token gap, one sample per (slot, tick)",
+        )
+        self.m_admitted = registry.counter("serving_admitted_total")
+        self.m_retired = {
+            "eos": registry.counter(
+                "serving_retired_total", reason="eos"
+            ),
+            "length": registry.counter(
+                "serving_retired_total", reason="length"
+            ),
+        }
+        self.m_prefill = registry.counter(
+            "serving_prefill_chunks_total",
+            help="admission prefill chunks advanced",
+        )
+        # the scheduler's resolved int8-kernel route, counted once per
+        # decode tick (when the route fired, not only that it could)
+        self.m_route = registry.counter(
+            "serving_kernel_route_total",
+            help="decode ticks by resolved int8-kernel route",
+            route="kernel" if sched.use_kernel else "einsum",
+        )
+        if sched.paged:
+            self.m_pages_free = registry.gauge(
+                "serving_cache_pages_free",
+                help="KV cache pages on the free list",
+            )
+            self.m_pages_used = registry.gauge(
+                "serving_cache_pages_used",
+                help="KV cache pages allocated to slots",
+            )
+            self.m_share = registry.counter(
+                "serving_prefix_share_hits_total",
+                help="prompt prefix pages whose prefill was skipped "
+                "at admission, by serving tier (hbm = local share, "
+                "dram = host page store, peer = replica fetch)",
+                tier="hbm",
+            )
+            self.m_cow = registry.counter(
+                "serving_cow_copies_total",
+                help="copy-on-write page copies (a slot wrote a page "
+                "another slot still reads)",
+            )
+
+    def first_token(self, req: "Request", t: float) -> None:
+        self._tick_toks += 1
+        if self._r:
+            self.m_admitted.inc()
+            self.m_tokens.inc()
+            if req._t_submit is not None:
+                self.m_ttft.observe(t - req._t_submit)
+        req._t_last_tok = t
+
+    def tokens_emitted(self, req: "Request", n: int, t: float) -> None:
+        self._tick_toks += n
+        if self._r:
+            self.m_tokens.inc(n)
+            last = req._t_last_tok
+            if last is not None and n:
+                self.m_intertoken.observe((t - last) / n)
+        req._t_last_tok = t
+
+    def prefill_chunk(self) -> None:
+        if self._r:
+            self.m_prefill.inc()
+
+    def tick_done(self, sched: "ServingScheduler", retired, t0: float,
+                  t1: float, t2: float | None) -> None:
+        """t0 tick begin, t1 admissions done, t2 decode fetched (None
+        when no slot decoded this tick)."""
+        t3 = time.perf_counter()
+        wall = t3 - t0
+        n_toks, self._tick_toks = self._tick_toks, 0
+        if self._r:
+            self.m_ticks.inc()
+            self.m_tick_s.observe(wall)
+            self.m_queue.set(sched.pending)
+            self.m_active.set(sched.active)
+            self.m_tok_rate.set(n_toks / wall if wall > 0 else 0.0)
+            if t2 is not None:
+                self.m_route.inc()
+            for req in retired:
+                self.m_retired[req.reason].inc()
+            if sched.paged:
+                pool = sched.pool
+                self.m_pages_free.set(pool.free)
+                self.m_pages_used.set(pool.used)
+                self.m_share.inc(pool.share_hits - self._last_share)
+                self._last_share = pool.share_hits
+                self.m_cow.inc(pool.cow_copies - self._last_cow)
+                self._last_cow = pool.cow_copies
+        sp = self.spans
+        if sp is not None:
+            tick = sched.tick_count
+            sp.add(
+                f"tick {tick}", t0, wall, track="scheduler",
+                queue=sched.pending, active=sched.active,
+                tokens=n_toks, retired=len(retired),
+            )
+            sp.add("admit", t0, t1 - t0, track="scheduler")
+            if t2 is not None:
+                sp.add("decode", t1, t2 - t1, track="scheduler")
+                sp.add("retire", t2, t3 - t2, track="scheduler")
+            sp.count("queue_depth", sched.pending, t=t3)
+            sp.count("active_slots", sched.active, t=t3)
+            if sched.paged:
+                sp.count("pages_used", sched.pool.used, t=t3)
+
+
+# --------------------------------------------------------------------------
 # the scheduler
 # --------------------------------------------------------------------------
 
@@ -369,13 +548,19 @@ class Request:
     """One generation request: ``prompt`` (1D int tokens) in,
     ``tokens`` (the generated ids, EOS kept if emitted) out.
     ``finished`` flips at retirement; ``reason`` is ``"eos"``,
-    ``"length"`` or ``"cancelled"``."""
+    ``"length"`` or ``"cancelled"``. ``key`` is the request's PRNG key
+    on a sampling scheduler (None: derived from the id at admission);
+    ``tenant`` rides the request (QoS is ``ROADMAP.md`` item 10);
+    ``trace`` is its ``TraceBook`` id (None: dark)."""
 
     _next_id = 0
 
-    def __init__(self, prompt, max_new: int):
+    def __init__(self, prompt, max_new: int, key=None,
+                 tenant: str | None = None):
         self.id = Request._next_id
         Request._next_id += 1
+        self.key = key
+        self.tenant = tenant
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:
             raise ValueError("empty prompt")
@@ -387,10 +572,18 @@ class Request:
         self.reason: str | None = None
         self.admitted_tick: int | None = None
         self.retired_tick: int | None = None
+        # latency stamps (perf_counter), set only by an instrumented
+        # scheduler: submit time and last-token time
+        self._t_submit: float | None = None
+        self._t_last_tok: float | None = None
         # incremental EOS scan: index of the first EOS if found, and
         # how many tokens were already scanned
         self._eos_at: int | None = None
         self._scanned = 0
+        # _trace_owned: the trace was minted at this scheduler's door,
+        # so this scheduler stamps its terminal events
+        self.trace: int | None = None
+        self._trace_owned = False
 
 
 class _Admitting:
@@ -450,30 +643,43 @@ class ServingScheduler:
     skip their prefill (``pool.share_hits``); a page is copied before a
     slot writes it while it is shared (``pool.cow_copies``).
 
-    Arguments of later slices raise ``NotImplementedError`` naming
-    their ``ROADMAP.md`` item: ``qos``,
-    ``registry``/``spans``/``flight``/``exporter``/``trace``, ``cache``,
-    ``temperature > 0``.
+    Greedy by default; ``temperature > 0`` (optionally ``top_k``)
+    samples each slot with its request's key (``submit(..., key=)``,
+    from ``utils/prng.py``; ``prng.key(id + 1)`` when omitted). The
+    first token is drawn at the prompt's last position, each later one
+    at its own. ``max_queue`` caps the queue: a submit past it raises.
+
+    Observability, all opt-in: ``registry=`` (an
+    :class:`~..obs.MetricsRegistry`) for the tick, queue, slot and
+    token series, TTFT and inter-token histograms, kernel-route and
+    page-pool counters; ``spans=`` (an :class:`~..obs.SpanRecorder`)
+    for per-tick admit/decode/retire spans in the merged Perfetto
+    timeline; ``flight=`` (an :class:`~..obs.FlightRecorder`) for
+    per-tick spans in its ring and the ``last_tick_at`` stamp;
+    ``exporter=`` (an :class:`~..obs.ObsServer`) registers the
+    tick-freshness ``/healthz`` check and the span recorder;
+    ``trace=`` (a :class:`~..obs.TraceBook`) records each request's
+    lifecycle events. With none of them the tick does no
+    observability work beyond ``is None`` checks.
+
+    ``qos`` and ``cache`` raise ``NotImplementedError`` naming
+    ``ROADMAP.md`` Queue 1 item 10.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
                  n_inner: int = 8, eos_id: int | None = None,
                  prompt_chunk: int = 256, max_prompt: int = 2048,
                  quantize_kv: bool = False, temperature: float = 0.0,
-                 page_tokens: int | None = None,
+                 top_k: int | None = None, page_tokens: int | None = None,
                  cache_pages: int | None = None, qos=None,
-                 registry=None, spans=None,
+                 max_queue: int | None = None, registry=None, spans=None,
                  flight=None, exporter=None, trace=None, cache=None,
                  device=None):
         if qos is not None:
             raise _later("multi-tenant QoS (qos=)", 10)
         if cache is not None:
             raise _later("the fleet prefix cache (cache=)", 10)
-        if any(a is not None for a in (registry, spans, flight, exporter,
-                                       trace)):
-            raise _later("serving observability (registry=, spans=, "
-                         "flight=, exporter=, trace=)", 9)
-        _check_sampling(temperature)
+        _check_sampling_params(temperature, top_k)
         W = _check_ring_cfg(cfg)
         if cfg.n_experts:
             raise ValueError(
@@ -517,6 +723,13 @@ class ServingScheduler:
         # chunk boundary), so it ends below max_prompt + C - 1
         self.L_arena = self.Lmax + self.C - 1
         self.quantize_kv = bool(quantize_kv)
+        # queue-depth ceiling: the router sheds by name before a
+        # replica sees a request; this is the hard backstop behind it
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(
+                f"max_queue must be >= 1 or None, got {max_queue}"
+            )
+        self.max_queue = None if max_queue is None else int(max_queue)
         self._queue: deque[Request] = deque()
         self._slot_req: list[Request | None] = [None] * self.S
         self._admitting: dict[int, _Admitting] = {}
@@ -527,6 +740,14 @@ class ServingScheduler:
         self._tok = torch.zeros((self.S,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((self.S,), dtype=torch.int32, device=dev)
         self._done = torch.ones((self.S,), dtype=torch.bool, device=dev)
+        # sampling: one device key per slot (written at admission; idle
+        # rows draw with whatever key they hold, and nobody reads them)
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self._keys = (torch.zeros((self.S, 2), dtype=torch.int64,
+                                  device=dev)
+                      if self.temperature > 0.0 else None)
+        self._rows0 = torch.zeros((self.S,), dtype=torch.int32, device=dev)
         # int8 kernel routing, resolved once against this slot count
         # (the reference's AUTO gate: the tick batches all S slots into
         # one kernel call per layer)
@@ -564,20 +785,93 @@ class ServingScheduler:
                 _kernel_possible(cfg, self.quantize_kv)
                 and _route_kernel(_UNSET, self.S)
             )
+        # instruments resolved once here; None = dark (no tick cost)
+        self._obs = (_ServingObs(self, registry, spans)
+                     if registry is not None or spans is not None
+                     else None)
+        self._flight = flight
+        # perf_counter of the latest tick: the liveness signal of the
+        # /healthz tick-freshness check and flight watchdogs; a fully
+        # dark scheduler never reads the clock
+        self.last_tick_at: float | None = None
+        self._stamp_ticks = (self._obs is not None or flight is not None
+                             or exporter is not None)
+        self._trace = None
+        if trace is not None:
+            self.attach_trace(trace)
+        if exporter is not None:
+            exporter.register_scheduler(self)
+
+    def attach_trace(self, book) -> None:
+        """Arm causal tracing: request lifecycle events go to ``book``
+        (a :class:`~..obs.TraceBook`) on the wall clock."""
+        self._trace = book
 
     # -- public API -----------------------------------------------------
 
-    def submit(self, prompt, max_new: int) -> Request:
+    def enable_tick_stamping(self) -> None:
+        """Turn on the per-tick ``last_tick_at`` stamp (one clock read
+        a tick); :meth:`ObsServer.register_scheduler` calls it so a
+        scheduler registered after a dark construction is probeable."""
+        self._stamp_ticks = True
+
+    def _pick(self, lg, pos, keys):
+        """Per-row token choice (the reference's ``_pick_rows``): greedy,
+        or each row sampled as row 0 of its own stream with its own key
+        and position, so a slot's stream equals
+        ``generate_ring_dense(..., key=)`` with its request's key."""
+        return _pick_token(lg, pos, keys, self._rows0[:lg.shape[0]],
+                           self.temperature, self.top_k)
+
+    def submit(self, prompt, max_new: int, key=None,
+               tenant: str | None = None, trace=None) -> Request:
         """Queue a request; returns the live :class:`Request` whose
         ``tokens``/``finished`` the caller watches. Admission happens
-        inside subsequent ticks."""
-        req = Request(prompt, max_new)
+        inside subsequent ticks. ``key``: the request's key (a
+        ``utils/prng.py`` key, or its uint32 data) on a sampling
+        scheduler; raises on a greedy one. ``tenant`` rides the request.
+        ``trace``: a ``TraceBook`` id minted upstream (a router's); else
+        an attached book mints one here."""
+        if key is not None and self.temperature == 0.0:
+            raise ValueError(
+                "submit(key=...) on a greedy scheduler: the key would "
+                "be silently unused; construct the scheduler with "
+                "temperature > 0 (generate_* raises the same way)"
+            )
+        if self.max_queue is not None and self.pending >= self.max_queue:
+            raise RuntimeError(
+                f"queue ceiling: {self.pending} requests already "
+                f"queued at max_queue={self.max_queue}; shed at the "
+                "router instead of queueing unboundedly"
+            )
+        if key is not None:
+            key = torch.as_tensor(key).to(self.device, torch.int64)
+            if tuple(key.shape) != (2,):
+                raise ValueError(f"key must be one key of shape (2,), got "
+                                 f"{tuple(key.shape)}")
+        req = Request(prompt, max_new, key=key, tenant=tenant)
         if req.prompt.size > self.Lmax:
             raise ValueError(
                 f"prompt of {req.prompt.size} tokens exceeds max_prompt "
                 f"{self.Lmax}; raise max_prompt"
             )
+        obs = self._obs
+        if obs is not None:
+            req._t_submit = time.perf_counter()
+        if trace is not None:
+            req.trace = trace
+        elif self._trace is not None:
+            # this scheduler is the entry door: mint here and own the
+            # terminal events
+            req.trace = self._trace.mint()
+            req._trace_owned = True
+            self._trace.event(
+                req.trace, "submitted", time.perf_counter(),
+                tenant=tenant, prompt=int(req.prompt.size),
+            )
         self._queue.append(req)
+        if obs is not None and obs._r:
+            obs.m_queue.set(self.pending)
         return req
 
     @property
@@ -591,47 +885,88 @@ class ServingScheduler:
 
     def step(self) -> list[Request]:
         """One scheduler tick; returns the requests retired in it
-        (including any that retire at admission)."""
+        (including any that retire at admission). Instrumented, the
+        tick records admit/decode/retire spans and the queue, slot and
+        token series; dark, it adds only ``is None`` checks."""
+        obs = self._obs
+        flight = self._flight
+        lit = self._stamp_ticks
+        t0 = time.perf_counter() if lit else 0.0
         self.tick_count += 1
         retired: list[Request] = []
+        t2 = None
         with torch.no_grad():
             for s in list(self._admitting):
                 self._advance_admission(s, retired)
             self._admit_from_queue(retired)
+            t1 = time.perf_counter() if obs is not None else 0.0
             decoding = [
                 s for s, r in enumerate(self._slot_req)
                 if r is not None and s not in self._admitting
             ]
-            if not decoding:
-                return retired
-            if self.paged:
-                # every page the next n_inner writes touch must be the
-                # row's own before the tick runs
-                self._prepare_tick_pages(decoding)
-                (self._tok, self._pos, self._done, self._caches,
-                 toks) = _serving_scan_paged(
-                    self.params, self._tok, self._pos, self._done,
-                    self._caches, self._device_pt(), self.cfg,
-                    self.eos_id, self.n_inner, self.P, self.use_kernel,
-                )
-                for s in decoding:
-                    self._host_pos[s] += self.n_inner
-            else:
-                (self._tok, self._pos, self._done, self._caches,
-                 toks) = _scan_body(
-                    self.params, self._tok, self._pos, self._done,
-                    self._caches, self.cfg, self.eos_id, self.n_inner,
-                    use_kernel=self.use_kernel,
-                )
-            self.decode_ticks += 1
-            host = toks.cpu().numpy()  # the tick's one host fetch
+            if decoding:
+                if self.paged:
+                    # every page the next n_inner writes touch must be
+                    # the row's own before the tick runs
+                    self._prepare_tick_pages(decoding)
+                if obs is None:
+                    host = self._decode_fetch(decoding)
+                else:
+                    with obs.annotate("serving.decode_scan"):
+                        host = self._decode_fetch(decoding)
+                    t2 = time.perf_counter()
         for s in decoding:
             req = self._slot_req[s]
+            n_before = len(req.tokens) if obs is not None else 0
             req.tokens.extend(int(t) for t in host[s])
-            if self._retire_if_due(req):
+            due = self._retire_if_due(req)
+            if obs is not None:
+                # counted after the retirement trim: the EOS-clamped
+                # tail the host strips was never delivered
+                obs.tokens_emitted(req, len(req.tokens) - n_before, t2)
+            if due:
                 self._free_slot(s)
                 retired.append(req)
+        if obs is not None:
+            obs.tick_done(self, retired, t0, t1, t2)
+        if lit:
+            now = time.perf_counter()
+            self.last_tick_at = now
+            if flight is not None:
+                flight.span(
+                    f"tick {self.tick_count}", t0, now - t0,
+                    src="scheduler", track="scheduler",
+                    queue=self.pending, active=self.active,
+                    retired=len(retired),
+                )
+                flight.counter(
+                    "serving_ticks_total", self.tick_count, t=now
+                )
         return retired
+
+    def _decode_fetch(self, decoding: list[int]) -> np.ndarray:
+        """Run the decode tick for every slot and fetch its (S, n_inner)
+        token block to the host: the tick's one sync. ``decoding``: the
+        slots whose requests decode (their host positions advance)."""
+        pick = (lambda lg, pos: self._pick(lg, pos, self._keys))
+        if self.paged:
+            (self._tok, self._pos, self._done, self._caches,
+             toks) = _serving_scan_paged(
+                self.params, self._tok, self._pos, self._done,
+                self._caches, self._device_pt(), self.cfg, self.eos_id,
+                self.n_inner, pick, self.P, self.use_kernel,
+            )
+            for s in decoding:
+                self._host_pos[s] += self.n_inner
+        else:
+            (self._tok, self._pos, self._done, self._caches,
+             toks) = _scan_body(
+                self.params, self._tok, self._pos, self._done,
+                self._caches, self.cfg, self.eos_id, self.n_inner, pick,
+                use_kernel=self.use_kernel,
+            )
+        self.decode_ticks += 1
+        return toks.cpu().numpy()
 
     def run(self, max_ticks: int = 10_000) -> None:
         """Tick until every queued and in-flight request retires."""
@@ -671,6 +1006,14 @@ class ServingScheduler:
         req.finished = True
         req.reason = "cancelled"
         req.retired_tick = self.tick_count
+        # terminal events belong to the request's owner (the door that
+        # minted its trace)
+        if self._trace is not None and req.trace is not None \
+                and req._trace_owned:
+            self._trace.event(
+                req.trace, "cancelled", time.perf_counter(),
+                tick=self.tick_count,
+            )
 
     def _device_pt(self):
         """The device page table, refreshed from the host copy when
@@ -720,6 +1063,11 @@ class ServingScheduler:
             n_chunks, base=base, **paging,
         )
         req.admitted_tick = self.tick_count
+        if self._trace is not None and req.trace is not None:
+            self._trace.event(
+                req.trace, "admitted", time.perf_counter(),
+                tick=self.tick_count,
+            )
         # the first chunk runs this very tick
         self._advance_admission(s, retired)
 
@@ -732,12 +1080,25 @@ class ServingScheduler:
         )
         st.next_chunk += 1
         self.prefill_chunks += 1
+        if self._obs is not None:
+            self._obs.prefill_chunk()
+        if self._trace is not None and st.req.trace is not None:
+            self._trace.event(
+                st.req.trace, "prefill_chunk", time.perf_counter(),
+                tick=self.tick_count,
+            )
         if st.next_chunk < st.n_chunks:
             return
         Tp = st.req.prompt.size
+        rkey = None
+        if self._keys is not None:
+            rkey = (st.req.key if st.req.key is not None
+                    else prng.key(st.req.id + 1, device=self.device))
         tok0, ring = _finish_admit_dense(
             st.cache, st.last_logits, Tp,
             st.base + (st.n_chunks - 1) * self.C, self.W,
+            lambda lg, pos: self._pick(
+                lg, pos, None if rkey is None else rkey[None]),
         )
         if self.paged:
             # install the table row now (the row's stale writes went to
@@ -756,8 +1117,16 @@ class ServingScheduler:
                                    volatile=st.wraps)
         else:
             _place_dense(self._caches, ring, s)
-        _start_row(self._tok, self._pos, self._done, s, tok0, Tp)
-        st.req.tokens.append(int(tok0))
+        _start_row(self._tok, self._pos, self._done, self._keys, s, tok0,
+                   Tp, rkey)
+        st.req.tokens.append(int(tok0[0]))
+        if self._obs is not None:
+            self._obs.first_token(st.req, time.perf_counter())
+        if self._trace is not None and st.req.trace is not None:
+            self._trace.event(
+                st.req.trace, "first_token", time.perf_counter(),
+                tick=self.tick_count,
+            )
         del self._admitting[s]
         if self._retire_if_due(st.req):  # max_new == 1 or prompt EOS
             self._free_slot(s)
@@ -808,6 +1177,11 @@ class ServingScheduler:
                 wrapper=wraps,
             )
             pids[j] = pid
+            if self._trace is not None and req.trace is not None:
+                self._trace.event(
+                    req.trace, "share_hit", time.perf_counter(),
+                    page=int(pid),
+                )
         for j in range(len(shared), n_pages):
             pids[j] = self.pool.alloc()
         Tp = req.prompt.size
@@ -841,6 +1215,12 @@ class ServingScheduler:
                     new = self.pool.cow_alloc(pid)
                     src.append(pid)
                     dst.append(new)
+                    r = self._slot_req[s]
+                    if self._trace is not None and r.trace is not None:
+                        self._trace.event(
+                            r.trace, "cow_copy", time.perf_counter(),
+                            page=int(pid),
+                        )
                     # only wrapping rows write shared pages
                     self.pool.decref(pid, wrapper=self._slot_wraps[s])
                     self._pt_host[s, j] = new
@@ -878,6 +1258,13 @@ class ServingScheduler:
         del req.tokens[cut:]
         req.finished = True
         req.retired_tick = self.tick_count
+        # owner-only terminal stamp (see _retire_cancelled)
+        if self._trace is not None and req.trace is not None \
+                and req._trace_owned:
+            self._trace.event(
+                req.trace, "retired", time.perf_counter(),
+                outcome=req.reason, tokens=len(req.tokens),
+            )
         return True
 
     def _free_slot(self, s: int) -> None:

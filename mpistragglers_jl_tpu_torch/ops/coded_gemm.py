@@ -94,10 +94,12 @@ class CodedGemm:
         """``batch=True`` turns on coalesced dispatch: all pool workers
         sharing a device run as ONE stacked product per epoch
         (CUDADeviceBackend batch mode) instead of one per worker.
-        Incompatible with ``delay_fn``. ``registry=`` (decode telemetry)
-        is ROADMAP item 9 and raises until it is ported."""
-        if registry is not None:
-            raise _later("CodedGemm(registry=...)", 9)
+        Incompatible with ``delay_fn``.
+
+        ``registry=`` (an :class:`~..obs.MetricsRegistry`, opt-in like
+        the pool's ``tracer=``) counts decodes and records, per worker,
+        how often the fastest-k recovery consumed its shard: the
+        reference's series."""
         A = as_tensor(A, dtype)
         m = A.shape[0]
         if m % k != 0:
@@ -132,6 +134,35 @@ class CodedGemm:
             batch_arrival=batch_arrival,
         )
 
+        # opt-in decode telemetry (instruments resolved once; None =
+        # dark, result_device pays one `is None` check)
+        self._m = None
+        if registry is not None:
+            registry.gauge(
+                "coded_gemm_n", help="workers n of the MDS code"
+            ).set(n)
+            registry.gauge(
+                "coded_gemm_k", help="recovery threshold k"
+            ).set(k)
+            self._m = {
+                "decodes": registry.counter(
+                    "coded_gemm_decodes_total",
+                    help="full products decoded",
+                ),
+                "fresh_k": registry.gauge(
+                    "coded_gemm_last_fresh",
+                    help="fresh shards available at the last decode",
+                ),
+                "recovered": [
+                    registry.counter(
+                        "coded_gemm_worker_recovered_total",
+                        help="decodes that consumed this worker's shard",
+                        worker=str(i),
+                    )
+                    for i in range(n)
+                ],
+            }
+
     def _work(self, i: int, payload: torch.Tensor, epoch: int):
         return _block_matmul(self.blocks[i], payload, self.precision)
 
@@ -158,6 +189,11 @@ class CodedGemm:
                 f"{pool.epoch if epoch is None else epoch}, need k={self.k}"
             )
         idx = fresh[: self.k]
+        if self._m is not None:
+            self._m["decodes"].inc()
+            self._m["fresh_k"].set(fresh.size)
+            for i in idx:
+                self._m["recovered"][int(i)].inc()
         results = [pool.results[i] for i in idx]
         dev = self.devices[0]
         G_S = _rows(self.code.generator(dev), idx)

@@ -386,9 +386,14 @@ def test_default_precision_is_bf16_operands_with_f32_sums():
 
 
 def test_coded_gemm_later_features_raise_naming_their_item():
+    """``registry=`` is ported (its series: tests/test_torch_obs.py);
+    the fused K-epoch coordinator still raises naming item 18."""
+    from mpistragglers_jl_tpu_torch.obs import MetricsRegistry
+
     A = np.zeros((12, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcg.CodedGemm(A, 8, 6, devices=CPU, registry=object())
+    reg = MetricsRegistry()
+    tcg.CodedGemm(A, 8, 6, devices=CPU, registry=reg).backend.shutdown()
+    assert reg.gauge("coded_gemm_k").value == 6
     cg = tcg.CodedGemm(A, 8, 6, devices=CPU)
     with pytest.raises(NotImplementedError, match="item 18"):
         cg.coordinator()

@@ -191,14 +191,22 @@ def test_generate_device_defaults_to_cuda():
 
 
 def test_sampling_and_flash_are_named_as_later_work():
-    """Sampling still raises naming its roadmap item; the flash prefill
-    is ported, so a flash config generates the reference config's
-    greedy stream."""
+    """Sampling is ported: ``temperature > 0`` needs a key, as in the
+    reference, and with one it generates (its streams are held to the
+    JAX package in test_torch_sampling.py); the flash prefill is
+    ported, so a flash config generates the reference config's greedy
+    stream."""
+    from mpistragglers_jl_tpu_torch.utils import prng
+
     tcfg = TransformerConfig(**SMALL)
     tp = init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs a PRNG key"):
         td.generate_ring_dense(tp, np.ones((1, 3), np.int32), 2, tcfg,
                                temperature=0.7, device="cpu")
+    got = td.generate_ring_dense(tp, np.ones((1, 3), np.int32), 2, tcfg,
+                                 temperature=0.7, key=prng.key(0),
+                                 device="cpu")
+    assert got.shape == (1, 2)
     flash = dataclasses.replace(tcfg, attn="ulysses", attn_impl="flash")
     prompt = np.arange(1, 10, dtype=np.int32)[None]
     torch.testing.assert_close(

@@ -10,6 +10,7 @@ plain version. Greedy tokens must be identical; float32 logits agree
 within 1e-4 absolute (different summation orders).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,9 +129,16 @@ def test_generate_dense_errors_match_jax():
             mod.generate_dense(p, prompt, 0, c, **kw)
         with pytest.raises(ValueError, match="max_len 7 < prompt 4"):
             mod.generate_dense(p, prompt, 4, c, max_len=7, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        td.generate_dense(tp, prompt, 2, tcfg, temperature=0.5,
-                          device="cpu")
+    # sampling is ported: the reference's key checks, in both packages
+    from mpistragglers_jl_tpu_torch.utils import prng
+
+    for mod, p, c, kw, key in ((jd, jp, jcfg, {}, jax.random.key(0)),
+                               (td, tp, tcfg, {"device": "cpu"},
+                                prng.key(0))):
+        with pytest.raises(ValueError, match="needs a"):
+            mod.generate_dense(p, prompt, 2, c, temperature=0.5, **kw)
+        with pytest.raises(ValueError, match="only meaningful"):
+            mod.generate_dense(p, prompt, 2, c, key=key, **kw)
 
 
 def test_decode_step_past_the_cache_raises():

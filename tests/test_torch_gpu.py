@@ -873,3 +873,146 @@ def test_worker_backward_runs_on_the_worker_stream():
                                        rtol=5e-5)
     finally:
         backend.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the sampling kernel (ops/csrc/sampling.cu)
+# --------------------------------------------------------------------------
+
+
+def _sampling_case(R, V, dtype, dev, seed=0):
+    from mpistragglers_jl_tpu_torch.utils import prng
+
+    gen = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(R, V, generator=gen) * 3).to(dtype).to(dev)
+    keys = torch.stack([prng.key(1000 + r) for r in range(R)]).to(dev)
+    pos = torch.arange(R, dtype=torch.int32, device=dev) * 37 + 5
+    rows = torch.zeros(R, dtype=torch.int32, device=dev)
+    return logits, pos, keys, rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("top_k", [None, 1, 5, 50])
+def test_sampling_kernel_bits_noise_and_tokens_equal_plain(dtype, top_k):
+    """At the serving shape (8 rows of 32768): every entry's bits and
+    Gumbel noise bit-equal to the plain chain's (on the card and on the
+    CPU), the tokens equal."""
+    from mpistragglers_jl_tpu_torch.ops import sampling
+    from mpistragglers_jl_tpu_torch.utils import prng
+
+    dev = _card()
+    R, V = 8, 32768
+    logits, pos, keys, rows = _sampling_case(R, V, getattr(torch, dtype),
+                                             dev)
+    bits = torch.empty(R, V, dtype=torch.int32, device=dev)
+    noise = torch.empty(R, V, dtype=torch.float32, device=dev)
+    got = sampling.sample_rows(logits, pos, keys, rows, 0.8, top_k,
+                               bits_out=bits, noise_out=noise)
+    torch.cuda.synchronize()
+    k = prng.fold_in(prng.fold_in(keys, pos), rows)
+    want_bits = prng.bits(k, (V,))
+    assert torch.equal(bits.long() & 0xFFFFFFFF, want_bits)
+    want_noise = prng.gumbel(k, (V,))
+    assert torch.equal(noise.view(torch.int32), want_noise.view(torch.int32))
+    cpu = prng.gumbel(k.cpu(), (V,))
+    assert torch.equal(want_noise.cpu().view(torch.int32),
+                       cpu.view(torch.int32))
+    want = sampling.sample_rows_ref(logits, pos, keys, rows, 0.8, top_k)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if top_k == 1:  # a row's largest logit (bf16 logits may tie)
+        top = logits.gather(1, got.long()[:, None])[:, 0]
+        assert torch.equal(top, logits.max(dim=-1).values)
+
+
+def test_sampling_kernel_captures_into_a_graph():
+    """One call captured into a CUDA graph replays equal to the eager
+    call; neither capture nor replays add to the count."""
+    from mpistragglers_jl_tpu_torch.ops import sampling
+
+    dev = _card()
+    logits, pos, keys, rows = _sampling_case(8, 32768, torch.bfloat16, dev,
+                                             seed=3)
+    eager = sampling.sample_rows(logits, pos, keys, rows, 0.8, 50)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampling.sample_rows(logits, pos, keys, rows, 0.8, 50)
+    torch.cuda.current_stream().wait_stream(side)
+    sampling.LAUNCHES["sample_rows"] = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sampling.sample_rows(logits, pos, keys, rows, 0.8, 50)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert sampling.LAUNCHES["sample_rows"] == 0
+    pos += 1  # the graph reads the positions from the device
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, sampling.sample_rows(logits, pos, keys, rows,
+                                                 0.8, 50))
+
+
+def test_sampling_op_raises_instead_of_falling_back(monkeypatch):
+    """On CUDA tensors the op launches its kernel or raises: a type the
+    kernel does not take, and a refused launch, never reach the plain
+    chain."""
+    from mpistragglers_jl_tpu_torch.ops import sampling
+
+    dev = _card()
+    logits, pos, keys, rows = _sampling_case(8, 1000, torch.float32, dev)
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain chain")
+
+    monkeypatch.setattr(sampling, "sample_rows_ref", plain)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        sampling.sample_rows(logits.half(), pos, keys, rows, 0.8)
+    lib = sampling._kernel_lib()
+
+    class Refusing:
+        sampling_error_string = lib.sampling_error_string
+
+        @staticmethod
+        def sample_rows(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(sampling, "_kernel_lib", lambda: Refusing)
+    n = sampling.LAUNCHES["sample_rows"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sampling.sample_rows(logits, pos, keys, rows, 0.8)
+    assert sampling.LAUNCHES["sample_rows"] == n
+
+
+def test_sampled_serving_launches_the_kernel_per_step():
+    """A sampled int8 scheduler on the card: one sampling launch per
+    inner step and one per admission, its slot stream equal to the
+    card's own generate_ring_dense with the request's key."""
+    from mpistragglers_jl_tpu_torch.ops import sampling
+    from mpistragglers_jl_tpu_torch.utils import prng
+
+    dev = _card()
+    cfg = TransformerConfig(vocab=97, d_model=256, n_heads=2, n_kv_heads=1,
+                            n_layers=2, d_ff=256, attn_window=64,
+                            dtype=torch.float32)
+    params = init_params(cfg, 0, device=dev)
+    sched = ServingScheduler(params, cfg, slots=4, n_inner=8,
+                             prompt_chunk=16, max_prompt=32,
+                             quantize_kv=True, temperature=0.8, top_k=5,
+                             device=dev)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 97, (n,), generator=gen).numpy()
+               for n in (9, 20, 5, 31)]
+    sampling.LAUNCHES["sample_rows"] = 0
+    reqs = [sched.submit(p, 24, key=prng.key(50 + i))
+            for i, p in enumerate(prompts)]
+    sched.run()
+    assert sampling.LAUNCHES["sample_rows"] == (
+        len(reqs) + sched.decode_ticks * sched.n_inner)
+    for i, r in enumerate(reqs):
+        want = td.generate_ring_dense(params, r.prompt[None], 24, cfg,
+                                      temperature=0.8, top_k=5,
+                                      key=prng.key(50 + i),
+                                      quantize_kv=True, device=dev)
+        assert r.tokens == want[0].tolist(), i

@@ -39,7 +39,19 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.models.moe",
             "mpistragglers_jl_tpu_torch.models.coded_train",
             "mpistragglers_jl_tpu_torch.bench.moe_train",
-            "mpistragglers_jl_tpu_torch.bench.coded_train"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.bench.coded_train",
+            "mpistragglers_jl_tpu_torch.utils.prng",
+            "mpistragglers_jl_tpu_torch.utils.trace",
+            "mpistragglers_jl_tpu_torch.ops.sampling",
+            "mpistragglers_jl_tpu_torch.obs",
+            "mpistragglers_jl_tpu_torch.obs.metrics",
+            "mpistragglers_jl_tpu_torch.obs.timeline",
+            "mpistragglers_jl_tpu_torch.obs.tracing",
+            "mpistragglers_jl_tpu_torch.obs.flight",
+            "mpistragglers_jl_tpu_torch.obs.series",
+            "mpistragglers_jl_tpu_torch.obs.slo",
+            "mpistragglers_jl_tpu_torch.obs.audit",
+            "mpistragglers_jl_tpu_torch.obs.export"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

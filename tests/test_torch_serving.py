@@ -253,12 +253,20 @@ def test_validation_and_later_slices_named():
     later = [({"qos": object()}, "item 10"),
              ({"cache": object()}, "item 10"),
              ({"page_tokens": 2, "cache": object()}, "item 10"),
-             ({"registry": object()}, "item 9"),
-             ({"trace": object()}, "item 9"),
-             ({"temperature": 0.5}, "item 8")]
+             ]
     for kw, item in later:
         with pytest.raises(NotImplementedError, match=item):
             ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", **kw)
+    # items 8 and 9 are ported: sampling and the observability
+    # arguments construct (their behaviour: test_torch_sampling.py,
+    # test_torch_obs.py)
+    from mpistragglers_jl_tpu_torch.obs import MetricsRegistry, TraceBook
+
+    for kw in ({"registry": MetricsRegistry()}, {"trace": TraceBook()},
+               {"temperature": 0.5}):
+        ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="greedy scheduler"):
+        sched.submit(np.ones(3, np.int32), 2, key=np.zeros(2, np.uint32))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingScheduler(TPARAMS, TCFG, slots=1)

@@ -195,11 +195,41 @@ every CUDA kernel of those paths against its plain PyTorch version:
     registry, spans and an ``EpochTracer``: steps, decodes and recovered
     workers in the registry, and the merged trace carrying the pool's
     six or eight worker tracks beside the steps.
+36. the rateless LT-coded GEMM (``ops/rateless.py``) at config 4's
+    rateless rung (``bench/coded_family.py``: 8192^3 f32, n=12, k=8,
+    the classic stream, worker 0 dead, round timeout 2 s): decoded within
+    1e-3 of an f32 ``torch.matmul`` on the card, with generation-1
+    shards drawn; then ``bench.py``'s systematic-against-classic
+    overhead (m=2048, n=k=8, worker 3 dead, staggered 0.15-0.6 s);
+37. MatDot (p=4, k=7) and polynomial (p=q=2, k=4) coded GEMM at 8192^3
+    f32 over 8 stream workers, after a warm-up epoch two epochs, worker 5
+    delayed 0.5 s in the second: each decode within 1e-5 x cond(V_S) of
+    the f32 product;
+38. the hierarchical code (4 groups of 8 stream workers, k_inner=6, A
+    9216 x 8192): after a warm-up epoch 3 epochs, group 2 dead from the
+    second, each decode within
+    1e-5 x cond of the f32 product, its decode time beside the flat
+    (32, 24) MDS decode's;
+39. GF(256) Reed-Solomon on the card (``DeviceRSGF256(8, 6)``, both
+    methods) over the bytes of the training model's f32 parameters:
+    decode(encode(x)) with rows 0 and 3 lost equal to x, a 1 MiB slice
+    equal to the numpy codec's shards, GB/s;
+40. adaptive ``nwait`` over the pool on streams
+    (``bench/adaptive_nwait.py``): a rotating-straggler trace recorded
+    with ``EpochTracer`` (16 workers, 0.1 s, moving every 5 of 20
+    epochs), replayed by ``faults.from_trace`` into config 5's
+    ``CodedSGD`` under full gather and ``AdaptiveNwait(kmin=n-s)``;
+    the drained pool saved and restored (``utils/checkpoint.py``) to an
+    equal state;
+41. hedged requests (``utils/hedge.py``) over 4 stream replicas, one
+    4096^2 bf16 product per request, replica 0 stalled 50 ms: p50/p99
+    at hedge 1 and 2.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
 a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
-31-35's, a ``{"kernels": [...]}`` JSON line and, last,
+31-35's, a ``{"coded_family": ..., "pool_utils": ...}`` line with
+phases 36-41's, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -226,6 +256,8 @@ from torch.profiler import ProfilerActivity, profile
 from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
 from mpistragglers_jl_tpu_torch import obs as tobs
 from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
+from mpistragglers_jl_tpu_torch.bench import adaptive_nwait as an_bench
+from mpistragglers_jl_tpu_torch.bench import coded_family as cf_bench
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
@@ -2660,6 +2692,54 @@ def phase_instrumented_coded(dev) -> dict:
     return out
 
 
+def _rung(label, res) -> dict:
+    print(f"  {label}: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("card", "epochs")}))
+    _require(res["ok"], f"{label} failed")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_coded_family(dev, t_start) -> dict:
+    """Phases 36-39 (bench/coded_family.py at chip_smoke's cuts)."""
+    out = {}
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[36] rateless LT GEMM 8192^3 f32, n=12, k=8, worker 0 dead, "
+          "round timeout 2 s [60]; then the systematic/classic overhead")
+    out["rateless"] = _rung("rateless", cf_bench.rateless(dev))
+    out["overhead"] = _rung("overhead", cf_bench.rateless_overhead(dev))
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[37] MatDot p=4 and polynomial p=q=2, 8192^3 f32, n=8, worker 5 "
+          "delayed 0.5 s in the second epoch")
+    out["matdot"] = _rung("matdot", cf_bench.evalpoint(dev, "matdot"))
+    out["poly"] = _rung("poly", cf_bench.evalpoint(dev, "poly"))
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[38] hierarchical: 4 groups x 8 stream workers, k_inner=6, A "
+          "9216 x 8192, group 2 dead from the second of 3 epochs; flat "
+          "(32, 24) decode")
+    out["hierarchical"] = _rung("hierarchical", cf_bench.hierarchical(dev))
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[39] GF(256) RS (8, 6) on the card over the training model's "
+          "f32 parameter bytes, bitslice and gather")
+    out["gf256"] = _rung("gf256", cf_bench.gf256(dev))
+    return out
+
+
+def phase_pool_utils(dev, t_start) -> dict:
+    """Phases 40-41 (bench/adaptive_nwait.py at chip_smoke's cuts)."""
+    out = {}
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[40] adaptive nwait: a rotating-straggler trace (16 stream "
+          "workers, 0.1 s, every 5 of 20 epochs) replayed into config 5's "
+          "CodedSGD, full gather and AdaptiveNwait; pool checkpoint")
+    out["coded_sgd"] = _rung("coded_sgd", an_bench.coded_sgd(dev))
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[41] hedged requests: 4 stream replicas, 4096^2 bf16 products, "
+          "replica 0 stalled 50 ms, 40 requests at hedge 1 and 2")
+    out["hedge"] = _rung("hedge", an_bench.hedge(dev))
+    return out
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -2859,6 +2939,8 @@ def main() -> int:
           f"registry, spans and an EpochTracer, {INSTR_EPOCHS} epochs")
     instrumented = phase_instrumented_coded(dev)
     torch.cuda.empty_cache()
+    coded_family = phase_coded_family(dev, t_start)
+    pool_utils = phase_pool_utils(dev, t_start)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -2922,6 +3004,9 @@ def main() -> int:
                                    "paged": sampled_paged,
                                    "kernel": tim_sample},
                       "instrumented_coded": instrumented,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"coded_family": coded_family,
+                      "pool_utils": pool_utils,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1072,13 +1072,33 @@ class ServingScheduler:
         self._advance_admission(s, retired)
 
     def _advance_admission(self, s: int, retired: list[Request]) -> None:
+        """Prefill the admission's next chunk, and after its last chunk
+        pick the first token and start the row. Nothing of the
+        admission's state is committed (chunk counter, counts, obs and
+        trace events) until the chunk, and on the last chunk the pick,
+        has succeeded: a raise leaves the slot as it was, so the next
+        step retries the same chunk and raises the same error, as the
+        reference does."""
         st = self._admitting[s]
         i = st.next_chunk
         chunk = st.padded[:, i * self.C:(i + 1) * self.C]
-        st.last_logits, st.cache = _extend_chunk_dense(
+        logits, cache = _extend_chunk_dense(
             self.params, chunk, st.cache, st.base + i * self.C, self.cfg
         )
-        st.next_chunk += 1
+        last = i + 1 == st.n_chunks
+        if last:
+            Tp = st.req.prompt.size
+            rkey = None
+            if self._keys is not None:
+                rkey = (st.req.key if st.req.key is not None
+                        else prng.key(st.req.id + 1, device=self.device))
+            tok0, ring = _finish_admit_dense(
+                cache, logits, Tp, st.base + i * self.C, self.W,
+                lambda lg, pos: self._pick(
+                    lg, pos, None if rkey is None else rkey[None]),
+            )
+        st.last_logits, st.cache = logits, cache
+        st.next_chunk = i + 1
         self.prefill_chunks += 1
         if self._obs is not None:
             self._obs.prefill_chunk()
@@ -1087,19 +1107,8 @@ class ServingScheduler:
                 st.req.trace, "prefill_chunk", time.perf_counter(),
                 tick=self.tick_count,
             )
-        if st.next_chunk < st.n_chunks:
+        if not last:
             return
-        Tp = st.req.prompt.size
-        rkey = None
-        if self._keys is not None:
-            rkey = (st.req.key if st.req.key is not None
-                    else prng.key(st.req.id + 1, device=self.device))
-        tok0, ring = _finish_admit_dense(
-            st.cache, st.last_logits, Tp,
-            st.base + (st.n_chunks - 1) * self.C, self.W,
-            lambda lg, pos: self._pick(
-                lg, pos, None if rkey is None else rkey[None]),
-        )
         if self.paged:
             # install the table row now (the row's stale writes went to
             # the null page until here), then the request's own pages

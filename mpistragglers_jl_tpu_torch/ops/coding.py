@@ -59,11 +59,20 @@ def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     exchanges rows (2.6 ms without), and a triangular solve from the
     left takes 6-7.5 s. From the right, on ``flat``'s transpose
     (column-major as it lies), each triangular solve takes 1.2-1.4 ms:
-    X^T U^T = Y^T and Y^T L^T = (P^T flat)^T."""
+    X^T U^T = Y^T and Y^T L^T = (P^T flat)^T.
+
+    Batched too: ``G_S`` (g, k, k) and ``flat`` (g, k, N) solve g
+    systems at once (the hierarchical GEMM's per-group inner decodes),
+    each exactly as the 2-D call would."""
     LU, piv, _ = torch.linalg.lu_factor_ex(G_S)
     P, L, U = torch.lu_unpack(LU, piv)
     # G_S = P L U, so L U X = P^T flat, whose row i is flat[perm[i]]
-    pf = flat.index_select(0, P.argmax(dim=0))
+    perm = P.argmax(dim=-2)
+    if flat.dim() == 2:
+        pf = flat.index_select(0, perm)
+    else:
+        batch = torch.arange(flat.shape[0], device=flat.device)
+        pf = flat[batch[:, None], perm]
     yT = torch.linalg.solve_triangular(L.mT, pf.mT, upper=True, left=False,
                                        unitriangular=True)
     return torch.linalg.solve_triangular(U.mT, yT, upper=False,

@@ -1,7 +1,9 @@
 """LT (Luby transform) rateless codes over the reals, with peeling decode.
 
-A copy of the JAX package's ``ops/lt.py`` (numpy only), without its
-native peel.
+A copy of the JAX package's ``ops/lt.py`` (numpy), without its native
+peel; its peeling decode also takes torch tensors, which it peels where
+they lie with the same subtractions in the same order (so a peel on the
+card gives the host peel's bits).
 
 BASELINE config 4: LT-coded GEMM on 16 workers with a *variable*
 ``nwait(epoch, repochs)`` predicate — return not after a fixed count but
@@ -23,8 +25,37 @@ are 0/1, no amplification beyond degree-many subtractions).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["LTCode", "nwait_lt_decodable"]
+
+
+def _is_torch(blocks) -> bool:
+    return isinstance(blocks, torch.Tensor) or (
+        isinstance(blocks, (list, tuple)) and len(blocks) > 0
+        and isinstance(blocks[0], torch.Tensor))
+
+
+def _copy(x):
+    """A private copy of a block (numpy array or torch tensor)."""
+    return x.clone() if isinstance(x, torch.Tensor) else np.array(x, copy=True)
+
+
+def _stack(blocks):
+    """Stack blocks of one kind: torch tensors stay torch, where they lie."""
+    if _is_torch(blocks):
+        return torch.stack(list(blocks))
+    return np.stack([np.asarray(b) for b in blocks])
+
+
+def sum_support(blocks, support):
+    """The real-field sum of ``blocks[j]`` over a 0/1 code's support, in
+    support order (a host array or a device stack alike; no index
+    tensor crosses to the device)."""
+    acc = _copy(blocks[int(support[0])])
+    for j in support[1:]:
+        acc += blocks[int(j)]
+    return acc
 
 
 def patch_distribution(k: int) -> np.ndarray:
@@ -131,16 +162,18 @@ class LTCode:
         return len(resolved) == self.k
 
     # -- decode ----------------------------------------------------------
-    def decode(self, shards, shard_ids) -> np.ndarray:
+    def decode(self, shards, shard_ids):
         """Peel: recover the k source blocks from arrived shards.
 
         ``shards``: (m, rows, cols) arrived coded sums, ``shard_ids``:
-        their shard ids. Raises ``ValueError`` if peeling stalls (use
+        their shard ids; numpy arrays, or torch tensors peeled where they
+        lie (a tensor comes back). Raises ``ValueError`` if peeling stalls (use
         :meth:`peelable` / the nwait predicate to avoid). The NumPy
         peel of the reference; its C++ peel (``native/lt_peel.cpp``)
         comes to the port with the host backends (ROADMAP item 20).
         """
-        shards = [np.array(s, copy=True) for s in np.asarray(shards)]
+        shards = [_copy(s) for s in (
+            shards if _is_torch(shards) else np.asarray(shards))]
         supports = [set(self.shard_indices(s).tolist()) for s in shard_ids]
         out = [None] * self.k
         nresolved = 0
@@ -152,7 +185,7 @@ class LTCode:
                     continue
                 j = next(iter(sup))
                 if out[j] is None:
-                    out[j] = sh.copy()
+                    out[j] = _copy(sh)
                     nresolved += 1
                 sup.clear()
                 progress = True
@@ -166,7 +199,7 @@ class LTCode:
                 f"peeling stalled at {nresolved}/{self.k} blocks; "
                 "shard set not decodable"
             )
-        return np.stack(out)
+        return _stack(out)
 
     def decode_array(self, shards, shard_ids) -> np.ndarray:
         blocks = self.decode(shards, shard_ids)

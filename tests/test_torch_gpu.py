@@ -3,7 +3,9 @@ versions, and the routes that launch them: the decode kernels (dense K5
 and paged K6) with the serving scheduler, and the flash-attention
 kernels (K1-K4) with the train step; the pool on CUDA streams with
 the coded GEMM over it (snapshots, stream ordering, bf16 bytes); and the
-mixture of experts and coded transformer training on the card. Every
+mixture of experts and coded transformer training on the card; the
+rateless GEMM's collected set, GF(256) coding and the hierarchical
+decode's batched solve on the card. Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1016,3 +1018,88 @@ def test_sampled_serving_launches_the_kernel_per_step():
                                       key=prng.key(50 + i),
                                       quantize_kv=True, device=dev)
         assert r.tokens == want[0].tolist(), i
+
+
+def test_rateless_shard_joins_the_set_only_after_its_product(monkeypatch):
+    """Worker 1's product is held back on its stream (``torch.cuda._sleep``
+    before the matmul): the decodability predicate does not count its
+    shard while the stream is still busy, only once its work is done."""
+    import time
+
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.ops import rateless as trl
+
+    dev = _card()
+    A = np.random.default_rng(0).standard_normal((2048, 2048)).astype(
+        np.float32)
+    B = torch.randn(2048, 2048, device=dev)
+    rg = trl.RatelessLTGemm(A, 2, 1, devices=[dev])
+    real = trl._block_matmul
+
+    def held(block, payload, precision):
+        if torch.cuda.current_stream(dev) == rg.backend.stream(1):
+            torch.cuda._sleep(int(1e9))  # ~0.5 s of the worker's stream
+        return real(block, payload, precision)
+
+    monkeypatch.setattr(trl, "_block_matmul", held)
+    try:
+        rg._live_epoch = 1
+        pred = rg.nwait(1)
+        stream = rg.backend.stream(1)
+        rg.backend.dispatch(1, B, 1)
+        saw_busy, deadline = False, time.perf_counter() + 30
+        while not pred(1, None):
+            saw_busy |= not stream.query()
+            assert time.perf_counter() < deadline
+        assert stream.query(), "the shard was counted before its product"
+        assert saw_busy, "the held product never showed a busy stream"
+        sid, out = rg.backend.wait(1, timeout=30)
+        assert sid == 1
+        torch.testing.assert_close(out, torch.from_numpy(A).to(dev) @ B,
+                                   rtol=1e-4, atol=1e-2)
+    finally:
+        rg.backend.shutdown()
+
+
+@pytest.mark.parametrize("method", ["bitslice", "gather"])
+def test_gf256_matmul_on_the_card_equals_the_cpu(method):
+    """Byte-equal: the same torch integer ops on the card and the CPU."""
+    from mpistragglers_jl_tpu_torch.ops.gf256_device import (
+        DeviceRSGF256,
+        gf256_matmul,
+    )
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(7)
+    M = torch.randint(0, 256, (8, 6), generator=gen, dtype=torch.uint8)
+    D = torch.randint(0, 256, (6, 100_003), generator=gen, dtype=torch.uint8)
+    got = gf256_matmul(M.to(dev), D.to(dev), method=method)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), gf256_matmul(M, D, method=method))
+    rs = DeviceRSGF256(8, 6, method=method, device=dev)
+    coded = rs.encode(D.to(dev))
+    idx = [7, 1, 2, 4, 5, 6]
+    assert torch.equal(rs.decode(coded[idx], idx).cpu(), D)
+
+
+def test_batched_inner_solve_equals_per_group_solves():
+    """The hierarchical decode's batched LU solve (row gather by advanced
+    indexing, batched triangular solves) against the 2-D solve per group
+    on the card, and against the CPU: f32 with TF32 off, the two sum in
+    other orders, so within 1e-5 x cond(G_g) of the largest entry."""
+    from mpistragglers_jl_tpu_torch.ops.coding import _lu_solve
+    from mpistragglers_jl_tpu_torch.ops.hierarchical import decode_groups
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(3)
+    G = torch.randn(3, 6, 6, generator=gen)
+    shards = torch.randn(3, 6, 512, 1024, generator=gen)
+    got = decode_groups(G.to(dev), shards.to(dev))
+    cpu = decode_groups(G, shards)
+    for g in range(3):
+        want = _lu_solve(G[g].to(dev), shards[g].to(dev).reshape(6, -1))
+        limit = 1e-5 * float(torch.linalg.cond(G[g].double()))
+        for other in (want.reshape(got[g].shape), cpu[g].to(dev)):
+            err = (got[g] - other).abs().max() / other.abs().max()
+            assert float(err) <= limit, (g, float(err), limit)

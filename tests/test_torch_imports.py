@@ -51,7 +51,19 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.obs.series",
             "mpistragglers_jl_tpu_torch.obs.slo",
             "mpistragglers_jl_tpu_torch.obs.audit",
-            "mpistragglers_jl_tpu_torch.obs.export"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.obs.export",
+            "mpistragglers_jl_tpu_torch.utils.faults",
+            "mpistragglers_jl_tpu_torch.utils.straggle",
+            "mpistragglers_jl_tpu_torch.utils.hedge",
+            "mpistragglers_jl_tpu_torch.utils.checkpoint",
+            "mpistragglers_jl_tpu_torch.utils.rs_gf256",
+            "mpistragglers_jl_tpu_torch.ops.rateless",
+            "mpistragglers_jl_tpu_torch.ops._evalgemm",
+            "mpistragglers_jl_tpu_torch.ops.matdot",
+            "mpistragglers_jl_tpu_torch.ops.polynomial",
+            "mpistragglers_jl_tpu_torch.ops.outer_code",
+            "mpistragglers_jl_tpu_torch.ops.hierarchical",
+            "mpistragglers_jl_tpu_torch.ops.gf256_device"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

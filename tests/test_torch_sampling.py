@@ -16,6 +16,8 @@ test prints how many streams it skipped and allows at most one.
 tensors); ``tests/test_torch_gpu.py`` holds its kernel to it.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -267,3 +269,60 @@ def test_validation_matches_the_reference(models):
         greedy.submit(prompt[0], 2)
         with pytest.raises(RuntimeError, match="queue ceiling"):
             greedy.submit(prompt[0], 2)
+
+
+@pytest.mark.parametrize("paged", [None, 4])
+@pytest.mark.parametrize("prompt_len", [5, 12])
+def test_raised_first_token_pick_leaves_admission_retryable(models, paged,
+                                                            prompt_len):
+    """A first-token pick that raises (``top_k`` past the vocabulary)
+    commits nothing of the admission: every later ``step()`` (and
+    ``run()``) raises the same ``ValueError`` again, as the JAX
+    scheduler does, the chunk counter and ``prefill_chunks`` stay where
+    they were, and the page pool stays consistent. A 12-token prompt
+    takes two chunks of 8, so its first step succeeds."""
+    jcfg, jp, tcfg, tp = models
+    prompt = np.arange(1, prompt_len + 1)
+    first_error = {}
+    for mod, p, c, kw in ((js, jp, jcfg, {}), (ts, tp, tcfg,
+                                               {"device": "cpu"})):
+        sched = mod.ServingScheduler(p, c, slots=2, n_inner=2,
+                                     prompt_chunk=8, max_prompt=16,
+                                     temperature=TEMP, top_k=80,
+                                     page_tokens=paged, **kw)
+        sched.submit(prompt, 4)
+        if prompt_len > 8:
+            sched.step()
+        errors = []
+        for _ in range(2):
+            with pytest.raises(ValueError) as err:
+                sched.step()
+            errors.append(str(err.value))
+        with pytest.raises(ValueError):
+            sched.run()
+        assert errors[0] == errors[1]
+        first_error[mod] = errors[0]
+        if mod is ts:
+            (st,) = sched._admitting.values()
+            assert st.next_chunk == st.n_chunks - 1
+            assert sched.prefill_chunks == st.n_chunks - 1
+            assert "top_k" in errors[0]
+            if paged:
+                sched.pool.check()
+    # the port raises the reference scheduler's own error: the same k
+    # past the same vocabulary, in the port's wording or in the one
+    # `jax.lax.top_k` gives it
+    assert _top_k_error(first_error[ts]) == _top_k_error(first_error[js])
+    assert _top_k_error(first_error[ts]) == (80, 61)
+
+
+def _top_k_error(msg: str) -> tuple[int, int] | None:
+    """(k, V) named by a top_k-past-the-vocabulary error of either
+    package, or None if the message is not one."""
+    port = re.search(r"top_k must lie in \[1, V=(\d+)\], got (\d+)", msg)
+    if port:
+        return int(port[2]), int(port[1])
+    ref = re.search(r"k argument to top_k must be no larger than size "
+                    r"along axis; got k=(\d+) with shape=\[(?:\d+, )*"
+                    r"(\d+)\]", msg)
+    return (int(ref[1]), int(ref[2])) if ref else None

@@ -223,13 +223,41 @@ every CUDA kernel of those paths against its plain PyTorch version:
     equal state;
 41. hedged requests (``utils/hedge.py``) over 4 stream replicas, one
     4096^2 bf16 product per request, replica 0 stalled 50 ms: p50/p99
-    at hedge 1 and 2.
+    at hedge 1 and 2;
+42. the native host libraries, built with ``g++`` from the port's
+    ``native/`` sources in threads beside phase 2's ``nvcc``: the
+    transport loaded from the port's ``native/_build/``;
+    ``RSGF256(8, 6)`` on its native route, byte-equal to the numpy
+    route and to ``DeviceRSGF256`` over 64 MiB of the training model's
+    f32 parameter bytes (decoded with rows 0 and 3 lost), GB/s; the
+    native LT peel at ``bench.py:1046``'s overhead shape (m=2048, 256
+    columns, k=8, f32) within 1e-5 of the numpy peel, and the card's
+    peel equal to the numpy peel bit for bit;
+43. the transport bench (``bench/transport.py``, spawned host workers):
+    8-byte round trips over pipes and native, a 4 MiB broadcast to 4
+    workers over pipes, native sockets and the shared-memory arena;
+44. BASELINE config 2 over OS worker processes on the card
+    (``bench/process_gemm.py``): 4 spawned workers per backend
+    (``ProcessBackend`` and ``NativeProcessBackend``, each with a
+    registry), every worker with its own CUDA context and its row block
+    of A made from the seed; 10 epochs x 3 chains each, the product
+    within ``REL_TOL["highest"]`` of an on-card ``torch.matmul``, equal
+    across epochs; the workers' telemetry spans merged; then on the
+    native backend worker 2 exits in the fifth of 10 epochs: a
+    ``WorkerFailure``, ``respawn(2)``, the last epochs equal bit for
+    bit; phase 23's stream epoch beside it;
+45. the launcher: ``python -m mpistragglers_jl_tpu_torch.launch -n 3
+    bench/launch_gemm.py``: rank 0 coordinates, ranks 1-2 multiply
+    2048-row blocks of the 4096^3 f32 product on the card; exit code 0
+    and the product within ``REL_TOL["highest"]`` in rank 0's line; and,
+    launched beside it, a job whose rank 1 exits 3 must exit 3.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
 a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
 31-35's, a ``{"coded_family": ..., "pool_utils": ...}`` line with
-phases 36-41's, a ``{"kernels": [...]}`` JSON line and, last,
+phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's,
+a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -238,13 +266,18 @@ without a CUDA device or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import re
+import signal
+import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -254,6 +287,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+from mpistragglers_jl_tpu_torch import native
 from mpistragglers_jl_tpu_torch import obs as tobs
 from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
 from mpistragglers_jl_tpu_torch.bench import adaptive_nwait as an_bench
@@ -263,6 +297,8 @@ from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench import moe_train as mt
+from mpistragglers_jl_tpu_torch.bench import process_gemm as pg_bench
+from mpistragglers_jl_tpu_torch.bench import transport as tr_bench
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import (
     flash_bounds,
     sampling_bounds,
@@ -300,8 +336,12 @@ from mpistragglers_jl_tpu_torch.ops import _build
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
 from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
 from mpistragglers_jl_tpu_torch.ops import sampling
+from mpistragglers_jl_tpu_torch.native import transport as native_transport
 from mpistragglers_jl_tpu_torch.ops.coded_gemm import CodedGemm
+from mpistragglers_jl_tpu_torch.ops.gf256_device import DeviceRSGF256
+from mpistragglers_jl_tpu_torch.ops.lt import LTCode
 from mpistragglers_jl_tpu_torch.utils import prng
+from mpistragglers_jl_tpu_torch.utils.rs_gf256 import RSGF256
 from mpistragglers_jl_tpu_torch.utils import trace as ttrace
 
 SLOTS = 8
@@ -2740,6 +2780,267 @@ def phase_pool_utils(dev, t_start) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 42-45: the host backends and the native transport
+# --------------------------------------------------------------------------
+
+# cuts (PERF.md section 4): the transport bench's round trips 200 -> 50
+# epochs (its broadcasts 20 -> 5); config 2 over process workers runs 10
+# epochs x 3 chains (phase 23's stream rung 40 x 3), and both backends'
+# workers start together; the launcher's run 3 epochs
+NATIVE_LIBS = ("transport", "lt_peel", "rs_gf256")
+TRANSPORT_EPOCHS = 50
+RS_BYTES = 64 << 20                # of the training model's f32 parameters
+LT_M, LT_COLS, LT_K = 2048, 256, 8  # bench.py:1046's overhead shape
+# the native peel against the numpy peel: f32 sums of a few blocks
+# released in another order (worklist against rescan), relative to the
+# largest value
+LT_TOL = 1e-5
+LAUNCH_RANKS, LAUNCH_TIMEOUT_S = 3, 240
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _start_native_builds():
+    """One g++ per native source, in threads, started beside phase 2's
+    nvcc; returns (threads, name -> seconds or the exception)."""
+    done: dict = {}
+    t0 = time.perf_counter()
+
+    def one(name):
+        try:
+            native.build(name)
+            done[name] = time.perf_counter() - t0
+        except Exception as e:  # reported and required in phase 42
+            done[name] = e
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in NATIVE_LIBS]
+    for t in threads:
+        t.start()
+    return threads, done
+
+
+def _peelable_prefix(code) -> list:
+    ids = []
+    while not code.peelable(ids):
+        ids.append(len(ids))
+    return ids
+
+
+def phase_native(dev, builds) -> dict:
+    """Phase 42: the native libraries, the RS codec's and the LT peel's
+    native routes against the numpy routes and the card's."""
+    threads, done = builds
+    for t in threads:
+        t.join()
+    bad = {n: repr(v) for n, v in done.items() if isinstance(v, Exception)}
+    _require(not bad, f"native build failed: {bad}")
+    lib = native_transport.load_lib()
+    want = native.lib_path("transport")
+    _require(lib._name == want and os.path.join(
+        "mpistragglers_jl_tpu_torch", "native", "_build") in want,
+        f"transport loaded from {lib._name}, not the port's build")
+    out = {"build_s": max(done.values()), "libs": {
+        n: os.path.basename(native.lib_path(n)) for n in NATIVE_LIBS}}
+    print(f"  built {', '.join(NATIVE_LIBS)} in {out['build_s']:.2f} s "
+          f"(g++ -O3, beside nvcc); transport from {os.path.relpath(want)}")
+
+    n, k, lost = cf_bench.GF_N, cf_bench.GF_K, cf_bench.GF_LOST
+    rs, npy = RSGF256(n, k), RSGF256(n, k, prefer_native=False)
+    _require(rs.impl == "native" and npy.impl == "numpy",
+             f"RSGF256 routes {rs.impl}, {npy.impl}")
+    cfg = TransformerConfig(**cf_bench.TRAIN, dtype=torch.float32)
+    raw = cf_bench.param_bytes(init_params(cfg, seed=0, device=dev))
+    L = -(-RS_BYTES // k)
+    data = torch.zeros(k * L, dtype=torch.uint8, device=dev)
+    data[:RS_BYTES] = raw[:RS_BYTES]
+    del raw
+    data = data.reshape(k, L)
+    host = data.cpu().numpy()
+    keep = [r for r in range(n) if r not in lost]
+    rs.decode(rs.encode(host[:, :4096])[keep], keep)  # warm-up
+    t0 = time.perf_counter()
+    coded = rs.encode(host)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = rs.decode(coded[keep], keep)
+    dec_s = time.perf_counter() - t0
+    eq_numpy = bool(np.array_equal(coded, npy.encode(host)))
+    card = DeviceRSGF256(n, k, method="gather", device=dev)
+    eq_card = bool(np.array_equal(coded, card.encode(data).cpu().numpy()))
+    exact = bool(np.array_equal(back, host))
+    del data, coded, back
+    out["rs"] = {"n": n, "k": k, "bytes": RS_BYTES, "lost_rows": list(lost),
+                 "impl": rs.impl, "encode_GB_per_s": host.nbytes / enc_s / 1e9,
+                 "decode_GB_per_s": host.nbytes / dec_s / 1e9,
+                 "equal_to_numpy": eq_numpy, "equal_to_card": eq_card,
+                 "round_trip_exact": exact}
+    print(f"  RS (8, 6) native over {RS_BYTES >> 20} MiB: encode "
+          f"{out['rs']['encode_GB_per_s']:.3f} GB/s, decode "
+          f"{out['rs']['decode_GB_per_s']:.3f} GB/s; equal to numpy "
+          f"{eq_numpy}, to the card {eq_card}, round trip {exact}")
+    _require(eq_numpy and eq_card and exact, "RS native route disagrees")
+
+    code = LTCode(LT_K, seed=0)
+    ids = _peelable_prefix(code)
+    blocks = np.random.default_rng(42).standard_normal(
+        (LT_K, LT_M // LT_K, LT_COLS)).astype(np.float32)
+    shards = np.einsum("nk,krc->nrc", code.generator_rows(ids),
+                       blocks).astype(np.float32)
+    code.decode(shards, ids)  # warm-up (loads the library)
+    t0 = time.perf_counter()
+    nat = code.decode(shards, ids)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = code.decode(shards, ids, prefer_native=False)
+    npy_ms = (time.perf_counter() - t0) * 1e3
+    on_card = code.decode(torch.from_numpy(shards).to(dev), ids)
+    on_card = on_card.cpu().numpy()
+    err = float(np.abs(nat - ref).max() / np.abs(ref).max())
+    card_equal = bool(np.array_equal(on_card, ref))
+    out["lt"] = {"m": LT_M, "cols": LT_COLS, "k": LT_K, "shards": len(ids),
+                 "native_ms": nat_ms, "numpy_ms": npy_ms,
+                 "native_vs_numpy": err, "tol": LT_TOL,
+                 "card_equal_to_numpy": card_equal}
+    print(f"  LT peel k={LT_K} over {len(ids)} shards of {LT_M // LT_K} x "
+          f"{LT_COLS} f32: native {nat_ms:.3f} ms, numpy {npy_ms:.3f} ms, "
+          f"native vs numpy {err:.2e} (limit {LT_TOL:.0e}), card equal to "
+          f"numpy {card_equal}")
+    _require(err <= LT_TOL and card_equal, "LT native or card peel off")
+    return out
+
+
+def _run(cmd, timeout) -> tuple[int, str, str, float]:
+    """Run ``cmd`` from the checkout's root in its own session (so a
+    timeout takes every process it started with it), with the package
+    importable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _workers_skip_this_script():
+    """Spawned workers re-run the parent's ``__main__`` file before they
+    unpickle their work function (``multiprocessing`` spawn), which would
+    import this whole script (and everything it imports) in each one.
+    While process backends start, ``__main__`` is a bare module, so a
+    worker imports only its work function's module."""
+    main = sys.modules["__main__"]
+    sys.modules["__main__"] = types.ModuleType("__main__")
+    try:
+        yield
+    finally:
+        sys.modules["__main__"] = main
+
+
+def phase_transport() -> list:
+    """Phase 43: bench/transport.py at chip_smoke's cut."""
+    with _workers_skip_this_script():
+        rows = tr_bench.run(TRANSPORT_EPOCHS)
+    for r in rows:
+        print(f"  {r['metric']}: {r['value']:.3f} {r['unit']}")
+        _require(r["value"] > 0, f"{r['metric']} read {r['value']}")
+    return rows
+
+
+def phase_process_gemm(streams_ms: float) -> list:
+    """Phase 44: config 2 over process workers on the card, then the
+    respawn run on the native backend (bench/process_gemm.py)."""
+    with _workers_skip_this_script():
+        res = pg_bench.run(("process", "native"), epochs=10, chains=3,
+                           respawn=True)
+    for r in res:
+        print(f"  {r['backend']}: {r['ms_per_epoch']:.3f} ms/epoch (streams "
+              f"{streams_ms:.3f}, phase 23), worker task "
+              f"{r['worker_task_ms']:.3f} ms, transport "
+              f"{r['transport_ms']:.3f} ms, start-up {r['startup_s']:.2f} s, "
+              f"rel err {r['rel_err']:.2e}, spans {r['worker_spans']}")
+        r["streams_ms_per_epoch"] = streams_ms
+        _require(r["ok"], f"{r['backend']} process pool failed: "
+                 + json.dumps({k: r.get(k) for k in (
+                     "rel_err", "bit_equal_across_epochs", "respawn")}))
+        _require(r["worker_spans"] >= r["worker_tasks"] > 0,
+                 f"{r['backend']}: worker spans not merged")
+        if "respawn" in r:
+            rr = r["respawn"]
+            print(f"  respawn: {rr['failure']}, respawn(2) in "
+                  f"{rr['respawn_s']:.2f} s, later epochs exact "
+                  f"{rr['exact_after']}")
+    _require(any("respawn" in r for r in res), "no respawn run")
+    return res
+
+
+def _launch(*args) -> tuple[int, str, str, float]:
+    """The launcher on bench/launch_gemm.py."""
+    return _run([sys.executable, "-m", "mpistragglers_jl_tpu_torch.launch",
+                 "-n", str(LAUNCH_RANKS),
+                 os.path.join("mpistragglers_jl_tpu_torch", "bench",
+                              "launch_gemm.py"), *args], LAUNCH_TIMEOUT_S)
+
+
+def phase_launcher() -> dict:
+    """Phase 45: the launcher's GEMM, and beside it a launch whose rank
+    1 exits 3."""
+    fail: list = []
+    failing = threading.Thread(target=lambda: fail.append(_launch(
+        "--exit-rank", "1", "--exit-code", "3", "--connect-timeout", "30")))
+    failing.start()
+    rc, out, err, wall = _launch()
+    failing.join()
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith('{"launch_gemm"')]
+    _require(rc == 0 and len(lines) == 1,
+             f"launch exited {rc}: {out[-1000:]} {err[-2000:]}")
+    res = lines[0]["launch_gemm"]
+    res["wall_s"] = wall
+    print(f"  -n {LAUNCH_RANKS}: exit 0 in {wall:.2f} s, epochs "
+          f"{[round(x, 2) for x in res['epoch_ms']]} ms, rel err "
+          f"{res['rel_err']:.2e}, bit-equal {res['bit_equal']}")
+    _require(res["ok"], f"launcher product off: {res}")
+    rc, out, err, wall = fail[0]
+    print(f"  rank 1 exits 3: the launch exits {rc} in {wall:.2f} s")
+    _require(rc == 3, f"a failed rank gave launch exit {rc}: {err[-2000:]}")
+    res["failed_rank_exit"] = rc
+    res["failed_rank_wall_s"] = wall
+    return res
+
+
+def phase_host_backends(dev, builds, streams_ms, t_start) -> dict:
+    """Phases 42-45."""
+    out = {}
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[42] native host libraries (transport, LT peel, RS codec) from "
+          "the port's sources; RS (8, 6) and the LT peel on their native "
+          "routes")
+    out["native"] = phase_native(dev, builds)
+    torch.cuda.empty_cache()
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[43] transport bench on the host: round trips "
+          f"({TRANSPORT_EPOCHS} epochs), 4 MiB broadcasts to 4 workers")
+    out["transport"] = phase_transport()
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[44] config 2 over 4 spawned workers on the card per backend: "
+          "4096^3 f32, nwait=4, 10 epochs x 3 chains; then worker 2 exits "
+          "in epoch 5 of 10 and is respawned")
+    out["config2"] = phase_process_gemm(streams_ms)
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[45] the launcher: -n {LAUNCH_RANKS} bench/launch_gemm.py, "
+          "2048-row blocks on the card; beside it a job whose rank 1 "
+          "exits 3")
+    out["launcher"] = phase_launcher()
+    return out
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -2777,11 +3078,13 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
+    native_builds = _start_native_builds()
     _build.build("decode_attention", "flash_attention", "sampling")
     t_build = time.perf_counter() - t0
     print(f"[2] built decode_attention.cu (K5, K6, K7), "
           f"flash_attention.cu (K1-K4) and sampling.cu, one nvcc each in "
-          f"parallel, in {t_build:.1f} s; decode kernels at D=128:")
+          f"parallel (g++ of the native host sources beside them), in "
+          f"{t_build:.1f} s; decode kernels at D=128:")
     _decode_build_report()
 
     print("[3] K5 against plain version, B=8 L=W=1024 D=128")
@@ -2941,6 +3244,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     coded_family = phase_coded_family(dev, t_start)
     pool_utils = phase_pool_utils(dev, t_start)
+    torch.cuda.empty_cache()
+    process_pool = phase_host_backends(
+        dev, native_builds, coded["config2"]["ms_per_epoch"], t_start)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -3007,6 +3313,8 @@ def main() -> int:
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"coded_family": coded_family,
                       "pool_utils": pool_utils,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"process_pool": process_pool,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

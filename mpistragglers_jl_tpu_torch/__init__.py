@@ -16,34 +16,54 @@ hand-written CUDA kernels (``ops/decode_attention.py``,
 ``ops/flash_attention.py``), greedy or sampled (``utils/prng.py``,
 bit-equal to ``jax.random``, and the fused ``ops/sampling.py``), and
 the opt-in observability plane (``obs/``, ``utils/trace.py``) on the
-scheduler, the coded GEMM and the coded trainer. Entry points default to the GPU and raise
+scheduler, the coded GEMM and the coded trainer; and the host backends
+(``backends/process.py``, ``backends/native.py`` over the C++ transport
+in ``native/``), the worker CLI (``worker.py``) and the launcher
+(``launch.py``), whose worker processes may compute on the card. Entry
+points default to the GPU and raise
 when there is none unless the caller passes ``device="cpu"`` (or
 ``devices=[torch.device("cpu")]``), where every kernel wrapper runs its
 plain PyTorch version.
 """
 
-from .backends import CUDADeviceBackend, LocalBackend, WorkerFailure
-from .models.logreg import CodedSGD
-from .ops.coded_gemm import CodedGemm, LTCodedGemm
-from .ops.coding import MDSCode
-from .ops.gemm import DistributedGemm, gather_rows
-from .pool import AsyncPool, DeadWorkerError, asyncmap, asyncmap_fused, waitall
-
 __version__ = "0.1.0"
 
-__all__ = [
-    "AsyncPool",
-    "asyncmap",
-    "asyncmap_fused",
-    "waitall",
-    "DeadWorkerError",
-    "CUDADeviceBackend",
-    "LocalBackend",
-    "WorkerFailure",
-    "DistributedGemm",
-    "gather_rows",
-    "MDSCode",
-    "CodedGemm",
-    "LTCodedGemm",
-    "CodedSGD",
-]
+# name -> module that defines it. Imported on first use (PEP 562), so
+# ``import mpistragglers_jl_tpu_torch`` and the host-only modules a
+# spawned worker loads (``worker``, ``native``, ``backends.process``,
+# ``backends.native``, ``obs``) import no torch: a worker pays for
+# torch only when its ``work_fn`` computes with it.
+_LAZY = {
+    "AsyncPool": ".pool",
+    "asyncmap": ".pool",
+    "asyncmap_fused": ".pool",
+    "waitall": ".pool",
+    "DeadWorkerError": ".backends.base",
+    "WorkerFailure": ".backends.base",
+    "LocalBackend": ".backends.local",
+    "CUDADeviceBackend": ".backends.cuda",
+    "ProcessBackend": ".backends.process",
+    "RemoteWorkerError": ".backends.process",
+    "WorkerProcessDied": ".backends.process",
+    "NativeProcessBackend": ".backends.native",
+    "DistributedGemm": ".ops.gemm",
+    "gather_rows": ".ops.gemm",
+    "MDSCode": ".ops.coding",
+    "CodedGemm": ".ops.coded_gemm",
+    "LTCodedGemm": ".ops.coded_gemm",
+    "CodedSGD": ".models.logreg",
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(mod, __name__), name)
+    globals()[name] = value
+    return value

@@ -20,10 +20,9 @@ Chrome/Perfetto trace dicts.
 * :mod:`.export`: :class:`ObsServer`, the registry, health checks,
   merged trace, audit, series, SLOs and flight ring over HTTP.
 
-Not copied yet: ``obs/aggregate.py`` (``WorkerTelemetry``,
-``TelemetryAggregator``), which merges the telemetry of OS worker
-processes; it comes with the port of those processes
-(``ROADMAP.md`` Queue 1 item 20).
+* :mod:`.aggregate`: worker-local telemetry (:class:`WorkerTelemetry`)
+  of OS worker processes, merged coordinator-side under a ``worker``
+  label with clock-aligned spans (:class:`TelemetryAggregator`).
 
 Everything is opt-in: the instrumented layers (``ServingScheduler``,
 ``CodedGradTrainer``, ``CodedGemm``) take ``registry=`` / ``spans=`` /
@@ -31,6 +30,7 @@ Everything is opt-in: the instrumented layers (``ServingScheduler``,
 ``is None`` checks when none is passed. Stdlib-only at import.
 """
 
+from .aggregate import OBS_TAG, TelemetryAggregator, WorkerTelemetry
 from .audit import AuditFailure, AuditResult, audit
 from .export import HealthCheck, ObsServer
 from .flight import FlightRecorder, FlightWatchdog
@@ -73,4 +73,7 @@ __all__ = [
     "audit",
     "AuditResult",
     "AuditFailure",
+    "OBS_TAG",
+    "WorkerTelemetry",
+    "TelemetryAggregator",
 ]

@@ -1,9 +1,10 @@
 """LT (Luby transform) rateless codes over the reals, with peeling decode.
 
-A copy of the JAX package's ``ops/lt.py`` (numpy), without its native
-peel; its peeling decode also takes torch tensors, which it peels where
-they lie with the same subtractions in the same order (so a peel on the
-card gives the host peel's bits).
+A copy of the JAX package's ``ops/lt.py``, with its native C++ peel
+(the port's build of ``native/lt_peel.cpp``) for host arrays; its
+peeling decode also takes torch tensors, which it peels where they lie
+with the numpy peel's subtractions in the same order (so a peel on the
+card gives the numpy peel's bits).
 
 BASELINE config 4: LT-coded GEMM on 16 workers with a *variable*
 ``nwait(epoch, repochs)`` predicate — return not after a fixed count but
@@ -24,10 +25,37 @@ are 0/1, no amplification beyond degree-many subtractions).
 
 from __future__ import annotations
 
+import ctypes
+import warnings
+
 import numpy as np
 import torch
 
 __all__ = ["LTCode", "nwait_lt_decodable"]
+
+
+def _configure(lib):
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    for name, fltp in (
+        ("lt_peel_f32", ctypes.POINTER(ctypes.c_float)),
+        ("lt_peel_f64", ctypes.POINTER(ctypes.c_double)),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_long,
+            i32p, i32p, fltp, fltp, u8p,
+        ]
+        fn.restype = ctypes.c_long
+
+
+def _load_native():
+    """The C++ peeling decoder (native/lt_peel.cpp), compiled on first
+    use; raises if no toolchain — callers fall back to NumPy. Success
+    and failure are both memoized by :func:`..native.load`."""
+    from .. import native
+
+    return native.load("lt_peel", _configure)
 
 
 def _is_torch(blocks) -> bool:
@@ -162,16 +190,32 @@ class LTCode:
         return len(resolved) == self.k
 
     # -- decode ----------------------------------------------------------
-    def decode(self, shards, shard_ids):
+    def decode(self, shards, shard_ids, *, prefer_native: bool = True):
         """Peel: recover the k source blocks from arrived shards.
 
         ``shards``: (m, rows, cols) arrived coded sums, ``shard_ids``:
-        their shard ids; numpy arrays, or torch tensors peeled where they
-        lie (a tensor comes back). Raises ``ValueError`` if peeling stalls (use
-        :meth:`peelable` / the nwait predicate to avoid). The NumPy
-        peel of the reference; its C++ peel (``native/lt_peel.cpp``)
-        comes to the port with the host backends (ROADMAP item 20).
+        their shard ids. Raises ``ValueError`` if peeling stalls (use
+        :meth:`peelable` / the nwait predicate to avoid). Host arrays
+        peel in the native C++ decoder (native/lt_peel.cpp) when a
+        toolchain is available — one in-place pass per release, no
+        per-release Python/alloc overhead — falling back to the NumPy
+        loop otherwise. Release order may differ between the two
+        (worklist vs rescan), so results agree to float rounding, not
+        bitwise. Torch tensors take the NumPy loop's order where they
+        lie, on the card or the host, and a tensor comes back.
         """
+        if prefer_native and not _is_torch(shards):
+            try:
+                lib = _load_native()
+            except Exception as e:  # no compiler / bad toolchain
+                warnings.warn(
+                    f"native lt_peel unavailable ({e}); using numpy "
+                    "fallback",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            else:
+                return self._decode_native(lib, shards, shard_ids)
         shards = [_copy(s) for s in (
             shards if _is_torch(shards) else np.asarray(shards))]
         supports = [set(self.shard_indices(s).tolist()) for s in shard_ids]
@@ -200,6 +244,47 @@ class LTCode:
                 "shard set not decodable"
             )
         return _stack(out)
+
+    def _decode_native(self, lib, shards, shard_ids) -> np.ndarray:
+        shards = np.asarray(shards)
+        m = shards.shape[0]
+        block_shape = shards.shape[1:]
+        orig_dtype = shards.dtype
+        if orig_dtype == np.float32:
+            fn, cty, dtype = lib.lt_peel_f32, ctypes.c_float, np.float32
+        elif orig_dtype == np.float64:
+            fn, cty, dtype = lib.lt_peel_f64, ctypes.c_double, np.float64
+        else:  # ints etc.: exactness in f64 up to 2^53, then cast back
+            fn, cty, dtype = lib.lt_peel_f64, ctypes.c_double, np.float64
+        # exactly one owned working copy, peeled in place (astype with
+        # copy=True covers the dtype == orig_dtype case too)
+        shards = np.ascontiguousarray(
+            shards.reshape(m, -1).astype(dtype, copy=True)
+        )
+        supports = [self.shard_indices(s) for s in shard_ids]
+        off = np.zeros(m + 1, dtype=np.int32)
+        off[1:] = np.cumsum([len(s) for s in supports])
+        sup = np.concatenate(supports).astype(np.int32)
+        out = np.zeros((self.k, shards.shape[1]), dtype=dtype)
+        resolved = np.zeros(self.k, dtype=np.uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        fltp = ctypes.POINTER(cty)
+        n = fn(
+            m, self.k, shards.shape[1],
+            sup.ctypes.data_as(i32p), off.ctypes.data_as(i32p),
+            shards.ctypes.data_as(fltp), out.ctypes.data_as(fltp),
+            resolved.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint8)
+            ),
+        )
+        if n < self.k:
+            raise ValueError(
+                f"peeling stalled at {n}/{self.k} blocks; "
+                "shard set not decodable"
+            )
+        if dtype != orig_dtype:
+            out = out.astype(orig_dtype)
+        return out.reshape(self.k, *block_shape)
 
     def decode_array(self, shards, shard_ids) -> np.ndarray:
         blocks = self.decode(shards, shard_ids)

@@ -6,6 +6,9 @@ a ``recvbuf`` arrival that is a torch tensor crosses to the host as its
 bytes (``t.contiguous().view(torch.uint8).cpu()``), because
 ``np.ascontiguousarray`` cannot read a CUDA tensor and numpy has no
 bf16. The copy stays bit-exact, never value-cast, for every dtype.
+torch is not imported here: an arrival can only be a tensor if the
+process imported torch, so a pool over host workers stays torch-free,
+as the reference's pool stays jax-free.
 
 The behavioral contract is the reference's — per-worker epoch
 bookkeeping, fastest-k or predicate-driven return, stale-result
@@ -52,7 +55,6 @@ import time
 from typing import Callable, Sequence, Union
 
 import numpy as np
-import torch
 
 from .backends.base import (  # noqa: F401  (DeadWorkerError re-export)
     Backend,
@@ -60,6 +62,7 @@ from .backends.base import (  # noqa: F401  (DeadWorkerError re-export)
     DeadWorkerError,
     WorkerError,
 )
+from .native.codec import tensor_types
 
 NwaitArg = Union[int, Callable[[int, np.ndarray], bool]]
 
@@ -297,7 +300,9 @@ def _result_bytes(result) -> np.ndarray:
     product; anything else goes through numpy as in the reference."""
     if hasattr(result, "materialize"):
         result = result.materialize()
-    if isinstance(result, torch.Tensor):
+    if isinstance(result, tensor_types()):
+        import torch
+
         flat = result.detach().contiguous().reshape(-1)
         return flat.view(torch.uint8).cpu().numpy()
     return np.ascontiguousarray(result).reshape(-1).view(np.uint8)

@@ -1,11 +1,9 @@
 """Byte-exact systematic Reed-Solomon erasure codec over GF(2^8).
 
-A copy of the JAX package's ``utils/rs_gf256.py``, its numpy route: the
-same Cauchy generator and the same tables, so shards coded by either
-package decode bit for bit in the other. The reference's native C++
-codec (``native/rs_gf256.cpp``) comes to the port with the host
-backends and the native transport (ROADMAP.md Queue 1 item 20); until
-then ``impl`` is ``"numpy"`` and asking for the native route raises.
+A copy of the JAX package's ``utils/rs_gf256.py`` over the port's own
+build of ``native/rs_gf256.cpp``: the same Cauchy generator and the same
+tables, so shards coded by either package, on either route, decode bit
+for bit in the other.
 
 The complement to the float-field MDS code in ops/coding.py: that one
 is exact only to float precision; this one is bit-exact for arbitrary
@@ -13,10 +11,17 @@ byte payloads — checkpoint shards, serialized host buffers, control
 messages. The pool's ``repochs`` arrival mask selects which k of the n
 coded shards feed the decoder, exactly as in the float path (SURVEY
 §2.1: repochs is the per-shard freshness oracle).
+
+Backed by the native C++ codec (native/rs_gf256.cpp, compiled on first
+use via ctypes); a pure-NumPy table-lookup implementation is the
+automatic fallback when no compiler is available, selected at
+construction and exposed as ``RSGF256.impl``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -91,6 +96,32 @@ def _np_invert(A: np.ndarray) -> np.ndarray:
     return inv
 
 
+def _configure(lib):
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.rs_make_generator.argtypes = [ctypes.c_int, ctypes.c_int, u8p]
+    lib.rs_make_generator.restype = ctypes.c_int
+    lib.rs_encode.argtypes = [
+        ctypes.c_int, ctypes.c_int, u8p, u8p, u8p, ctypes.c_long,
+    ]
+    lib.rs_encode.restype = ctypes.c_int
+    lib.rs_decode.argtypes = [
+        ctypes.c_int, ctypes.c_int, u8p, i32p, u8p, u8p, ctypes.c_long,
+    ]
+    lib.rs_decode.restype = ctypes.c_int
+
+
+def _load_native():
+    """Memoized (success and failure) via :func:`..native.load`."""
+    from .. import native
+
+    return native.load("rs_gf256", _configure)
+
+
+def _u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
 class RSGF256:
     """Systematic (n, k) Cauchy-RS codec over bytes.
 
@@ -98,31 +129,42 @@ class RSGF256:
     >>> coded = rs.encode(data)            # (6, L) uint8 -> (8, L)
     >>> back = rs.decode(coded[idx], idx)  # any 6 distinct rows -> (6, L)
 
-    ``impl`` is ``"numpy"``: the reference's native C++ route is ROADMAP
-    item 20, and ``prefer_native=True`` raises until it is ported. The
-    generator is the reference's, so shards encoded by either package
-    decode bit-exactly in the other.
+    ``impl`` is ``"native"`` (C++ via ctypes) or ``"numpy"`` (fallback).
+    The generator is identical for both, so shards encoded by one decode
+    bit-exactly under the other.
     """
 
-    def __init__(self, n: int, k: int, *, prefer_native: bool = False):
+    def __init__(self, n: int, k: int, *, prefer_native: bool = True):
         if not 0 < k <= n or n > 256:
             raise ValueError(
                 f"need 0 < k <= n <= 256, got n={n}, k={k}"
             )
-        if prefer_native:
-            raise NotImplementedError(
-                "the native rs_gf256 codec is ROADMAP.md Queue 1 item 20, "
-                "not yet ported; the numpy route is bit-identical"
-            )
         self.n, self.k = int(n), int(k)
+        self._lib = None
+        if prefer_native:
+            try:
+                self._lib = _load_native()
+            except Exception as e:  # no compiler / bad toolchain
+                warnings.warn(
+                    f"native rs_gf256 unavailable ({e}); using numpy "
+                    "fallback",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
         self.G = self._make_generator()
 
     @property
     def impl(self) -> str:
-        return "numpy"
+        return "native" if self._lib is not None else "numpy"
 
     def _make_generator(self) -> np.ndarray:
         n, k = self.n, self.k
+        if self._lib is not None:
+            G = np.zeros((n, k), dtype=np.uint8)
+            rc = self._lib.rs_make_generator(n, k, _u8p(G))
+            if rc != 0:
+                raise RuntimeError(f"rs_make_generator failed rc={rc}")
+            return G
         G = np.zeros((n, k), dtype=np.uint8)
         G[:k] = np.eye(k, dtype=np.uint8)
         for i in range(n - k):
@@ -141,6 +183,15 @@ class RSGF256:
     def encode(self, data) -> np.ndarray:
         """(k, L) source bytes -> (n, L) coded shards (first k = source)."""
         data = self._check_data(data, self.k)
+        L = data.shape[1]
+        if self._lib is not None:
+            coded = np.empty((self.n, L), dtype=np.uint8)  # rs_encode memsets
+            rc = self._lib.rs_encode(
+                self.n, self.k, _u8p(self.G), _u8p(data), _u8p(coded), L
+            )
+            if rc != 0:
+                raise RuntimeError(f"rs_encode failed rc={rc}")
+            return coded
         return _np_matmul(self.G, data)
 
     def decode(self, shards, indices: Sequence[int]) -> np.ndarray:
@@ -153,6 +204,17 @@ class RSGF256:
         if idx.min() < 0 or idx.max() >= self.n:
             raise ValueError(f"indices out of range [0, {self.n}): {idx}")
         shards = self._check_data(shards, self.k)
+        L = shards.shape[1]
+        if self._lib is not None:
+            out = np.zeros((self.k, L), dtype=np.uint8)
+            rc = self._lib.rs_decode(
+                self.n, self.k, _u8p(self.G),
+                idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                _u8p(shards), _u8p(out), L,
+            )
+            if rc != 0:
+                raise RuntimeError(f"rs_decode failed rc={rc}")
+            return out
         inv = _np_invert(self.G[idx])
         return _np_matmul(inv, shards)
 

@@ -1,5 +1,5 @@
 """GF(256) Reed-Solomon in the port against the JAX package: the host
-codec (``utils/rs_gf256.py``, its numpy route) and the device codec
+codec (``utils/rs_gf256.py``, its numpy and native routes) and the device codec
 (``ops/gf256_device.py`` in torch integer ops, on CPU tensors here).
 
 The contracts are ``tests/test_rs_gf256.py`` and
@@ -57,7 +57,8 @@ def test_tables_equal_the_reference():
 
 @pytest.mark.parametrize("n,k", [(8, 6), (9, 5), (12, 6), (4, 4)])
 def test_generator_and_shards_equal_the_reference(n, k):
-    tp, jx = RSGF256(n, k), jrs.RSGF256(n, k, prefer_native=False)
+    tp = RSGF256(n, k, prefer_native=False)
+    jx = jrs.RSGF256(n, k, prefer_native=False)
     assert tp.impl == "numpy"
     np.testing.assert_array_equal(tp.G, jx.G)
     data = _bytes(n * 10 + k, (k, 257))
@@ -112,8 +113,32 @@ def test_validation_and_native_route():
         rs.encode(np.zeros((3, 8), dtype=np.uint8))
     with pytest.raises(ValueError, match="n <= 256"):
         RSGF256(300, 4)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        RSGF256(4, 2, prefer_native=True)
+    # the native route (the default) is byte-equal to the numpy route
+    # and to the JAX package's native codec
+    nat, npy = RSGF256(9, 5), RSGF256(9, 5, prefer_native=False)
+    jnat = jrs.RSGF256(9, 5)
+    assert (nat.impl, npy.impl, jnat.impl) == ("native", "numpy", "native")
+    np.testing.assert_array_equal(nat.G, npy.G)
+    data = _bytes(3, (5, 4099))
+    coded = nat.encode(data)
+    np.testing.assert_array_equal(coded, npy.encode(data))
+    np.testing.assert_array_equal(coded, jnat.encode(data))
+    for idx in ([8, 0, 3, 7, 5], [4, 5, 6, 7, 8], [0, 1, 2, 3, 4]):
+        want = npy.decode(coded[idx], idx)
+        np.testing.assert_array_equal(nat.decode(coded[idx], idx), want)
+        np.testing.assert_array_equal(want, data)
+
+
+def test_native_builds():
+    """``tests/test_rs_gf256.py``'s native case: the port's own build of
+    ``native/rs_gf256.cpp`` loads (g++ is on this image) from the port's
+    ``native/_build/``, never the JAX package's library."""
+    from mpistragglers_jl_tpu_torch import native
+
+    assert RSGF256(4, 2).impl == "native"
+    lib = trs._load_native()
+    assert lib._name == native.lib_path("rs_gf256")
+    assert "mpistragglers_jl_tpu_torch" in lib._name
 
 
 def test_np_invert_roundtrip():

@@ -5,7 +5,10 @@ kernels (K1-K4) with the train step; the pool on CUDA streams with
 the coded GEMM over it (snapshots, stream ordering, bf16 bytes); and the
 mixture of experts and coded transformer training on the card; the
 rateless GEMM's collected set, GF(256) coding and the hierarchical
-decode's batched solve on the card. Every
+decode's batched solve on the card; and spawned worker processes that
+compute on the card through both host backends (config 2's product
+within its ``REL_TOL["highest"]`` of an in-process one, CUDA-tensor
+payloads snapshotted at dispatch, CUDA-tensor results bit-equal). Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1103,3 +1106,122 @@ def test_batched_inner_solve_equals_per_group_solves():
         for other in (want.reshape(got[g].shape), cpu[g].to(dev)):
             err = (got[g] - other).abs().max() / other.abs().max()
             assert float(err) <= limit, (g, float(err), limit)
+
+
+# -- worker processes on the card (host backends) ---------------------------
+
+
+def _echo(i, payload, epoch):
+    return payload
+
+
+class _Gate:
+    """A delay_fn that holds a worker, before it reads its payload,
+    until the file ``path`` exists (a gate across processes)."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __call__(self, i, epoch):
+        import os
+        import time
+
+        deadline = time.monotonic() + 60.0
+        while not os.path.exists(self.path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"gate {self.path} never opened")
+            time.sleep(0.005)
+        return 0.0
+
+
+def _cuda_result(i, payload, epoch):
+    """A worker's tensors made on its card from a seed: the coordinator
+    makes the same ones and compares bits."""
+    g = torch.Generator(device="cuda").manual_seed(100 + i)
+    x = torch.randn(payload["n"], generator=g, device="cuda")
+    return {"f32": x, "bf16": x.to(torch.bfloat16),
+            "i64": (x * 1e6).to(torch.int64)}[payload["kind"]]
+
+
+def _host_backend(kind, work, n, **kw):
+    from mpistragglers_jl_tpu_torch.backends.native import (
+        NativeProcessBackend,
+    )
+    from mpistragglers_jl_tpu_torch.backends.process import ProcessBackend
+
+    return {"process": ProcessBackend,
+            "native": NativeProcessBackend}[kind](work, n, **kw)
+
+
+@pytest.mark.parametrize("kind", ["process", "native"])
+def test_process_workers_multiply_on_the_card(kind):
+    """2 spawned workers, each with its own CUDA context, multiply row
+    blocks of config 2's operands on the card (``bench/process_gemm.py``
+    at m=2048): the gathered product is within config 2's
+    ``REL_TOL["highest"]`` of one in-process ``torch.matmul``, and equal
+    bit for bit across epochs."""
+    from mpistragglers_jl_tpu_torch.bench import process_gemm
+
+    _card()
+    (res,) = process_gemm.run([kind], m=2048, n_workers=2, epochs=2,
+                              chains=1)
+    assert res["rel_err"] <= res["rel_tol"], res
+    assert res["bit_equal_across_epochs"], res
+    assert res["worker_tasks"] >= 6, res
+    print(kind, "bit-equal to the in-process product:",
+          res["bit_equal_to_reference"])
+
+
+@pytest.mark.parametrize("kind", ["process", "native"])
+@pytest.mark.parametrize("n", [64, 1 << 20])
+def test_cuda_sendbuf_mutated_after_asyncmap_is_not_seen(kind, n,
+                                                         tmp_path):
+    """A CUDA-tensor ``sendbuf`` crosses as a host copy taken at
+    dispatch: the workers are held at a gate before they read, the
+    caller overwrites the tensor right after ``asyncmap`` and then opens
+    the gate, and the workers still echo the values it had."""
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+
+    dev = _card()
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    want = t.cpu().numpy().copy()
+    gate = tmp_path / "open"
+    backend = _host_backend(kind, _echo, 2, delay_fn=_Gate(gate))
+    try:
+        pool = AsyncPool(2)
+        asyncmap(pool, t, backend, nwait=0)
+        t.fill_(-1.0)
+        torch.cuda.synchronize()
+        gate.touch()
+        waitall(pool, backend)
+        for r in pool.results:
+            assert r.dtype == want.dtype and r.tobytes() == want.tobytes()
+    finally:
+        gate.touch()
+        backend.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["process", "native"])
+def test_worker_cuda_results_arrive_bit_equal(kind):
+    """A worker's CUDA tensors (f32, bf16, int64; in band and through
+    the result rings) arrive on the host with their bits, after the
+    worker that made them has exited."""
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+
+    _card()
+    backend = _host_backend(kind, _cuda_result, 2)
+    got = {}
+    try:
+        pool = AsyncPool(2)
+        for kind_, n in (("f32", 16), ("bf16", 1 << 20), ("i64", 1 << 18)):
+            asyncmap(pool, {"kind": kind_, "n": n}, backend, nwait=2)
+            waitall(pool, backend)
+            got[kind_, n] = list(pool.results)
+    finally:
+        backend.shutdown()
+    for (kind_, n), results in got.items():
+        for i, r in enumerate(results):
+            want = _cuda_result(i, {"kind": kind_, "n": n}, 0).cpu()
+            have = (r.view(torch.uint8).numpy().tobytes()
+                    if isinstance(r, torch.Tensor) else r.tobytes())
+            assert have == want.view(torch.uint8).numpy().tobytes(), kind_

@@ -14,7 +14,9 @@ BASELINE configs 2-5, the mixture of experts (``models/moe.py``:
 training at ``benchmarks/moe_bench.py``'s width, generation),
 gradient-coded transformer training over the pool
 (``models/coded_train.py``), and sampled, instrumented serving on both
-caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), and holds
+caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), training
+checkpoints and their resume, the pool simulator (``sim/``) and
+multi-tenant QoS admission (``qos/``) on the paged server, and holds
 every CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
@@ -251,12 +253,39 @@ every CUDA kernel of those paths against its plain PyTorch version:
     2048-row blocks of the 4096^3 f32 product on the card; exit code 0
     and the product within ``REL_TOL["highest"]`` in rank 0's line; and,
     launched beside it, a job whose rank 1 exits 3 must exit 3.
+46. training resume: phase 14's model and batch (bf16, batch 8,
+    sequence 2048) under ``make_optax_train_step(cfg,
+    tx=adamw(3e-4))``, 6 steps straight; then 3 steps, the parameters,
+    the AdamW state and a drained stream pool's ``pool.json`` saved by
+    ``utils/train_checkpoint.py``, restored into fresh tensors and a
+    fresh AdamW, 3 more steps (K1-K3 counted from a reset before it):
+    the losses and every leaf (parameters, moments, steps) bit-equal to
+    the straight run; save s, restore s, GB written;
+47. that state through ``CodedCheckpoint(8, 6)`` (``utils/
+    coded_checkpoint.py`` over the native RS codec): shard 0 deleted and
+    shard 3 corrupted, the restore bit-equal; with shard 5 gone too,
+    ``CheckpointCorrupt``; save and restore GB/s, shard bytes;
+48. the pool simulator: ``bench/adaptive_nwait.py``'s trace (16 stream
+    workers, full gather) dumped as JSONL, replayed by ``sim.replay``
+    at the recorded nwait (every fresh set reproduced, ``compare``),
+    ``sim.sweep_nwait`` over 1000 virtual epochs of it and
+    ``recommend_nwait`` from a latency model fitted to it, beside phase
+    40's final ``AdaptiveNwait``;
+49. QoS on the paged main path (pages of 64, a 256-token system
+    prompt, 16 requests): tenants gold (weight 2) and bronze (weight 1,
+    16 pages) on ``qos=``; in f32 every stream equal to
+    ``generate_ring_dense``, the first burst of admissions 2:1, bronze
+    within its quota, retired prefix pages gone cold and reshared, the
+    pool checked, K6 counted from a reset before it; then in bf16
+    ms/tick with and without ``qos=`` in 3 alternating pairs, with each
+    variant's spread.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
 a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
 31-35's, a ``{"coded_family": ..., "pool_utils": ...}`` line with
-phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's,
+phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
+``{"slice13": ...}`` line with phases 46-49's,
 a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
@@ -287,6 +316,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+from mpistragglers_jl_tpu_torch import sim as tsim
 from mpistragglers_jl_tpu_torch import native
 from mpistragglers_jl_tpu_torch import obs as tobs
 from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
@@ -326,9 +356,12 @@ from mpistragglers_jl_tpu_torch.models.speculative import (
 from mpistragglers_jl_tpu_torch.models.transformer import (
     TransformerConfig,
     _leaves,
+    _rebuild,
+    adamw,
     forward_dense,
     init_params,
     loss_and_grads,
+    make_optax_train_step,
     make_train_step,
     nll_loss,
 )
@@ -340,7 +373,15 @@ from mpistragglers_jl_tpu_torch.native import transport as native_transport
 from mpistragglers_jl_tpu_torch.ops.coded_gemm import CodedGemm
 from mpistragglers_jl_tpu_torch.ops.gf256_device import DeviceRSGF256
 from mpistragglers_jl_tpu_torch.ops.lt import LTCode
-from mpistragglers_jl_tpu_torch.utils import prng
+from mpistragglers_jl_tpu_torch.qos import TenantContract, TenantRegistry
+from mpistragglers_jl_tpu_torch.utils import (
+    CheckpointCorrupt,
+    CodedCheckpoint,
+    TrainCheckpointer,
+    prng,
+)
+from mpistragglers_jl_tpu_torch.utils import load_state_dict as load_pool_state
+from mpistragglers_jl_tpu_torch.utils.straggle import PoolLatencyModel
 from mpistragglers_jl_tpu_torch.utils.rs_gf256 import RSGF256
 from mpistragglers_jl_tpu_torch.utils import trace as ttrace
 
@@ -3041,6 +3082,396 @@ def phase_host_backends(dev, builds, streams_ms, t_start) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 46-49: checkpoints, the pool simulator, QoS admission
+# --------------------------------------------------------------------------
+
+# phase 46: phase 14's model and batch under AdamW, 6 steps straight
+# against 3 + a checkpoint + 3
+RESUME_STEPS, RESUME_LR = 6, 3e-4
+# phase 47: the resumed state RS-coded over 8 shards, any 6 decode
+CKPT_N, CKPT_K = 8, 6
+# phase 49: 16 requests on one 256-token system prompt (+ 64 own tokens
+# each), tenants gold (weight 2) and bronze (weight 1, a page quota of
+# two of its requests at a time); parity in f32 with 24 new tokens,
+# then ms/tick in bf16 with and without qos= in alternating pairs
+QOS_REQUESTS, QOS_OWN, QOS_NEW_F32 = 16, 64, 24
+QOS_INNER, QOS_TICKS, QOS_PAIRS = 32, 2, 3
+QOS_NEW_BF16 = QOS_INNER * (QOS_TICKS + 3)
+QOS_BRONZE_PAGES = 16
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (Python values: equal)."""
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().reshape(-1).view(torch.uint8),
+        b.detach().to(a.device).reshape(-1).view(torch.uint8)))
+
+
+def _tree_mismatches(got, want) -> list[int]:
+    from mpistragglers_jl_tpu_torch.utils.coded_checkpoint import (
+        tree_leaves)
+
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    _require(len(gl) == len(wl), f"{len(gl)} leaves against {len(wl)}")
+    return [i for i, (a, b) in enumerate(zip(gl, wl))
+            if not _same_bits(a, b)]
+
+
+def _quiescent_stream_pool(dev) -> AsyncPool:
+    """A pool drained after 5 epochs over 4 stream workers, nwait 3."""
+    backend = CUDADeviceBackend(an_bench._echo, 4, devices=[dev])
+    pool = AsyncPool(4)
+    try:
+        for _ in range(5):
+            asyncmap(pool, torch.zeros(1, device=dev), backend, nwait=3)
+        waitall(pool, backend, timeout=60)
+    finally:
+        backend.shutdown()
+    return pool
+
+
+def phase_train_resume(dev, tmp) -> tuple[dict, dict, dict]:
+    """Phase 46. Returns (launches of the resumed run, report, the
+    resumed state for phase 47)."""
+    cfg = _train_cfg(torch.bfloat16)
+    p0 = init_params(cfg, seed=0, device=dev)
+    init = [p.clone() for p in _leaves(p0)]
+    inp, tgt = train_batch(cfg.vocab, dev)
+    step, init_state = make_optax_train_step(cfg, tx=adamw(RESUME_LR))
+
+    def fresh():
+        return _rebuild(p0, iter([p.clone() for p in init]))
+
+    params = fresh()
+    opt = init_state(params)
+    want = []
+    for _ in range(RESUME_STEPS):
+        params, opt, loss = step(params, opt, inp, tgt)
+        want.append(loss)
+    straight = {"params": params, "opt": opt.state_dict()}
+    half = RESUME_STEPS // 2
+    torch.cuda.synchronize()
+    _zero_launches()
+    params = fresh()
+    opt = init_state(params)
+    got = []
+    for _ in range(half):
+        params, opt, loss = step(params, opt, inp, tgt)
+        got.append(loss)
+    pool = _quiescent_stream_pool(dev)
+    ckpt = TrainCheckpointer(os.path.join(tmp, "train"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = ckpt.save(half, {"params": params, "opt": opt.state_dict()},
+                  pool=pool)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back, pool_state, at = ckpt.restore()
+    params = _rebuild(p0, iter([torch.empty_like(p) for p in init]))
+    with torch.no_grad():
+        for p, r in zip(_leaves(params), _leaves(back["params"])):
+            p.copy_(r)
+    opt = init_state(params)
+    opt.load_state_dict(back["opt"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del back, p0, init
+    pool2 = load_pool_state(pool_state)
+    _require(at == half and pool2.epoch == pool.epoch
+             and (pool2.repochs == pool.repochs).all()
+             and not pool2.active.any(),
+             f"pool.json restored to epoch {pool2.epoch}, repochs "
+             f"{pool2.repochs.tolist()} (saved {pool.epoch}, "
+             f"{pool.repochs.tolist()})")
+    for _ in range(RESUME_STEPS - half):
+        params, opt, loss = step(params, opt, inp, tgt)
+        got.append(loss)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    resumed = {"params": params, "opt": opt.state_dict()}
+    bad_loss = [i for i, (a, b) in enumerate(zip(got, want))
+                if not _same_bits(a, b)]
+    bad = _tree_mismatches(resumed, straight)
+    n_leaves = len(_leaves(params))
+    print(f"  losses straight {[x.item() for x in want]}, resumed "
+          f"{[x.item() for x in got]}; {len(bad_loss)} losses and "
+          f"{len(bad)} state leaves differ in any bit (params "
+          f"{n_leaves} leaves + AdamW moments and steps)")
+    print(f"  saved step {half} ({nbytes / 1e9:.3f} GB: state.npz, "
+          f"tree.json, pool.json of a drained 4-stream pool at epoch "
+          f"{pool.epoch}) in {save_s:.2f} s, restored into fresh tensors "
+          f"and a fresh AdamW in {restore_s:.2f} s")
+    steps = RESUME_STEPS
+    want_n = {"flash_fwd": cfg.n_layers * steps,
+              "flash_bwd_dq": cfg.n_layers * steps,
+              "flash_bwd_dkv": cfg.n_layers * steps, "flash_bwd_fused": 0,
+              K5: 0, K6: 0, K7: 0, SAMPLE: 0}
+    _require(launches == want_n,
+             f"resumed run launched {launches}, want {want_n}")
+    _require(not bad_loss and not bad,
+             f"resume is not bit-equal: losses {bad_loss}, leaves "
+             f"{bad[:10]}")
+    rep = {"steps": steps, "resumed_after": half, "save_s": save_s,
+           "restore_s": restore_s, "gb_written": nbytes / 1e9,
+           "loss_trajectory": [x.item() for x in got],
+           "leaves_compared": len(_leaves(resumed)), "bit_equal": True}
+    del straight
+    return launches, rep, resumed
+
+
+def phase_coded_checkpoint(state, tmp) -> dict:
+    """Phase 47: the resumed state through CodedCheckpoint(8, 6)."""
+    cc = CodedCheckpoint(CKPT_N, CKPT_K)
+    d = os.path.join(tmp, "coded")
+    t0 = time.perf_counter()
+    paths = cc.save(d, state)
+    enc_s = time.perf_counter() - t0
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    os.remove(paths[0])  # a lost source shard
+    with open(paths[3], "r+b") as f:  # a corrupted one
+        f.seek(man["shard_bytes"] // 2)
+        b = f.read(1)
+        f.seek(man["shard_bytes"] // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    t0 = time.perf_counter()
+    back = cc.restore(d, target=state)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    bad = _tree_mismatches(back, state)
+    del back
+    os.remove(paths[5])
+    try:
+        cc.restore(d, target=state)
+        raised = None
+    except CheckpointCorrupt as e:
+        raised = e
+    gb = man["payload_bytes"] / 1e9
+    print(f"  RS ({CKPT_N}, {CKPT_K}) on its {cc.rs.impl} route: "
+          f"{gb:.3f} GB packed into {CKPT_N} shards of "
+          f"{man['shard_bytes']} bytes; save {enc_s:.2f} s "
+          f"({gb / enc_s:.3f} GB/s), restore with shard 0 lost and shard "
+          f"3 corrupted {dec_s:.2f} s ({gb / dec_s:.3f} GB/s); "
+          f"{len(bad)} leaves differ; a third lost shard: {raised}")
+    _require(not bad, f"coded restore differs in leaves {bad[:10]}")
+    _require(raised is not None and raised.have == CKPT_K - 1,
+             "restore past n - k + 1 lost shards did not raise "
+             "CheckpointCorrupt")
+    return {"n": CKPT_N, "k": CKPT_K, "route": cc.rs.impl,
+            "payload_gb": gb, "shard_bytes": man["shard_bytes"],
+            "save_s": enc_s, "save_gb_per_s": gb / enc_s,
+            "restore_s": dec_s, "restore_gb_per_s": gb / dec_s,
+            "bit_equal": True, "third_loss_raises": True}
+
+
+def phase_sim_replay(dev, tmp, adaptive_nwait) -> dict:
+    """Phase 48: a stream-pool trace replayed and swept on virtual
+    time."""
+    path = os.path.join(tmp, "trace.jsonl")
+    t0 = time.perf_counter()
+    an_bench.record_trace(dev, path)
+    record_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace = tsim.ReplayTrace.from_jsonl(path)
+    drift = tsim.compare(trace, tsim.replay(trace))
+    n, floor = trace.n_workers, trace.n_workers - an_bench.SGD_S
+    delay = trace.delay_fn()
+    epochs = [snap.epoch for snap in trace.epochs]
+
+    def cycled(i, e):  # the recorded epochs, over and over
+        return delay(i, epochs[(e - 1) % len(epochs)])
+
+    sweep = tsim.sweep_nwait(cycled, n_workers=n, epochs=1000, floor=floor)
+    model = PoolLatencyModel(n, seed=0)
+    for e in epochs:
+        for i in range(n):
+            model.observe(i, delay(i, e))
+    rec = tsim.recommend_nwait(model, floor=floor, epochs=1000, seed=0)
+    wall_s = time.perf_counter() - t0
+    print(f"  recorded {len(epochs)} epochs of {n} stream workers in "
+          f"{record_s:.2f} s; replay at the recorded nwait: fresh sets "
+          f"reproduced {drift['fresh_exact_rate']:.0%}, wall drift max "
+          f"{drift['wall_drift_max_s']:.4f} s")
+    print(f"  sweep over 1000 virtual epochs (floor {floor}): best "
+          f"{sweep.best}, " + ", ".join(
+              f"nwait {r['nwait']}: {r['mean_epoch_s'] * 1e3:.2f} ms"
+              for r in sweep.entries)
+          + f"; recommend_nwait sim {rec['sim_nwait']}, model "
+          f"{rec['model_nwait']}; AdaptiveNwait's final nwait "
+          f"{adaptive_nwait} (phase 40); {wall_s:.2f} s wall")
+    _require(drift["fresh_exact_rate"] == 1.0,
+             f"replay reproduced {drift['fresh_exact_rate']} of fresh sets")
+    return {"record_s": record_s, "sim_wall_s": wall_s,
+            "fresh_exact_rate": drift["fresh_exact_rate"],
+            "wall_drift_max_s": drift["wall_drift_max_s"],
+            "sweep_best": sweep.best, "sweep": sweep.entries,
+            "recommend": {k: rec[k] for k in ("sim_nwait", "model_nwait",
+                                               "agree")},
+            "adaptive_final_nwait": adaptive_nwait}
+
+
+def _qos_registry():
+    return TenantRegistry([
+        TenantContract("gold", weight=2.0),
+        TenantContract("bronze", weight=1.0, pages=QOS_BRONZE_PAGES)])
+
+
+def _qos_workload(vocab):
+    """The system prompt + 64 own tokens per request; the first is gold,
+    then 7 gold and 8 bronze."""
+    rng = np.random.default_rng(9)
+    sys_prompt = rng.integers(0, vocab, 256)
+    prompts = [np.concatenate([sys_prompt, rng.integers(0, vocab, QOS_OWN)])
+               for _ in range(QOS_REQUESTS)]
+    tenants = ["gold"] * (QOS_REQUESTS // 2) + ["bronze"] * (
+        QOS_REQUESTS // 2)
+    return prompts, tenants
+
+
+def _qos_submit(sched, prompts, tenants, max_new):
+    """Request 0 alone until its first token (its system-prompt pages
+    are then registered), then the other 15 at once (on a FIFO
+    scheduler the tenant only rides the request)."""
+    first = sched.submit(prompts[0], max_new=max_new, tenant=tenants[0])
+    while not first.tokens:
+        sched.step()
+    return [first] + [sched.submit(p, max_new=max_new, tenant=t)
+                      for p, t in zip(prompts[1:], tenants[1:])]
+
+
+def _qos_spies(sched) -> dict:
+    """Admission order, and the shared pages that were cold at commit."""
+    seen = {"admitted": [], "cold_reshares": 0}
+    admit, commit = sched._admit_into, sched._commit_pages
+
+    def admit_spy(s, req, plan, retired):
+        seen["admitted"].append(req.tenant)
+        return admit(s, req, plan, retired)
+
+    def commit_spy(req, plan):
+        seen["cold_reshares"] += sum(pid in sched._cold for pid in plan[0])
+        return commit(req, plan)
+
+    sched._admit_into, sched._commit_pages = admit_spy, commit_spy
+    return seen
+
+
+def phase_qos_serving(dev) -> tuple[dict, dict]:
+    """Phase 49. Returns (launches of the f32 QoS run, report)."""
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    prompts, tenants = _qos_workload(cfg.vocab)
+    _zero_launches()
+    sched = ServingScheduler(params, cfg, slots=SLOTS, n_inner=8,
+                             prompt_chunk=256, max_prompt=512,
+                             quantize_kv=True, page_tokens=PAGE,
+                             qos=_qos_registry(), device=dev)
+    _require(sched.use_kernel, "the S=8 paged int8 tick did not route K6")
+    seen = _qos_spies(sched)
+    reqs = _qos_submit(sched, prompts, tenants, QOS_NEW_F32)
+    bronze_max = 0
+    while sched.pending or sched.active:
+        sched.step()
+        bronze_max = max(bronze_max, sched._tenant_usage("bronze"))
+    launches = _launch_counts()
+    pool = sched.pool
+    want = cfg.n_layers * sched.n_inner * sched.decode_ticks
+    burst = seen["admitted"][1:7]
+    oracle = td.generate_ring_dense(
+        params, torch.as_tensor(np.stack(prompts), device=dev), QOS_NEW_F32,
+        cfg, quantize_kv=True, device=dev).cpu().numpy()
+    same = sum(r.tokens == oracle[i].tolist() for i, r in enumerate(reqs))
+    print(f"  f32: admission order {''.join(t[0] for t in seen['admitted'])}"
+          f" (g = gold, b = bronze); {same}/{len(reqs)} streams equal "
+          f"generate_ring_dense; bronze held at most {bronze_max} pages "
+          f"(quota {QOS_BRONZE_PAGES}); share hits {pool.share_hits}, of "
+          f"them {seen['cold_reshares']} on cold pages; {len(sched._cold)} "
+          f"pages cold at the end; K6 {launches[K6]} launches (want "
+          f"{want}), K5 {launches[K5]}")
+    _require(same == len(reqs), "a QoS stream differs from the oracle")
+    _require(len(burst) == 6 and burst.count("gold") == 4,
+             f"the first admissions did not run 2:1: {burst}")
+    _require(seen["cold_reshares"] > 0 and len(sched._cold) > 0,
+             "no retired prefix page went cold and was reshared")
+    _require(bronze_max <= QOS_BRONZE_PAGES,
+             f"bronze held {bronze_max} pages over its quota")
+    _require(launches[K6] == want and launches[K5] == 0,
+             f"QoS run launched K6 {launches[K6]} (want {want}), K5 "
+             f"{launches[K5]}")
+    pool.check()
+    rep = {"streams_equal_oracle": same, "admission_order":
+           seen["admitted"], "share_hits": pool.share_hits,
+           "cold_reshares": seen["cold_reshares"],
+           "bronze_max_pages": bronze_max,
+           "decode_ticks": sched.decode_ticks}
+    del sched, params
+    torch.cuda.empty_cache()
+    # ms/tick at the main path's dtype: the same 16 requests, 8 decoding
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    ms = {"qos": [], "fifo": []}
+    order = [v for i in range(QOS_PAIRS)
+             for v in (("qos", "fifo") if i % 2 == 0 else ("fifo", "qos"))]
+    for variant in order:
+        sched = ServingScheduler(
+            params, cfg, slots=SLOTS, n_inner=QOS_INNER, prompt_chunk=256,
+            max_prompt=512, quantize_kv=True, page_tokens=PAGE,
+            qos=_qos_registry() if variant == "qos" else None, device=dev)
+        _qos_submit(sched, prompts, tenants, QOS_NEW_BF16)
+        sched.step()  # the burst's admissions
+        ms[variant].append(_timed_ticks(sched, QOS_TICKS) / QOS_TICKS * 1e3)
+        _require(sched.active == SLOTS, f"{variant}: {sched.active} slots")
+        del sched
+    spread = {v: max(x) - min(x) for v, x in ms.items()}
+    gap = float(np.mean(ms["qos"]) - np.mean(ms["fifo"]))
+    print(f"  bf16 ms/tick ({QOS_INNER} inner steps, 8 slots decoding), "
+          f"in turns {order}: qos {[round(x, 2) for x in ms['qos']]}, "
+          f"fifo {[round(x, 2) for x in ms['fifo']]}; mean gap "
+          f"{gap:+.2f} ms against spreads {spread['qos']:.2f} / "
+          f"{spread['fifo']:.2f} ms")
+    rep.update(ms_per_tick=ms, turns=order, gap_ms=gap, spread_ms=spread,
+               resolved=abs(gap) > max(spread.values()))
+    del params
+    torch.cuda.empty_cache()
+    return launches, rep
+
+
+def phase_slice13(dev, t_start, adaptive_nwait) -> tuple[dict, dict, dict]:
+    """Phases 46-49. Returns (phase 46's launches, phase 49's launches,
+    report)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+        print(f"[46] training resume: bf16, batch {BATCH}, L={SEQ}, AdamW "
+              f"{RESUME_LR}: {RESUME_STEPS} steps straight against "
+              f"{RESUME_STEPS // 2} + TrainCheckpointer + "
+              f"{RESUME_STEPS // 2}, bit for bit")
+        launches46, out["train_resume"], state = phase_train_resume(dev, tmp)
+        print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+        print(f"[47] the resumed state through CodedCheckpoint({CKPT_N}, "
+              f"{CKPT_K}): one shard lost, one corrupted, then a third")
+        out["coded_checkpoint"] = phase_coded_checkpoint(state, tmp)
+        del state
+        torch.cuda.empty_cache()
+        print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+        print("[48] sim replay: bench/adaptive_nwait.py's trace (16 stream "
+              "workers) replayed on virtual time, swept over 1000 epochs")
+        out["sim"] = phase_sim_replay(dev, tmp, adaptive_nwait)
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print(f"[49] QoS paged serving: S={SLOTS}, pages of {PAGE}, a shared "
+          f"256-token system prompt, {QOS_REQUESTS} requests, gold (2) and "
+          f"bronze (1, quota {QOS_BRONZE_PAGES} pages)")
+    launches49, out["qos"] = phase_qos_serving(dev)
+    return launches46, launches49, out
+
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -3247,6 +3678,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     process_pool = phase_host_backends(
         dev, native_builds, coded["config2"]["ms_per_epoch"], t_start)
+    adaptive_final = [r["final_nwait"] for r in pool_utils["coded_sgd"][
+        "runs"] if r["policy"] == "adaptive"][0]
+    launches46, launches49, slice13 = phase_slice13(dev, t_start,
+                                                    adaptive_final)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -3262,16 +3697,18 @@ def main() -> int:
                        launches5[K5], err5, tim5),
          "launches_are": "wrapper calls; each runs the split kernel and, "
                          "with more than one split, its combine"},
-        _kernel_row(K6, "mpistragglers_jl_tpu/ops/decode_attention.py:105",
-                    launches9[K6], err6, tim6),
+        {**_kernel_row(K6, "mpistragglers_jl_tpu/ops/decode_attention.py:105",
+                       launches9[K6], err6, tim6),
+         "launches_qos_phase49": launches49[K6]},
     ]
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
                     else launches14)[kname]
-        kernels.append(_kernel_row(
+        kernels.append({**_kernel_row(
             kname, f"mpistragglers_jl_tpu/ops/flash_attention.py:{line}",
             launched, err_flash[kname], tim_flash[kname],
-            source="flash_attention.cu"))
+            source="flash_attention.cu"),
+            "launches_resume_phase46": launches46[kname]})
     # K7's time is its fullest variant's (full_nosm); all four beside it
     variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
     kernels.append({
@@ -3315,6 +3752,8 @@ def main() -> int:
                       "pool_utils": pool_utils,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"process_pool": process_pool,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice13": slice13,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

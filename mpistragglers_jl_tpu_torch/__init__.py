@@ -19,7 +19,10 @@ the opt-in observability plane (``obs/``, ``utils/trace.py``) on the
 scheduler, the coded GEMM and the coded trainer; and the host backends
 (``backends/process.py``, ``backends/native.py`` over the C++ transport
 in ``native/``), the worker CLI (``worker.py``) and the launcher
-(``launch.py``), whose worker processes may compute on the card. Entry
+(``launch.py``), whose worker processes may compute on the card; training
+and erasure-coded checkpoints (``utils/train_checkpoint.py``,
+``utils/coded_checkpoint.py``), the virtual-time pool simulator
+(``sim/``) and multi-tenant QoS admission (``qos/``) on the scheduler. Entry
 points default to the GPU and raise
 when there is none unless the caller passes ``device="cpu"`` (or
 ``devices=[torch.device("cpu")]``), where every kernel wrapper runs its
@@ -52,6 +55,8 @@ _LAZY = {
     "CodedGemm": ".ops.coded_gemm",
     "LTCodedGemm": ".ops.coded_gemm",
     "CodedSGD": ".models.logreg",
+    "SimBackend": ".sim",
+    "VirtualClock": ".sim",
 }
 
 __all__ = list(_LAZY)

@@ -24,9 +24,9 @@ gathers and copies live in :mod:`.serving`.
 slot can reach point at it, so writes of retired rows land in bytes
 nothing reads unmasked.
 
-The fleet-cache hooks and the QoS cold-page queries of the reference
-(``register_hook``, ``registered``, ``digest_of``) belong to
-``ROADMAP.md`` Queue 1 item 10 and are not copied.
+The fleet-cache hooks of the reference (``register_hook``,
+``digest_of``) belong to ``ROADMAP.md`` Queue 1 item 10b and are not
+copied; ``registered``, the QoS cold-page query, is.
 """
 
 from __future__ import annotations
@@ -184,6 +184,14 @@ class PagePool:
     def lookup(self, digest: bytes) -> int | None:
         """Resident page holding this prefix digest, or None."""
         return self._digest_to_page.get(digest)
+
+    def registered(self, pid: int) -> bool:
+        """Is ``pid`` published in the prefix table? The validity
+        witness the QoS cold-page cache keys on: registration drops
+        the moment a page's bytes stop matching its digest
+        (:meth:`note_write`, COW retarget, free), so a registered
+        sole-held page is safe to keep resident for future sharers."""
+        return pid in self._page_digest
 
     def is_volatile(self, pid: int) -> bool:
         """Will a current holder eventually overwrite this page?"""

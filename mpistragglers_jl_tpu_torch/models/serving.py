@@ -33,6 +33,15 @@ with ``temperature > 0`` every slot samples with its request's key
 stream, so a sampled stream equals ``generate_ring_dense(..., key=)``
 and the JAX package's scheduler with the same key.
 
+Multi-tenant QoS is opt-in, as in the reference: ``qos=`` (a
+:class:`~..qos.TenantRegistry`) replaces FIFO admission with
+weighted deficit-round-robin over per-tenant queues (``submit`` then
+needs a registered ``tenant=``) and, paged, holds each tenant to its
+page quota: a retiring request's sole-held registered prefix pages go
+COLD (kept resident for future sharers, attributed to the tenant) and
+are reclaimed oldest-first under pool or quota pressure, never from
+under a live holder.
+
 Observability is opt-in, as in the reference: ``registry=``,
 ``spans=``, ``flight=``, ``exporter=`` and ``trace=`` (``obs/``
 copies) record the reference's series, spans and request events; a
@@ -67,6 +76,7 @@ from .._device import resolve_device
 from ..obs.timeline import annotate as _annotate
 from ..utils import prng
 from ..ops.decode_attention import paged_ring_view, quantized_decode_attention
+from ..qos import DeficitScheduler, TenantRegistry
 from .decode import (
     _NEG,
     _UNSET,
@@ -383,10 +393,10 @@ def _place_dense(caches, ring, s: int) -> None:
 class _ServingObs:
     """Instrument bundle for one scheduler, resolved once at
     construction so the tick only increments and observes: the
-    reference's ``_ServingObs`` (its series names, labels and buckets),
-    without the QoS and fleet-cache series of ``qos=``/``cache=``
-    (``ROADMAP.md`` Queue 1 item 10). Built only when a registry or a
-    span recorder is attached."""
+    reference's ``_ServingObs`` (its series names, labels and buckets,
+    the QoS series of ``qos=`` included), without the fleet-cache
+    series of ``cache=`` (``ROADMAP.md`` Queue 1 item 10b). Built only
+    when a registry or a span recorder is attached."""
 
     def __init__(self, sched: "ServingScheduler", registry, spans):
         self.registry = registry
@@ -473,6 +483,55 @@ class _ServingObs:
                 help="copy-on-write page copies (a slot wrote a page "
                 "another slot still reads)",
             )
+        # QoS series (qos= schedulers only): per-tenant admission
+        # counters plus deficit / page-quota-usage gauges, created
+        # lazily per tenant and cached
+        self._qos = sched._qos
+        if self._qos is not None:
+            self._q_admit: dict[str, object] = {}
+            self._q_deficit: dict[str, object] = {}
+            self._q_quota: dict[str, object] = {}
+
+    def qos_admitted(self, sched: "ServingScheduler",
+                     tenant: str) -> None:
+        if not self._r or self._qos is None:
+            return
+        c = self._q_admit.get(tenant)
+        if c is None:
+            cls = (self._qos.get(tenant).cls
+                   if tenant in self._qos else "unknown")
+            c = self._q_admit[tenant] = self.registry.counter(
+                "qos_admitted_total",
+                help="requests admitted into slots, by tenant and "
+                "SLO class (DRR order)",
+                tenant=tenant, cls=cls,
+            )
+        c.inc()
+
+    def qos_gauges(self, sched: "ServingScheduler") -> None:
+        """Per-tenant deficit + quota-usage gauges, refreshed once per
+        tick (tick_done)."""
+        drr = sched._drr
+        for contract in self._qos:
+            t = contract.name
+            g = self._q_deficit.get(t)
+            if g is None:
+                g = self._q_deficit[t] = self.registry.gauge(
+                    "qos_deficit",
+                    help="carried DRR credit (tokens) per tenant",
+                    tenant=t,
+                )
+            g.set(drr.deficit(t))
+            if sched.paged:
+                q = self._q_quota.get(t)
+                if q is None:
+                    q = self._q_quota[t] = self.registry.gauge(
+                        "qos_pages_quota_used",
+                        help="KV pages attributed to the tenant "
+                        "(hot refs + cold cache) against its quota",
+                        tenant=t,
+                    )
+                q.set(sched._tenant_usage(t))
 
     def first_token(self, req: "Request", t: float) -> None:
         self._tick_toks += 1
@@ -521,6 +580,8 @@ class _ServingObs:
                 self._last_share = pool.share_hits
                 self.m_cow.inc(pool.cow_copies - self._last_cow)
                 self._last_cow = pool.cow_copies
+            if self._qos is not None:
+                self.qos_gauges(sched)
         sp = self.spans
         if sp is not None:
             tick = sched.tick_count
@@ -550,7 +611,7 @@ class Request:
     ``finished`` flips at retirement; ``reason`` is ``"eos"``,
     ``"length"`` or ``"cancelled"``. ``key`` is the request's PRNG key
     on a sampling scheduler (None: derived from the id at admission);
-    ``tenant`` rides the request (QoS is ``ROADMAP.md`` item 10);
+    ``tenant`` is the contract it is billed to on a ``qos=`` scheduler;
     ``trace`` is its ``TraceBook`` id (None: dark)."""
 
     _next_id = 0
@@ -662,8 +723,17 @@ class ServingScheduler:
     lifecycle events. With none of them the tick does no
     observability work beyond ``is None`` checks.
 
-    ``qos`` and ``cache`` raise ``NotImplementedError`` naming
-    ``ROADMAP.md`` Queue 1 item 10.
+    ``qos=`` (a :class:`~..qos.TenantRegistry`) admits in weighted
+    deficit-round-robin order over per-tenant queues (cost: prompt +
+    ``max_new`` tokens); a tenant whose head cannot be planned (pool
+    pressure, or its page quota after reclaiming its own cold pages)
+    is passed over for the rest of the pass, never blocking another
+    tenant. Paged, a retiring request's sole-held registered prefix
+    pages go cold (resident, attributed to its tenant) and are
+    reclaimed oldest-first, over-quota tenants' first.
+
+    ``cache`` raises ``NotImplementedError`` naming ``ROADMAP.md``
+    Queue 1 item 10.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
@@ -671,12 +741,11 @@ class ServingScheduler:
                  prompt_chunk: int = 256, max_prompt: int = 2048,
                  quantize_kv: bool = False, temperature: float = 0.0,
                  top_k: int | None = None, page_tokens: int | None = None,
-                 cache_pages: int | None = None, qos=None,
+                 cache_pages: int | None = None,
+                 qos: TenantRegistry | None = None,
                  max_queue: int | None = None, registry=None, spans=None,
                  flight=None, exporter=None, trace=None, cache=None,
                  device=None):
-        if qos is not None:
-            raise _later("multi-tenant QoS (qos=)", 10)
         if cache is not None:
             raise _later("the fleet prefix cache (cache=)", 10)
         _check_sampling_params(temperature, top_k)
@@ -731,6 +800,25 @@ class ServingScheduler:
             )
         self.max_queue = None if max_queue is None else int(max_queue)
         self._queue: deque[Request] = deque()
+        # multi-tenant QoS (opt-in): admission order moves from the
+        # FIFO deque to weighted deficit-round-robin over per-tenant
+        # queues, and paged admission enforces page quotas with
+        # cold-page reclaim
+        if qos is not None and len(qos) == 0:
+            raise ValueError(
+                "qos= needs at least one TenantContract registered: "
+                "an empty registry can admit nothing"
+            )
+        self._qos = qos
+        self._drr = DeficitScheduler(qos) if qos is not None else None
+        if qos is not None:
+            # per-tenant page accounting: hot refs (pages the tenant's
+            # resident slots hold) + cold pages (retired prefix pages
+            # kept resident, attributed to the tenant that landed
+            # them); quota usage is their sum
+            self._tenant_pages: dict[str, int] = {}
+            self._cold: dict[int, str] = {}  # pid -> tenant, oldest first
+            self._cold_count: dict[str, int] = {}
         self._slot_req: list[Request | None] = [None] * self.S
         self._admitting: dict[int, _Admitting] = {}
         self.tick_count = 0
@@ -804,8 +892,17 @@ class ServingScheduler:
 
     def attach_trace(self, book) -> None:
         """Arm causal tracing: request lifecycle events go to ``book``
-        (a :class:`~..obs.TraceBook`) on the wall clock."""
+        (a :class:`~..obs.TraceBook`) on the wall clock. DRR admission
+        transitions ride the scheduler's hook (qos/ reads no clock)."""
         self._trace = book
+        if self._drr is not None:
+            self._drr.set_trace(self._drr_trace_event)
+
+    def _drr_trace_event(self, kind, tenant, item, cost) -> None:
+        tid = item.trace
+        if tid is not None:
+            self._trace.event(tid, kind, time.perf_counter(),
+                              tenant=tenant, cost=cost)
 
     # -- public API -----------------------------------------------------
 
@@ -829,7 +926,10 @@ class ServingScheduler:
         ``tokens``/``finished`` the caller watches. Admission happens
         inside subsequent ticks. ``key``: the request's key (a
         ``utils/prng.py`` key, or its uint32 data) on a sampling
-        scheduler; raises on a greedy one. ``tenant`` rides the request.
+        scheduler; raises on a greedy one. ``tenant``: the contract the
+        request is billed to, required on a ``qos=`` scheduler (an
+        unknown tenant raises ``KeyError`` by name); otherwise it rides
+        the request.
         ``trace``: a ``TraceBook`` id minted upstream (a router's); else
         an attached book mints one here."""
         if key is not None and self.temperature == 0.0:
@@ -844,6 +944,14 @@ class ServingScheduler:
                 f"queued at max_queue={self.max_queue}; shed at the "
                 "router instead of queueing unboundedly"
             )
+        if self._qos is not None:
+            if tenant is None:
+                raise ValueError(
+                    "qos scheduler needs tenant= at submit: admission "
+                    "order and page quotas are per-contract (register "
+                    "a catch-all TenantContract for untagged traffic)"
+                )
+            self._qos.get(tenant)  # unknown tenant: named KeyError
         if key is not None:
             key = torch.as_tensor(key).to(self.device, torch.int64)
             if tuple(key.shape) != (2,):
@@ -869,7 +977,13 @@ class ServingScheduler:
                 req.trace, "submitted", time.perf_counter(),
                 tenant=tenant, prompt=int(req.prompt.size),
             )
-        self._queue.append(req)
+        if self._drr is not None:
+            # DRR cost is in tokens (prompt + budget), so fairness is
+            # fair chip work, not fair request counts
+            self._drr.enqueue(tenant, req,
+                              float(req.prompt.size + req.max_new))
+        else:
+            self._queue.append(req)
         if obs is not None and obs._r:
             obs.m_queue.set(self.pending)
         return req
@@ -881,7 +995,8 @@ class ServingScheduler:
 
     @property
     def pending(self) -> int:
-        return len(self._queue)
+        return (self._drr.total if self._drr is not None
+                else len(self._queue))
 
     def step(self) -> list[Request]:
         """One scheduler tick; returns the requests retired in it
@@ -985,8 +1100,13 @@ class ServingScheduler:
         here and is now retired with ``reason == "cancelled"``."""
         if req.finished:
             return False
-        if req in self._queue:
-            self._queue.remove(req)
+        if self._drr is not None:
+            removed = self._drr.remove(req)
+        else:
+            removed = req in self._queue
+            if removed:
+                self._queue.remove(req)
+        if removed:
             self._retire_cancelled(req)
             return True
         for s, r in enumerate(self._slot_req):
@@ -997,6 +1117,7 @@ class ServingScheduler:
                     # table row stays null until finish)
                     for pid in st.pids[:st.n_pages]:
                         self.pool.decref(pid, wrapper=st.wraps)
+                    self._tenant_debit(req.tenant, st.n_pages)
                 self._free_slot(s)
                 self._retire_cancelled(req)
                 return True
@@ -1026,6 +1147,9 @@ class ServingScheduler:
 
     def _admit_from_queue(self, retired: list[Request]) -> None:
         free = [s for s, r in enumerate(self._slot_req) if r is None]
+        if self._drr is not None:
+            self._admit_drr(free, retired)
+            return
         while self._queue and free:
             plan = None
             if self.paged:
@@ -1036,6 +1160,29 @@ class ServingScheduler:
                     break
             self._admit_into(free.pop(0), self._queue.popleft(), plan,
                              retired)
+
+    def _admit_drr(self, free: list[int], retired: list[Request]) -> None:
+        """QoS admission: free slots fill in deficit-round-robin order
+        (:class:`~..qos.DeficitScheduler`: weighted, work-conserving,
+        deficits carried). A tenant whose head cannot be planned right
+        now (pool pressure, or its page quota even after reclaiming its
+        own cold pages) is restored unchanged and passed over for the
+        rest of this pass: one tenant's unplannable head never blocks
+        another tenant's admission."""
+        deferred: set[str] = set()
+        while free:
+            pick = self._drr.pick(skip=deferred)
+            if pick is None:
+                return
+            tenant, req, cost = pick
+            plan = None
+            if self.paged:
+                plan = self._plan_pages_qos(req)
+                if plan is None:
+                    self._drr.restore(tenant, req, cost)
+                    deferred.add(tenant)
+                    continue
+            self._admit_into(free.pop(0), req, plan, retired)
 
     def _admit_into(self, s: int, req: Request, plan,
                     retired: list[Request]) -> None:
@@ -1063,6 +1210,8 @@ class ServingScheduler:
             n_chunks, base=base, **paging,
         )
         req.admitted_tick = self.tick_count
+        if self._obs is not None and req.tenant is not None:
+            self._obs.qos_admitted(self, req.tenant)
         if self._trace is not None and req.trace is not None:
             self._trace.event(
                 req.trace, "admitted", time.perf_counter(),
@@ -1150,6 +1299,16 @@ class ServingScheduler:
         whether it wraps. None when the pool cannot cover the fresh
         pages plus one COW reservation per share that can end in a
         write; the request then stays queued."""
+        shared, digests, n_pages, wraps, n_fresh, reserve = \
+            self._page_needs(req)
+        if not self.pool.can_alloc(n_fresh, reserve=reserve):
+            return None
+        return shared, digests, n_pages, wraps
+
+    def _page_needs(self, req: Request):
+        """The share walk and budget arithmetic both planners share:
+        (shared, digests, n_pages, wraps, n_fresh, reserve), computed
+        without consulting pool capacity."""
         Tp = req.prompt.size
         W, P = self.W, self.P
         digests: list[bytes] = []
@@ -1170,9 +1329,8 @@ class ServingScheduler:
         n_pages = -(-min(W, horizon) // P)
         reserve = sum(self.pool.share_needs_reserve(pid, wraps)
                       for pid in shared)
-        if not self.pool.can_alloc(n_pages - len(shared), reserve=reserve):
-            return None
-        return shared, digests, n_pages, wraps
+        return shared, digests, n_pages, wraps, n_pages - len(shared), \
+            reserve
 
     def _commit_pages(self, req: Request, plan) -> tuple[int, dict]:
         """Execute a plan: share the prefix pages (attaching their COW
@@ -1191,14 +1349,122 @@ class ServingScheduler:
                     req.trace, "share_hit", time.perf_counter(),
                     page=int(pid),
                 )
+            if self._drr is not None and pid in self._cold:
+                # a cold page found its next sharer: the cache's hold
+                # transfers to the new slot (warm)
+                self._drop_cold(pid)
         for j in range(len(shared), n_pages):
             pids[j] = self.pool.alloc()
+        if self._drr is not None:
+            self._tenant_pages[req.tenant] = (
+                self._tenant_pages.get(req.tenant, 0) + n_pages)
         Tp = req.prompt.size
         n_cover = min(Tp // self.P, self.max_pages) if Tp <= self.W else 0
         return len(shared) * self.P, {
             "pids": pids, "n_pages": n_pages, "digests": tuple(digests),
             "n_cover": n_cover, "wraps": wraps,
         }
+
+    # -- QoS page quotas and cold-page reclaim (qos= only) ---------------
+    #
+    # A retiring request's still-registered refcount-1 prefix pages go
+    # COLD instead of freeing: resident for future sharers (their
+    # digests stay in the prefix table, their bytes untouched, since
+    # no slot's table names them), attributed to the departing tenant,
+    # and evictable. Cold pages have refcount 1 (a cold page that gains
+    # a sharer leaves the cold set first), so eviction never touches a
+    # page a live holder reads.
+
+    def _tenant_usage(self, tenant: str) -> int:
+        """Pages attributed to the tenant: hot refs held by its
+        resident slots + its cold pages. The quota number."""
+        return (self._tenant_pages.get(tenant, 0)
+                + self._cold_count.get(tenant, 0))
+
+    def _tenant_debit(self, tenant: str | None, n: int) -> None:
+        if self._drr is None or tenant is None or n == 0:
+            return
+        left = self._tenant_pages.get(tenant, 0) - n
+        if left:
+            self._tenant_pages[tenant] = left
+        else:
+            self._tenant_pages.pop(tenant, None)
+
+    def _over_quota(self, tenant: str) -> bool:
+        quota = self._qos.get(tenant).pages
+        return quota is not None and self._tenant_usage(tenant) > quota
+
+    def _drop_cold(self, pid: int) -> str:
+        """Take ``pid`` out of the cold set (warmed by a new sharer, or
+        evicted) and drop the cache's hold; returns the tenant it was
+        attributed to."""
+        t = self._cold.pop(pid)
+        n = self._cold_count.get(t, 0) - 1
+        if n:
+            self._cold_count[t] = n
+        else:
+            self._cold_count.pop(t, None)
+        self.pool.decref(pid)
+        return t
+
+    def _evict_cold_page(self, *, protect=frozenset(),
+                         tenant: str | None = None) -> bool:
+        """Evict ONE cold page (freeing it). ``tenant`` narrows to that
+        tenant's cold pages (quota enforcement); otherwise pool-pressure
+        order: an over-quota tenant's cold pages first, then any.
+        Oldest first within each class; ``protect`` pins the pages the
+        plan in flight would share. False when nothing is evictable."""
+        victim = None
+        if tenant is not None:
+            victim = next((pid for pid, t in self._cold.items()
+                           if t == tenant and pid not in protect), None)
+        else:
+            victim = next((pid for pid, t in self._cold.items()
+                           if pid not in protect and self._over_quota(t)),
+                          None)
+            if victim is None:
+                victim = next((pid for pid in self._cold
+                               if pid not in protect), None)
+        if victim is None:
+            return False
+        t = self._drop_cold(victim)
+        if self._flight is not None:
+            self._flight.event("qos reclaim", src="scheduler", tenant=t,
+                               page=victim)
+        return True
+
+    def _plan_pages_qos(self, req: Request):
+        """:meth:`_plan_pages` under the tenant's page quota, with
+        cold-page reclaim on both pressure paths: pool exhaustion
+        evicts exactly the shortfall in cold pages; quota exhaustion
+        evicts the tenant's OWN cold pages. None when the request still
+        cannot be planned (the DRR pass then defers this tenant)."""
+        contract = self._qos.get(req.tenant)
+        shared, digests, n_pages, wraps, n_fresh, reserve = \
+            self._page_needs(req)
+        # the plan's own shares are never victims: evicting one would
+        # trade a prefill skip for a fresh page
+        protect = set(shared)
+        # an evicted cold page (refcount 1, no reservation) frees
+        # exactly one page, so the shortfall is reclaimed in one pass
+        shortfall = (n_fresh + reserve + self.pool.reserved
+                     - self.pool.free)
+        for _ in range(max(shortfall, 0)):
+            if not self._evict_cold_page(protect=protect):
+                return None
+        if contract.pages is not None:
+            # sharing one's own cold page moves it cold -> hot: no new
+            # usage; everything else is net-new attribution
+            own_cold_shared = sum(1 for pid in shared
+                                  if self._cold.get(pid) == req.tenant)
+            need = (self._tenant_usage(req.tenant) + n_pages
+                    - own_cold_shared)
+            while need > contract.pages:
+                if not self._evict_cold_page(protect=protect,
+                                             tenant=req.tenant):
+                    return None
+                need -= 1
+        return shared, digests, n_pages, wraps
 
     def _prepare_tick_pages(self, decoding: list[int]) -> None:
         """Pre-tick COW pass: the next ``n_inner`` steps write ring
@@ -1277,6 +1543,7 @@ class ServingScheduler:
         return True
 
     def _free_slot(self, s: int) -> None:
+        req = self._slot_req[s]
         self._slot_req[s] = None
         # the row keeps decoding garbage until reused; done=True makes
         # it emit EOS-clamped tokens nobody reads
@@ -1284,11 +1551,27 @@ class ServingScheduler:
         if self.paged:
             # drop the slot's page references (a shared page frees only
             # with its last holder) and null the row, so its writes land
-            # in the null page
+            # in the null page. Under qos=, a sole-held page whose
+            # prefix digest is still registered goes COLD instead of
+            # freeing: resident for future sharers, attributed to the
+            # departing tenant, evicted oldest-first under pressure.
+            tenant = (req.tenant if self._drr is not None
+                      and req is not None else None)
+            keep_cold = tenant is not None and not self._slot_wraps[s]
+            n_refs = 0
             for pid in self._pt_host[s]:
-                if pid != NULL_PAGE:
-                    self.pool.decref(int(pid),
-                                     wrapper=self._slot_wraps[s])
+                if pid == NULL_PAGE:
+                    continue
+                pid = int(pid)
+                n_refs += 1
+                if (keep_cold and self.pool.refcount(pid) == 1
+                        and self.pool.registered(pid)):
+                    self._cold[pid] = tenant
+                    self._cold_count[tenant] = (
+                        self._cold_count.get(tenant, 0) + 1)
+                else:
+                    self.pool.decref(pid, wrapper=self._slot_wraps[s])
+            self._tenant_debit(tenant, n_refs)
             self._pt_host[s] = NULL_PAGE
             self._pt_dev = None
             self._host_pos[s] = 0

@@ -11,10 +11,8 @@ The reference induces stragglers with bare randomness — workers
 SURVEY §4/§5 flags as the gap to close: on a real accelerator slice
 stragglers are rare and the interconnect is lockstep-fast, so
 *injection* must be a first-class, reproducible test subsystem rather
-than an un-seeded sleep. The virtual-time ``SimBackend`` that replays
-these schedules in the reference comes to the port with ``sim/``
-(ROADMAP.md Queue 1 item 21b); here they drive the thread and CUDA
-stream backends.
+than an un-seeded sleep. They drive the thread and CUDA stream
+backends, and the virtual-time ``sim.SimBackend``.
 
 Every factory here returns a ``DelayFn`` — ``(worker, epoch) -> seconds``
 — consumable by any backend's ``delay_fn`` kwarg (backends/base.py

@@ -1225,3 +1225,82 @@ def test_worker_cuda_results_arrive_bit_equal(kind):
             have = (r.view(torch.uint8).numpy().tobytes()
                     if isinstance(r, torch.Tensor) else r.tobytes())
             assert have == want.view(torch.uint8).numpy().tobytes(), kind_
+
+
+def test_train_checkpoint_bf16_round_trip_on_the_card(tmp_path):
+    """bf16 parameters and an AdamW state on the card through
+    ``TrainCheckpointer``: restored with the target's dtype and device,
+    every leaf bit-equal, and the resumed step equal to the
+    uninterrupted one bit for bit."""
+    from mpistragglers_jl_tpu_torch.models.transformer import (
+        _leaves,
+        adamw,
+        make_optax_train_step,
+    )
+    from mpistragglers_jl_tpu_torch.utils import TrainCheckpointer
+
+    dev = _card()
+    cfg = TransformerConfig(vocab=64, d_model=256, n_heads=2, n_layers=2,
+                            d_ff=512, dtype=torch.bfloat16,
+                            attn="ulysses", attn_impl="flash")
+    params = init_params(cfg, seed=1, device=dev)
+    tok = torch.randint(0, cfg.vocab, (2, 129),
+                        generator=torch.Generator().manual_seed(2))
+    inp, tgt = tok[:, :-1].to(dev), tok[:, 1:].to(dev)
+    step, init_state = make_optax_train_step(cfg, tx=adamw(3e-4))
+    opt = init_state(params)
+    params, opt, _ = step(params, opt, inp, tgt)
+    ckpt = TrainCheckpointer(tmp_path / "ck")
+    ckpt.save(1, {"params": params, "opt": opt.state_dict()})
+    like = init_params(cfg, seed=9, device=dev)
+    state, _, _ = ckpt.restore(1)
+    back, _, _ = ckpt.restore(1, target={"params": like,
+                                         "opt": state["opt"]})
+    for a, b in zip(_leaves(back["params"]), _leaves(params)):
+        assert a.device == b.device and a.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    opt2 = init_state(back["params"])
+    opt2.load_state_dict(state["opt"])
+    want, _, loss_w = step(params, opt, inp, tgt)
+    got, _, loss_g = step(back["params"], opt2, inp, tgt)
+    assert torch.equal(loss_g, loss_w)
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_qos_paged_scheduler_matches_oracle_on_the_card():
+    """A two-tenant ``qos=`` paged scheduler on the card through K6:
+    every greedy stream equals ``generate_ring_dense``, the first
+    admissions follow the 2:1 weights and the pool checks."""
+    from mpistragglers_jl_tpu_torch.qos import TenantContract, TenantRegistry
+
+    dev = _card()
+    cfg = TransformerConfig(vocab=128, d_model=512, n_heads=4,
+                            n_kv_heads=2, n_layers=2, d_ff=1024,
+                            attn_window=64, dtype=torch.float32)
+    params = init_params(cfg, seed=3, device=dev)
+    reg = TenantRegistry([TenantContract("gold", weight=2.0),
+                          TenantContract("bronze", weight=1.0, pages=6)])
+    sched = ServingScheduler(params, cfg, slots=4, n_inner=8,
+                             prompt_chunk=16, max_prompt=48, page_tokens=8,
+                             quantize_kv=True, qos=reg, device=dev)
+    assert sched.use_kernel
+    gen = torch.Generator().manual_seed(4)
+    work = [(t, torch.randint(1, cfg.vocab, (int(n),), generator=gen)
+             .numpy()) for t, n in zip(["gold"] * 4 + ["bronze"] * 4,
+                                       [9, 17, 12, 20, 11, 15, 24, 8])]
+    admitted, real = [], sched._admit_into
+
+    def spy(s, req, plan, retired):
+        admitted.append(req.tenant)
+        return real(s, req, plan, retired)
+
+    sched._admit_into = spy
+    reqs = [sched.submit(p, max_new=12, tenant=t) for t, p in work]
+    sched.run()
+    for (_, p), r in zip(work, reqs):
+        want = td.generate_ring_dense(params, p[None], 12, cfg,
+                                      quantize_kv=True, device=dev)
+        assert r.tokens == want[0].tolist()
+    assert admitted[:3] == ["gold", "gold", "bronze"], admitted
+    sched.pool.check()

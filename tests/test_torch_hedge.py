@@ -1,12 +1,14 @@
 """Hedged requests of the port (``utils/hedge.py``) against the JAX
 package: first-response-wins over subset pools of one shared backend.
 
-The contract is ``tests/test_hedged.py`` without its ``SimBackend``
-cases (virtual time comes to the port with ``sim/``, ROADMAP.md Queue 1
-item 21b). Here the slow replica is held by a gate (``threading.Event``)
-that the test opens, so who wins, who is busy and which subsets form
-are decided by the test, not by the clock; the same gated scenario
-through both packages gives the same winners, widths and subsets.
+The contract is ``tests/test_hedged.py``. Its ``SimBackend`` cases run
+on the port's ``sim`` (virtual time: the winner's latency is an exact
+clock reading), and the same virtual-time request sequence gives the
+same winners, latencies and widths in both packages. In the thread
+cases the slow replica is held by a gate (``threading.Event``) that the
+test opens, so who wins, who is busy and which subsets form are decided
+by the test, not by the clock; the same gated scenario through both
+packages gives the same winners, widths and subsets.
 ``RequestHedge`` hands out the same entries in the same order as the
 reference's under one sequence of arms, disarms and clock readings.
 """
@@ -20,12 +22,13 @@ import torch
 
 from mpistragglers_jl_tpu.backends.local import LocalBackend as RefLocal
 from mpistragglers_jl_tpu.utils import hedge as jh
-from mpistragglers_jl_tpu_torch import CUDADeviceBackend, LocalBackend
+from mpistragglers_jl_tpu_torch import CUDADeviceBackend, LocalBackend, SimBackend
 from mpistragglers_jl_tpu_torch.obs import MetricsRegistry, ObsServer
 from mpistragglers_jl_tpu_torch.utils import HedgedServer, RequestHedge
 from mpistragglers_jl_tpu_torch.utils import hedge as th
 
 N = 4
+SLOW, FAST = 0.25, 0.01
 CPU = [torch.device("cpu")]
 
 
@@ -269,3 +272,101 @@ def test_request_hedge_fires_in_the_reference_order():
     assert got == _hedge_ops(jh)
     assert got[1] == [2, 0, 3] and got[-1] == (0, None)
     assert RequestHedge is not jh.RequestHedge
+
+
+# -- the SimBackend cases of tests/test_hedged.py ---------------------------
+
+
+def _mk_sim(delay):
+    return SimBackend(_work, N, delay_fn=delay)
+
+
+def test_winner_is_fast_replica_and_latency_tracks_it():
+    """Virtual time makes the Tail-at-Scale claim exact: the hedge pays
+    the fast replica's delay, and the straggler costs the request
+    nothing."""
+    backend = _mk_sim(lambda i, e: SLOW if i == 0 else FAST)
+    srv = HedgedServer(backend)
+    t0 = backend.clock.now()
+    result, rank, _ = srv.request(np.asarray([7], np.int64), replicas=[0, 1])
+    assert rank == 1  # the fast one
+    assert result[0] == 1 and result[1] == 7
+    assert backend.clock.now() - t0 == pytest.approx(FAST, abs=1e-12)
+    assert backend.last_latency[rank] == pytest.approx(FAST, abs=1e-12)
+    backend.quiesce()  # let the loser land before the drain barrier
+    srv.drain()
+
+
+def test_loser_rank_excluded_until_harvested():
+    """The busy loser's rank stays out of new subsets until its late
+    result is harvested, and the harvest boundary is a clock value."""
+    backend = _mk_sim(lambda i, e: SLOW if i == 0 else FAST)
+    srv = HedgedServer(backend)
+    srv.request(np.asarray([1], np.int64), replicas=[0, 1])
+    assert srv._busy_ranks() == {0}
+    _, rank2, _ = srv.request(np.asarray([2], np.int64), hedge=2)
+    assert rank2 != 0
+    assert srv.last_hedge_width == 2
+    new_subsets = [k for k in srv._pools if k != (0, 1)]
+    assert new_subsets and all(0 not in k for k in new_subsets)
+    backend.clock.run_until(SLOW - 1e-9)
+    srv._harvest()
+    assert srv._busy_ranks() == {0}
+    backend.clock.run_until(SLOW)
+    srv._harvest()
+    assert 0 not in srv._busy_ranks()
+    srv.drain()
+
+
+def _stalls(i, epoch):
+    return SLOW if (epoch + i) % 4 == 0 else FAST
+
+
+def test_tail_latency_win_under_random_stalls():
+    """Replica r stalls on requests where (q + r) % 4 == 0; hedge=2
+    (consecutive ranks never both stall) pays no stall at all."""
+    backend = _mk_sim(_stalls)
+    srv = HedgedServer(backend)
+    hedged = []
+    for q in range(8):
+        t0 = backend.clock.now()
+        srv.request(np.asarray([q], np.int64), hedge=2)
+        hedged.append(backend.clock.now() - t0)
+        srv.drain()
+    assert hedged == pytest.approx([FAST] * 8, abs=1e-12), hedged
+    srv.drain()
+
+
+def test_hedge_width_is_observable():
+    """A narrowed hedge lands in last_hedge_width and the history."""
+    backend = _mk_sim(lambda i, e: SLOW if i == 0 else FAST)
+    srv = HedgedServer(backend)
+    srv.request(np.asarray([1], np.int64), hedge=2, replicas=[0, 1])
+    assert srv.last_hedge_width == 2
+    _, rank, _ = srv.request(np.asarray([2], np.int64), hedge=4)
+    assert srv.last_hedge_width == 3
+    assert srv.history[-1][2] == 3
+    backend.quiesce()
+    srv.drain()
+
+
+def test_virtual_time_requests_equal_the_reference():
+    """The stall schedule above, hedge 1 and 2, through both packages'
+    ``HedgedServer`` on their own ``SimBackend``: the same winners,
+    virtual latencies (bit for bit) and history."""
+    from mpistragglers_jl_tpu.sim import SimBackend as RefSim
+
+    def run(server_cls, sim_cls):
+        backend = sim_cls(_work, N, delay_fn=_stalls)
+        srv = server_cls(backend)
+        out = []
+        for q in range(8):
+            t0 = backend.clock.now()
+            _, rank, _ = srv.request(np.asarray([q], np.int64),
+                                     hedge=1 + q % 2)
+            out.append((rank, backend.clock.now() - t0))
+            srv.drain()
+        # history: (rank, real-clock latency, width)
+        return out, [(h[0], h[2]) for h in srv.history], backend.clock.now()
+
+    assert run(HedgedServer, SimBackend) == run(jh.HedgedServer, RefSim)

@@ -3,10 +3,12 @@
 package, over ``CUDADeviceBackend(devices=[cpu])`` and ``LocalBackend``.
 
 The contract is ``tests/test_hierarchical.py`` without its
-``SimBackend``, ``sweep_hierarchical`` and ``host_groups`` cases
-(virtual time is ROADMAP.md Queue 1 item 21b, mesh partitions item 18):
-a dead host group is held by a gate (``threading.Event``) until the
-test ends, so which groups arrive is the test's choice. Tolerances:
+``host_groups`` cases (mesh partitions are ROADMAP.md item 18). Its
+``SimBackend`` matrix and ``sweep_hierarchical`` cases run on the port's
+``sim`` (virtual time), and the same sweep gives the same table in both
+packages (tolerance: none). Elsewhere a dead host group is held by a
+gate (``threading.Event``) until the test ends, so which groups arrive
+is the test's choice. Tolerances:
 outer generator rows, partitions and predicates equal the reference's
 exactly; outer decodes within the contract's rtol 1e-5 / atol 1e-6;
 products within the contract's 1e-3 (f32) and 5e-2 (bf16) of max|A @
@@ -43,7 +45,9 @@ from mpistragglers_jl_tpu_torch.ops.outer_code import (
     make_outer,
     partition_groups,
 )
+from mpistragglers_jl_tpu_torch.sim import SimBackend, sweep_hierarchical
 from mpistragglers_jl_tpu_torch.utils import faults
+from mpistragglers_jl_tpu_torch.utils.straggle import PoolLatencyModel
 
 CPU = [torch.device("cpu")]
 TOL = {"float32": 1e-3, "bfloat16": 5e-2}
@@ -376,3 +380,202 @@ def test_batched_inner_solve_equals_per_group_solves():
         torch.testing.assert_close(
             torch.einsum("kj,jrc->krc", G[g], got[g]), shards[g],
             rtol=1e-5, atol=1e-5)
+
+
+# -- the SimBackend cases of tests/test_hierarchical.py ---------------------
+
+
+def _sim_problem(dtype):
+    """The contract's problem with A and B as tensors of ``dtype``."""
+    A, B, ref = _problem(dtype)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return torch.from_numpy(A).to(tdt), torch.from_numpy(B).to(tdt), ref
+
+
+@pytest.mark.parametrize("H", [2, 4])
+@pytest.mark.parametrize("inner", ["mds", "lt"])
+@pytest.mark.parametrize("killed", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_result_equals_plain_matmul_on_sim(H, inner, killed, dtype):
+    """(groups) x (inner code) x (killed groups) x dtype on
+    SimBackend, the outer-recovery path included."""
+    A, B, ref = _sim_problem(dtype)
+    hg = HierarchicalCodedGemm(A, groups=H, n_inner=4, k_inner=3,
+                               inner=inner, devices=CPU,
+                               device_backend=False)
+    delay = faults.seeded_uniform(0.001, 0.01, seed=7)
+    if killed:
+        delay = faults.compose(
+            delay, faults.kill_group(hg.group_indices, {H - 1: 1}))
+    be = SimBackend(hg.work, hg.n_workers, delay_fn=delay)
+    pool = AsyncPool(hg.n_workers)
+    for _ in range(2):  # the kill lands on the FIRST epoch already
+        asyncmap(pool, B, be, nwait=hg.nwait)
+        C = hg.result(pool)
+        assert C.shape == ref.shape
+        assert _rel(C, ref) < TOL[dtype], (H, inner, killed, dtype)
+    if killed:
+        assert H - 1 not in hg.arrived_groups(pool)
+
+
+def test_result_refuses_below_floor_on_sim():
+    A, B, _ = _sim_problem("float32")
+    hg = HierarchicalCodedGemm(A, groups=4, n_inner=4, k_inner=3,
+                               devices=CPU, device_backend=False)
+    be = SimBackend(hg.work, hg.n_workers, delay_fn=faults.kill_group(
+        hg.group_indices, {2: 0, 3: 0}))
+    pool = AsyncPool(hg.n_workers)
+    with pytest.raises(Exception):
+        asyncmap(pool, B, be, nwait=hg.nwait, timeout=5.0)
+    with pytest.raises(ValueError, match="outer floor needs 3"):
+        hg.result(pool)
+
+
+def test_kill_one_host_sim_run_is_bit_identical():
+    """A kill-one-host run decodes every epoch, twice, with bit-identical
+    virtual walls and decoded bytes."""
+    A, B, ref = _sim_problem("float32")
+
+    def run():
+        hg = HierarchicalCodedGemm(A, groups=4, n_inner=4, k_inner=3,
+                                   devices=CPU, device_backend=False)
+        be = SimBackend(hg.work, hg.n_workers, delay_fn=faults.compose(
+            faults.seeded_lognormal(0.01, 1.0, seed=5),
+            faults.kill_group(hg.group_indices, {1: 3})))
+        pool = AsyncPool(hg.n_workers)
+        walls, outs = [], []
+        for _ in range(6):
+            t0 = be.clock.now()
+            asyncmap(pool, B, be, nwait=hg.nwait)
+            walls.append(be.clock.now() - t0)
+            outs.append(hg.result(pool))
+        return walls, outs
+
+    w1, o1 = run()
+    w2, o2 = run()
+    for C in o1:
+        assert _rel(C, ref) < 1e-3
+    assert w1 == w2
+    assert all(np.array_equal(a, b) for a, b in zip(o1, o2))
+
+
+def test_counters_and_flight_event_on_recovery_on_sim():
+    A, B, _ = _sim_problem("float32")
+    reg, fl = MetricsRegistry(), FlightRecorder()
+    hg = HierarchicalCodedGemm(A, groups=4, n_inner=4, k_inner=3,
+                               devices=CPU, device_backend=False,
+                               registry=reg, flight=fl)
+    pool = AsyncPool(hg.n_workers)
+    asyncmap(pool, B, SimBackend(hg.work, hg.n_workers), nwait=16)
+    hg.result(pool)
+    snap = reg.snapshot()
+    assert snap["hier_outer_recoveries_total"]["series"][0]["value"] == 0
+    assert len(fl) == 0
+    be2 = SimBackend(hg.work, hg.n_workers, delay_fn=faults.kill_group(
+        hg.group_indices, {1: 0}))
+    pool2 = AsyncPool(hg.n_workers)
+    asyncmap(pool2, B, be2, nwait=hg.nwait)
+    hg.result(pool2)
+    snap = reg.snapshot()
+    assert snap["hier_outer_recoveries_total"]["series"][0]["value"] == 1
+    assert snap["hier_group_losses_total"]["series"][0]["value"] == 1
+    ev = next(e for e in fl.snapshot()["traceEvents"]
+              if e.get("name") == "hier outer recovery")
+    assert ev["args"]["missing_groups"] == [1]
+
+
+def test_dark_path_stays_dark_on_sim():
+    A, B, _ = _sim_problem("float32")
+    hg = HierarchicalCodedGemm(A, groups=2, n_inner=4, k_inner=3,
+                               devices=CPU, device_backend=False)
+    assert hg._m is None and hg._flight is None
+    be = SimBackend(hg.work, hg.n_workers)
+    pool = AsyncPool(hg.n_workers)
+    asyncmap(pool, B, be, nwait=hg.nwait)
+    hg.result(pool)
+
+
+def _pinned_fleet(w, e):
+    """Per group of 8: six fast workers (10-16 ms, deterministic
+    jitter) + two 1 s stragglers — the inner optimum is sharply 6."""
+    j = w % 8
+    if j >= 6:
+        return 1.0
+    return 0.010 + 0.001 * j + 0.005 * ((w * 7 + e) % 3) / 3
+
+
+def test_sweep_refuses_below_either_floor():
+    with pytest.raises(ValueError, match="inner decodability floor"):
+        sweep_hierarchical(_pinned_fleet, groups=4, n_inner=8,
+                           candidates=[(0.75, 1)], inner_floor=2, epochs=5)
+    with pytest.raises(ValueError, match="outer decodability floor"):
+        sweep_hierarchical(_pinned_fleet, groups=4, n_inner=8,
+                           candidates=[(0.05, 6)], epochs=5)
+    with pytest.raises(ValueError, match="survive the scheduled"):
+        sweep_hierarchical(_pinned_fleet, groups=4, n_inner=8,
+                           candidates=[(1.0, 6)], failures={0: 3}, epochs=5)
+    with pytest.raises(ValueError, match="exceeds the 8 workers"):
+        sweep_hierarchical(_pinned_fleet, groups=4, n_inner=8,
+                           candidates=[(0.75, 9)], epochs=5)
+
+
+def test_sweep_refusal_checks_surviving_id_set_not_count():
+    assert not LTOuter(4, 2, seed=0).decodable([2, 3])
+    with pytest.raises(ValueError, match="cannot\\s+clear the outer"):
+        sweep_hierarchical(_pinned_fleet, groups=4, n_inner=4,
+                           candidates=[(0.5, 3)], failures={0: 2, 1: 2},
+                           epochs=6)
+
+
+def test_sweep_kill_scheduled_beyond_the_run_leaves_survivors():
+    res = sweep_hierarchical(_pinned_fleet, groups=2, n_inner=8,
+                             candidates=[(0.5, 6)],
+                             failures={0: 1000, 1: 1000}, epochs=5)
+    assert res["surviving_groups"] == 2
+    assert res["check_group"] == 0
+
+
+def test_sweep_pinned_recommendation_agrees_with_latency_model():
+    """On the seeded fleet with one scheduled host kill the sweep lands
+    on (0.75, 6), the latency model agrees, and the JAX package's sweep
+    gives the same table."""
+    from mpistragglers_jl_tpu.sim import sweep_hierarchical as ref_sweep
+
+    cands = [(r, k) for r in (0.5, 0.75) for k in (4, 6, 8)]
+    kw = dict(groups=4, n_inner=8, candidates=cands, inner_floor=2,
+              epochs=40, failures={2: 10}, seed=3)
+    res = sweep_hierarchical(_pinned_fleet, **kw)
+    assert res["best"] == (0.75, 6)
+    assert res["inner_sim"] == res["inner_model"] == 6
+    assert res["agree"] is True
+    assert res["check_group"] == 0
+    assert res["surviving_groups"] == 3
+    by = {(r["outer_rate"], r["inner_nwait"]): r for r in res["entries"]}
+    assert by[(0.75, 6)]["utility_per_s"] > by[(0.75, 4)]["utility_per_s"]
+    assert by[(0.75, 8)]["mean_epoch_s"] >= 1.0
+    assert res["entries"] == sweep_hierarchical(_pinned_fleet, **kw)[
+        "entries"]
+    ref = ref_sweep(_pinned_fleet, **kw)
+    assert res["entries"] == ref["entries"]
+    assert {k: v for k, v in res.items() if k != "best_entry"} == {
+        k: v for k, v in ref.items() if k != "best_entry"}
+
+
+def test_sweep_model_source_uses_group_stats_directly():
+    model = PoolLatencyModel(8, seed=1)
+    rng = np.random.default_rng(4)
+    for w in range(8):
+        base = 0.01 if w % 4 != 3 else 0.5
+        for x in base + rng.exponential(0.002, 60):
+            model.observe(w, x)
+    res = sweep_hierarchical(model, groups=2, n_inner=4,
+                             candidates=[(0.5, 2), (0.5, 3)], epochs=15,
+                             seed=1)
+    assert res["inner_model"] == 3
+    assert res["best"][1] == 3 and res["agree"]
+
+
+def test_sweep_fleet_width_mismatch_is_refused():
+    with pytest.raises(ValueError, match="describes 6 workers"):
+        sweep_hierarchical(PoolLatencyModel(6), groups=4, n_inner=8,
+                           candidates=[(0.75, 4)])

@@ -78,7 +78,17 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.launch",
             "mpistragglers_jl_tpu_torch.bench.transport",
             "mpistragglers_jl_tpu_torch.bench.process_gemm",
-            "mpistragglers_jl_tpu_torch.bench.launch_gemm"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.bench.launch_gemm",
+            "mpistragglers_jl_tpu_torch.utils.train_checkpoint",
+            "mpistragglers_jl_tpu_torch.utils.coded_checkpoint",
+            "mpistragglers_jl_tpu_torch.sim",
+            "mpistragglers_jl_tpu_torch.sim.clock",
+            "mpistragglers_jl_tpu_torch.sim.backend",
+            "mpistragglers_jl_tpu_torch.sim.replay",
+            "mpistragglers_jl_tpu_torch.sim.tune",
+            "mpistragglers_jl_tpu_torch.qos",
+            "mpistragglers_jl_tpu_torch.qos.drr",
+            "mpistragglers_jl_tpu_torch.qos.tenancy"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -117,6 +127,11 @@ _WORKER_SIDE = [
     "mpistragglers_jl_tpu_torch.pool",
     "mpistragglers_jl_tpu_torch.bench.transport",
     "mpistragglers_jl_tpu_torch.bench.process_gemm",
+    # the jax-free planes a host process may load: the virtual-time
+    # pool simulator, QoS admission and erasure-coded checkpoints
+    "mpistragglers_jl_tpu_torch.sim",
+    "mpistragglers_jl_tpu_torch.qos",
+    "mpistragglers_jl_tpu_torch.utils.coded_checkpoint",
 ]
 
 
@@ -132,6 +147,7 @@ def test_worker_side_modules_import_no_torch():
         "from mpistragglers_jl_tpu_torch import (AsyncPool, LocalBackend,\n"
         "    ProcessBackend, WorkerFailure, asyncmap, waitall)\n"
         "from mpistragglers_jl_tpu_torch.backends import NativeProcessBackend\n"
+        "from mpistragglers_jl_tpu_torch import SimBackend, VirtualClock\n"
         "print('TORCH', 'torch' in sys.modules)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -250,20 +250,21 @@ def test_validation_and_later_slices_named():
                              device="cpu")
     assert paged.paged and paged.pool.n_pages == 2 * 2 + 1
     assert not sched.paged and sched.pool is None
-    later = [({"qos": object()}, "item 10"),
-             ({"cache": object()}, "item 10"),
+    later = [({"cache": object()}, "item 10"),
              ({"page_tokens": 2, "cache": object()}, "item 10"),
              ]
     for kw, item in later:
         with pytest.raises(NotImplementedError, match=item):
             ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", **kw)
-    # items 8 and 9 are ported: sampling and the observability
-    # arguments construct (their behaviour: test_torch_sampling.py,
-    # test_torch_obs.py)
+    # items 8, 9 and 10a are ported: sampling, the observability
+    # arguments and qos= construct (their behaviour:
+    # test_torch_sampling.py, test_torch_obs.py, test_torch_qos.py)
     from mpistragglers_jl_tpu_torch.obs import MetricsRegistry, TraceBook
+    from mpistragglers_jl_tpu_torch.qos import TenantContract, TenantRegistry
 
     for kw in ({"registry": MetricsRegistry()}, {"trace": TraceBook()},
-               {"temperature": 0.5}):
+               {"temperature": 0.5},
+               {"qos": TenantRegistry([TenantContract("a")])}):
         ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", **kw)
     with pytest.raises(ValueError, match="greedy scheduler"):
         sched.submit(np.ones(3, np.int32), 2, key=np.zeros(2, np.uint32))

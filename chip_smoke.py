@@ -16,7 +16,8 @@ gradient-coded transformer training over the pool
 (``models/coded_train.py``), and sampled, instrumented serving on both
 caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), training
 checkpoints and their resume, the pool simulator (``sim/``) and
-multi-tenant QoS admission (``qos/``) on the paged server, and holds
+multi-tenant QoS admission (``qos/``) on the paged server, page-state migration between paged schedulers and the
+fleet prefix cache (``models/disagg.py``, ``cache/``), and holds
 every CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
@@ -279,13 +280,36 @@ every CUDA kernel of those paths against its plain PyTorch version:
     pool checked, K6 counted from a reset before it; then in bf16
     ms/tick with and without ``qos=`` in 3 alternating pairs, with each
     variant's spread.
+50. page-state migration on the paged main path (pages of 64, S=8,
+    int8): a ``PrefillWorker`` and a ``DecodeReplica`` with one
+    ``MigrationPlanner``, 8 f32 requests (4 on one 256-token prefix),
+    each migrated once it has its first token, alternately in process
+    and through ``ticket_to_frames`` -> ``MigrationRing`` ->
+    ``ticket_from_frames``: every stream equal to
+    ``generate_ring_dense``, the prefix pages registered again on the
+    destination (share hits), both pools drained and checked, the
+    destination's ticks K6 only (counts set to 0 before); then
+    ``bench/disagg.py`` in bf16: the handoff ms of each route for 8
+    requests of 960 tokens (16 pages, ``migration_nbytes`` = pages x
+    270,336 bytes) held to a never-migrated run, and the ring's
+    one-way GB/s (16 x 4 MiB, 4 slots);
+51. the fleet prefix cache: two paged schedulers on one
+    ``FleetPrefixCache``, a 512-token shared prefix. DRAM route: A
+    serves and retires two requests (their pages spill), A is killed,
+    B fetches the 8 prefix pages (``fleet_hit`` dram) and runs fewer
+    prefill chunks; peer route (no DRAM tier): B fetches from A's live
+    pages; f32 streams equal the oracle, no fallbacks, B's ticks K6
+    only; then in bf16 a fresh B's submit-to-first-token with the
+    DRAM fetch against a cache-less prefill, 3 alternating pairs with
+    each variant's spread.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
 a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
 31-35's, a ``{"coded_family": ..., "pool_utils": ...}`` line with
 phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
-``{"slice13": ...}`` line with phases 46-49's,
+``{"slice13": ...}`` line with phases 46-49's, a ``{"slice14": ...}``
+line with phases 50-51's,
 a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
@@ -297,6 +321,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -325,6 +350,7 @@ from mpistragglers_jl_tpu_torch.bench import coded_family as cf_bench
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
+from mpistragglers_jl_tpu_torch.bench import disagg as disagg_bench
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench import moe_train as mt
 from mpistragglers_jl_tpu_torch.bench import process_gemm as pg_bench
@@ -345,9 +371,20 @@ from mpistragglers_jl_tpu_torch.bench.train_profile import (
 )
 from mpistragglers_jl_tpu_torch.models import decode as td
 from mpistragglers_jl_tpu_torch.models import moe
+from mpistragglers_jl_tpu_torch.cache import FleetPrefixCache
 from mpistragglers_jl_tpu_torch.models.coded_train import (
     CodedGradTrainer,
     transformer_chunk_loss,
+)
+from mpistragglers_jl_tpu_torch.models.disagg import (
+    DecodeReplica,
+    MigrationPlanner,
+    MigrationRing,
+    MigrationRingReader,
+    MigrationTicket,
+    PrefillWorker,
+    ticket_from_frames,
+    ticket_to_frames,
 )
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.speculative import (
@@ -2334,7 +2371,7 @@ def phase_coded_train(dev) -> dict:
     _require(ex["ok"], f"coded f32 training is not exact: {ex}")
     torch.cuda.empty_cache()
     r = ct_bench.bench_coded_train(dev, epochs=CODED_EPOCHS,
-                                   delay_s=CODED_DELAY_S)
+                                   delay_s=ct_bench.DELAY_S)
     print(f"  bf16: coded {r['coded_epoch_ms']} ms/epoch (fresh "
           f"{r['fresh_sets']}, workers {r['stragglers']} out at every "
           f"return: {r['stragglers_out_at_return']}), bulk "
@@ -3471,6 +3508,318 @@ def phase_slice13(dev, t_start, adaptive_nwait) -> tuple[dict, dict, dict]:
     return launches46, launches49, out
 
 
+# phases 50-51: page-state migration and the fleet prefix cache on the
+# paged main path (pages of 64, S=8, int8). One int8 page of MODEL is
+# 8 layers x (2 x 64*2*128 int8 + 2 x 64*2 f32 scales) bytes.
+MODEL_PAGE_BYTES = 270_336
+MIG_PREFIX, MIG_OWN, MIG_NEW_F32 = 256, 64, 24
+FLEET_PREFIX, FLEET_OWN, FLEET_NEW_F32 = 512, 64, 16
+FLEET_STORE_PAGES, FLEET_PAIRS = 64, 3
+
+
+def _paged_kw(dev, **kw):
+    return {**dict(slots=SLOTS, n_inner=8, prompt_chunk=256, max_prompt=512,
+                   quantize_kv=True, page_tokens=PAGE, device=dev), **kw}
+
+
+def _stepped_k6(sched) -> int:
+    """One tick of ``sched``; returns the K6 launches it made."""
+    k0 = da.LAUNCHES[K6]
+    sched.step()
+    return da.LAUNCHES[K6] - k0
+
+
+def _oracle_rows(params, cfg, prompts, n, dev) -> list:
+    """generate_ring_dense (int8) of equal-length prompts, one call."""
+    return td.generate_ring_dense(
+        params, torch.as_tensor(np.stack(prompts), device=dev), n, cfg,
+        quantize_kv=True, device=dev).cpu().numpy().tolist()
+
+
+def phase_migration(dev) -> tuple[int, dict]:
+    """Phase 50: eight f32 requests, four on one 256-token prefix, each
+    migrated from a PrefillWorker to a DecodeReplica once it has its
+    first token, alternately in process and through a MigrationRing;
+    then the bf16 handoff and ring rates of ``bench/disagg.py``.
+    Returns (K6 launches on the destination's ticks, report)."""
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(50)
+    prefix = rng.integers(0, cfg.vocab, MIG_PREFIX)
+    prompts = ([np.concatenate([prefix, rng.integers(0, cfg.vocab,
+                                                      MIG_OWN)])
+                for _ in range(4)]
+               + [rng.integers(0, cfg.vocab, MIG_PREFIX + MIG_OWN)
+                  for _ in range(4)])
+    planner = MigrationPlanner()
+    pw = PrefillWorker(ServingScheduler(params, cfg, **_paged_kw(dev)),
+                       planner=planner)
+    dr = DecodeReplica(ServingScheduler(params, cfg, **_paged_kw(dev)),
+                       planner=planner)
+    _require(dr.use_kernel, "the S=8 paged int8 tick did not route K6")
+    # a slot per ticket segment: the prompt, the key, and per layer four
+    # leaves of W rows, the int8 K and V the largest
+    ring = MigrationRing(slot_bytes=cfg.attn_window * cfg.kv_heads
+                         * cfg.head_dim, slots=2 + 4 * cfg.n_layers)
+    reader = MigrationRingReader(ring)
+    routes = {"in_process": 0, "frames": 0}
+    dst_k6 = 0
+    _zero_launches()
+    reqs = [pw.submit(p, max_new=MIG_NEW_F32) for p in prompts]
+    moved: set[int] = set()
+    while not all(r.finished for r in reqs):
+        pw.step()
+        for r in pw.ready():
+            if r.id in moved:
+                continue
+            moved.add(r.id)
+            if len(moved) % 2:
+                dr.adopt(pw.migrate_out(r))
+                routes["in_process"] += 1
+            else:
+                ticket = MigrationTicket(pw.sched.export_page_state(r))
+                meta = ticket_to_frames(ticket, ring)
+                dr.adopt(ticket_from_frames(meta, ticket.frames, reader),
+                         request=r)
+                ticket.release()
+                routes["frames"] += 1
+        dst_k6 += _stepped_k6(dr)
+    launches = _launch_counts()
+    want_k6 = cfg.n_layers * dr.n_inner * dr.decode_ticks
+    oracle = _oracle_rows(params, cfg, prompts, MIG_NEW_F32, dev)
+    same = sum(r.tokens == o for r, o in zip(reqs, oracle))
+    gc.collect()
+    print(f"  f32: {len(moved)} migrations ({routes['in_process']} in "
+          f"process, {routes['frames']} through the ring); {same}/"
+          f"{len(reqs)} streams equal generate_ring_dense; destination "
+          f"share hits {dr.pool.share_hits}; destination K6 {dst_k6} "
+          f"launches (want {want_k6} = {cfg.n_layers} x {dr.n_inner} x "
+          f"{dr.decode_ticks} ticks), K5 {launches[K5]} in the phase")
+    _require(same == len(reqs), "a migrated stream differs from the oracle")
+    _require(len(moved) == len(reqs) and min(routes.values()) > 0,
+             f"migrations by route: {routes}")
+    _require(dr.pool.share_hits > 0,
+             "the shared prefix pages were not registered again on the "
+             "destination")
+    _require(dst_k6 == want_k6 and launches[K5] == 0,
+             f"destination K6 {dst_k6} (want {want_k6}), K5 "
+             f"{launches[K5]}")
+    for pool in (pw.pool, dr.pool):
+        pool.check()
+        _require(pool.used == 0 and pool.reserved == 0,
+                 f"a pool holds {pool.used} pages once drained")
+    _require(ring.pinned == 0 and planner.in_flight == 0,
+             f"{ring.pinned} ring slots pinned, {planner.in_flight} in "
+             "flight once drained")
+    reader.close()
+    ring.close()
+    rep = {"streams_equal_oracle": same, "routes": routes,
+           "destination_share_hits": dr.pool.share_hits,
+           "destination_decode_ticks": dr.decode_ticks,
+           "destination_k6": dst_k6}
+    del pw, dr, params
+    torch.cuda.empty_cache()
+    # the handoff and ring rates at the main path's dtype
+    bench = disagg_bench.bench_disagg_live_rung(dev)
+    hand = bench["handoff"]
+    _require(hand["page_bytes"] == MODEL_PAGE_BYTES,
+             f"a page is {hand['page_bytes']} bytes, want "
+             f"{MODEL_PAGE_BYTES}")
+    for route, r in hand["routes"].items():
+        print(f"  bf16 handoff {route}: ms {[round(x, 3) for x in r['ms']]}"
+              f", {r['pages'][0]} pages = {r['payload_bytes'][0]} bytes "
+              f"(pages x {MODEL_PAGE_BYTES} = "
+              f"{r['pages'][0] * MODEL_PAGE_BYTES})")
+        _require(all(b == p * MODEL_PAGE_BYTES for b, p in
+                     zip(r["payload_bytes"], r["pages"])),
+                 f"{route}: migration_nbytes is not pages x page bytes")
+    print(f"  ring: {bench['ring']['segments']} x "
+          f"{bench['ring']['segment_bytes']} bytes one way at "
+          f"{bench['ring']['migrate_gbs']:.3f} GB/s, "
+          f"{bench['ring']['ring_stalls']} stalls; handoff streams equal "
+          f"the never-migrated ones: {hand['streams_equal']}")
+    rep["bench_bf16"] = bench
+    torch.cuda.empty_cache()
+    return dst_k6, rep
+
+
+def _fleet_prompts(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab, FLEET_PREFIX)
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab, FLEET_OWN)])
+            for _ in range(n)]
+
+
+def _fleet_run(sched, reqs) -> int:
+    """Tick ``sched`` until ``reqs`` retire; returns its K6 launches."""
+    n = 0
+    while not all(r.finished for r in reqs):
+        n += _stepped_k6(sched)
+    return n
+
+
+def _first_token_ms(params, cfg, dev, prompt, hub) -> tuple[float, int]:
+    """A fresh scheduler (on ``hub``, or cache-less) admits ``prompt``:
+    ms from submit to its first token, card synchronized, and the
+    prefill chunks it ran."""
+    sched = ServingScheduler(params, cfg, **_paged_kw(
+        dev, max_prompt=1024, cache=hub))
+    r = sched.submit(prompt, max_new=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not r.tokens:
+        sched.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _require(r.finished, "a one-token request did not retire at admission")
+    if hub is not None:
+        hub.kill(sched.cache_name)
+    return ms, sched.prefill_chunks
+
+
+def phase_fleet_cache(dev) -> tuple[int, dict]:
+    """Phase 51: two paged schedulers on one FleetPrefixCache, a
+    512-token shared prefix. DRAM route: A serves and retires two
+    requests (their prefix pages spill), A is killed, B admits the
+    prefix and fetches 8 pages; peer route (no DRAM tier): B fetches
+    from A's live pages. f32 parity, then B's first token with the
+    fetch against a cache-less prefill, bf16, in alternating pairs.
+    Returns (K6 launches of the fetching replicas, report)."""
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    prompts = _fleet_prompts(cfg, 4, 51)
+    kw = _paged_kw(dev, max_prompt=1024)
+    _zero_launches()
+    hub = FleetPrefixCache(store_pages=FLEET_STORE_PAGES)
+    reg_a, reg_b = tobs.MetricsRegistry(), tobs.MetricsRegistry()
+    a = ServingScheduler(params, cfg, cache=hub, registry=reg_a, **kw)
+    ra = [a.submit(p, max_new=FLEET_NEW_F32) for p in prompts[:2]]
+    a.run()
+    spilled = hub.store.pages
+    hub.kill(a.cache_name)  # the owner dies between spill and fetch
+    b = ServingScheduler(params, cfg, cache=hub, registry=reg_b, **kw)
+    rb = b.submit(prompts[2], max_new=FLEET_NEW_F32)
+    fetch_k6 = _fleet_run(b, [rb])
+    dram_hits = reg_b.counter("serving_prefix_share_hits_total",
+                              tier="dram").value
+    chunks = (reg_a.counter("serving_prefill_chunks_total").value / 2,
+              reg_b.counter("serving_prefill_chunks_total").value)
+    want_b = cfg.n_layers * b.n_inner * b.decode_ticks
+    n_pages = FLEET_PREFIX // PAGE
+    print(f"  f32 DRAM route: A retired 2 requests, {hub.n_spills} pages "
+          f"spilled ({spilled} resident), A killed; B fetched "
+          f"{hub.n_fetches['dram']} pages (fleet_hit dram {dram_hits:g}), "
+          f"prefill chunks per request A {chunks[0]:g} / B {chunks[1]:g}, "
+          f"fallbacks {hub.n_fallbacks}; B's K6 {fetch_k6} (want {want_b})")
+    _require(hub.n_fetches["dram"] == n_pages and dram_hits == n_pages,
+             f"B fetched {hub.n_fetches['dram']} DRAM pages, want {n_pages}")
+    _require(chunks[1] < chunks[0], f"prefill chunks A/B {chunks}")
+    _require(hub.n_fallbacks == 0, f"{hub.n_fallbacks} DRAM fallbacks")
+    _require(fetch_k6 == want_b, f"B's K6 {fetch_k6}, want {want_b}")
+    hub.check()
+    rep = {"dram": {"spilled": hub.n_spills, "fetched": hub.n_fetches[
+        "dram"], "fleet_hit_dram": dram_hits, "prefill_chunks_a_per_req":
+        chunks[0], "prefill_chunks_b": chunks[1],
+        "fallbacks": hub.n_fallbacks}}
+    # peer route: no DRAM tier, A holds the prefix mid-decode
+    hub2 = FleetPrefixCache(store_pages=0)
+    a2 = ServingScheduler(params, cfg, cache=hub2, **kw)
+    b2 = ServingScheduler(params, cfg, cache=hub2, **kw)
+    ra2 = a2.submit(prompts[0], max_new=FLEET_NEW_F32)
+    while not ra2.tokens:
+        a2.step()
+    _require(not ra2.finished, "the peer's request retired before the fetch")
+    rb2 = b2.submit(prompts[3], max_new=FLEET_NEW_F32)
+    peer_k6 = _fleet_run(b2, [rb2])
+    a2.run()
+    want_b2 = cfg.n_layers * b2.n_inner * b2.decode_ticks
+    launches = _launch_counts()
+    print(f"  f32 peer route: B fetched {hub2.n_fetches['peer']} pages from "
+          f"A's live pages, fallbacks {hub2.n_fallbacks}; B's K6 {peer_k6} "
+          f"(want {want_b2}); K5 {launches[K5]} in the phase")
+    _require(hub2.n_fetches["peer"] == n_pages and hub2.n_fallbacks == 0,
+             f"peer fetches {hub2.n_fetches}, fallbacks {hub2.n_fallbacks}")
+    _require(peer_k6 == want_b2 and launches[K5] == 0,
+             f"B's K6 {peer_k6} (want {want_b2}), K5 {launches[K5]}")
+    hub2.check()
+    oracle = _oracle_rows(params, cfg, prompts, FLEET_NEW_F32, dev)
+    streams = [ra[0], ra[1], rb, rb2]
+    same = sum(r.tokens == o for r, o in zip(streams, oracle))
+    same += ra2.tokens == oracle[0]
+    print(f"  {same}/5 streams equal generate_ring_dense")
+    _require(same == 5, "a fleet-cache stream differs from the oracle")
+    for s in (a, b, a2, b2):
+        s.pool.check()
+        _require(s.pool.used == 0, f"a pool holds {s.pool.used} pages")
+    rep["peer"] = {"fetched": hub2.n_fetches["peer"],
+                   "fallbacks": hub2.n_fallbacks}
+    rep["streams_equal_oracle"] = same
+    hub.close()
+    hub2.close()
+    del a, b, a2, b2, params
+    torch.cuda.empty_cache()
+    # bf16: B's first token with the fetch against a cache-less prefill
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    prompts = _fleet_prompts(cfg, 2 + 2 * FLEET_PAIRS, 52)
+    hub = FleetPrefixCache(store_pages=FLEET_STORE_PAGES)
+    seed = ServingScheduler(params, cfg, cache=hub, **kw)
+    seed.submit(prompts[0], max_new=1)
+    seed.run()
+    hub.kill(seed.cache_name)
+    for variant in (hub, None):  # warm-up, one of each
+        _first_token_ms(params, cfg, dev, prompts[1], variant)
+    ms = {"fetch": [], "prefill": []}
+    chunks = {}
+    order = [v for i in range(FLEET_PAIRS) for v in (
+        ("fetch", "prefill") if i % 2 == 0 else ("prefill", "fetch"))]
+    for i, variant in enumerate(order):
+        t, chunks[variant] = _first_token_ms(
+            params, cfg, dev, prompts[2 + i],
+            hub if variant == "fetch" else None)
+        ms[variant].append(t)
+    _require(hub.n_fallbacks == 0, f"{hub.n_fallbacks} timing fallbacks")
+    spread = {v: max(x) - min(x) for v, x in ms.items()}
+    gap = float(np.mean(ms["prefill"]) - np.mean(ms["fetch"]))
+    print(f"  bf16 submit -> first token of a {FLEET_PREFIX + FLEET_OWN}"
+          f"-token prompt, in turns {order}: fetch (8 DRAM pages + "
+          f"{chunks['fetch']} chunk) {[round(x, 2) for x in ms['fetch']]} "
+          f"ms, prefill ({chunks['prefill']} chunks) "
+          f"{[round(x, 2) for x in ms['prefill']]} ms; mean gap "
+          f"{gap:+.2f} ms against spreads {spread['fetch']:.2f} / "
+          f"{spread['prefill']:.2f} ms")
+    rep["first_token_bf16"] = {
+        "ms": ms, "turns": order, "prefill_chunks": chunks, "gap_ms": gap,
+        "spread_ms": spread, "resolved": abs(gap) > max(spread.values()),
+        "dram_fetches": hub.n_fetches["dram"]}
+    hub.close()
+    del params
+    torch.cuda.empty_cache()
+    return fetch_k6 + peer_k6, rep
+
+
+def phase_slice14(dev, t_start) -> tuple[int, int, dict]:
+    """Phases 50-51. Returns (phase 50's destination K6 launches, phase
+    51's fetching replicas' K6 launches, report)."""
+    out = {}
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[50] page-state migration: PrefillWorker -> DecodeReplica, "
+          f"S={SLOTS}, pages of {PAGE}, 8 requests (4 on a "
+          f"{MIG_PREFIX}-token prefix), in process and through the ring")
+    k6_50, out["migration"] = phase_migration(dev)
+    t1 = time.perf_counter()
+    out["migration"]["seconds"] = t1 - t0
+    print(f"  (+{t1 - t_start:.1f} s)")
+    print(f"[51] the fleet prefix cache: a {FLEET_PREFIX}-token prefix "
+          f"spilled to DRAM and fetched after its owner is killed, then "
+          f"fetched from a peer's live pages")
+    k6_51, out["fleet_cache"] = phase_fleet_cache(dev)
+    out["fleet_cache"]["seconds"] = time.perf_counter() - t1
+    return k6_50, k6_51, out
+
+
+
 
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
@@ -3640,7 +3989,8 @@ def main() -> int:
 
     print(f"[30] coded transformer training: {ct_bench.N} workers on CUDA "
           f"streams, s={ct_bench.S}, chunks (2, 2049), workers "
-          f"{ct_bench.STRAGGLERS} delayed {CODED_DELAY_S} s")
+          f"{ct_bench.STRAGGLERS} delayed {CODED_DELAY_S} s (f32 check), "
+          f"{ct_bench.DELAY_S} s (bf16 run)")
     coded_train = phase_coded_train(dev)
     torch.cuda.empty_cache()
 
@@ -3682,6 +4032,7 @@ def main() -> int:
         "runs"] if r["policy"] == "adaptive"][0]
     launches46, launches49, slice13 = phase_slice13(dev, t_start,
                                                     adaptive_final)
+    k6_50, k6_51, slice14 = phase_slice14(dev, t_start)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -3699,7 +4050,9 @@ def main() -> int:
                          "with more than one split, its combine"},
         {**_kernel_row(K6, "mpistragglers_jl_tpu/ops/decode_attention.py:105",
                        launches9[K6], err6, tim6),
-         "launches_qos_phase49": launches49[K6]},
+         "launches_qos_phase49": launches49[K6],
+         "launches_migration_phase50": k6_50,
+         "launches_fleet_cache_phase51": k6_51},
     ]
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
@@ -3754,6 +4107,8 @@ def main() -> int:
     print(json.dumps({"process_pool": process_pool,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice13": slice13,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice14": slice14,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

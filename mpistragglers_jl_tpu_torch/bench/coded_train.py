@@ -8,16 +8,17 @@ the shape of ``examples/coded_transformer_training.py`` and
 ``tests/test_coded_train.py``. Chunk j is (2, 2049) tokens from
 ``np.random.default_rng((seed, j))``, so the full batch is 12 x 2048
 tokens. Workers 1 and 4 stall ``--delay`` seconds before every task
-(the example stalls them 1.0 s).
+(the example stalls them 1.0 s; the bf16 run stalls them ``DELAY_S``,
+longer than a coded epoch lasts here, see below).
 
     python -m mpistragglers_jl_tpu_torch.bench.coded_train [--epochs 3]
-        [--delay 0.5] [--seed 0]
+        [--delay 4.0] [--exact-delay 0.5] [--seed 0]
 
 Prints the card's name and power limit (``nvidia-smi``), then two JSON
 lines:
 
 * the f32 exactness check (flash f32 route, TF32 off): 2 coded epochs
-  with the stragglers delayed against direct full-batch SGD on the mean
+  with the stragglers delayed ``--exact-delay`` seconds against direct full-batch SGD on the mean
   of the 6 chunk losses from the same parameters; each leaf's change
   over the two epochs within ``EXACT_TOL`` relative Frobenius difference
   of the direct run's, and a broken control (the last epoch decoded
@@ -66,6 +67,16 @@ LR_F32 = 0.1
 EXACT_TOL = 1e-3
 EXACT_EPOCHS = 2
 DRAIN_S = 120.0
+# bf16 run: the stragglers' stall. The run requires both stragglers to
+# be out (still in flight) at every coded return, which holds only if
+# the stall outlasts the four fresh workers' epoch. The epoch is paced by
+# the host (six dispatcher threads under one GIL) and took 0.9-2.9 s on
+# an H100 80GB HBM3 at 700 W; at a 0.5 s stall a woken straggler
+# competes with the fresh workers and now and then finishes first.
+DELAY_S = 4.0
+# f32 check: the stall there only shapes the fresh sets; nothing is
+# required of who is out
+EXACT_DELAY_S = 0.5
 
 
 def chunk_fn(vocab: int, seed: int = 0):
@@ -109,7 +120,8 @@ def _leaf_errors(tr, got, want) -> list:
             for a, b in zip(tr._flat.split(got), tr._flat.split(want))]
 
 
-def exactness_f32(dev, *, delay_s: float = 0.5, seed: int = 0) -> dict:
+def exactness_f32(dev, *, delay_s: float = EXACT_DELAY_S,
+                  seed: int = 0) -> dict:
     """Coded epochs in f32 against direct full-batch SGD from the same
     parameters (see the module docstring)."""
     cfg = TransformerConfig(**TRAIN, dtype=torch.float32)
@@ -161,7 +173,7 @@ def _timed_epoch(tr, pool, params, nwait=None):
     return params, (time.perf_counter() - t0) * 1e3
 
 
-def bench_coded_train(dev, *, epochs: int = 3, delay_s: float = 0.5,
+def bench_coded_train(dev, *, epochs: int = 3, delay_s: float = DELAY_S,
                       seed: int = 0) -> dict:
     """The bf16 run (see the module docstring)."""
     cfg = TransformerConfig(**TRAIN, dtype=torch.bfloat16)
@@ -225,7 +237,8 @@ def bench_coded_train(dev, *, epochs: int = 3, delay_s: float = 0.5,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=3)
-    ap.add_argument("--delay", type=float, default=0.5)
+    ap.add_argument("--delay", type=float, default=DELAY_S)
+    ap.add_argument("--exact-delay", type=float, default=EXACT_DELAY_S)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     name, smi = card()
@@ -235,7 +248,7 @@ def main(argv=None) -> int:
     print(f"device: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(smi)
-    exact = exactness_f32(dev, delay_s=args.delay, seed=args.seed)
+    exact = exactness_f32(dev, delay_s=args.exact_delay, seed=args.seed)
     print(json.dumps({"exactness_f32": exact, "card": smi}), flush=True)
     torch.cuda.empty_cache()
     res = bench_coded_train(dev, epochs=args.epochs, delay_s=args.delay,

@@ -24,9 +24,12 @@ gathers and copies live in :mod:`.serving`.
 slot can reach point at it, so writes of retired rows land in bytes
 nothing reads unmasked.
 
-The fleet-cache hooks of the reference (``register_hook``,
-``digest_of``) belong to ``ROADMAP.md`` Queue 1 item 10b and are not
-copied; ``registered``, the QoS cold-page query, is.
+* **Fleet-cache hooks.** ``register_hook(digest, pid)`` and
+  ``unregister_hook(digest)`` fire whenever a page enters or leaves the
+  prefix table, so the fleet cache (``cache/``) mirrors this pool's
+  registrations without polling; ``digest_of`` names a registered
+  page's digest for the spill path. Both hooks are None (dark) unless a
+  :class:`~..cache.FleetPrefixCache` attaches.
 """
 
 from __future__ import annotations
@@ -98,6 +101,10 @@ class PagePool:
         self._reserved = 0
         self.share_hits = 0
         self.cow_copies = 0
+        # fleet-cache hooks (cache/ package, opt-in): called with the
+        # digest whenever a page enters or leaves the prefix table
+        self.register_hook = None
+        self.unregister_hook = None
 
     # -- capacity -------------------------------------------------------
 
@@ -163,6 +170,8 @@ class PagePool:
         d = self._page_digest.pop(pid, None)
         if d is not None:
             self._digest_to_page.pop(d, None)
+            if self.unregister_hook is not None:
+                self.unregister_hook(d)
         self._free.append(pid)
         return True
 
@@ -192,6 +201,12 @@ class PagePool:
         (:meth:`note_write`, COW retarget, free), so a registered
         sole-held page is safe to keep resident for future sharers."""
         return pid in self._page_digest
+
+    def digest_of(self, pid: int) -> bytes | None:
+        """The prefix digest ``pid`` is registered under, or None. The
+        spill path reads it before the freeing decref, while the page's
+        bytes still match the digest."""
+        return self._page_digest.get(pid)
 
     def is_volatile(self, pid: int) -> bool:
         """Will a current holder eventually overwrite this page?"""
@@ -260,6 +275,8 @@ class PagePool:
         self._page_digest[pid] = digest
         if volatile:
             self._wrappers[pid] = self._wrappers.get(pid, 0) + 1
+        if self.register_hook is not None:
+            self.register_hook(digest, pid)
 
     def note_write(self, pid: int) -> None:
         """A sole owner is about to overwrite ``pid``: its prefix
@@ -267,6 +284,8 @@ class PagePool:
         d = self._page_digest.pop(pid, None)
         if d is not None:
             self._digest_to_page.pop(d, None)
+            if self.unregister_hook is not None:
+                self.unregister_hook(d)
 
     # -- invariants -----------------------------------------------------
 

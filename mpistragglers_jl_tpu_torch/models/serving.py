@@ -42,6 +42,18 @@ COLD (kept resident for future sharers, attributed to the tenant) and
 are reclaimed oldest-first under pool or quota pressure, never from
 under a live holder.
 
+Page-state migration and the fleet prefix cache, as in the reference:
+``export_page_state`` gathers a decoding slot's ring view out of the
+pool (fresh tensors: the gather indexes, so it copies) and frees the
+slot; ``adopt_page_state`` re-plans the pages in another scheduler's
+pool, shares its resident prefix pages, writes only the pages the
+request does not share, in place, and re-registers the prefix chain
+(``models/disagg.py`` moves the image between them). ``cache=`` (a
+:class:`~..cache.FleetPrefixCache`) extends the admission share walk
+to pages spilled to host DRAM or resident on a peer scheduler: a
+fetched page is a fresh page filled in place with the page's bytes,
+and a fetch that comes back empty falls back to prefill.
+
 Observability is opt-in, as in the reference: ``registry=``,
 ``spans=``, ``flight=``, ``exporter=`` and ``trace=`` (``obs/``
 copies) record the reference's series, spans and request events; a
@@ -394,9 +406,9 @@ class _ServingObs:
     """Instrument bundle for one scheduler, resolved once at
     construction so the tick only increments and observes: the
     reference's ``_ServingObs`` (its series names, labels and buckets,
-    the QoS series of ``qos=`` included), without the fleet-cache
-    series of ``cache=`` (``ROADMAP.md`` Queue 1 item 10b). Built only
-    when a registry or a span recorder is attached."""
+    the QoS series of ``qos=`` and the fleet tiers of ``cache=``
+    included). Built only when a registry or a span recorder is
+    attached."""
 
     def __init__(self, sched: "ServingScheduler", registry, spans):
         self.registry = registry
@@ -478,6 +490,8 @@ class _ServingObs:
                 "dram = host page store, peer = replica fetch)",
                 tier="hbm",
             )
+            # dram/peer series appear lazily, at the first fleet hit
+            self._share_tier = {"hbm": self.m_share}
             self.m_cow = registry.counter(
                 "serving_cow_copies_total",
                 help="copy-on-write page copies (a slot wrote a page "
@@ -554,6 +568,19 @@ class _ServingObs:
     def prefill_chunk(self) -> None:
         if self._r:
             self.m_prefill.inc()
+
+    def fleet_hit(self, tier: str) -> None:
+        """One prefix page served by the fleet cache (``dram`` or
+        ``peer``) instead of prefilled: the share counter's family, one
+        series per tier."""
+        if not self._r:
+            return
+        c = self._share_tier.get(tier)
+        if c is None:
+            c = self._share_tier[tier] = self.registry.counter(
+                "serving_prefix_share_hits_total", tier=tier,
+            )
+        c.inc()
 
     def tick_done(self, sched: "ServingScheduler", retired, t0: float,
                   t1: float, t2: float | None) -> None:
@@ -673,12 +700,6 @@ class _Admitting:
         self.wraps = wraps
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is ROADMAP.md Queue 1 item {item}, not yet ported"
-    )
-
-
 class ServingScheduler:
     """Continuous-batching scheduler over ``slots`` fixed slots.
 
@@ -732,8 +753,16 @@ class ServingScheduler:
     pages go cold (resident, attributed to its tenant) and are
     reclaimed oldest-first, over-quota tenants' first.
 
-    ``cache`` raises ``NotImplementedError`` naming ``ROADMAP.md``
-    Queue 1 item 10.
+    ``cache=`` (a :class:`~..cache.FleetPrefixCache`, paged only)
+    attaches the scheduler to a fleet prefix cache: where the local
+    share walk breaks, admission fetches the prompt's prefix pages from
+    host DRAM or a peer scheduler instead of prefilling them
+    (``fleet_hit`` per page), and a sole-held registered page about to
+    be freed or evicted spills to DRAM first.
+
+    Page-state migration: :meth:`export_page_state` takes a decoding
+    request out with its pages, :meth:`adopt_page_state` lands it in
+    another paged scheduler, and the stream goes on token for token.
     """
 
     def __init__(self, params, cfg: TransformerConfig, *, slots: int = 8,
@@ -746,8 +775,6 @@ class ServingScheduler:
                  max_queue: int | None = None, registry=None, spans=None,
                  flight=None, exporter=None, trace=None, cache=None,
                  device=None):
-        if cache is not None:
-            raise _later("the fleet prefix cache (cache=)", 10)
         _check_sampling_params(temperature, top_k)
         W = _check_ring_cfg(cfg)
         if cfg.n_experts:
@@ -887,6 +914,16 @@ class ServingScheduler:
         self._trace = None
         if trace is not None:
             self.attach_trace(trace)
+        # fleet prefix cache (opt-in): the fleet unit is the page
+        self.cache = cache
+        self.cache_name: str | None = None
+        if cache is not None:
+            if not self.paged:
+                raise ValueError(
+                    "cache= needs the paged arena: pass page_tokens "
+                    "(the fleet cache's unit is the prefix page)"
+                )
+            self.cache_name = cache.attach(self)
         if exporter is not None:
             exporter.register_scheduler(self)
 
@@ -1143,6 +1180,311 @@ class ServingScheduler:
             self._pt_dev = torch.tensor(self._pt_host, device=self.device)
         return self._pt_dev
 
+    # -- page payloads (the fleet cache's wire and storage format) -------
+
+    def _page_row_bytes(self) -> int:
+        """Bytes one page carries across every layer and leaf."""
+        return sum(a.nbytes * self.P // a.shape[0]
+                   for cl in self._caches for a in cl.values())
+
+    def _page_payload(self, pid: int) -> np.ndarray:
+        """One page's KV bytes as a flat host ``uint8`` array: per
+        layer (list order), per leaf (sorted key order), the page's
+        rows as raw bytes: the reference's layout, so on one arena
+        content both packages give the same bytes. One gather on the
+        device, one copy to the host."""
+        P = self.P
+        parts = [cl[kk][pid * P:(pid + 1) * P].reshape(-1).view(torch.uint8)
+                 for cl in self._caches for kk in sorted(cl)]
+        return torch.cat(parts).cpu().numpy()
+
+    def _install_page_payload(self, pid: int, payload) -> None:
+        """Write a :meth:`_page_payload`-format byte string into page
+        ``pid`` of this arena, in place (one copy to the device, then a
+        page write per leaf). A size mismatch is refused by name."""
+        P = self.P
+        buf = np.asarray(payload).reshape(-1).view(np.uint8)
+        nbytes = self._page_row_bytes()
+        if buf.size != nbytes:
+            raise ValueError(
+                f"page payload is {buf.size} bytes, this arena's "
+                f"pages are {nbytes}"
+            )
+        dev = torch.from_numpy(buf.copy()).to(self.device)
+        pids = torch.tensor([pid], device=self.device)
+        off = 0
+        for cl in self._caches:
+            for kk in sorted(cl):
+                a = cl[kk]
+                nb = a.nbytes * P // a.shape[0]
+                # clone: a view to a wider dtype needs an aligned start
+                rows = dev[off:off + nb].clone().view(a.dtype)
+                _write_pages(a, pids, rows.reshape((P,) + a.shape[1:]), P)
+                off += nb
+
+    def _spill_page(self, pid: int, *, tenant: str | None = None) -> None:
+        """Offer a registered, sole-held page to the fleet cache's DRAM
+        tier before it is freed or evicted, reading its bytes while
+        they still match its digest. A no-op when the fleet holds the
+        digest somewhere else."""
+        d = self.pool.digest_of(pid)
+        if d is None:
+            return
+        if not self.cache.wants(d, exclude=self.cache_name):
+            return
+        self.cache.spill(d, self._page_payload(pid), tenant=tenant)
+
+    # -- page-state migration -------------------------------------------
+    #
+    # Export gathers a decoding slot's ring view out of the pool (fresh
+    # tensors) with the row's token, position and key, and frees the
+    # slot; adopt re-plans the pages in this pool (sharing resident
+    # prefix pages with COW reservations, as admission does), writes the
+    # view into the pages the request does not share, and re-registers
+    # the prefix chain. Between the two the request is resident nowhere:
+    # models/disagg.py's MigrationPlanner owns that window.
+
+    def _migration_slot(self, req: Request) -> int | None:
+        """The slot of a migratable request: resident, past admission
+        (first token emitted), not finished. None otherwise."""
+        if not self.paged or req.finished or not req.tokens:
+            return None
+        for s, r in enumerate(self._slot_req):
+            if r is req and s not in self._admitting:
+                return s
+        return None
+
+    def migration_nbytes(self, req: Request) -> int:
+        """Payload bytes a migration of ``req`` would move: the pages
+        its slot holds times :meth:`_page_row_bytes`. 0 when ``req`` is
+        not migratable here."""
+        s = self._migration_slot(req)
+        if s is None:
+            return 0
+        n_pages = int(np.sum(self._pt_host[s] != NULL_PAGE))
+        return n_pages * self._page_row_bytes()
+
+    def export_page_state(self, req: Request) -> dict:
+        """Capture ``req``'s decode state and free its slot (its pages
+        decref'd; a shared prefix just drops a reference). The dict
+        holds everything :meth:`adopt_page_state` needs to continue the
+        stream token for token on a scheduler with the same params and
+        generation config: the gathered ``(1, W, ...)`` ring view per
+        layer (new tensors, independent of this pool's later reuse),
+        the row's token, position and key data (two ``uint32`` words;
+        zeros on a greedy scheduler), and the prefix-digest chain. The
+        request is not finished or changed: it is resident nowhere
+        until adopted."""
+        s = self._migration_slot(req)
+        if s is None:
+            raise ValueError(
+                "export_page_state: request must be decoding on this "
+                "paged scheduler (queued/mid-admission/finished "
+                "requests have no page image to move)"
+            )
+        pos = self._host_pos[s]
+        n_pages = int(np.sum(self._pt_host[s] != NULL_PAGE))
+        # prefix pages hold what their digests describe only until a
+        # ring write wraps past W
+        clean = pos <= self.W and req.prompt.size <= self.W
+        if clean:
+            digests = prefix_page_digests(req.prompt, self.P,
+                                          self.max_pages)
+            n_cover = min(req.prompt.size // self.P, self.max_pages)
+        else:
+            digests, n_cover = [], 0
+        pt_row = torch.tensor(self._pt_host[s][None], device=self.device)
+        ring = [_paged_gather(cl, pt_row, self.P) for cl in self._caches]
+        key_data = (prng.key_data(self._keys[s]) if self._keys is not None
+                    else np.zeros(2, np.uint32))
+        state = {
+            "request": req,
+            "prompt": req.prompt,
+            "tokens": list(req.tokens),
+            "max_new": req.max_new,
+            "tok": int(self._tok[s]),
+            "pos": int(pos),
+            "key_data": key_data,
+            "ring": ring,
+            "digests": tuple(digests),
+            "n_cover": int(n_cover),
+            "n_pages": n_pages,
+            "P": self.P,
+            "W": self.W,
+            "quantize_kv": self.quantize_kv,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "eos_id": self.eos_id,
+        }
+        self._free_slot(s)
+        return state
+
+    def _check_adopt_compat(self, state: dict) -> None:
+        for k, want in (
+            ("P", self.P), ("W", self.W),
+            ("quantize_kv", self.quantize_kv),
+            ("temperature", self.temperature), ("top_k", self.top_k),
+            ("eos_id", self.eos_id),
+        ):
+            if state[k] != want:
+                raise ValueError(
+                    f"adopt_page_state: {k} mismatch (source "
+                    f"{state[k]!r}, this scheduler {want!r}): tiers "
+                    "must share page geometry and generation config "
+                    "for the stream to continue token-for-token"
+                )
+
+    def _plan_adopt(self, state: dict, *, reclaim: bool = False):
+        """(slot, shared pids, n_pages, wraps) for adopting ``state``,
+        or None when no free slot or pool capacity covers it: the
+        admission's whole-lifetime budget, so the pool never runs dry
+        mid-decode. Under ``qos=`` cold pages count as headroom (a
+        stream is resident nowhere while its migration waits):
+        ``reclaim=True`` (the adopt path) evicts the shortfall, False
+        (the :meth:`can_adopt_state` probe) only counts it, so probing
+        never drains the cold cache."""
+        free_s = next((s for s, r in enumerate(self._slot_req)
+                       if r is None and s not in self._admitting), None)
+        if free_s is None:
+            return None
+        Tp = state["prompt"].size
+        horizon = Tp + state["max_new"] + self.n_inner
+        wraps = horizon > self.W
+        n_pages = -(-min(self.W, horizon) // self.P)
+        shared: list[int] = []
+        for d in state["digests"][:min(state["n_cover"], n_pages)]:
+            pid = self.pool.lookup(d)
+            if pid is None:
+                break
+            shared.append(pid)
+        reserve = sum(self.pool.share_needs_reserve(pid, wraps)
+                      for pid in shared)
+        shortfall = (n_pages - len(shared) + reserve
+                     + self.pool.reserved - self.pool.free)
+        if shortfall > 0:
+            if self._drr is None:
+                return None
+            sset = set(shared)
+            if reclaim:
+                for _ in range(shortfall):
+                    if not self._evict_cold_page(protect=sset):
+                        return None
+            elif sum(pid not in sset for pid in self._cold) < shortfall:
+                return None
+        return free_s, shared, n_pages, wraps
+
+    def can_adopt_state(self, state: dict) -> bool:
+        """Would :meth:`adopt_page_state` succeed right now (a free slot
+        and pool capacity for the whole-lifetime budget, resident
+        shares counted)? False, never a raise, on a config mismatch."""
+        if not self.paged:
+            return False
+        try:
+            self._check_adopt_compat(state)
+        except ValueError:
+            return False
+        return self._plan_adopt(state) is not None
+
+    def could_adopt_state(self, state: dict) -> bool:
+        """Would :meth:`adopt_page_state` ever succeed here, with every
+        slot and page free? False: the pool is statically too small or
+        the config mismatches, and waiting cannot help."""
+        if not self.paged:
+            return False
+        try:
+            self._check_adopt_compat(state)
+        except ValueError:
+            return False
+        Tp = state["prompt"].size
+        horizon = Tp + state["max_new"] + self.n_inner
+        n_pages = -(-min(self.W, horizon) // self.P)
+        # an empty pool has n_pages - 1 usable pages (page 0 is null)
+        return n_pages <= self.pool.n_pages - 1
+
+    def adopt_page_state(self, state: dict,
+                         request: Request | None = None) -> Request:
+        """Land a migrated request (:meth:`export_page_state` of the
+        source) here: allocate its page budget, sharing resident
+        prefix pages with COW reservations as admission does; write the
+        carried ring view into the pages it does not share, in place
+        (a shared page is never written, so no sharer's bytes change);
+        install the row's token, position and key; and re-register the
+        prefix chain. ``request`` overrides the continued request
+        object (a ticket rebuilt from frames carries none, and then a
+        new one is made)."""
+        if not self.paged:
+            raise ValueError(
+                "adopt_page_state on an unpaged scheduler: migration "
+                "is a page-layout transfer (construct with "
+                "page_tokens=)"
+            )
+        self._check_adopt_compat(state)
+        plan = self._plan_adopt(state, reclaim=True)
+        if plan is None:
+            raise PagePoolExhausted(
+                "adopt_page_state: no free slot or page capacity for "
+                "the migrated request (gate on can_adopt_state)"
+            )
+        s, shared, n_pages, wraps = plan
+        req = request if request is not None else state["request"]
+        if req is None:
+            req = Request(state["prompt"], state["max_new"])
+            req.tokens = list(state["tokens"])
+            req._scanned = len(req.tokens)
+        pids = [NULL_PAGE] * self.max_pages
+        for j, pid in enumerate(shared):
+            self.pool.share(
+                pid, reserve=self.pool.share_needs_reserve(pid, wraps),
+                wrapper=wraps,
+            )
+            pids[j] = pid
+            if self._trace is not None and req.trace is not None:
+                self._trace.event(
+                    req.trace, "share_hit", time.perf_counter(),
+                    page=int(pid),
+                )
+            if self._drr is not None and pid in self._cold:
+                self._drop_cold(pid)
+        try:
+            for j in range(len(shared), n_pages):
+                pids[j] = self.pool.alloc()
+        except PagePoolExhausted:
+            # a planned adoption never half-commits
+            for pid in pids:
+                if pid != NULL_PAGE:
+                    self.pool.decref(int(pid), wrapper=wraps)
+            raise
+        if self._drr is not None and req.tenant is not None:
+            # the stream's tenant takes its pages over here
+            self._tenant_pages[req.tenant] = (
+                self._tenant_pages.get(req.tenant, 0) + n_pages)
+        self._pt_host[s] = pids
+        self._pt_dev = None
+        self._host_pos[s] = state["pos"]
+        self._slot_wraps[s] = wraps
+        ring = [{kk: a.to(self.device) for kk, a in cl.items()}
+                for cl in state["ring"]]
+        _place_paged(self._caches, ring,
+                     torch.tensor(pids, device=self.device),
+                     len(shared), n_pages, self.P)
+        rkey = (prng.wrap_key_data(state["key_data"], device=self.device)
+                if self._keys is not None else None)
+        _start_row(self._tok, self._pos, self._done, self._keys, s,
+                   torch.tensor([state["tok"]], dtype=torch.int32),
+                   state["pos"], rkey)
+        for j in range(min(state["n_cover"], n_pages)):
+            self.pool.register(state["digests"][j], pids[j],
+                               volatile=wraps)
+        self._slot_req[s] = req
+        if req.admitted_tick is None:
+            req.admitted_tick = self.tick_count
+        if self._trace is not None and req.trace is not None:
+            self._trace.event(
+                req.trace, "admitted", time.perf_counter(),
+                tick=self.tick_count, adopted=True,
+            )
+        return req
+
     # -- admission ------------------------------------------------------
 
     def _admit_from_queue(self, retired: list[Request]) -> None:
@@ -1295,48 +1637,67 @@ class ServingScheduler:
     def _plan_pages(self, req: Request):
         """Page budget of ``req``: the resident prefix pages it can
         share, its digests, the pages its whole lifetime can touch
-        (ring slots ``[0, min(W, Tp + max_new + n_inner))``) and
-        whether it wraps. None when the pool cannot cover the fresh
-        pages plus one COW reservation per share that can end in a
-        write; the request then stays queued."""
-        shared, digests, n_pages, wraps, n_fresh, reserve = \
+        (ring slots ``[0, min(W, Tp + max_new + n_inner))``), whether
+        it wraps, and the digests to fetch from the fleet cache. None
+        when the pool cannot cover the fresh pages plus one COW
+        reservation per share that can end in a write; the request then
+        stays queued."""
+        shared, digests, n_pages, wraps, n_fresh, reserve, fetch = \
             self._page_needs(req)
         if not self.pool.can_alloc(n_fresh, reserve=reserve):
             return None
-        return shared, digests, n_pages, wraps
+        return shared, digests, n_pages, wraps, fetch
 
     def _page_needs(self, req: Request):
         """The share walk and budget arithmetic both planners share:
-        (shared, digests, n_pages, wraps, n_fresh, reserve), computed
-        without consulting pool capacity."""
+        (shared, digests, n_pages, wraps, n_fresh, reserve, fetch),
+        computed without consulting pool capacity. ``fetch``: where the
+        local share walk breaks, the walk goes on against the fleet
+        cache, and each digest it can probe, contiguously, is a planned
+        fetch. A fetched page is a fresh page (inside ``n_fresh``), so
+        the capacity and quota arithmetic is unchanged; a fetch that
+        fails at commit prefills what the plan budgeted anyway."""
         Tp = req.prompt.size
         W, P = self.W, self.P
         digests: list[bytes] = []
         shared: list[int] = []
+        fetch: list[bytes] = []
         if Tp <= W:
             # within the window ring slot s holds position s, so the
             # page-aligned prefix determines the pages: shareable. At
             # least the last prompt token prefills (its logits give
             # the first token).
             digests = prefix_page_digests(req.prompt, P, self.max_pages)
-            for d in digests[:(Tp - 1) // P]:
+            shareable = digests[:(Tp - 1) // P]
+            for d in shareable:
                 pid = self.pool.lookup(d)
                 if pid is None:
                     break
                 shared.append(pid)
+            if self.cache is not None:
+                for d in shareable[len(shared):]:
+                    if self.cache.probe(d, exclude=self.cache_name) is None:
+                        break
+                    fetch.append(d)
         horizon = Tp + req.max_new + self.n_inner
         wraps = horizon > W
         n_pages = -(-min(W, horizon) // P)
         reserve = sum(self.pool.share_needs_reserve(pid, wraps)
                       for pid in shared)
         return shared, digests, n_pages, wraps, n_pages - len(shared), \
-            reserve
+            reserve, fetch
 
     def _commit_pages(self, req: Request, plan) -> tuple[int, dict]:
         """Execute a plan: share the prefix pages (attaching their COW
-        reservations) and allocate the rest. Returns (base,
+        reservations), fetch the planned fleet-cache pages (each a fresh
+        page filled in place with the fetched bytes and registered,
+        extending the prefill skip past the local share run), and
+        allocate the rest. A fetch that comes back empty (eviction,
+        partition or kill raced the plan) stops the fetch run; the rest
+        of the prompt prefills as budgeted. Returns (base,
         :class:`_Admitting` keywords)."""
-        shared, digests, n_pages, wraps = plan
+        shared, digests, n_pages, wraps, fetch = plan
+        m = len(shared)
         pids = [NULL_PAGE] * self.max_pages
         for j, pid in enumerate(shared):
             self.pool.share(
@@ -1353,14 +1714,33 @@ class ServingScheduler:
                 # a cold page found its next sharer: the cache's hold
                 # transfers to the new slot (warm)
                 self._drop_cold(pid)
-        for j in range(len(shared), n_pages):
+        for d in fetch:
+            got = self.cache.fetch(d, exclude=self.cache_name)
+            if got is None:
+                break  # prefill the rest of the run
+            src, payload = got
+            pid = self.pool.alloc()
+            self._install_page_payload(pid, payload)
+            # first-wins: a digest registered since planning keeps its
+            # page, and this one is the slot's private copy
+            self.pool.register(d, pid, volatile=wraps)
+            pids[m] = pid
+            m += 1
+            if self._obs is not None:
+                self._obs.fleet_hit(src)
+            if self._trace is not None and req.trace is not None:
+                self._trace.event(
+                    req.trace, "share_hit", time.perf_counter(),
+                    page=int(pid), tier=src,
+                )
+        for j in range(m, n_pages):
             pids[j] = self.pool.alloc()
         if self._drr is not None:
             self._tenant_pages[req.tenant] = (
                 self._tenant_pages.get(req.tenant, 0) + n_pages)
         Tp = req.prompt.size
         n_cover = min(Tp // self.P, self.max_pages) if Tp <= self.W else 0
-        return len(shared) * self.P, {
+        return m * self.P, {
             "pids": pids, "n_pages": n_pages, "digests": tuple(digests),
             "n_cover": n_cover, "wraps": wraps,
         }
@@ -1427,6 +1807,10 @@ class ServingScheduler:
                                if pid not in protect), None)
         if victim is None:
             return False
+        if self.cache is not None:
+            # the cold page's last device copy dies here: spill it to
+            # the DRAM tier (tenant-attributed, so spill quotas bind)
+            self._spill_page(victim, tenant=self._cold.get(victim))
         t = self._drop_cold(victim)
         if self._flight is not None:
             self._flight.event("qos reclaim", src="scheduler", tenant=t,
@@ -1440,7 +1824,7 @@ class ServingScheduler:
         evicts the tenant's OWN cold pages. None when the request still
         cannot be planned (the DRR pass then defers this tenant)."""
         contract = self._qos.get(req.tenant)
-        shared, digests, n_pages, wraps, n_fresh, reserve = \
+        shared, digests, n_pages, wraps, n_fresh, reserve, fetch = \
             self._page_needs(req)
         # the plan's own shares are never victims: evicting one would
         # trade a prefill skip for a fresh page
@@ -1464,7 +1848,7 @@ class ServingScheduler:
                                              tenant=req.tenant):
                     return None
                 need -= 1
-        return shared, digests, n_pages, wraps
+        return shared, digests, n_pages, wraps, fetch
 
     def _prepare_tick_pages(self, decoding: list[int]) -> None:
         """Pre-tick COW pass: the next ``n_inner`` steps write ring
@@ -1570,6 +1954,14 @@ class ServingScheduler:
                     self._cold_count[tenant] = (
                         self._cold_count.get(tenant, 0) + 1)
                 else:
+                    # a sole-held registered page about to free: offer
+                    # its bytes to the fleet's DRAM tier first (cold
+                    # retention above takes precedence)
+                    if (self.cache is not None
+                            and not self._slot_wraps[s]
+                            and self.pool.refcount(pid) == 1
+                            and self.pool.registered(pid)):
+                        self._spill_page(pid, tenant=tenant)
                     self.pool.decref(pid, wrapper=self._slot_wraps[s])
             self._tenant_debit(tenant, n_refs)
             self._pt_host[s] = NULL_PAGE

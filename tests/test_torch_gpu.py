@@ -1304,3 +1304,109 @@ def test_qos_paged_scheduler_matches_oracle_on_the_card():
         assert r.tokens == want[0].tolist()
     assert admitted[:3] == ["gold", "gold", "bronze"], admitted
     sched.pool.check()
+
+
+def _small_paged(dev, **kw):
+    cfg = TransformerConfig(vocab=128, d_model=512, n_heads=4,
+                            n_kv_heads=2, n_layers=2, d_ff=1024,
+                            attn_window=64, dtype=torch.float32)
+    params = init_params(cfg, seed=5, device=dev)
+    return cfg, params, dict(slots=4, n_inner=4, prompt_chunk=16,
+                             max_prompt=48, page_tokens=8,
+                             quantize_kv=True, device=dev, **kw)
+
+
+def test_migration_on_the_card_through_k6_equals_oracle():
+    """Four requests (two on one 16-token prefix) migrate from a
+    PrefillWorker to a DecodeReplica at their first token, in process
+    and through the migration ring: every stream equals
+    ``generate_ring_dense``, the destination's ticks launch K6 and
+    never K5, and both pools drain."""
+    from mpistragglers_jl_tpu_torch.models.disagg import (
+        DecodeReplica, MigrationPlanner, MigrationRing, MigrationRingReader,
+        MigrationTicket, PrefillWorker, ticket_from_frames, ticket_to_frames)
+
+    dev = _card()
+    cfg, params, kw = _small_paged(dev)
+    planner = MigrationPlanner()
+    pw = PrefillWorker(ServingScheduler(params, cfg, **kw), planner=planner)
+    dr = DecodeReplica(ServingScheduler(params, cfg, **kw), planner=planner)
+    assert dr.use_kernel
+    gen = torch.Generator().manual_seed(6)
+    prefix = torch.randint(1, cfg.vocab, (16,), generator=gen)
+    prompts = [torch.cat([prefix, torch.randint(1, cfg.vocab, (8,),
+                                                generator=gen)]).numpy()
+               for _ in range(2)]
+    prompts += [torch.randint(1, cfg.vocab, (24,), generator=gen).numpy()
+                for _ in range(2)]
+    ring = MigrationRing(slot_bytes=1 << 16, slots=16)
+    reader = MigrationRingReader(ring)
+    reqs = [pw.submit(p, max_new=16) for p in prompts]
+    moved, dst_k6 = set(), 0
+    for c in da.LAUNCHES:
+        da.LAUNCHES[c] = 0
+    while not all(r.finished for r in reqs):
+        pw.step()
+        for r in pw.ready():
+            if r.id in moved:
+                continue
+            moved.add(r.id)
+            if len(moved) % 2:
+                dr.adopt(pw.migrate_out(r))
+            else:
+                t = MigrationTicket(pw.sched.export_page_state(r))
+                meta = ticket_to_frames(t, ring)
+                dr.adopt(ticket_from_frames(meta, t.frames, reader),
+                         request=r)
+                t.release()
+        k0 = da.LAUNCHES["paged_decode_attention"]
+        dr.step()
+        dst_k6 += da.LAUNCHES["paged_decode_attention"] - k0
+    assert len(moved) == 4
+    assert dst_k6 == cfg.n_layers * dr.n_inner * dr.decode_ticks > 0
+    assert da.LAUNCHES["quantized_decode_attention"] == 0
+    for p, r in zip(prompts, reqs):
+        want = td.generate_ring_dense(params, p[None], 16, cfg,
+                                      quantize_kv=True, device=dev)
+        assert r.tokens == want[0].tolist()
+    assert dr.pool.share_hits > 0
+    for pool in (pw.pool, dr.pool):
+        pool.check()
+        assert pool.used == 0
+
+
+def test_dram_fetch_on_the_card_equals_oracle():
+    """Replica A serves a prompt and retires it (its prefix pages spill
+    to host DRAM) and is killed; replica B fetches the pages onto the
+    card and decodes through K6: B's stream equals
+    ``generate_ring_dense``, with fewer prefill chunks than A."""
+    from mpistragglers_jl_tpu_torch.cache import FleetPrefixCache
+
+    dev = _card()
+    hub = FleetPrefixCache(store_pages=16)
+    cfg, params, kw = _small_paged(dev, cache=hub)
+    gen = torch.Generator().manual_seed(7)
+    prefix = torch.randint(1, cfg.vocab, (32,), generator=gen)
+    prompts = [torch.cat([prefix, torch.randint(1, cfg.vocab, (8,),
+                                                generator=gen)]).numpy()
+               for _ in range(2)]
+    a = ServingScheduler(params, cfg, **kw)
+    ra = a.submit(prompts[0], max_new=12)
+    a.run()
+    hub.kill(a.cache_name)
+    b = ServingScheduler(params, cfg, **kw)
+    assert b.use_kernel
+    k0 = da.LAUNCHES["paged_decode_attention"]
+    rb = b.submit(prompts[1], max_new=12)
+    b.run()
+    assert da.LAUNCHES["paged_decode_attention"] - k0 == (
+        cfg.n_layers * b.n_inner * b.decode_ticks)
+    assert hub.n_fetches["dram"] == 4 and hub.n_fallbacks == 0
+    assert b.prefill_chunks < a.prefill_chunks
+    for p, r in zip(prompts, (ra, rb)):
+        want = td.generate_ring_dense(params, p[None], 12, cfg,
+                                      quantize_kv=True, device=dev)
+        assert r.tokens == want[0].tolist()
+    b.pool.check()
+    hub.check()
+    hub.close()

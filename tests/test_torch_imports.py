@@ -88,7 +88,14 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.sim.tune",
             "mpistragglers_jl_tpu_torch.qos",
             "mpistragglers_jl_tpu_torch.qos.drr",
-            "mpistragglers_jl_tpu_torch.qos.tenancy"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.qos.tenancy",
+            "mpistragglers_jl_tpu_torch.models.disagg",
+            "mpistragglers_jl_tpu_torch.cache",
+            "mpistragglers_jl_tpu_torch.cache.client",
+            "mpistragglers_jl_tpu_torch.cache.directory",
+            "mpistragglers_jl_tpu_torch.cache.planner",
+            "mpistragglers_jl_tpu_torch.cache.store",
+            "mpistragglers_jl_tpu_torch.bench.disagg"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -196,7 +196,7 @@ class TestLiveTelemetryPlane:
         fl = tobs.FlightRecorder()
         srv = tobs.ObsServer(reg, flight=fl).start()
         backend = ProcessBackend(
-            echo_work, 3, delay_fn=PerWorkerDelay([0.001, 0.001, 0.05]),
+            echo_work, 3, delay_fn=PerWorkerDelay([0.001, 0.001, 0.25]),
             registry=reg, flight=fl, exporter=srv,
         )
         sched = _sched(cfg, params, registry=reg, spans=rec, flight=fl,
@@ -207,6 +207,14 @@ class TestLiveTelemetryPlane:
             sched.run()
             assert r.finished
             pool = AsyncPool(3)
+            # warm-up: every spawned worker has imported torch and
+            # answered once, so spawn time is out of the race below and
+            # worker 2's delay is the only thing that makes it slow
+            asyncmap(pool, np.ones(4), backend, nwait=3, flight=fl)
+            waitall(pool, backend, flight=fl)
+            assert (pool.repochs == pool.epoch).all()
+            warm = _by_worker(_get(srv.url + "/metrics")[1].decode())
+            assert set(warm) == {"0", "1", "2"}
             for _ in range(4):
                 asyncmap(pool, np.ones(4), backend, nwait=2, flight=fl)
             # mid-run: the straggler is still grinding its last
@@ -217,6 +225,7 @@ class TestLiveTelemetryPlane:
             by_worker = _by_worker(prom)
             assert set(by_worker) >= {"0", "1"}
             assert all(v >= 1 for v in by_worker.values())
+            assert all(by_worker[w] > warm[w] for w in ("0", "1"))
             assert "serving_ticks_total" in prom  # coordinator series
             waitall(pool, backend, flight=fl)
             status, body = _get(srv.url + "/metrics")

@@ -3,9 +3,9 @@
 
 The contract is ``tests/test_qos.py``: its registry and DRR units
 (``:32-200``) and its scheduler cases (``:242-460``) run here on the
-port, on the CPU. Its adoption case (``:403``) waits for ROADMAP.md item
-12a (page-state migration), its router and sim cases (``:463-792``) for
-item 12b. Then the same tenants, weights, quotas and requests, with the
+port, on the CPU, its adoption case (``:403``) on the port's page-state
+migration included. Its router and sim cases (``:463-792``) wait for
+ROADMAP.md item 12b. Then the same tenants, weights, quotas and requests, with the
 same parameters, go through the JAX scheduler and the port's, on the
 slot ring and on pages: the admission order (tenant, request), the
 admission ticks, the cold-page counts and the greedy tokens are equal
@@ -386,8 +386,35 @@ def test_quota_reclaim_never_touches_a_shared_page():
 
 
 def test_adoption_reclaims_cold_pages_instead_of_parking():
-    pytest.skip("adopt_page_state (page-state migration) is ROADMAP.md "
-                "Queue 1 item 12a")
+    """The two-tier liveness contract under qos: an adoption whose
+    destination pool is held up by cold pages reclaims them instead of
+    refusing (a captured stream is resident nowhere while it waits),
+    and the feasibility probe counts that headroom without evicting."""
+    reg = _registry(a=dict())
+    kw = dict(slots=2, n_inner=4, prompt_chunk=4, max_prompt=32,
+              page_tokens=4, qos=reg)
+    src = ServingScheduler(WPARAMS, WCFG, cache_pages=24, **kw)
+    # destination: 9 usable pages, 4 of them soon cold (2 retired
+    # requests x 4 pages each, 2 registered + 2 freed per request)
+    dst = ServingScheduler(WPARAMS, WCFG, cache_pages=9, **kw)
+    for i in range(2):
+        dst.submit(_prompt(8, 41 + i), max_new=4, tenant="a")
+        dst.run()
+    assert len(dst._cold) == 4 and dst.pool.free < 8
+    r = src.submit(_prompt(8, 59), max_new=12, tenant="a")
+    for _ in range(3):
+        src.step()
+    assert r.tokens and not r.finished
+    state = src.export_page_state(r)
+    cold_before = dict(dst._cold)
+    assert dst.can_adopt_state(state)  # reclaim headroom, not a park
+    assert dst._cold == cold_before  # the probe evicted nothing
+    dst.adopt_page_state(state)  # the adopt itself reclaims
+    assert len(dst._cold) < len(cold_before)
+    dst.run()
+    assert r.finished
+    assert r.tokens == _oracle(WPARAMS, state["prompt"], 12, WCFG)
+    dst.pool.check()
 
 
 def test_cancel_returns_quota_everywhere():

@@ -250,12 +250,16 @@ def test_validation_and_later_slices_named():
                              device="cpu")
     assert paged.paged and paged.pool.n_pages == 2 * 2 + 1
     assert not sched.paged and sched.pool is None
-    later = [({"cache": object()}, "item 10"),
-             ({"page_tokens": 2, "cache": object()}, "item 10"),
-             ]
-    for kw, item in later:
-        with pytest.raises(NotImplementedError, match=item):
-            ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", **kw)
+    # item 10b is ported: cache= needs the paged arena and attaches
+    from mpistragglers_jl_tpu_torch.cache import FleetPrefixCache
+
+    hub = FleetPrefixCache(store_pages=2)
+    with pytest.raises(ValueError, match="needs the paged arena"):
+        ServingScheduler(TPARAMS, TCFG, slots=1, device="cpu", cache=hub)
+    fleet = ServingScheduler(TPARAMS, TCFG, slots=1, page_tokens=2,
+                             device="cpu", cache=hub)
+    assert hub.members() == [fleet.cache_name]
+    hub.close()
     # items 8, 9 and 10a are ported: sampling, the observability
     # arguments and qos= construct (their behaviour:
     # test_torch_sampling.py, test_torch_obs.py, test_torch_qos.py)

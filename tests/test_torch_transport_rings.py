@@ -11,6 +11,8 @@ Three layers under test:
 * ProcessBackend shm rings — pickle protocol-5 out-of-band buffers
   over ``multiprocessing.shared_memory``, pipes carrying only control
   frames, and the read-only payload contract.
+* the migration ring of ``models/disagg.py`` — the three lifetime
+  cases of ``tests/test_transport_rings.py:500-610``.
 
 The lifetime claims extend the keep-window eviction regression to
 the persistent rings: a held ``Message.body`` (or harvested result)
@@ -492,3 +494,112 @@ def test_native_zero_copy_false_forces_copying_transport():
         assert s["arena_bytes"] == 0 and s["ring_bytes"] == 0
     finally:
         be.shutdown()
+
+
+# ------------------------------------------------------- migration ring
+#
+# models/disagg.py's MigrationRing (tests/test_transport_rings.py
+# :500-610): slots stay pinned while any consumer view lives, an
+# all-pinned ring falls back to copying frames, and a stale generation
+# is served as a copy, never a torn view.
+
+
+def _mig_ring(**kw):
+    from mpistragglers_jl_tpu_torch.models.disagg import (
+        MigrationRing,
+        MigrationRingReader,
+    )
+
+    kw.setdefault("slot_bytes", 1 << 12)
+    kw.setdefault("slots", 4)
+    ring = MigrationRing(**kw)
+    if ring.region is None:  # pragma: no cover - no memfd on this box
+        pytest.skip("memfd_create unavailable")
+    return ring, MigrationRingReader(ring)
+
+
+def test_migration_ring_frames_byte_exact_and_pins_release():
+    """Round trip through the consumer's own mapping of the fd, byte
+    exact; a slot's pin drops when the sender releases its frames and
+    the last consumer view dies."""
+    import gc
+
+    ring, reader = _mig_ring()
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 255, size=3 * (1 << 12) + 17,
+                           dtype=np.uint8)
+    frames = ring.send_segment(payload)
+    assert len(frames) == 4 and ring.stalls == 0
+    got = reader.read_segment(frames)  # multi-frame => private copy
+    assert np.array_equal(got, payload)
+    seg = rng.integers(0, 255, size=100, dtype=np.uint8)
+    ring.release_frames(frames)
+    gc.collect()
+    assert ring.pinned == 0
+    f3 = ring.send_segment(seg)
+    view = reader.read_segment(f3)
+    assert np.array_equal(view, seg)
+    assert ring.pinned == 1  # sender pin + live consumer view
+    ring.release_frames(f3)
+    assert ring.pinned == 1  # the view still pins it
+    del view
+    gc.collect()
+    assert ring.pinned == 0
+    ring.close()
+
+
+def test_migration_ring_all_pinned_falls_back_to_copy():
+    """Every slot pinned by held consumer views: further sends become
+    copying frames (stall counted), byte exact, and the held views
+    never tear."""
+    import gc
+
+    from mpistragglers_jl_tpu_torch.models.disagg import CopyFrame
+
+    ring, reader = _mig_ring(slots=2)
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 255, size=1 << 12, dtype=np.uint8)
+    b = rng.integers(0, 255, size=1 << 12, dtype=np.uint8)
+    fa, fb = ring.send_segment(a), ring.send_segment(b)
+    va = np.frombuffer(reader.read_segment(fa), np.uint8).copy(), \
+        reader.read_segment(fa)
+    vb = reader.read_segment(fb)
+    ring.release_frames(fa)
+    ring.release_frames(fb)
+    gc.collect()
+    assert ring.pinned == 2  # both held by the live views
+    c = rng.integers(0, 255, size=200, dtype=np.uint8)
+    fc = ring.send_segment(c)
+    assert all(isinstance(f, CopyFrame) for f in fc)
+    assert ring.stalls >= 1
+    assert np.array_equal(reader.read_segment(fc), c)
+    assert np.array_equal(va[1], va[0])
+    assert np.array_equal(vb, b)
+    del va, vb
+    gc.collect()
+    assert ring.pinned == 0
+    ring.close()
+
+
+def test_migration_ring_stale_generation_served_as_copy():
+    """A frame read after its slot was released and reused comes back
+    as a private copy, never a view of the new occupant's bytes, and
+    does not pin the reused slot."""
+    import gc
+
+    ring, reader = _mig_ring(slots=1)
+    a = np.full(64, 7, np.uint8)
+    fa = ring.send_segment(a)
+    ring.release_frames(fa)
+    gc.collect()
+    b = np.full(64, 9, np.uint8)
+    fb = ring.send_segment(b)  # reuses slot 0, new generation
+    stale = reader.read_segment(fa)  # old gen: served as a copy
+    assert np.array_equal(stale, a) or np.array_equal(stale, b)
+    fresh = reader.read_segment(fb)
+    assert np.array_equal(fresh, b)
+    ring.release_frames(fb)
+    del fresh, stale
+    gc.collect()
+    assert ring.pinned == 0
+    ring.close()

@@ -179,11 +179,10 @@ every CUDA kernel of those paths against its plain PyTorch version:
     0.8, top_k 50, a key per request, K5 routed): each stream equals
     ``generate_ring_dense`` with the request's key; the sampling kernel
     launched once per admission and once per inner step;
-33. the slot-ring main path (phase 5's workload) six times in one
-    process, in turns: greedy and dark, sampled and dark, sampled and
+33. the slot-ring main path (phase 5's workload) three times in one
+    process: greedy and dark, sampled and dark, sampled and
     lit (a registry, a span recorder, a flight recorder, a TraceBook and
-    an ObsServer on loopback port 0), then the three again in reverse
-    order: ms/tick and decode tokens/s of each over 2 timed ticks,
+    an ObsServer on loopback port 0): ms/tick and decode tokens/s of each over 2 timed ticks,
     kernels per inner step from one profiled 4-step tick of the first
     greedy and sampled runs; counts set to 0 before each run (K5 8 x 64
     per tick, the sampling kernel 8 + 64 per tick); lit, ``/metrics``
@@ -278,7 +277,7 @@ every CUDA kernel of those paths against its plain PyTorch version:
     ``generate_ring_dense``, the first burst of admissions 2:1, bronze
     within its quota, retired prefix pages gone cold and reshared, the
     pool checked, K6 counted from a reset before it; then in bf16
-    ms/tick with and without ``qos=`` in 3 alternating pairs, with each
+    ms/tick with and without ``qos=`` in 2 alternating pairs, with each
     variant's spread.
 50. page-state migration on the paged main path (pages of 64, S=8,
     int8): a ``PrefillWorker`` and a ``DecodeReplica`` with one
@@ -302,6 +301,31 @@ every CUDA kernel of those paths against its plain PyTorch version:
     only; then in bf16 a fresh B's submit-to-first-token with the
     DRAM fetch against a cache-less prefill, 3 alternating pairs with
     each variant's spread.
+52. the router (``models/router.py``) over four paged schedulers (pages
+    of 64, S=8, int8, f32, TF32 off): four requests of 256 tokens (two
+    on one 192-token prefix) under round_robin, least_loaded,
+    prefix_affinity (the first sharer holds its first token before the
+    rest arrive; the second must land on its replica with share hits)
+    and hedge_p99 (replica 0 ticks once, then is gated for the phase: a
+    hedge must fire and win, the loser cancelled), every stream equal
+    to ``generate_ring_dense``, every pool drained; then
+    ``bench/router.py``'s live half in bf16: the warm tick calibrated,
+    replica 3 gated to 4x it, a closed burst for the fleet's rate, an
+    open loop of 24 requests at 0.8 of it under round_robin,
+    least_loaded, least_loaded, round_robin (TTFT p50/p99, the router's
+    share of the stepping wall), and a kill/recover leg with 0 dropped
+    and more than 0 re-routed; K6 counted over the phase, K5 none;
+53. ``two_tier``: two ``PrefillWorker`` and two ``DecodeReplica`` on one
+    ``MigrationPlanner`` (f32), the same four requests: streams equal
+    the oracle, migrations named ``"migrated"``, the ``disagg_*`` series
+    in the registry, the decode tier's ticks K6 only;
+54. the host planes (numpy, no pool): a 100k-request diurnal day over 8
+    ``SimReplica`` through ``run_router_day`` and
+    ``run_router_day_fast`` (one digest, requests/s each; the
+    reference's 1M cut to fit seconds), ``sweep_router_policy`` at 0.8
+    load with a 1.8x straggler, an elastic fleet day with a coordinator
+    kill (``bench/fleet.py``, 3000 requests), and every chaos episode
+    twice at half size (``bench/chaos.py``), digests printed.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -309,8 +333,8 @@ a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
 31-35's, a ``{"coded_family": ..., "pool_utils": ...}`` line with
 phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
 ``{"slice13": ...}`` line with phases 46-49's, a ``{"slice14": ...}``
-line with phases 50-51's,
-a ``{"kernels": [...]}`` JSON line and, last,
+line with phases 50-51's, a ``{"slice15": ...}`` line with phases
+52-54's, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -350,10 +374,13 @@ from mpistragglers_jl_tpu_torch.bench import coded_family as cf_bench
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
+from mpistragglers_jl_tpu_torch.bench import chaos as chaos_bench
 from mpistragglers_jl_tpu_torch.bench import disagg as disagg_bench
+from mpistragglers_jl_tpu_torch.bench import fleet as fleet_bench
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench import moe_train as mt
 from mpistragglers_jl_tpu_torch.bench import process_gemm as pg_bench
+from mpistragglers_jl_tpu_torch.bench import router as router_bench
 from mpistragglers_jl_tpu_torch.bench import transport as tr_bench
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import (
     flash_bounds,
@@ -386,6 +413,7 @@ from mpistragglers_jl_tpu_torch.models.disagg import (
     ticket_from_frames,
     ticket_to_frames,
 )
+from mpistragglers_jl_tpu_torch.models.router import RequestRouter
 from mpistragglers_jl_tpu_torch.models.serving import ServingScheduler
 from mpistragglers_jl_tpu_torch.models.speculative import (
     generate_speculative_dense,
@@ -2667,13 +2695,14 @@ def _paged_workload(cfg):
 def phase_sampled_serving(dev, paged: bool) -> dict:
     """The main path sampled and instrumented, beside greedy and
     sampled dark runs of the same workload, in turns in one process
-    (A B C C B A, so drift over the phase falls on every variant)."""
+    (A B C, once each: the host's spread between runs is measured in
+    phase 49's pairs and PERF.md §5)."""
     cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16)
     params = init_params(cfg, seed=0, device=dev)
     workload = (_paged_workload if paged else _ring_workload)(cfg)
     runs = {v: [] for v in SERVE_VARIANTS}
     with tempfile.TemporaryDirectory() as tmp:
-        for i, variant in enumerate(SERVE_VARIANTS + SERVE_VARIANTS[::-1]):
+        for i, variant in enumerate(SERVE_VARIANTS):
             first = not runs[variant]
             rep, sched, reqs, obs, scrapes, ticks = _serve_variant(
                 dev, cfg, params, variant, paged, workload,
@@ -3133,7 +3162,7 @@ CKPT_N, CKPT_K = 8, 6
 # two of its requests at a time); parity in f32 with 24 new tokens,
 # then ms/tick in bf16 with and without qos= in alternating pairs
 QOS_REQUESTS, QOS_OWN, QOS_NEW_F32 = 16, 64, 24
-QOS_INNER, QOS_TICKS, QOS_PAIRS = 32, 2, 3
+QOS_INNER, QOS_TICKS, QOS_PAIRS = 32, 2, 2
 QOS_NEW_BF16 = QOS_INNER * (QOS_TICKS + 3)
 QOS_BRONZE_PAGES = 16
 
@@ -3820,6 +3849,268 @@ def phase_slice14(dev, t_start) -> tuple[int, int, dict]:
 
 
 
+# phases 52-54: the planes above serving. The router over four live paged
+# replicas (S=8, pages of 64, int8), two_tier through the tier wrappers,
+# then the host planes (the router-day simulator, fleet control, chaos)
+ROUTE_PREFIX, ROUTE_OWN, ROUTE_NEW_F32 = 192, 64, 16
+ROUTE_POLICIES = ("round_robin", "least_loaded", "prefix_affinity",
+                  "hedge_p99")
+ROUTE_LIVE_REQUESTS, ROUTE_LIVE_REPEATS = 24, 2
+ROUTE_SIM_REQUESTS, ROUTE_SIM_WITNESS = 100_000, 10_000
+FLEET_DAY_REQUESTS, CHAOS_SCALE = 3000, 0.5
+
+
+def _route_prompts(cfg):
+    """Four prompts of 256 tokens (one admission chunk), the first two
+    on one 192-token prefix."""
+    rng = np.random.default_rng(52)
+    prefix = rng.integers(0, cfg.vocab, ROUTE_PREFIX)
+    return ([np.concatenate([prefix, rng.integers(0, cfg.vocab, ROUTE_OWN)])
+             for _ in range(2)]
+            + [rng.integers(0, cfg.vocab, ROUTE_PREFIX + ROUTE_OWN)
+               for _ in range(2)])
+
+
+def _route_f32(params, cfg, dev, prompts, oracle, policy, tick_s):
+    """One policy over four fresh paged replicas; returns its report."""
+    kw = {}
+    scheds = [ServingScheduler(params, cfg, **_paged_kw(dev))
+              for _ in range(4)]
+    if policy == "hedge_p99":
+        # replica 0 ticks once, then waits out the phase: its one tick
+        # prefills half the 256-token prompt (chunks of 128), so its leg
+        # misses the deadline mid-admission, the hedge onto a live
+        # replica wins, and the loser is cancelled mid-admission
+        half = (ROUTE_PREFIX + ROUTE_OWN) // 2
+        scheds[0] = router_bench.live_fleet(
+            params, cfg, 3600.0, _paged_kw(dev, prompt_chunk=half), n=1,
+            slow=0)[0].inner
+        kw["ttft_slo"] = 16 * tick_s
+    _require(all(s.use_kernel for s in scheds),
+             "a replica's S=8 paged int8 tick did not route K6")
+    router = RequestRouter(scheds, policy=policy, **kw)
+    first = router.submit(prompts[0], ROUTE_NEW_F32)
+    if policy == "prefix_affinity":
+        # the prefix pages register when the first sharer's admission
+        # ends: it holds its first token before the others arrive, and
+        # stays resident (16 new tokens: two decode ticks) while the
+        # second sharer admits
+        while not first.tokens:
+            router.step()
+    rrs = [first] + [router.submit(p, ROUTE_NEW_F32) for p in prompts[1:]]
+    t0 = time.perf_counter()
+    router.drain()
+    wall = time.perf_counter() - t0
+    same = sum(list(rr.tokens) == o for rr, o in zip(rrs, oracle))
+    rep = {"streams_equal_oracle": same,
+           "replicas": [rr.replica for rr in rrs],
+           "outcomes": [rr.outcome for rr in rrs],
+           "hedges": router.n_hedges,
+           "share_hits": [s.pool.share_hits for s in scheds],
+           "ticks": [s.tick_count for s in scheds], "drain_s": wall}
+    print(f"  f32 {policy}: {same}/{len(rrs)} streams equal "
+          f"generate_ring_dense; replicas {rep['replicas']}, outcomes "
+          f"{rep['outcomes']}, hedges {router.n_hedges}, share hits "
+          f"{rep['share_hits']}")
+    _require(same == len(rrs), f"{policy}: a routed stream differs from "
+             "the oracle")
+    if policy == "prefix_affinity":
+        _require(rrs[1].replica == first.replica
+                 and scheds[first.replica].pool.share_hits > 0,
+                 "prefix_affinity: the sharer missed the prefix's pages")
+    if policy == "hedge_p99":
+        slow = scheds[0]
+        _require(router.n_hedges > 0 and any(
+            rr.outcome == "hedge_won" for rr in rrs),
+            "hedge_p99: no hedge fired and won")
+        _require(slow.tick_count == 1 and slow.prefill_chunks == 1,
+                 f"hedge_p99: the slow replica ticked {slow.tick_count} "
+                 f"times, prefilled {slow.prefill_chunks} chunks (want "
+                 "one of two)")
+        _require(slow.active == 0 and slow.pending == 0,
+                 "hedge_p99: the slow replica's losing leg was not "
+                 "cancelled")
+    for s in scheds:
+        s.pool.check()
+        _require(s.pool.used == 0, f"{policy}: a pool holds "
+                 f"{s.pool.used} pages once drained")
+    return rep
+
+
+def phase_router_live(dev, params, cfg, prompts, oracle) -> tuple[int, dict]:
+    """Phase 52: the router over four live paged replicas. Returns (K6
+    launches over the phase, report)."""
+    out = {"f32": {}}
+    _zero_launches()
+    # the f32 tick, for the hedge deadline: one replica, one request
+    warm = ServingScheduler(params, cfg, **_paged_kw(dev))
+    warm.submit(prompts[2], ROUTE_NEW_F32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while warm.pending or warm.active:
+        warm.step()
+    torch.cuda.synchronize()
+    tick_s = (time.perf_counter() - t0) / warm.tick_count
+    out["f32"]["tick_s"] = tick_s
+    del warm
+    for policy in ROUTE_POLICIES:
+        out["f32"][policy] = _route_f32(params, cfg, dev, prompts, oracle,
+                                        policy, tick_s)
+    torch.cuda.empty_cache()
+    # the live half of bench/router.py at the main path's dtype
+    live = router_bench.bench_router_live_rung(
+        dev, requests=ROUTE_LIVE_REQUESTS, repeats=ROUTE_LIVE_REPEATS)
+    out["bf16"] = live
+    for r in live["runs"]:
+        print(f"  bf16 {r['policy']}: TTFT p50 {r['p50_ttft_s'] * 1e3:.2f} "
+              f"ms, p99 {r['p99_ttft_s'] * 1e3:.2f} ms; router share "
+              f"{r['router_share']:.4f} of {r['stepping_wall_s']:.2f} s")
+    kill = live["kill_leg"]
+    print(f"  warm tick {live['tick_s'] * 1e3:.2f} ms, replica 3 gated to "
+          f"{live['stall_s'] * 1e3:.2f} ms; fleet {live['fleet_req_per_s']:.2f}"
+          f" req/s closed, paced at 0.8; live_p99_x {live['live_p99_x']}; "
+          f"kill leg: {kill['dropped']} dropped, {kill['rerouted']} "
+          f"re-routed of {kill['requests']}")
+    _require(kill["dropped"] == 0 and kill["rerouted"] > 0,
+             f"kill leg: {kill}")
+    launches = _launch_counts()
+    _require(launches[K6] > 0 and launches[K5] == 0,
+             f"phase 52 launched K6 {launches[K6]}, K5 {launches[K5]}")
+    return launches[K6], out
+
+
+def phase_two_tier_live(dev, params, cfg, prompts, oracle) -> tuple[int, dict]:
+    """Phase 53: two PrefillWorkers and two DecodeReplicas on one
+    MigrationPlanner under the two_tier router, f32. Returns (K6
+    launches on the decode tier's ticks, report)."""
+    planner = MigrationPlanner()
+    reg = tobs.MetricsRegistry()
+    decode_k6 = [0]
+
+    def counted(rep):
+        inner = rep.step
+
+        def step():
+            k0 = da.LAUNCHES[K6]
+            done = inner()
+            decode_k6[0] += da.LAUNCHES[K6] - k0
+            return done
+        rep.step = step
+        return rep
+
+    fleet = ([PrefillWorker(ServingScheduler(params, cfg, **_paged_kw(dev)),
+                            planner=planner) for _ in range(2)]
+             + [counted(DecodeReplica(
+                 ServingScheduler(params, cfg, **_paged_kw(dev)),
+                 planner=planner)) for _ in range(2)])
+    _require(all(r.use_kernel for r in fleet),
+             "a tier's S=8 paged int8 tick did not route K6")
+    router = RequestRouter(fleet, policy="two_tier", registry=reg)
+    _zero_launches()
+    rrs = [router.submit(p, ROUTE_NEW_F32) for p in prompts]
+    router.drain()
+    launches = _launch_counts()
+    same = sum(list(rr.tokens) == o for rr, o in zip(rrs, oracle))
+    migrated = [rr for rr in rrs if rr.migrated]
+    series = sorted(n for n in reg.snapshot() if n.startswith("disagg_"))
+    print(f"  f32: {same}/{len(rrs)} streams equal generate_ring_dense; "
+          f"{router.n_migrated} migrated ({router.migrated_bytes} bytes), "
+          f"{router.n_kept_local} kept local; outcomes "
+          f"{[rr.outcome for rr in rrs]}; decode tier K6 {decode_k6[0]}, "
+          f"K5 {launches[K5]}; series {series}")
+    _require(same == len(rrs), "a two_tier stream differs from the oracle")
+    _require(router.n_migrated > 0 and migrated
+             and all(rr.outcome == "migrated" for rr in migrated),
+             "two_tier: no migration, or a migrated outcome is not named")
+    _require({"disagg_migrations_total", "disagg_migrated_bytes_total",
+              "disagg_tier_depth"} <= set(series),
+             f"two_tier: the disagg series are missing: {series}")
+    _require(decode_k6[0] > 0 and launches[K5] == 0,
+             f"decode tier K6 {decode_k6[0]}, K5 {launches[K5]}")
+    for r in fleet:
+        r.pool.check()
+        _require(r.pool.used == 0, "a tier's pool holds pages once drained")
+    return decode_k6[0], {"streams_equal_oracle": same,
+                          "migrated": router.n_migrated,
+                          "migrated_bytes": router.migrated_bytes,
+                          "kept_local": router.n_kept_local,
+                          "outcomes": [rr.outcome for rr in rrs],
+                          "series": series, "decode_k6": decode_k6[0]}
+
+
+def phase_host_planes() -> dict:
+    """Phase 54: the router-day simulator on both drivers, the policy
+    sweep, an elastic fleet day with a coordinator kill, every chaos
+    episode twice (numpy on the host; no pool is spawned)."""
+    out = {}
+    t0 = time.perf_counter()
+    sim = router_bench.bench_router_rung(
+        ROUTE_SIM_REQUESTS, witness=ROUTE_SIM_WITNESS)
+    out["router_day"] = sim
+    out["router_day"]["seconds"] = time.perf_counter() - t0
+    print(f"  router day ({ROUTE_SIM_REQUESTS} requests, 8 SimReplicas): "
+          f"scalar {sim['scalar']['req_per_s']:.0f} req/s, fast "
+          f"{sim['fast']['req_per_s']:.0f} req/s ({sim['fast']['path']}), "
+          f"one digest {sim['fast']['digest']}; witness "
+          f"{sim['replay_digest']}; sweep at 0.8 load, 1.8x straggler: "
+          f"{sim['sweep_best']} wins, router_p99_x {sim['router_p99_x']:.3f}")
+    t1 = time.perf_counter()
+    fl = fleet_bench.bench_fleet_rung(FLEET_DAY_REQUESTS)
+    fl["seconds"] = time.perf_counter() - t1
+    out["fleet"] = fl
+    print(f"  fleet day ({FLEET_DAY_REQUESTS} requests): "
+          f"{fl['fleet_failover_drops']} dropped, {fl['failovers']} takeover, "
+          f"{fl['resizes']} resizes, chip-time x{fl['fleet_chip_time_x']:.3f}, "
+          f"digest {fl['digest']}")
+    _require(fl["fleet_failover_drops"] == 0 and fl["failovers"] == 1,
+             f"fleet day: {fl}")
+    t2 = time.perf_counter()
+    ch = chaos_bench.bench_chaos_suite(scale=CHAOS_SCALE)
+    out["chaos"] = ch
+    out["chaos_seconds"] = time.perf_counter() - t2
+    for name, r in ch.items():
+        print(f"  chaos {name}: digest {r['digest']} twice, invariants "
+              f"{r['invariants']}, shed {r['shed']}")
+    return out
+
+
+def phase_slice15(dev, t_start) -> tuple[int, int, dict]:
+    """Phases 52-54. Returns (phase 52's K6 launches, phase 53's decode
+    tier's K6 launches, report)."""
+    out = {}
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[52] the router over four live paged replicas, S={SLOTS}, pages "
+          f"of {PAGE}: f32 {len(ROUTE_POLICIES)} policies x 4 requests "
+          f"against the oracle, then bench/router.py's live half in bf16 "
+          f"({ROUTE_LIVE_REQUESTS} requests, {ROUTE_LIVE_REPEATS} pairs, "
+          f"kill leg)")
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    prompts = _route_prompts(cfg)
+    oracle = _oracle_rows(params, cfg, prompts, ROUTE_NEW_F32, dev)
+    k6_52, out["router"] = phase_router_live(dev, params, cfg, prompts,
+                                             oracle)
+    t1 = time.perf_counter()
+    out["router"]["seconds"] = t1 - t0
+    print(f"  (+{t1 - t_start:.1f} s)")
+    print("[53] two_tier live: two PrefillWorkers, two DecodeReplicas, one "
+          "MigrationPlanner, f32")
+    k6_53, out["two_tier"] = phase_two_tier_live(dev, params, cfg, prompts,
+                                                 oracle)
+    del params
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["two_tier"]["seconds"] = t2 - t1
+    print(f"  (+{t2 - t_start:.1f} s)")
+    print("[54] the host planes: the router day on both drivers, the policy "
+          "sweep, an elastic fleet day with a coordinator kill, every chaos "
+          "episode twice")
+    out["host_planes"] = phase_host_planes()
+    out["host_planes"]["seconds"] = time.perf_counter() - t2
+    return k6_52, k6_53, out
+
+
 
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
@@ -4033,6 +4324,7 @@ def main() -> int:
     launches46, launches49, slice13 = phase_slice13(dev, t_start,
                                                     adaptive_final)
     k6_50, k6_51, slice14 = phase_slice14(dev, t_start)
+    k6_52, k6_53, slice15 = phase_slice15(dev, t_start)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -4052,7 +4344,9 @@ def main() -> int:
                        launches9[K6], err6, tim6),
          "launches_qos_phase49": launches49[K6],
          "launches_migration_phase50": k6_50,
-         "launches_fleet_cache_phase51": k6_51},
+         "launches_fleet_cache_phase51": k6_51,
+         "launches_router_phase52": k6_52,
+         "launches_two_tier_phase53": k6_53},
     ]
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
@@ -4109,6 +4403,8 @@ def main() -> int:
     print(json.dumps({"slice13": slice13,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice14": slice14,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice15": slice15,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

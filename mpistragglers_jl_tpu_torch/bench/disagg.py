@@ -1,8 +1,16 @@
-"""The live half of the disaggregation rung: KV-page migration between two
-paged schedulers, and the migration ring's transfer rate.
+"""The disaggregation rung: KV-page migration between two paged
+schedulers, the migration ring's transfer rate, and the simulated
+prefill/decode split.
 
-A port of ``benchmarks/disagg_bench.py``'s ``bench_disagg_live_rung``
-(its simulated half needs the router, ``ROADMAP.md`` Queue 1 item 12b).
+A port of ``benchmarks/disagg_bench.py``: ``bench_disagg_live_rung`` and,
+with ``--sim``, ``bench_disagg_rung``.
+
+* **sim** (``--sim``, host only): a mixed long-prompt/short-chat
+  diurnal day at equal chip count, a unified fleet of six ``SimReplica``
+  under ``least_loaded`` against the ``sweep_tier_split``-swept
+  ``two_tier`` split; ``disagg_decode_p99_x`` is the unified decode p99
+  over the split's (the reference's acceptance floor 1.5), and the
+  split's day runs twice with one digest.
 
 * **handoff**: a ``PrefillWorker`` and a ``DecodeReplica`` (one
   ``MigrationPlanner``) on the same parameters; every request migrates
@@ -19,7 +27,7 @@ A port of ``benchmarks/disagg_bench.py``'s ``bench_disagg_live_rung``
   sender and read in place through the consumer's own mapping; one-way
   GB/s (each byte counted once, as the reference counts it).
 
-    python -m mpistragglers_jl_tpu_torch.bench.disagg [--device cpu]
+    python -m mpistragglers_jl_tpu_torch.bench.disagg [--device cpu] [--sim]
 
 On the card the model is ``serving_bench.py``'s (``MODEL``) in bf16
 with an int8 paged cache of 64-token pages and 8 slots, 8 requests of
@@ -196,11 +204,107 @@ def bench_disagg_live_rung(device=None, *, params=None, cfg=None,
             "ring": ring_rate(seed=seed)}
 
 
+_N_REPLICAS = 6
+_SPLITS = [(1, 5), (2, 4), (3, 3)]
+
+
+def _mixed_day_kw(n, seed):
+    return dict(
+        n=n, period=86_400.0, amplitude=0.8, seed=seed,
+        prompt_len=64, max_new=32,
+        long_share=0.15, long_prompt_len=2048, long_max_new=32,
+    )
+
+
+def _run_day(fleet_kind, n, seed, *, split=None, threshold=None):
+    from ..models.router import RequestRouter
+    from ..sim import (
+        SimReplica,
+        VirtualClock,
+        diurnal_arrivals,
+        run_router_day,
+    )
+
+    clock = VirtualClock()
+    mk = dict(slots=4, n_inner=8, prompt_chunk=64, chunk_s=0.02)
+    if fleet_kind == "unified":
+        fleet = [SimReplica(clock, **mk) for _ in range(_N_REPLICAS)]
+        router = RequestRouter(fleet, policy="least_loaded", clock=clock)
+    else:
+        n_p, n_d = split
+        fleet = [
+            SimReplica(clock, tier=("prefill" if i < n_p else "decode"),
+                       **mk)
+            for i in range(n_p + n_d)
+        ]
+        router = RequestRouter(
+            fleet, policy="two_tier", clock=clock, migrate_gbs=5.2,
+            migrate_threshold_bytes=threshold,
+        )
+    # equal chip count, identical arrivals: one rate for every fleet
+    # shape, ~0.63 of the unified fleet's short-request capacity
+    rate = 0.28 * _N_REPLICAS * 4 / (5 * 0.02)
+    report = run_router_day(
+        router, diurnal_arrivals(rate, **_mixed_day_kw(n, seed)))
+    return report, router
+
+
+def bench_disagg_rung(requests: int = 4000) -> dict:
+    """The simulated half: the swept split against a unified fleet at
+    equal chips, and the split's day twice for its digest."""
+    from ..sim import sweep_tier_split
+
+    sweep = sweep_tier_split(
+        splits=_SPLITS, requests=min(1500, requests), seed=7,
+        long_share=0.15, long_prompt_len=2048, load=0.7,
+        chunk_s=0.02, prompt_len=64, prompt_chunk=64,
+    )
+    best_split, best_thr = sweep["best"]
+    d1, r1 = _run_day("disagg", requests, 13, split=best_split,
+                      threshold=best_thr)
+    d2, _ = _run_day("disagg", requests, 13, split=best_split,
+                     threshold=best_thr)
+    if d1.digest() != d2.digest():
+        raise AssertionError(
+            f"two-tier day not bit-identical: {d1.digest()} != "
+            f"{d2.digest()}")
+    if d1.dropped:
+        raise AssertionError(f"{d1.dropped} requests dropped")
+    uni, _ = _run_day("unified", requests, 13)
+    if uni.dropped:
+        raise AssertionError(f"{uni.dropped} unified requests dropped")
+    p99x = uni.p99_decode_itl() / d1.p99_decode_itl()
+    if p99x < 1.5:
+        raise AssertionError(
+            f"disagg_decode_p99_x {p99x} below the 1.5 acceptance floor")
+    return {
+        "requests": requests,
+        "swept_split": list(best_split),
+        "swept_threshold_bytes": best_thr,
+        "disagg_decode_p99_x": p99x,
+        "unified_decode_p99_s": uni.p99_decode_itl(),
+        "disagg_decode_p99_s": d1.p99_decode_itl(),
+        "unified_p99_ttft_s": uni.p99_ttft(),
+        "disagg_p99_ttft_s": d1.p99_ttft(),
+        "migrated": r1.n_migrated,
+        "kept_local": r1.n_kept_local,
+        "migrated_bytes": r1.migrated_bytes,
+        "replay_digest": d1.digest(),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="cpu runs a tiny model (default: the card)")
+    ap.add_argument("--sim", action="store_true",
+                    help="run the simulated half instead (host only)")
+    ap.add_argument("--requests", type=int, default=4000,
+                    help="requests of the simulated day")
     args = ap.parse_args()
+    if args.sim:
+        print(json.dumps(bench_disagg_rung(args.requests)))
+        return 0
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         out = bench_disagg_live_rung(dev)

@@ -4,7 +4,7 @@ Counterpart of ``mpistragglers_jl_tpu/cache/``, copied and not
 imported. The four modules do host work only (bookkeeping and bytes); the
 device side of a page move (the payload gather, the in-place install)
 lives in the port's ``models/serving.py``. The simulator's
-``SimFleetCache`` is ``ROADMAP.md`` Queue 1 item 12b.
+counterpart, ``SimFleetCache``, lives in ``sim/workload.py``.
 
 The r19 prefix plane made each replica's KV pages shareable WITHIN the
 replica (chained-sha256 digests, cold-page retention, COW). This
@@ -37,17 +37,30 @@ token streams served off spilled-then-fetched pages are bit-identical
 to never-spilled ones (tests/test_fleet_cache.py holds the oracle).
 """
 
-from .client import FleetPrefixCache
-from .directory import FleetPageDirectory, Lease, TIERS
-from .planner import PageMove, SpillFetchPlanner
-from .store import PageStore
+# name -> module that defines it, imported on first use (PEP 562): the
+# client imports models/disagg.py and with it torch, and the simulator's
+# SimFleetCache needs only the planner, so ``from ..cache import
+# SpillFetchPlanner`` in sim/ must load no torch
+_LAZY = {
+    "FleetPrefixCache": ".client",
+    "FleetPageDirectory": ".directory",
+    "Lease": ".directory",
+    "TIERS": ".directory",
+    "PageMove": ".planner",
+    "SpillFetchPlanner": ".planner",
+    "PageStore": ".store",
+}
 
-__all__ = [
-    "FleetPrefixCache",
-    "FleetPageDirectory",
-    "Lease",
-    "TIERS",
-    "PageMove",
-    "SpillFetchPlanner",
-    "PageStore",
-]
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(mod, __name__), name)
+    globals()[name] = value
+    return value

@@ -51,12 +51,12 @@ Three layers, bottom-up:
 * **Tier wrappers** (:class:`PrefillWorker` / :class:`DecodeReplica`):
   scheduler-shaped replicas (the router protocol) tagged with a
   ``tier`` attribute and the migration verbs ``migrate_out`` /
-  ``can_adopt`` / ``adopt`` / ``migration_nbytes``. In the reference
-  a ``RequestRouter`` with ``policy="two_tier"`` is the
+  ``can_adopt`` / ``adopt`` / ``migration_nbytes``. A
+  ``RequestRouter`` with ``policy="two_tier"`` is the
   placement brain: fresh requests land on the prefill tier, streams
   past their first token migrate to the decode tier (subject to the
-  migration-size threshold). The router and its tier-split sweep are
-  ``ROADMAP.md`` Queue 1 item 12b and not in the port yet.
+  migration-size threshold). The router is ``models/router.py``
+  and its tier-split sweep ``sim/tune.py`` ``sweep_tier_split``.
 """
 
 from __future__ import annotations

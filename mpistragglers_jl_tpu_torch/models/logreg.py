@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..backends.base import DelayFn
 from ..backends.cuda import CUDADeviceBackend, consume
 from ..ops.gemm import resolve_devices
@@ -44,8 +45,11 @@ class LogisticRegression:
         self.dim = dim
         self.l2 = l2
 
-    def init(self, device="cpu") -> torch.Tensor:
-        return torch.zeros(self.dim, dtype=torch.float32, device=device)
+    def init(self, device=None) -> torch.Tensor:
+        """Zero weights on ``device``: the card unless the caller names
+        another (raises without one), as every entry point of the port."""
+        return torch.zeros(self.dim, dtype=torch.float32,
+                           device=resolve_device(device))
 
     def loss(self, w, X, y):
         logits = X @ w

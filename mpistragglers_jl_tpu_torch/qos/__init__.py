@@ -18,7 +18,7 @@ Consumer: :class:`~..models.serving.ServingScheduler` (``qos=``)
 replaces FIFO admission with the DRR pick and enforces page quotas at
 plan time with COW-aware cold-page reclaim. The router's token buckets
 and hedge entitlements (``models/router.py``) and the simulated
-replicas (``sim/workload.py``) are ROADMAP.md Queue 1 item 12b.
+replicas (``sim/workload.py``) read the same registry.
 """
 
 from .drr import DeficitScheduler

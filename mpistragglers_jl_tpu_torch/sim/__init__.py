@@ -1,6 +1,6 @@
 """Virtual-time straggler simulation: the *decide* plane.
 
-A copy of the pool half of the JAX package's ``sim/``: a
+A copy of the JAX package's ``sim/``: a
 :class:`VirtualClock` (event-heap time) under a :class:`SimBackend`
 (the full :class:`~..backends.base.Backend` protocol) lets the REAL
 ``asyncmap``/``waitall``, ``HedgedServer``, and anything else written
@@ -14,12 +14,17 @@ straggling run completes in milliseconds, bit-reproducibly. On top:
   hierarchical code) against a trace, a fitted
   :class:`~..utils.straggle.PoolLatencyModel`, or any
   :mod:`..utils.faults` schedule, honoring the decodability floor and
-  cross-checking ``PoolLatencyModel.optimal_nwait``.
-
-The router-day half (``workload.py``, ``fastpath.py``,
-:func:`replay_router_day` and the router, tenant, tier and spill
-sweeps) runs over ``models/router.py`` and is ROADMAP.md Queue 1 item
-12b: those names raise ``NotImplementedError`` naming it.
+  cross-checking ``PoolLatencyModel.optimal_nwait``; and the router,
+  tenant-weight, tier-split and spill-capacity sweeps over simulated
+  fleet days;
+* :mod:`.workload` — open-loop arrivals (Poisson, diurnal, JSONL),
+  fault and control events, the simulated fleet (:class:`SimReplica`,
+  :class:`SimFleetCache`) and :func:`run_router_day`, whose
+  :class:`WorkloadReport` carries a sha256 digest of the day;
+* :mod:`.fastpath` — the vectorized router-day engine:
+  :func:`run_router_day_fast` reproduces the scalar driver's
+  ``digest()`` bit for bit on the day shapes it accepts and falls back
+  to the scalar loop elsewhere.
 
 stdlib + numpy only, and no OS clock: simulating a GPU fleet never
 needs a GPU, and importing this package imports no torch
@@ -28,6 +33,13 @@ needs a GPU, and importing this package imports no torch
 
 from .backend import SimBackend, SimEvent, model_delay_fn
 from .clock import VirtualClock
+from .fastpath import (
+    ArrivalBatch,
+    diurnal_arrival_batch,
+    fastpath_supported,
+    poisson_arrival_batch,
+    run_router_day_fast,
+)
 from .replay import (
     ReplayResult,
     ReplayTrace,
@@ -49,6 +61,26 @@ from .tune import (
     sweep_tenant_weights,
     sweep_tier_split,
 )
+from .workload import (
+    Arrival,
+    CoordinatorKill,
+    FleetResize,
+    ReplicaPartition,
+    RetryPolicy,
+    SimFleetCache,
+    SimPrompt,
+    SimReplica,
+    SimRequest,
+    SimTicket,
+    WorkloadReport,
+    arrivals_from_jsonl,
+    diurnal_arrivals,
+    dump_arrivals_jsonl,
+    lognormal_ticks,
+    poisson_arrivals,
+    run_router_day,
+    service_ticks_per_request,
+)
 
 __all__ = [
     "VirtualClock",
@@ -60,6 +92,11 @@ __all__ = [
     "replay",
     "compare",
     "replay_router_day",
+    "ArrivalBatch",
+    "poisson_arrival_batch",
+    "diurnal_arrival_batch",
+    "fastpath_supported",
+    "run_router_day_fast",
     "NwaitSweep",
     "sweep_nwait",
     "sweep_code_rate",
@@ -72,4 +109,22 @@ __all__ = [
     "sweep_tier_split",
     "recommend_nwait",
     "recovered_work_per_s",
+    "Arrival",
+    "CoordinatorKill",
+    "FleetResize",
+    "ReplicaPartition",
+    "RetryPolicy",
+    "SimFleetCache",
+    "SimPrompt",
+    "SimRequest",
+    "SimReplica",
+    "SimTicket",
+    "WorkloadReport",
+    "poisson_arrivals",
+    "diurnal_arrivals",
+    "arrivals_from_jsonl",
+    "dump_arrivals_jsonl",
+    "lognormal_ticks",
+    "run_router_day",
+    "service_ticks_per_request",
 ]

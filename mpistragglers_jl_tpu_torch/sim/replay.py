@@ -49,17 +49,33 @@ __all__ = [
 ]
 
 
-def _later_12b(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} runs over models/router.py RequestRouter and "
-        "sim/workload.py: ROADMAP.md Queue 1 item 12b, not yet ported"
+def replay_router_day(
+    router, path, *, events=(), retry=None, fast: str = "auto",
+    timer=None,
+):
+    """Replay a recorded arrival stream (a
+    :func:`~.workload.dump_arrivals_jsonl` file) through ``router`` —
+    the router-plane sibling of :func:`replay`. ``fast="auto"``
+    (default) runs the day on the vectorized
+    :func:`~.fastpath.run_router_day_fast` engine where the day shape
+    supports it (bit-identical ``digest()``, ``report.fastpath`` names
+    the path taken); ``fast="never"`` pins the scalar loop, the parity
+    reference. Counterfactuals — "what would yesterday's traffic have
+    cost under prefix_affinity?" — are one router construction plus
+    this call, in milliseconds."""
+    from .tune import _resolve_fast
+    from .workload import arrivals_from_jsonl, run_router_day
+
+    arrivals = arrivals_from_jsonl(path)
+    if _resolve_fast(fast):
+        from .fastpath import run_router_day_fast
+
+        return run_router_day_fast(
+            router, arrivals, events=events, retry=retry, timer=timer,
+        )
+    return run_router_day(
+        router, arrivals, events=events, retry=retry, timer=timer,
     )
-
-
-def replay_router_day(router, path, **kw):
-    """Replay a recorded arrival stream through a router: the
-    router-plane sibling of :func:`replay` (ROADMAP.md item 12b)."""
-    raise _later_12b("replay_router_day")
 
 
 class _EpochSnap:

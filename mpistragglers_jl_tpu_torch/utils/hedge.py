@@ -47,8 +47,7 @@ class RequestHedge:
     """Deadline bookkeeping for REQUEST-level hedging: the serving-tier
     counterpart of :class:`HedgedServer`'s task-level first-wins.
 
-    A ``RequestRouter`` (``models/router.py``, which comes to the port
-    with ROADMAP.md Queue 1 item 12b) running the ``hedge_p99``
+    A ``RequestRouter`` (``models/router.py``) running the ``hedge_p99``
     policy arms one TTFT deadline per routed request; when the deadline
     passes without a first token the router re-dispatches the request
     onto a second scheduler replica, and whichever replica produces the

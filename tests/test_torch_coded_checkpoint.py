@@ -2,9 +2,9 @@
 against the JAX package, both ways.
 
 The contract is ``tests/test_coded_checkpoint.py``: its six
-``CodedCheckpoint`` cases and the crash-safe generation swap run here on
-the port (its two ``FleetCheckpointer`` cases wait for ROADMAP.md item
-12b). Tolerance: none. A checkpoint written by either package, with
+``CodedCheckpoint`` cases, its two ``FleetCheckpointer`` cases and the
+crash-safe generation swap run here on the port, and a fleet checkpoint
+saved by either package restores in the other. Tolerance: none. A checkpoint written by either package, with
 n - k of its shards deleted, restores bit-equal in the other, f32 and
 bf16 leaves included, on the native and the numpy RS routes. Shard files
 are not compared byte for byte: ``np.savez`` stamps zip entry times.
@@ -119,11 +119,84 @@ def test_restore_without_target_returns_leaves(tmp_path):
     assert isinstance(leaves, list) and len(leaves) == 2
 
 
-@pytest.mark.parametrize("name", [
-    "test_controller_state_roundtrip_through_fleet_checkpointer",
-    "test_controller_state_torn_write_refused_by_name"])
-def test_fleet_checkpointer_cases_wait(name):
-    pytest.skip(f"{name}: fleet.FleetCheckpointer is ROADMAP.md item 12b")
+def _controller_state():
+    """A coordinator-shaped state dict: epoch counters, per-worker
+    repochs/active, and the router book summary — the payload
+    fleet.FleetCheckpointer codes across shards."""
+    return {
+        "epoch": np.int64(41),
+        "repochs": np.array([41, 41, 40, 41], np.int64),
+        "active": np.array([False, False, True, False]),
+        "provisioned": np.array([True, True, True, False]),
+        "chip_seconds": np.array([120.5, 120.5, 60.25, 0.0]),
+        "book_awaiting": np.array([2, 0, 1, 0], np.int64),
+        "book_streaming": np.array([3, 4, 0, 0], np.int64),
+        "inflight_ids": np.arange(10, dtype=np.int64),
+        "rate_count": np.float64(17.25),
+        "policy_code": np.int64(1),
+    }
+
+
+def test_controller_state_roundtrip_through_fleet_checkpointer(tmp_path):
+    """The failover payload round-trips exactly: epoch,
+    repochs, active set, router books — through the pickle-blob
+    FleetCheckpointer channel, surviving n-k lost shards."""
+    from mpistragglers_jl_tpu_torch.fleet import FleetCheckpointer
+
+    ck = FleetCheckpointer(tmp_path, n=5, k=3)
+    state = _controller_state()
+    ck.save(state)
+    os.remove(_shard(tmp_path, 1))
+    os.remove(_shard(tmp_path, 4))  # any n-k=2 of 5 gone
+    out = ck.restore()
+    assert set(out) == set(state)
+    for k, v in state.items():
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(v))
+    assert out["repochs"].dtype == np.int64  # bit-exact, not value-cast
+    assert ck.n_saves == 1
+
+
+def test_controller_state_torn_write_refused_by_name(tmp_path):
+    """A torn write (truncated shard) plus too many losses is REFUSED
+    by name: CheckpointCorrupt lists each missing/corrupt shard, and
+    the standby must not adopt a partial state."""
+    from mpistragglers_jl_tpu_torch.fleet import FleetCheckpointer
+
+    ck = FleetCheckpointer(tmp_path, n=4, k=3)
+    ck.save(_controller_state())
+    # a torn write: the shard file exists but holds half its bytes
+    p = _shard(tmp_path, 0)
+    raw = open(p, "rb").read()
+    with open(p, "wb") as f:
+        f.write(raw[: len(raw) // 2])
+    os.remove(_shard(tmp_path, 2))
+    with pytest.raises(CheckpointCorrupt) as e:
+        ck.restore()
+    msg = str(e.value)
+    assert e.value.have == 2 and e.value.need == 3
+    assert "shard 0" in msg and "corrupt" in msg  # the torn write, named
+    assert "shard 2" in msg  # the missing shard, named
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_fleet_checkpoint_crosses_between_the_packages(tmp_path, writer):
+    """A controller state saved by either package's FleetCheckpointer,
+    with n - k of its shards gone, restores equal in the other: the
+    state is plain data (numpy leaves in a pickled dict)."""
+    from mpistragglers_jl_tpu.fleet import FleetCheckpointer as RefFleet
+    from mpistragglers_jl_tpu_torch.fleet import FleetCheckpointer
+
+    cls = {"port": FleetCheckpointer, "jax": RefFleet}
+    other = {"port": RefFleet, "jax": FleetCheckpointer}[writer]
+    state = _controller_state()
+    cls[writer](tmp_path, n=5, k=3).save(state)
+    os.remove(_shard(tmp_path, 0))
+    os.remove(_shard(tmp_path, 3))
+    out = other(tmp_path, n=5, k=3).restore()
+    assert set(out) == set(state)
+    for k, v in state.items():
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(v))
+        assert np.asarray(out[k]).dtype == np.asarray(v).dtype
 
 
 def test_resave_is_crash_safe_generation_swap(tmp_path):

@@ -2,9 +2,10 @@
 ``adopt_page_state`` on the port's paged ``ServingScheduler`` and
 ``models/disagg.py``) against the JAX package, on the CPU.
 
-The contract is ``tests/test_disagg.py:110-429``: its three classes
+The contract is ``tests/test_disagg.py``: its classes
 (``TestMigrationParity``, ``TestMigrationContract``,
-``TestCancelMidMigration``) run here on the port, with the JAX
+``TestCancelMidMigration``, ``TestTwoTierRouter``, ``TestSimTwoTier``)
+run here on the port, with the JAX
 package's ``generate_ring_dense`` as the oracle over the same weights
 (carried over with ``params_from_jax``). Then the port's own risks:
 the export hands out new tensors (the source's freed pages are reused
@@ -28,6 +29,7 @@ from mpistragglers_jl_tpu.models import disagg as jdisagg
 from mpistragglers_jl_tpu.models.decode import (
     generate_ring_dense as jax_generate,
 )
+from mpistragglers_jl_tpu.models.router import RequestRouter as JaxRouter
 from mpistragglers_jl_tpu.models.serving import (
     ServingScheduler as JaxScheduler,
 )
@@ -49,9 +51,18 @@ from mpistragglers_jl_tpu_torch.models.serving import (
     PagePoolExhausted,
     ServingScheduler as _Scheduler,
 )
+from mpistragglers_jl_tpu_torch.models.router import RequestRouter
 from mpistragglers_jl_tpu_torch.models.transformer import (
     TransformerConfig,
     params_from_jax,
+)
+from mpistragglers_jl_tpu_torch.obs import FlightRecorder, MetricsRegistry
+from mpistragglers_jl_tpu_torch.sim import (
+    SimReplica,
+    VirtualClock,
+    poisson_arrivals,
+    run_router_day,
+    sweep_tier_split,
 )
 from mpistragglers_jl_tpu_torch.utils import prng
 
@@ -631,3 +642,295 @@ class TestTicketsCrossPackages:
         _drained(port.pool)
         ring.close()
         jring.close()
+
+
+# --------------------------------------------------------------------------
+# the two-tier router (live wrappers)
+# --------------------------------------------------------------------------
+
+
+class TestTwoTierRouter:
+    def test_streams_equal_oracle_and_metrics_export(self):
+        reg, fl = MetricsRegistry(), FlightRecorder(256)
+        planner = MigrationPlanner()
+        fleet = [
+            PrefillWorker(_sched(), planner=planner),
+            PrefillWorker(_sched(), planner=planner),
+            DecodeReplica(_sched(), planner=planner),
+            DecodeReplica(_sched(), planner=planner),
+        ]
+        router = RequestRouter(fleet, policy="two_tier",
+                               registry=reg, flight=fl)
+        reqs = [
+            (router.submit(p, max_new=n), p, n)
+            for p, n in [(_prompt(9), 12), (_prompt(5), 8),
+                         (_prompt(12), 15), (_prompt(9), 6),
+                         (_prompt(3), 10)]
+        ]
+        router.drain()
+        for rr, p, n in reqs:
+            assert rr.finished
+            assert list(rr.tokens) == _oracle(p, n), rr.id
+        assert router.n_migrated > 0
+        migrated = [rr for rr, _, _ in reqs if rr.migrated]
+        assert migrated
+        assert all(rr.outcome == "migrated" for rr in migrated)
+        snap = reg.snapshot()
+        for name in ("disagg_migrations_total",
+                     "disagg_migrated_pages_total",
+                     "disagg_migrated_bytes_total",
+                     "disagg_migration_seconds",
+                     "disagg_tier_depth"):
+            assert name in snap, name
+        total = sum(s["value"] for s in
+                    snap["disagg_migrations_total"]["series"])
+        assert total == router.n_migrated
+        assert any(
+            e.get("name") == "kv migrated"
+            for e in fl.dump()["traceEvents"]
+        )
+        for rep in fleet:
+            _drained(rep.pool)
+
+    def test_mismatched_decode_tier_bounces_stream_not_crashes(self):
+        """A HETEROGENEOUS decode tier (here: a sampling replica in a
+        greedy fleet) can never adopt the stream — its config-checked
+        can_adopt/could_adopt answer False, never raise, so the router
+        step survives the scan, and the bounce path lands the captured
+        stream back on the prefill tier instead of parking it forever
+        (the source slot freed, the request resident nowhere). The
+        stream completes equal to its oracle and both pools drain."""
+        planner = MigrationPlanner()
+        pw = PrefillWorker(_sched(), planner=planner)
+        dr = DecodeReplica(_sched(temperature=0.5), planner=planner)
+        router = RequestRouter([pw, dr], policy="two_tier")
+        p = _prompt(9)
+        rr = router.submit(p, max_new=12)
+        router.drain()
+        assert rr.finished
+        assert list(rr.tokens) == _oracle(p, 12)
+        assert router.n_bounced == 1
+        assert router.n_migrated == 1 and rr.migrated
+        assert rr.replica == 0  # landed back on the prefill worker
+        _drained(pw.pool, dr.pool)
+
+    def test_threshold_keeps_streams_local(self):
+        """A migration-size threshold below every payload: nothing
+        migrates, streams decode where they prefilled, and they still
+        equal their oracles (the graceful keep-local path)."""
+        fleet = [PrefillWorker(_sched()), DecodeReplica(_sched())]
+        router = RequestRouter(fleet, policy="two_tier",
+                               migrate_threshold_bytes=1)
+        p = _prompt(9)
+        rr = router.submit(p, max_new=8)
+        router.drain()
+        assert list(rr.tokens) == _oracle(p, 8)
+        assert router.n_migrated == 0
+        assert router.n_kept_local == 1
+        assert not rr.migrated and rr.outcome == "ok"
+
+    def test_fresh_submits_land_on_prefill_tier(self):
+        fleet = [PrefillWorker(_sched()), DecodeReplica(_sched())]
+        router = RequestRouter(fleet, policy="two_tier")
+        rr = router.submit(_prompt(5), max_new=4)
+        assert rr.replica == 0  # the prefill replica
+        router.drain()
+        assert rr.finished
+
+
+# --------------------------------------------------------------------------
+# the sim twin (virtual time, numpy-only fast paths)
+# --------------------------------------------------------------------------
+
+
+def _sim_day(two_tier, *, chunk_s=0.01, n=2000, seed=3, thr=None):
+    clock = VirtualClock()
+    if two_tier:
+        fleet = [
+            SimReplica(clock, slots=4, n_inner=8, prompt_chunk=64,
+                       tier=("prefill" if i < 2 else "decode"),
+                       chunk_s=chunk_s)
+            for i in range(6)
+        ]
+        router = RequestRouter(fleet, policy="two_tier", clock=clock,
+                               migrate_gbs=5.2,
+                               migrate_threshold_bytes=thr)
+    else:
+        fleet = [
+            SimReplica(clock, slots=4, n_inner=8, prompt_chunk=64,
+                       chunk_s=chunk_s)
+            for i in range(6)
+        ]
+        router = RequestRouter(fleet, policy="least_loaded",
+                               clock=clock)
+    rate = 0.315 * 6 * 4 / (5 * 0.02)
+    report = run_router_day(router, poisson_arrivals(
+        rate, n=n, seed=seed, prompt_len=64, max_new=32,
+        long_share=0.12, long_prompt_len=2048, long_max_new=32,
+    ))
+    return report, router
+
+
+class TestSimTwoTier:
+    def test_disagg_beats_unified_decode_p99_at_equal_chips(self):
+        """The ROADMAP acceptance shape on virtual time: under the
+        mixed long-prompt/short-chat day at EQUAL chip count, the
+        two-tier fleet's decode p99 (per-request mean inter-token gap)
+        beats the unified fleet by >= 1.5x — the long-prompt bursts'
+        prefill chunks no longer stretch decode ticks."""
+        unified, _ = _sim_day(False)
+        disagg, router = _sim_day(True)
+        assert unified.dropped == 0 and disagg.dropped == 0
+        assert router.n_migrated > 0
+        ratio = unified.p99_decode_itl() / disagg.p99_decode_itl()
+        assert ratio >= 1.5, ratio
+
+    def test_two_tier_day_bit_identical(self):
+        """The run_router_day digest contract holds for two-tier days:
+        migrations, transfer pricing and adoption are all virtual-time
+        deterministic."""
+        a, ra = _sim_day(True, n=4000, seed=9)
+        b, rb = _sim_day(True, n=4000, seed=9)
+        assert a.digest() == b.digest()
+        assert ra.n_migrated == rb.n_migrated > 0
+        assert ra.migrated_bytes == rb.migrated_bytes > 0
+
+    def test_adopted_request_skips_prefill_and_carries_residency(self):
+        clock = VirtualClock()
+        src = SimReplica(clock, slots=2, n_inner=4, prompt_chunk=32,
+                         tier="prefill", chunk_s=0.002)
+        dst = SimReplica(clock, slots=2, n_inner=4, prompt_chunk=32,
+                         tier="decode")
+        from mpistragglers_jl_tpu_torch.sim import SimPrompt
+
+        p = SimPrompt(64, prefix=7, prefix_len=32)
+        r = src.submit(p, max_new=16)
+        clock.run_until(src.next_tick_at); src.step()
+        clock.run_until(src.next_tick_at); src.step()
+        assert r.n_emitted >= 1 and not r.finished
+        before = r.n_emitted
+        ticket = src.migrate_out(r)
+        assert ticket.nbytes > 0 and ticket.pages > 0
+        assert src.active == 0  # slot and residency left with it
+        assert src.prefix_hits(p) == 0
+        adopted = dst.adopt(ticket)
+        assert adopted is r  # in-process stream continuity
+        clock.run_until(dst.next_tick_at); dst.step()  # admit, no chunks
+        assert dst.prefix_hits(p) > 0  # residency transferred
+        assert r.n_emitted == before  # admission tick decodes nothing
+        clock.run_until(dst.next_tick_at); dst.step()
+        assert r.n_emitted > before  # decode resumed next tick
+        while not r.finished:
+            clock.run_until(dst.next_tick_at); dst.step()
+        assert r.n_emitted == 16
+
+    def test_dead_decode_tier_bounces_parked_migration(self):
+        """The decode tier dies while transfers are in flight: the
+        parked tickets may never land there, so the router bounces
+        them back onto the prefill tier — zero drops, the _evacuate
+        contract extended to the mid-migration window. Before the
+        bounce (and its next_event_at wake), this day read as
+        'workload stalled' with the captured streams resident
+        nowhere."""
+        clock = VirtualClock()
+        pre = SimReplica(clock, slots=4, n_inner=8, prompt_chunk=64,
+                         tier="prefill", chunk_s=0.002)
+        dec = SimReplica(clock, slots=4, n_inner=8, prompt_chunk=64,
+                         tier="decode")
+        router = RequestRouter([pre, dec], policy="two_tier",
+                               clock=clock, migrate_gbs=1e-4)
+        # ~65 resident tokens * 4096 B/token at 1e-4 GB/s ≈ 2.7 s of
+        # virtual transfer — the kill at t=1 lands mid-flight
+        clock.call_at(1.0, dec.kill)
+        report = run_router_day(router, poisson_arrivals(
+            2.0, n=5, seed=7, prompt_len=64, max_new=16,
+        ))
+        assert report.dropped == 0
+        assert router.n_bounced >= 1
+        assert len(router._migrating) == 0
+
+    def test_migrate_out_refuses_nonmigratable(self):
+        clock = VirtualClock()
+        rep = SimReplica(clock, slots=1, n_inner=4, tier="prefill")
+        from mpistragglers_jl_tpu_torch.sim import SimPrompt
+
+        r = rep.submit(SimPrompt(512), max_new=8)
+        with pytest.raises(ValueError, match="decoding"):
+            rep.migrate_out(r)  # no first token yet
+
+    def test_sweep_tier_split_refusals_and_recommendation(self):
+        with pytest.raises(ValueError, match="leaves a tier empty"):
+            sweep_tier_split(splits=[(0, 4)])
+        with pytest.raises(ValueError, match="offered load"):
+            sweep_tier_split(splits=[(2, 2)], load=1.0)
+        with pytest.raises(ValueError,
+                           match="no split meets the decode-p99 SLO"):
+            sweep_tier_split(splits=[(2, 2)], requests=300,
+                             decode_p99_slo_s=1e-9)
+        out = sweep_tier_split(
+            splits=[(2, 4), (3, 3)], requests=600, seed=2,
+            long_share=0.12, long_prompt_len=1024, load=0.7,
+        )
+        assert out["best"] in [((2, 4), None), ((3, 3), None)]
+        assert all(e["migrated"] > 0 for e in out["entries"])
+        assert all(e["dropped"] == 0 for e in out["entries"])
+
+    def test_sweep_router_policy_refuses_two_tier(self):
+        from mpistragglers_jl_tpu_torch.sim import sweep_router_policy
+
+        with pytest.raises(ValueError, match="sweep_tier_split"):
+            sweep_router_policy(policies=("two_tier",), requests=10)
+
+    def test_long_mix_never_moves_arrival_times(self):
+        """The long-prompt mix rides the same coin draw as the prefix
+        share: arrival times are bit-identical at every mix rate, so
+        mixed days stay comparable event-for-event."""
+        plain = list(poisson_arrivals(5.0, n=500, seed=4))
+        mixed = list(poisson_arrivals(
+            5.0, n=500, seed=4, long_share=0.3, long_prompt_len=2048,
+            long_max_new=8,
+        ))
+        assert [a.t for a in plain] == [a.t for a in mixed]
+        longs = [a for a in mixed if a.prompt.length == 2048]
+        assert longs and all(a.max_new == 8 for a in longs)
+        assert any(a.prompt.length == 128 for a in mixed)
+
+
+def _two_tier_live(which):
+    """The same five requests through a two_tier router over two
+    PrefillWorkers and two DecodeReplicas of package ``which``."""
+    if which == "port":
+        router_cls = RequestRouter
+        pw_cls, dr_cls, planner = PrefillWorker, DecodeReplica, \
+            MigrationPlanner()
+        mk = _sched
+    else:
+        router_cls = JaxRouter
+        pw_cls, dr_cls = jdisagg.PrefillWorker, jdisagg.DecodeReplica
+        planner = jdisagg.MigrationPlanner()
+
+        def mk():
+            return JaxScheduler(M[1], M[0], slots=2, n_inner=2,
+                                prompt_chunk=8, max_prompt=64,
+                                page_tokens=4)
+    fleet = [pw_cls(mk(), planner=planner), pw_cls(mk(), planner=planner),
+             dr_cls(mk(), planner=planner), dr_cls(mk(), planner=planner)]
+    router = router_cls(fleet, policy="two_tier")
+    rng = np.random.default_rng(67)
+    reqs = [router.submit(rng.integers(1, 61, n).astype(np.int32),
+                          max_new=m)
+            for n, m in [(9, 12), (5, 8), (12, 15), (9, 6), (3, 10)]]
+    router.drain()
+    return ([(rr.replica, rr.outcome, rr.migrated,
+              [int(t) for t in rr.tokens]) for rr in reqs],
+            router.n_migrated, router.n_kept_local, router.migrated_bytes)
+
+
+def test_two_tier_live_equal_in_both_packages():
+    """The port's two_tier router over the port's tier wrappers and the
+    JAX package's over its own migrate the same requests to the same
+    decode replicas with the same payload bytes, and the streams are
+    token-equal (f32, tolerance none)."""
+    port, ref = _two_tier_live("port"), _two_tier_live("jax")
+    assert port == ref
+    assert port[1] > 0

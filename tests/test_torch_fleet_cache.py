@@ -7,8 +7,10 @@ packages' copies with the same inputs and must behave the same. Its
 live path (``TestLiveSpillFetch``) runs on the port's schedulers, with
 the JAX package's ``generate_ring_dense`` as the oracle over the same
 weights: streams served off spilled-then-fetched or peer-fetched pages
-are token-equal to it. The simulator's ``SimFleetCache`` cases
-(``:419-563``) are ``ROADMAP.md`` Queue 1 item 12b.
+are token-equal to it. The simulator's ``SimFleetCache`` cases and the
+spill-capacity sweep (``:419-563``) run on the port's ``sim/``, and the
+same cache days and sweep give equal digests, cache stats and
+recommendations in both packages (tolerance: none).
 
 Byte parity of the page payload, the cache's wire and storage format:
 on one arena content the port's ``_page_payload`` equals the JAX
@@ -585,3 +587,188 @@ def test_computed_pages_agree_within_f32_rounding(quantize_kv):
                 else:
                     np.testing.assert_allclose(got, want, rtol=0,
                                                atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# sim twin: SimFleetCache days
+# --------------------------------------------------------------------------
+
+
+def _sim_day(cache_groups, *, seed=5, n=800, kills=(), partition=None,
+             root="mpistragglers_jl_tpu_torch"):
+    """A prefix-heavy day over three SimReplicas sharing one
+    SimFleetCache, in the package named ``root``."""
+    import importlib
+
+    RequestRouter = importlib.import_module(
+        root + ".models.router").RequestRouter
+    sim = importlib.import_module(root + ".sim")
+    ReplicaPartition, SimReplica, VirtualClock = (
+        sim.ReplicaPartition, sim.SimReplica, sim.VirtualClock)
+    poisson_arrivals, run_router_day = (sim.poisson_arrivals,
+                                        sim.run_router_day)
+    SimFleetCache = sim.SimFleetCache
+
+    clock = VirtualClock()
+    cache = (SimFleetCache(store_groups=cache_groups)
+             if cache_groups is not None else None)
+    reps = [
+        SimReplica(clock, slots=4, n_inner=8, tick_s=0.02,
+                   prompt_chunk=64, chunk_s=0.004, cache=cache)
+        for _ in range(3)
+    ]
+    router = RequestRouter(reps, policy="least_loaded", clock=clock)
+    arrivals = list(poisson_arrivals(
+        80.0, n=n, seed=seed, prompt_len=256, max_new=16,
+        prefix_share=0.7, prefix_len=128, n_prefix_groups=8,
+    ))
+    events = []
+    if partition is not None:
+        events.append(ReplicaPartition(*partition))
+    for t, i, until in kills:
+        clock.call_at(t, lambda i=i: reps[i].kill())
+        clock.call_at(until, lambda i=i: reps[i].revive())
+    report = run_router_day(router, arrivals, events=events)
+    return report, cache, reps
+
+
+class TestSimFleetCache:
+    def test_day_replays_bit_identically(self):
+        r1, c1, f1 = _sim_day(16)
+        r2, c2, _ = _sim_day(16)
+        assert r1.digest() == r2.digest()
+        assert c1.stats() == c2.stats()
+        assert sum(r.n_fleet_hits for r in f1) > 0
+        assert c1.n_spills > 0
+        c1.check()
+        # and the cache MOVES the day: priced fetches are not free
+        r0, _, _ = _sim_day(None)
+        assert r0.digest() != r1.digest()
+
+    def test_counters_stay_outside_digest(self):
+        """Same timing, different counter state must digest equal:
+        the digest hashes outcomes, not bookkeeping."""
+        r1, c1, _ = _sim_day(16)
+        c1.n_spills += 100  # bookkeeping-only perturbation
+        r2, c2, _ = _sim_day(16)
+        assert r1.digest() == r2.digest()
+
+    def test_kill_purges_hbm_but_dram_survives(self):
+        from mpistragglers_jl_tpu_torch.sim import SimReplica, VirtualClock
+        from mpistragglers_jl_tpu_torch.sim.workload import SimFleetCache
+
+        clock = VirtualClock()
+        cache = SimFleetCache(store_groups=8)
+        r = SimReplica(clock, slots=2, cache=cache)
+        cache.publish_hbm(r.cache_name, "g")
+        cache._dram["g2"] = 4096
+        r.kill()
+        assert cache.stats()["hbm_groups"] == 0
+        assert cache.n_replica_drops == 1
+        assert cache.fetch("g2", 64) is not None  # dram survived
+        assert cache.fetch("g", 64) is None
+        # respawn gets a FRESH identity (generation semantics)
+        old = r.cache_name
+        r.revive()
+        assert r.cache_name != old
+
+    def test_partitioned_replica_invisible_and_fallback_counted(self):
+        from mpistragglers_jl_tpu_torch.sim.workload import SimFleetCache
+
+        cache = SimFleetCache(store_groups=0)
+
+        class _R:
+            pass
+
+        a = cache.register(_R())
+        b = cache.register(_R())
+        cache.publish_hbm(a, "g")
+        assert cache.fetch("g", 64, exclude=b)[0] == "peer"
+        cache.partition(a)
+        assert cache.fetch("g", 64, exclude=b) is None
+        assert cache.n_fallbacks == 1  # known-but-unreachable, named
+        cache.heal(a)
+        assert cache.fetch("g", 64, exclude=b)[0] == "peer"
+        # the owner itself is excluded from its own lookups
+        assert cache.fetch("g", 64, exclude=a) is None
+        assert cache.n_fallbacks == 1  # a self-only miss is cold, not
+        # a fallback: no reachable sibling ever held the group
+
+    def test_fastpath_refuses_cache_days_by_name(self):
+        from mpistragglers_jl_tpu_torch.models.router import RequestRouter
+        from mpistragglers_jl_tpu_torch.sim import SimReplica, VirtualClock
+        from mpistragglers_jl_tpu_torch.sim.fastpath import fastpath_supported
+        from mpistragglers_jl_tpu_torch.sim.workload import SimFleetCache
+
+        clock = VirtualClock()
+        cache = SimFleetCache()
+        reps = [SimReplica(clock, cache=cache) for _ in range(2)]
+        router = RequestRouter(reps, policy="least_loaded", clock=clock)
+        ok, reason = fastpath_supported(router)
+        assert not ok and "fleet cache" in reason
+
+
+# --------------------------------------------------------------------------
+# sweep_spill_capacity
+# --------------------------------------------------------------------------
+
+
+class TestSpillCapacitySweep:
+    def test_sweep_prefers_capacity_and_reports_saving(self):
+        from mpistragglers_jl_tpu_torch.sim.tune import sweep_spill_capacity
+
+        out = sweep_spill_capacity(
+            store_groups_candidates=[0, 64], requests=400, seed=3,
+            n_prefix_groups=24,
+        )
+        assert out["best"] == 64
+        assert out["p99_ttft_vs_no_dram"] > 1.0
+        by_g = {e["store_groups"]: e for e in out["entries"]}
+        assert by_g[64]["fetches"]["dram"] > 0
+        assert by_g[0]["fetches"]["dram"] == 0  # no tier, no hits
+        assert by_g[64]["prefill_chip_s_saved"] > \
+            by_g[0]["prefill_chip_s_saved"]
+
+    def test_sweep_refusals_by_name(self):
+        from mpistragglers_jl_tpu_torch.sim.tune import sweep_spill_capacity
+
+        with pytest.raises(ValueError, match="empty"):
+            sweep_spill_capacity(store_groups_candidates=[])
+        with pytest.raises(ValueError, match="negative"):
+            sweep_spill_capacity(store_groups_candidates=[-1])
+        with pytest.raises(ValueError, match="shareless"):
+            sweep_spill_capacity(store_groups_candidates=[4],
+                                 prefix_share=0.0)
+        with pytest.raises(ValueError, match="load"):
+            sweep_spill_capacity(store_groups_candidates=[4], load=1.0)
+        with pytest.raises(ValueError, match="replicas"):
+            sweep_spill_capacity(store_groups_candidates=[4],
+                                 replicas=1)
+
+
+# --------------------------------------------------------------------------
+# cross-package: the same cache day in both packages
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["plain", "kill", "partition"])
+def test_sim_cache_day_equal_in_both_packages(case):
+    kw = {"plain": {}, "kill": {"kills": [(2.0, 1, 4.0)]},
+          "partition": {"partition": (1.5, (2,), 3.0)}}[case]
+    rp, cp, fp = _sim_day(16, **kw)
+    rj, cj, fj = _sim_day(16, root="mpistragglers_jl_tpu", **kw)
+    assert rp.digest() == rj.digest()
+    assert cp.stats() == cj.stats()
+    assert ([r.n_fleet_hits for r in fp] == [r.n_fleet_hits for r in fj])
+    assert sum(r.n_fleet_hits for r in fp) > 0 and rp.dropped == 0
+
+
+def test_spill_sweep_equal_in_both_packages():
+    from mpistragglers_jl_tpu.sim.tune import (
+        sweep_spill_capacity as jax_sweep,
+    )
+    from mpistragglers_jl_tpu_torch.sim import sweep_spill_capacity
+
+    kw = dict(store_groups_candidates=[0, 16, 64], requests=300, seed=3,
+              n_prefix_groups=24)
+    assert sweep_spill_capacity(**kw) == jax_sweep(**kw)

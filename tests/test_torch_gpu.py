@@ -1410,3 +1410,45 @@ def test_dram_fetch_on_the_card_equals_oracle():
     b.pool.check()
     hub.check()
     hub.close()
+
+
+@pytest.mark.parametrize("policy", ["least_loaded", "prefix_affinity"])
+def test_router_over_paged_replicas_on_the_card_equals_oracle(policy):
+    """A router over two paged schedulers on the card: six requests
+    (three on one 16-token prefix, the first given its first token
+    before the others arrive) all equal ``generate_ring_dense``, every
+    replica's decode ticks launch K6 and never K5, ``prefix_affinity``
+    lands the sharers on the pages' replica, and both pools drain."""
+    from mpistragglers_jl_tpu_torch.models.router import RequestRouter
+
+    dev = _card()
+    cfg, params, kw = _small_paged(dev)
+    scheds = [ServingScheduler(params, cfg, **kw) for _ in range(2)]
+    assert all(s.use_kernel for s in scheds)
+    router = RequestRouter(scheds, policy=policy)
+    gen = torch.Generator().manual_seed(9)
+    prefix = torch.randint(1, cfg.vocab, (16,), generator=gen)
+    prompts = [torch.cat([prefix, torch.randint(1, cfg.vocab, (8,),
+                                                generator=gen)]).numpy()
+               for _ in range(3)]
+    prompts += [torch.randint(1, cfg.vocab, (24,), generator=gen).numpy()
+                for _ in range(3)]
+    for c in da.LAUNCHES:
+        da.LAUNCHES[c] = 0
+    first = router.submit(prompts[0], max_new=16)
+    while not first.tokens:
+        router.step()
+    rrs = [first] + [router.submit(p, max_new=16) for p in prompts[1:]]
+    router.drain()
+    assert da.LAUNCHES["paged_decode_attention"] > 0
+    assert da.LAUNCHES["quantized_decode_attention"] == 0
+    for p, rr in zip(prompts, rrs):
+        want = td.generate_ring_dense(params, p[None], 16, cfg,
+                                      quantize_kv=True, device=dev)
+        assert rr.finished and list(rr.tokens) == want[0].tolist()
+    if policy == "prefix_affinity":
+        assert {rr.replica for rr in rrs[:3]} == {first.replica}
+        assert scheds[first.replica].pool.share_hits > 0
+    for s in scheds:
+        s.pool.check()
+        assert s.pool.used == 0

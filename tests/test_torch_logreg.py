@@ -154,3 +154,21 @@ def test_synthetic_is_deterministic_learnable_and_its_loss_falls():
     finally:
         for sgd in (a, b, c):
             sgd.backend.shutdown()
+
+
+def test_init_defaults_to_the_card_and_cpu_is_asked_for():
+    """``LogisticRegression.init`` follows the port's device rule: the
+    card unless the caller names another device, and a raise (not the
+    CPU) when there is no card; the reference's ``jnp.zeros`` lands on
+    the default accelerator the same way. The weights equal the JAX
+    package's initial weights."""
+    m = tlr.LogisticRegression(12)
+    w = m.init("cpu")
+    assert w.device.type == "cpu" and w.dtype == torch.float32
+    np.testing.assert_array_equal(
+        w.numpy(), np.asarray(jlr.LogisticRegression(12).init()))
+    if torch.cuda.is_available():
+        assert m.init().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            m.init()

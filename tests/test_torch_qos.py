@@ -4,13 +4,17 @@
 The contract is ``tests/test_qos.py``: its registry and DRR units
 (``:32-200``) and its scheduler cases (``:242-460``) run here on the
 port, on the CPU, its adoption case (``:403``) on the port's page-state
-migration included. Its router and sim cases (``:463-792``) wait for
-ROADMAP.md item 12b. Then the same tenants, weights, quotas and requests, with the
+migration included, and its router and sim cases (``:463-792``) on
+the port's router, ``SimReplica`` and ``sweep_tenant_weights``; the
+flood day gives the same digest and shed counts in both packages. Then
+the same tenants, weights, quotas and requests, with the
 same parameters, go through the JAX scheduler and the port's, on the
 slot ring and on pages: the admission order (tenant, request), the
 admission ticks, the cold-page counts and the greedy tokens are equal
 (tolerance: none).
 """
+
+import heapq
 
 import numpy as np
 import pytest
@@ -566,3 +570,386 @@ def test_admission_order_and_tokens_equal_the_jax_scheduler(page_tokens):
     assert t_cold == j_cold
     # the weighted rotation: a's quantum of 2 admits it first and twice
     assert [t for t, _, _ in t_order[:2]] == ["a", "a"]
+
+
+# --------------------------------------------------------------------------
+# the router + sim plane (numpy-only, virtual time)
+# --------------------------------------------------------------------------
+
+from mpistragglers_jl_tpu_torch.models.router import RequestRouter  # noqa: E402
+from mpistragglers_jl_tpu_torch.obs import MetricsRegistry  # noqa: E402
+from mpistragglers_jl_tpu_torch.obs.flight import FlightRecorder  # noqa: E402
+from mpistragglers_jl_tpu_torch.sim import (  # noqa: E402
+    SimReplica,
+    VirtualClock,
+    lognormal_ticks,
+    poisson_arrivals,
+    run_router_day,
+    sweep_tenant_weights,
+)
+
+# the flood scenario every headline claim shares: a 4-replica fleet at
+# ~70% compliant load, tenant c contracted to ~10% and flooding 10x it
+_N_REP, _SLOTS, _NI, _TICK = 4, 4, 8, 0.02
+_PLEN, _CHUNK, _MNEW = 96, 64, 32
+_AB_RATE, _C_RATE = 70.0, 13.0
+_TOK = _PLEN + _MNEW
+_EPS_S = 0.05      # pinned isolation epsilon (measured ~0.011)
+_UTIL_FLOOR = 0.9  # pinned work-conservation floor (measured ~0.96)
+
+
+def _flood_registry():
+    return TenantRegistry([
+        TenantContract("a", cls="latency", weight=4.0, ttft_slo=0.5),
+        TenantContract("b", cls="throughput", weight=4.0),
+        TenantContract("c", cls="batch", weight=1.0,
+                       rate=_C_RATE * _TOK * 1.2,
+                       burst=_C_RATE * _TOK * 2.0),
+    ])
+
+
+def _flood_streams(flood: bool):
+    """Compliant a+b arrivals are the IDENTICAL stream in both days
+    (separate seeded generators merged by time), so the epsilon claim
+    compares the same requests under different co-tenant behavior."""
+    ab = poisson_arrivals(
+        _AB_RATE, n=2100, seed=11, prompt_len=_PLEN, max_new=_MNEW,
+        tenants={"a": 0.5, "b": 0.5},
+    )
+    c = poisson_arrivals(
+        _C_RATE * (10 if flood else 1),
+        n=3000 if flood else 300, seed=29,
+        prompt_len=_PLEN, max_new=_MNEW, tenants={"c": 1.0},
+    )
+    return heapq.merge(ab, c, key=lambda x: x.t)
+
+
+def _flood_day(flood: bool, *, qos=True, registry=None, flight=None):
+    reg = _flood_registry() if qos else None
+    clock = VirtualClock()
+    reps = [
+        SimReplica(clock, slots=_SLOTS, n_inner=_NI,
+                   prompt_chunk=_CHUNK, qos=reg,
+                   tick_s=lognormal_ticks(_TICK, 0.2, seed=1009 + i))
+        for i in range(_N_REP)
+    ]
+    router = RequestRouter(reps, policy="least_loaded", clock=clock,
+                           qos=reg, registry=registry, flight=flight)
+    report = run_router_day(router, _flood_streams(flood))
+    util = sum(r.busy_s for r in reps) / (_N_REP * report.virtual_s)
+    return report, util, router
+
+
+def test_tenant_mix_never_moves_arrival_times():
+    """The long_share pattern extended: the tenant label rides the
+    SAME coin, so arrival times (and prompt classes) are bit-identical
+    at every tenant mix, including none."""
+    bare = [a.t for a in poisson_arrivals(50, n=400, seed=3)]
+    mixed = list(poisson_arrivals(
+        50, n=400, seed=3, tenants={"x": 0.6, "y": 0.4}
+    ))
+    assert bare == [a.t for a in mixed]
+    assert {a.tenant for a in mixed} == {"x", "y"}
+    with pytest.raises(ValueError, match="sum to 1"):
+        list(poisson_arrivals(50, n=4, seed=0,
+                              tenants={"x": 0.5, "y": 0.4}))
+
+
+def test_shed_requests_are_named_and_counted():
+    """An over-budget batch tenant's requests come back immediately
+    with outcome == "shed": named, counted per tenant+reason in the
+    registry, stamped into the flight ring — and never routed."""
+    registry = MetricsRegistry()
+    flight = FlightRecorder(256)
+    report, _, router = _flood_day(
+        True, registry=registry, flight=flight
+    )
+    assert report.n_shed > 500
+    assert report.outcomes["shed"] == report.n_shed
+    per = report.per_tenant()
+    assert per["c"]["shed"] == report.n_shed
+    assert per["a"]["shed"] == 0 and per["b"]["shed"] == 0
+    shed = [r for r in report.requests if r.outcome == "shed"]
+    assert all(r.replica is None and r.tenant == "c" for r in shed)
+    prom = registry.to_prometheus()
+    assert 'qos_shed_total{reason="budget",tenant="c"}' in prom
+    assert 'router_requests_total{' in prom and 'tenant="a"' in prom
+    doc = flight.snapshot()
+    assert any(
+        e.get("name") == "qos shed" for e in doc["traceEvents"]
+    ), "shed must stamp a flight instant event"
+
+
+def test_flood_isolation_epsilon_and_work_conservation_floor():
+    """THE acceptance claim: tenant c flooding 10x its token budget
+    moves compliant tenants' p99 TTFT by less than the pinned epsilon
+    while fleet utilization stays above the work-conservation floor,
+    bit-identically across two replays."""
+    base, _, _ = _flood_day(False)
+    fl1, util, _ = _flood_day(True)
+    fl2, _, _ = _flood_day(True)
+    assert fl1.digest() == fl2.digest()  # the bit-identity witness
+    pb, pf = base.per_tenant(), fl1.per_tenant()
+    for t in ("a", "b"):
+        shift = abs(pf[t]["p99_ttft_s"] - pb[t]["p99_ttft_s"])
+        assert shift < _EPS_S, (
+            f"compliant tenant {t} p99 moved {shift * 1e3:.1f}ms "
+            f">= the pinned {_EPS_S * 1e3:.0f}ms epsilon"
+        )
+    assert util >= _UTIL_FLOOR, (
+        f"flood-day utilization {util:.3f} under the "
+        f"{_UTIL_FLOOR} work-conservation floor"
+    )
+    assert fl1.dropped == 0
+
+
+def test_drr_alone_beats_fifo_by_orders_of_magnitude():
+    """Even WITHOUT the shed door (no token budgets), the deficit
+    rotation bounds the compliant tail: under the same 10x flood,
+    FIFO compliant p99 diverges (queues behind c) while DRR holds it
+    within a second."""
+    reg = TenantRegistry([
+        TenantContract("a", weight=4.0),
+        TenantContract("b", weight=4.0),
+        TenantContract("c", weight=1.0),  # no rate: nothing sheds
+    ])
+
+    def day(qos_reg):
+        clock = VirtualClock()
+        reps = [
+            SimReplica(clock, slots=_SLOTS, n_inner=_NI,
+                       prompt_chunk=_CHUNK, qos=qos_reg,
+                       tick_s=lognormal_ticks(_TICK, 0.2,
+                                              seed=1009 + i))
+            for i in range(_N_REP)
+        ]
+        router = RequestRouter(
+            reps, policy="least_loaded", clock=clock, qos=qos_reg
+        )
+        return run_router_day(router, _flood_streams(True))
+
+    drr_day = day(reg)
+    fifo_day = day(None)
+    for t in ("a", "b"):
+        drr_p99 = drr_day.per_tenant()[t]["p99_ttft_s"]
+        fifo_p99 = fifo_day.per_tenant()[t]["p99_ttft_s"]
+        assert drr_p99 < 1.0 < fifo_p99, (t, drr_p99, fifo_p99)
+        assert fifo_p99 / drr_p99 > 10.0
+
+
+def test_hedge_isolation_entitlement_counted_and_refused():
+    """A tenant's hedge_p99 re-dispatches draw from its OWN
+    entitlement: outstanding hedge legs never exceed it, dues beyond
+    it are refused and counted, and the other tenant's hedges (and
+    slots) are untouched."""
+    reg = TenantRegistry([
+        TenantContract("a", weight=1.0, hedges=1),
+        TenantContract("b", weight=1.0),  # unlimited
+    ])
+    clock = VirtualClock()
+    # replica 0 wedged 50x: anything placed there misses the deadline
+    reps = [
+        SimReplica(clock, slots=2, n_inner=8, prompt_chunk=64,
+                   qos=reg, tick_s=1.0 if i == 0 else 0.02)
+        for i in range(3)
+    ]
+    router = RequestRouter(reps, policy="hedge_p99", ttft_slo=0.1,
+                           clock=clock, qos=reg)
+    rrs = [
+        router.submit(96, 8, tenant="a" if i % 2 == 0 else "b")
+        for i in range(12)
+    ]
+    max_out_a = 0
+    for _ in range(3000):
+        nt = router.next_event_at()
+        if nt is None:
+            break
+        clock.run_until(nt)
+        router.step()
+        max_out_a = max(max_out_a, router._hedges_out.get("a", 0))
+    assert all(r.finished for r in rrs)
+    # the entitlement held at every step, and at least one due hedge
+    # was refused by it while b's hedges fired freely
+    assert max_out_a <= 1
+    assert router.n_hedges_refused >= 1
+    assert any(r.hedged for r in rrs if r.tenant == "b")
+    # refused hedges never became legs: tenant a's extra dispatches
+    # are bounded by the entitlement, so b's slots were never squeezed
+    assert sum(r.hedged for r in rrs if r.tenant == "a") <= 1
+
+
+def test_router_submit_requires_known_tenant():
+    reg = TenantRegistry([TenantContract("a")])
+    clock = VirtualClock()
+    reps = [SimReplica(clock, qos=reg)]
+    router = RequestRouter(reps, clock=clock, qos=reg)
+    with pytest.raises(ValueError, match="needs tenant="):
+        router.submit(8, 4)
+    with pytest.raises(KeyError, match="unknown tenant 'ghost'"):
+        router.submit(8, 4, tenant="ghost")
+
+
+def test_budget_door_charges_int_prompts_at_full_length():
+    """The sim protocol's bare-int prompt means "a prompt of that
+    many tokens": the budget door must charge prompt + max_new, not
+    np.size(int) == 1 — an undercharge would let a flood through."""
+    assert RequestRouter._prompt_tokens(96) == 96
+    assert RequestRouter._prompt_tokens(np.int64(96)) == 96
+    assert RequestRouter._prompt_tokens(np.arange(7)) == 7
+    reg = TenantRegistry([
+        TenantContract("c", cls="batch", rate=50.0, burst=104.0),
+    ])
+    clock = VirtualClock()
+    reps = [SimReplica(clock, qos=reg)]
+    router = RequestRouter(reps, clock=clock, qos=reg)
+    assert router.submit(96, 8, tenant="c").outcome != "shed"
+    # the first submit drained the 104-token burst exactly; the next
+    # is shed — with the np.size undercharge it would sail through
+    assert router.submit(96, 8, tenant="c").outcome == "shed"
+
+
+def test_non_sheddable_class_is_paced_not_shed():
+    """An over-budget latency tenant is never shed: the request
+    routes (counted in n_over_budget) and the DRR weight paces it."""
+    reg = TenantRegistry([
+        TenantContract("a", cls="latency", weight=1.0, rate=100.0,
+                       burst=150.0, ttft_slo=1.0),
+    ])
+    clock = VirtualClock()
+    reps = [SimReplica(clock, slots=4, n_inner=8, prompt_chunk=64,
+                       qos=reg)]
+    router = RequestRouter(reps, clock=clock, qos=reg)
+    report = run_router_day(router, poisson_arrivals(
+        20.0, n=100, seed=5, prompt_len=64, max_new=16,
+        tenants={"a": 1.0},
+    ))
+    assert report.n_shed == 0
+    assert router.n_over_budget > 0
+    assert report.outcomes == {"ok": 100}
+
+
+# --------------------------------------------------------------------------
+# sweep_tenant_weights: refusals by name + a working sweep
+# --------------------------------------------------------------------------
+
+
+def _sweep_contracts(lat_slo=2.0, rates=(800.0, 800.0)):
+    return [
+        TenantContract("lat", cls="latency", weight=1.0,
+                       rate=rates[0], ttft_slo=lat_slo),
+        TenantContract("bat", cls="batch", weight=1.0, rate=rates[1]),
+    ]
+
+
+def test_sweep_refuses_infeasible_aggregate_budget():
+    with pytest.raises(ValueError,
+                       match="aggregate token budget.*capacity"):
+        sweep_tenant_weights(
+            contracts=_sweep_contracts(rates=(50_000.0, 50_000.0)),
+            candidates=[{"lat": 1.0, "bat": 1.0}],
+            requests=10,
+        )
+
+
+def test_sweep_refuses_latency_class_without_slo():
+    contracts = [
+        TenantContract("lat", cls="latency", rate=100.0),
+        TenantContract("bat", cls="batch", rate=100.0),
+    ]
+    with pytest.raises(ValueError, match="latency-class tenant "
+                                         "'lat' has no ttft_slo"):
+        sweep_tenant_weights(
+            contracts=contracts,
+            candidates=[{"lat": 1.0, "bat": 1.0}], requests=10,
+        )
+
+
+def test_sweep_refuses_unbudgeted_tenant_and_bad_candidates():
+    contracts = [
+        TenantContract("lat", cls="latency", ttft_slo=1.0),
+    ]
+    with pytest.raises(ValueError, match="no token budget"):
+        sweep_tenant_weights(contracts=contracts,
+                             candidates=[{"lat": 1.0}], requests=10)
+    with pytest.raises(ValueError, match="must name exactly"):
+        sweep_tenant_weights(
+            contracts=_sweep_contracts(),
+            candidates=[{"lat": 1.0}], requests=10,
+        )
+    with pytest.raises(ValueError, match="must be > 0"):
+        sweep_tenant_weights(
+            contracts=_sweep_contracts(),
+            candidates=[{"lat": 0.0, "bat": 1.0}], requests=10,
+        )
+
+
+def test_sweep_refuses_when_no_candidate_meets_the_slo():
+    with pytest.raises(ValueError,
+                       match="no candidate meets every latency"):
+        sweep_tenant_weights(
+            contracts=_sweep_contracts(lat_slo=1e-6),
+            candidates=[{"lat": 1.0, "bat": 1.0}],
+            requests=200, seed=0,
+        )
+
+
+def test_sweep_recommends_and_is_deterministic():
+    kw = dict(
+        contracts=_sweep_contracts(),
+        candidates=[{"lat": 1.0, "bat": 1.0},
+                    {"lat": 4.0, "bat": 1.0}],
+        requests=400, seed=0,
+    )
+    out1 = sweep_tenant_weights(**kw)
+    out2 = sweep_tenant_weights(**kw)
+    assert out1["best"] in [c for c in kw["candidates"]]
+    assert [e["score"] for e in out1["entries"]] == \
+        [e["score"] for e in out2["entries"]]
+    assert out1["aggregate_budget_tok_s"] < out1["capacity_tok_s"]
+
+
+# --------------------------------------------------------------------------
+# cross-package: the flood day in both packages
+# --------------------------------------------------------------------------
+
+
+def _xflood(root, flood):
+    import importlib
+
+    q = importlib.import_module(root + ".qos")
+    sim = importlib.import_module(root + ".sim")
+    router_cls = importlib.import_module(root + ".models.router").RequestRouter
+    reg = q.TenantRegistry([
+        q.TenantContract("a", cls="latency", weight=4.0, ttft_slo=0.5),
+        q.TenantContract("b", cls="throughput", weight=4.0),
+        q.TenantContract("c", cls="batch", weight=1.0,
+                         rate=_C_RATE * _TOK * 1.2,
+                         burst=_C_RATE * _TOK * 2.0),
+    ])
+    clock = sim.VirtualClock()
+    reps = [sim.SimReplica(clock, slots=_SLOTS, n_inner=_NI,
+                           prompt_chunk=_CHUNK, qos=reg,
+                           tick_s=sim.lognormal_ticks(_TICK, 0.2,
+                                                      seed=1009 + i))
+            for i in range(_N_REP)]
+    router = router_cls(reps, policy="least_loaded", clock=clock, qos=reg)
+    ab = sim.poisson_arrivals(_AB_RATE, n=700, seed=11, prompt_len=_PLEN,
+                              max_new=_MNEW, tenants={"a": 0.5, "b": 0.5})
+    c = sim.poisson_arrivals(_C_RATE * (10 if flood else 1),
+                             n=1000 if flood else 100, seed=29,
+                             prompt_len=_PLEN, max_new=_MNEW,
+                             tenants={"c": 1.0})
+    rep = sim.run_router_day(router, heapq.merge(ab, c, key=lambda x: x.t))
+    return {"digest": rep.digest(), "outcomes": dict(rep.outcomes),
+            "shed": dict(rep.shed_reasons),
+            "counts": (router.n_shed, router.n_over_budget,
+                       router.n_hedges_refused),
+            "busy": [r.busy_s for r in reps]}
+
+
+@pytest.mark.parametrize("flood", [False, True], ids=["calm", "flood"])
+def test_flood_day_equal_in_both_packages(flood):
+    port = _xflood("mpistragglers_jl_tpu_torch", flood)
+    assert port == _xflood("mpistragglers_jl_tpu", flood)
+    if flood:
+        assert port["outcomes"].get("shed", 0) > 0

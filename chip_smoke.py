@@ -17,7 +17,8 @@ gradient-coded transformer training over the pool
 caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), training
 checkpoints and their resume, the pool simulator (``sim/``) and
 multi-tenant QoS admission (``qos/``) on the paged server, page-state migration between paged schedulers and the
-fleet prefix cache (``models/disagg.py``, ``cache/``), and holds
+fleet prefix cache (``models/disagg.py``, ``cache/``), fused K-epoch
+device windows and the single-controller mesh plane (``parallel/``), and holds
 every CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
@@ -242,7 +243,7 @@ every CUDA kernel of those paths against its plain PyTorch version:
     (``bench/process_gemm.py``): 4 spawned workers per backend
     (``ProcessBackend`` and ``NativeProcessBackend``, each with a
     registry), every worker with its own CUDA context and its row block
-    of A made from the seed; 10 epochs x 3 chains each, the product
+    of A made from the seed; one chain of 10 epochs each, the product
     within ``REL_TOL["highest"]`` of an on-card ``torch.matmul``, equal
     across epochs; the workers' telemetry spans merged; then on the
     native backend worker 2 exits in the fifth of 10 epochs: a
@@ -325,7 +326,29 @@ every CUDA kernel of those paths against its plain PyTorch version:
     reference's 1M cut to fit seconds), ``sweep_router_policy`` at 0.8
     load with a 1.8x straggler, an elastic fleet day with a coordinator
     kill (``bench/fleet.py``, 3000 requests), and every chaos episode
-    twice at half size (``bench/chaos.py``), digests printed.
+    twice at half size (``bench/chaos.py``), digests printed;
+55. fused K-epoch windows on the card (``parallel/device_coord.py``):
+    an (8, 6) MDS, an LT and a hierarchical (3 groups of 4, k_inner 3,
+    one group straggling) window in f64 with straggler schedules, two
+    back-to-back windows of K=16, each a replayed CUDA graph:
+    ``repochs`` bit-equal to the host loop over ``SimBackend``, every
+    epoch's decode within 1e-9 of the float64 host product (the CPU
+    tests' bound); then config 3's shape (8196x8192 coded at (8, 6), B
+    8192x8192, ``"default"``): the host loop ("ready" and "enqueue")
+    and a graph window at K=8, ms/epoch and the device's idle share
+    each (``bench/device_coord.py --config3``); then that bench's
+    ladder at 128 epochs: the host loop against graph and eager windows
+    at K in {1, 8, 64}, the swept K and its overhead multiple (floor
+    3);
+56. the mesh plane on one card, eight ranks on cuda:0
+    (``make_mesh(8, devices=[cuda:0] * 8)``, f32, TF32 off):
+    ``MeshCodedGemm`` with two stale ranks, ``MeshMatDotGemm`` past two,
+    ``PoolMeshCodedGemm`` one worker per rank and folded on
+    ``make_mesh(1)``, each with workers 0 and 7 stalled 0.2 s, a mesh
+    ``DeviceCoordinator`` window (f64) whose ``repochs`` equal the flat
+    window's and whose blocks equal them within 1e-12, and
+    ``ring_allgather`` bit-exact; each rank's map time printed (the
+    ranks share one card: no collective speed is claimed).
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -334,7 +357,8 @@ a ``{"sampling": ..., "instrumented_coded": ...}`` line with phases
 phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
 ``{"slice13": ...}`` line with phases 46-49's, a ``{"slice14": ...}``
 line with phases 50-51's, a ``{"slice15": ...}`` line with phases
-52-54's, a ``{"kernels": [...]}`` JSON line and, last,
+52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
+``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -364,7 +388,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, asyncmap_fused, waitall
 from mpistragglers_jl_tpu_torch import sim as tsim
 from mpistragglers_jl_tpu_torch import native
 from mpistragglers_jl_tpu_torch import obs as tobs
@@ -374,6 +398,7 @@ from mpistragglers_jl_tpu_torch.bench import coded_family as cf_bench
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
+from mpistragglers_jl_tpu_torch.bench import device_coord as dc_bench
 from mpistragglers_jl_tpu_torch.bench import chaos as chaos_bench
 from mpistragglers_jl_tpu_torch.bench import disagg as disagg_bench
 from mpistragglers_jl_tpu_torch.bench import fleet as fleet_bench
@@ -2892,8 +2917,8 @@ def phase_pool_utils(dev, t_start) -> dict:
 # --------------------------------------------------------------------------
 
 # cuts (PERF.md section 4): the transport bench's round trips 200 -> 50
-# epochs (its broadcasts 20 -> 5); config 2 over process workers runs 10
-# epochs x 3 chains (phase 23's stream rung 40 x 3), and both backends'
+# epochs (its broadcasts 20 -> 5); config 2 over process workers runs one
+# chain of 10 epochs (phase 23's stream rung 40 x 3), and both backends'
 # workers start together; the launcher's run 3 epochs
 NATIVE_LIBS = ("transport", "lt_peel", "rs_gf256")
 TRANSPORT_EPOCHS = 50
@@ -3064,7 +3089,9 @@ def phase_process_gemm(streams_ms: float) -> list:
     """Phase 44: config 2 over process workers on the card, then the
     respawn run on the native backend (bench/process_gemm.py)."""
     with _workers_skip_this_script():
-        res = pg_bench.run(("process", "native"), epochs=10, chains=3,
+        # one chain of 10 epochs per backend (bench/process_gemm.py's
+        # default is the least of 3): the run's time limit
+        res = pg_bench.run(("process", "native"), epochs=10, chains=1,
                            respawn=True)
     for r in res:
         print(f"  {r['backend']}: {r['ms_per_epoch']:.3f} ms/epoch (streams "
@@ -3137,7 +3164,7 @@ def phase_host_backends(dev, builds, streams_ms, t_start) -> dict:
     out["transport"] = phase_transport()
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
     print("[44] config 2 over 4 spawned workers on the card per backend: "
-          "4096^3 f32, nwait=4, 10 epochs x 3 chains; then worker 2 exits "
+          "4096^3 f32, nwait=4, one chain of 10 epochs; then worker 2 exits "
           "in epoch 5 of 10 and is respawned")
     out["config2"] = phase_process_gemm(streams_ms)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
@@ -4112,6 +4139,285 @@ def phase_slice15(dev, t_start) -> tuple[int, int, dict]:
 
 
 
+# -- phases 55-56: fused windows and the mesh plane (slice 16) -------------
+
+WINDOW_K = 16      # phase 55's parity windows (two back to back)
+LADDER_EPOCHS = 128
+MESH_N, MESH_K = 8, 6
+MESH_LATE = (0, 7)
+
+
+def _window_parity(dev, decode) -> dict:
+    """Phase 55's parity leg for one code, in f64 on the card: two
+    back-to-back graph windows against the host loop over SimBackend on
+    the same virtual schedule."""
+    from mpistragglers_jl_tpu_torch.ops.coded_gemm import LTCodedGemm
+    from mpistragglers_jl_tpu_torch.ops.hierarchical import (
+        HierarchicalCodedGemm,
+    )
+    from mpistragglers_jl_tpu_torch.parallel.device_coord import (
+        DeviceCoordinator,
+        _GraphWindow,
+    )
+    from mpistragglers_jl_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(55)
+    base = faults.seeded_lognormal(0.01, 0.6, seed=3)
+    if decode == "hierarchical":
+        A = rng.standard_normal((2 * 3 * 64, 256))
+        g = HierarchicalCodedGemm(A, groups=3, n_inner=4, k_inner=3,
+                                  dtype=np.float64, devices=[dev],
+                                  device_backend=False)
+        n = 12
+
+        def delay(w, e):
+            return base(w, e) + (50.0 if 4 <= w < 8 else 0.0)
+
+        coord = DeviceCoordinator.for_hierarchical(g, delay_fn=delay)
+        nwait = g.nwait
+    else:
+        n = 8
+        A = rng.standard_normal((6 * 128, 256))
+
+        def delay(w, e):
+            return base(w, e) + (0.04 if w == 5 else 0.0)
+
+        if decode == "mds":
+            g = CodedGemm(A, 8, 6, devices=[dev], dtype=np.float64)
+            nwait = 6
+        else:
+            g = LTCodedGemm(A, 8, 6, devices=[dev], seed=1,
+                            dtype=np.float64)
+            nwait = 8
+        coord = g.coordinator(delay_fn=delay, nwait=nwait)
+    B = rng.standard_normal((256, 128))
+    be = tsim.SimBackend(lambda i, p, e: p, n, delay_fn=delay)
+    hpool = AsyncPool(n)
+    host = np.stack([asyncmap(hpool, B, be, nwait=nwait).copy()
+                     for _ in range(2 * WINDOW_K)])
+    pool = AsyncPool(n)
+    want = A @ B
+    fused, err = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        fused.append(asyncmap_fused(pool, B, coord, epochs=WINDOW_K))
+        dec = coord.last_decoded.cpu().numpy()[:, :want.shape[0]]
+        err = max(err, float(np.abs(dec - want).max()
+                             / np.abs(want).max()))
+    wall = time.perf_counter() - t0
+    if g.backend is not None:
+        g.backend.shutdown()
+    graphs = all(isinstance(p, _GraphWindow) and p.graph is not None
+                 for p in coord._programs.values())
+    equal = bool(np.array_equal(np.concatenate(fused), host))
+    _require(graphs, f"{decode} window: not a captured CUDA graph")
+    _require(equal, f"{decode} window: repochs differ from the host loop")
+    _require(err < 1e-9, f"{decode} window: decode error {err:.3e}")
+    stale = int((host < np.arange(1, 2 * WINDOW_K + 1)[:, None]).sum())
+    return {"repochs_equal": equal, "graph": graphs, "rel_err": err,
+            "stale_or_late_stamps": stale, "two_windows_s": wall}
+
+
+def phase_fused_windows(dev) -> dict:
+    """Phase 55."""
+    out = {}
+    for decode in ("mds", "lt", "hierarchical"):
+        out[decode] = r = _window_parity(dev, decode)
+        print(f"  {decode}: 2 x K={WINDOW_K} graph windows, repochs "
+              f"bit-equal to the host loop ({r['stale_or_late_stamps']} "
+              f"non-fresh stamps), decode rel err {r['rel_err']:.2e}")
+    torch.cuda.empty_cache()
+    c3 = dc_bench.config3(dev)
+    out["config3"] = c3
+    for name in ("host_loop_ready", "host_loop_enqueue", "window"):
+        r = c3[name]
+        print(f"  config 3 {name}: {r['ms_per_epoch']:.3f} ms/epoch, idle "
+              f"share {r.get('device_idle_share', float('nan')):.3f}, rel "
+              f"err {r['rel_err']:.2e} (limit {r['rel_tol']:.2e})")
+    print(f"  config 3 window: idle share at least "
+          f"{c3['window']['event_idle_share_floor']:.3f} by CUDA events")
+    _require(c3["ok"] and c3["window"]["graph"], f"config 3 window: {c3}")
+    torch.cuda.empty_cache()
+    lad = dc_bench.ladder(dev, epochs=LADDER_EPOCHS)
+    out["ladder"] = lad
+    print(f"  ladder, {LADDER_EPOCHS} epochs: host "
+          f"{lad['host_ms_per_epoch']:.4f} ms/epoch; " + ", ".join(
+              f"{k} {r['ms_per_epoch']:.4f}"
+              for k, r in lad["ladder"].items())
+          + f"; swept K={lad['devcoord_harvest_k']}, overhead x"
+          f"{lad['devcoord_overhead_x']:.2f}")
+    return out
+
+
+def _rank_ms(fn, reps=3) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_mesh_plane(dev) -> dict:
+    """Phase 56."""
+    from mpistragglers_jl_tpu_torch.ops._batch import matmul
+    from mpistragglers_jl_tpu_torch.parallel import (
+        DeviceCoordinator,
+        MeshCodedGemm,
+        MeshMatDotGemm,
+        PoolMeshCodedGemm,
+        make_mesh,
+        ring_allgather,
+        shard,
+    )
+    from mpistragglers_jl_tpu_torch.parallel.mesh import PartitionSpec
+    from mpistragglers_jl_tpu_torch.utils import faults
+
+    out = {}
+    mesh = make_mesh(MESH_N, devices=[dev] * MESH_N)
+    one = make_mesh(1, devices=[dev])
+    rng = np.random.default_rng(56)
+    A = rng.standard_normal((MESH_K * 512, 1024)).astype(np.float32)
+    B = rng.standard_normal((1024, 512)).astype(np.float32)
+    want = A.astype(np.float64) @ B.astype(np.float64)
+
+    def rel(got):
+        return float(np.abs(np.asarray(got) - want).max()
+                     / np.abs(want).max())
+
+    mg = MeshCodedGemm(A, mesh, MESH_K)
+    repochs = np.full(MESH_N, 5)
+    repochs[list(MESH_LATE)] = 4
+    fresh = np.flatnonzero(repochs == 5)[:MESH_K]
+    cond = float(np.linalg.cond(mg.code.G.astype(np.float64)[fresh]))
+    limit = 1e-5 * cond
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err = rel(mg.full(mg.epoch(B, repochs, 5)))
+    out["mesh_coded"] = {"rel_err": err, "limit": limit,
+                         "epoch_s": time.perf_counter() - t0}
+    Bd = torch.from_numpy(B).to(dev)
+    out["rank_map_ms"] = [
+        _rank_ms(lambda w=w: matmul(mg.blocks.local(w)[0], Bd, "highest"))
+        for w in range(MESH_N)]
+    _require(err < limit, f"MeshCodedGemm: {err:.3e} > {limit:.3e}")
+    print(f"  MeshCodedGemm, ranks {MESH_LATE} stale: rel err {err:.2e} "
+          f"(limit {limit:.2e}); each rank's map, ms: "
+          + " ".join(f"{x:.3f}" for x in out["rank_map_ms"]))
+    md = MeshMatDotGemm(A, mesh, p=2)
+    md_rep = np.full(MESH_N, 3)
+    md_rep[[2, 6]] = 2
+    err = rel(np.asarray(md.epoch(B, md_rep, 3)))
+    out["mesh_matdot"] = {"rel_err": err}
+    _require(err < 1e-3, f"MeshMatDotGemm: {err:.3e}")
+    print(f"  MeshMatDotGemm p=2, ranks (2, 6) stale: rel err {err:.2e}")
+
+    def delay(i, e):
+        return 0.2 if i in MESH_LATE else 0.0
+
+    for label, m, nw in (("one worker per rank", mesh, None),
+                         ("folded on one rank", one, MESH_N)):
+        fg = PoolMeshCodedGemm(A, m, MESH_K, n_workers=nw, delay_fn=delay)
+        pool = AsyncPool(MESH_N)
+        try:
+            t0 = time.perf_counter()
+            dec = fg.epoch(pool, B, timeout=60.0)
+            C = fg.full(dec)
+            dt = time.perf_counter() - t0
+            late_out = all(pool.active[i] and pool.repochs[i] != pool.epoch
+                           for i in MESH_LATE)
+            idx = pool.fresh_indices()[:MESH_K]
+            lim = 1e-5 * float(np.linalg.cond(
+                fg.code.G.astype(np.float64)[idx]))
+            err = rel(C)
+            waitall(pool, fg.backend, timeout=60.0)
+        finally:
+            fg.shutdown()
+        out[f"pool_mesh_{'fold' if nw else 'ranks'}"] = {
+            "rel_err": err, "limit": lim, "stragglers_out": late_out,
+            "epoch_s": dt}
+        _require(late_out and err < lim,
+                 f"PoolMeshCodedGemm {label}: {err:.3e}, {late_out}")
+        print(f"  PoolMeshCodedGemm {label}: workers {MESH_LATE} out at "
+              f"return, rel err {err:.2e} (limit {lim:.2e}), "
+              f"{dt * 1e3:.1f} ms")
+    # the mesh window against the flat window, f64
+    A64, B64 = A[:MESH_K * 64, :256].astype(np.float64), B[:256, :64]
+    B64 = B64.astype(np.float64)
+    base = faults.seeded_lognormal(0.01, 0.7, seed=3)
+
+    def wdelay(w, e):
+        return base(w, e) + (30.0 if w == 2 else 0.0)
+
+    fg = PoolMeshCodedGemm(A64, mesh, MESH_K, dtype=np.float64)
+    try:
+        coord = fg.device_coordinator(delay_fn=wdelay)
+        t0 = time.perf_counter()
+        mesh_hist = asyncmap_fused(AsyncPool(MESH_N), B64, coord, epochs=6)
+        mesh_s = time.perf_counter() - t0
+        mesh_dec = [coord.full(np.asarray(coord.last_decoded)[j])
+                    for j in range(6)]
+        last_full = coord.last_window["last_full"].cpu().numpy()
+        flat = DeviceCoordinator(
+            torch.stack(fg.blocks), decode="mds", G=fg.code.G, k=MESH_K,
+            delay_fn=wdelay, device=dev)
+        flat_hist = asyncmap_fused(AsyncPool(MESH_N), B64, flat, epochs=6)
+        flat_dec = flat.last_decoded.cpu().numpy()
+    finally:
+        fg.shutdown()
+    w_err = max(float(np.abs(m_ - f_).max() / np.abs(f_).max())
+                for m_, f_ in zip(mesh_dec, flat_dec))
+    full_err = float(np.abs(last_full - A64 @ B64).max()
+                     / np.abs(A64 @ B64).max())
+    same = bool(np.array_equal(mesh_hist, flat_hist))
+    out["mesh_window"] = {"repochs_equal_flat": same, "rel_err_vs_flat":
+                          w_err, "last_full_rel_err": full_err,
+                          "window_s": mesh_s}
+    _require(same and w_err < 1e-12 and full_err < 1e-9,
+             f"mesh window: {out['mesh_window']}")
+    print(f"  mesh DeviceCoordinator window (K=6, f64): repochs equal the "
+          f"flat window's, blocks within {w_err:.1e}, ring-gathered "
+          f"product {full_err:.1e}, {mesh_s * 1e3:.1f} ms")
+    blocks = torch.randn(MESH_N, 256, 512, device=dev)
+    t0 = time.perf_counter()
+    g = ring_allgather(mesh)(shard(blocks, mesh, PartitionSpec("w")))
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    full = blocks.reshape(-1, 512)
+    exact = all(torch.equal(g.local(r)[0], full) for r in range(MESH_N))
+    out["ring_allgather"] = {"exact": exact, "s": ring_s}
+    _require(exact, "ring_allgather: a rank's copy differs")
+    print(f"  ring_allgather over 8 ranks of (256, 512) f32: every rank "
+          f"holds the full (2048, 512) bit for bit, {ring_s * 1e3:.1f} ms "
+          "(one card: no collective speed claimed)")
+    return out
+
+
+def phase_slice16(dev, t_start) -> dict:
+    """Phases 55-56."""
+    out = {}
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[55] fused K-epoch windows on the card: MDS, LT and "
+          f"hierarchical parity (f64, 2 x K={WINDOW_K}, CUDA graphs), "
+          f"config 3's window at K=8, the ladder at {LADDER_EPOCHS} epochs")
+    out["fused_windows"] = phase_fused_windows(dev)
+    t1 = time.perf_counter()
+    out["fused_windows"]["seconds"] = t1 - t0
+    torch.cuda.empty_cache()
+    print(f"  (+{t1 - t_start:.1f} s)")
+    print(f"[56] the mesh plane, {MESH_N} ranks on one card: MeshCodedGemm, "
+          "MeshMatDotGemm, PoolMeshCodedGemm (per rank and folded), a mesh "
+          "window, ring_allgather")
+    out["mesh_plane"] = phase_mesh_plane(dev)
+    out["mesh_plane"]["seconds"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -4325,6 +4631,7 @@ def main() -> int:
                                                     adaptive_final)
     k6_50, k6_51, slice14 = phase_slice14(dev, t_start)
     k6_52, k6_53, slice15 = phase_slice15(dev, t_start)
+    slice16 = phase_slice16(dev, t_start)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -4405,6 +4712,8 @@ def main() -> int:
     print(json.dumps({"slice14": slice14,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice15": slice15,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice16": slice16,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

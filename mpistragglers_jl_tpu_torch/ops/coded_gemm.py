@@ -42,12 +42,6 @@ from .gemm import _block_matmul, resolve_devices
 from .lt import LTCode, nwait_lt_decodable
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is ROADMAP.md Queue 1 item {item}, not yet ported"
-    )
-
-
 def _decode_from_stack(stacked: torch.Tensor, rows, G_S: torch.Tensor):
     """Gather the k winners out of the fused stack and solve, restacked
     to the flat (k*r, c) product layout. Consecutive rows (every epoch
@@ -215,10 +209,17 @@ class CodedGemm:
         """Decode the full product from the first k fresh shards (host copy)."""
         return self.result_device(pool, epoch).cpu().numpy()
 
-    def coordinator(self, **kw):
-        """Fused K-epoch windows (``parallel/device_coord.py``) are
-        ROADMAP item 18; this raises until they are ported."""
-        raise _later("CodedGemm.coordinator()", 18)
+    def coordinator(self, *, delay_fn=None, nwait=None, **kw):
+        """A :class:`~..parallel.device_coord.DeviceCoordinator` over
+        this workload's coded blocks: ``asyncmap_fused(pool, B, coord,
+        epochs=K)`` runs K epochs as one device program (ROADMAP item
+        4). ``delay_fn`` is the window's virtual delay schedule (staged
+        per window), independent of the backend's real delays."""
+        from ..parallel.device_coord import DeviceCoordinator
+
+        return DeviceCoordinator.for_coded_gemm(
+            self, delay_fn=delay_fn, nwait=nwait, **kw
+        )
 
 
 class LTCodedGemm:
@@ -345,7 +346,12 @@ class LTCodedGemm:
                     break
         return [int(fresh[r]) for r in sel]
 
-    def coordinator(self, **kw):
-        """Fused K-epoch windows are ROADMAP item 18; this raises until
-        they are ported."""
-        raise _later("LTCodedGemm.coordinator()", 18)
+    def coordinator(self, *, delay_fn=None, nwait=None, **kw):
+        """A fused-window coordinator over this LT window: the 0/1
+        generator rows of its shard ids, decoded by masked normal
+        equations (``nwait`` defaults to n)."""
+        from ..parallel.device_coord import DeviceCoordinator
+
+        return DeviceCoordinator.for_lt_gemm(
+            self, delay_fn=delay_fn, nwait=nwait, **kw
+        )

@@ -46,7 +46,8 @@ def _encode(G: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nk,krc->nrc", G, blocks)
 
 
-def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor,
+              rows: torch.Tensor | None = None) -> torch.Tensor:
     """``G_S X = flat`` by LU with partial pivoting, the algorithm of
     ``jax.scipy.linalg.solve`` and LAPACK's ``gesv``: factor the small
     k x k ``G_S``, permute ``flat``'s rows in one gather, then two
@@ -63,12 +64,18 @@ def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
 
     Batched too: ``G_S`` (g, k, k) and ``flat`` (g, k, N) solve g
     systems at once (the hierarchical GEMM's per-group inner decodes),
-    each exactly as the 2-D call would."""
+    each exactly as the 2-D call would.
+
+    ``rows`` (a device index tensor, 2-D ``flat`` only) solves against
+    ``flat[rows]`` instead, with that selection folded into the pivots'
+    gather: one copy of the k right-hand rows, not two."""
     LU, piv, _ = torch.linalg.lu_factor_ex(G_S)
     P, L, U = torch.lu_unpack(LU, piv)
     # G_S = P L U, so L U X = P^T flat, whose row i is flat[perm[i]]
     perm = P.argmax(dim=-2)
-    if flat.dim() == 2:
+    if rows is not None:
+        pf = flat.index_select(0, rows.index_select(0, perm))
+    elif flat.dim() == 2:
         pf = flat.index_select(0, perm)
     else:
         batch = torch.arange(flat.shape[0], device=flat.device)

@@ -31,9 +31,8 @@ The pool wiring is the reference's functional-``nwait`` mechanism:
 completion rule over the live ``repochs`` after every arrival, so
 ``asyncmap(pool, B, backend, nwait=hg.nwait)`` is the whole coordinator
 loop. Fleet partitions are an even split or explicit lists of worker
-ids; partitions read off a multi-host mesh
-(``parallel.multihost.host_groups``) come with ROADMAP.md Queue 1 item
-18.
+ids, such as the partition ``parallel.multihost.host_groups`` reads off
+a multi-process mesh (one group per process).
 """
 
 from __future__ import annotations

@@ -247,8 +247,8 @@ def partition_groups(
 ) -> list[np.ndarray]:
     """Normalize a fleet partition: either ``groups`` host groups of
     contiguous worker indices (the single-host layout) or an explicit
-    partition (lists of worker ids; partitions read off a multi-host
-    mesh come with ROADMAP.md Queue 1 item 18). Groups must be
+    partition (lists of worker ids, e.g. read off a multi-process mesh
+    by ``parallel.multihost.host_groups``). Groups must be
     equal-sized, disjoint, and cover ``0..n_workers-1`` exactly."""
     n = int(n_workers)
     if isinstance(groups, (int, np.integer)):

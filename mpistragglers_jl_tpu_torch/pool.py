@@ -530,9 +530,11 @@ def asyncmap_fused(
     instead of re-entering the interpreter per epoch (ROADMAP item 4;
     the numba-mpi frame: no interpreter on the critical path).
 
-    ``coordinator`` is a device coordinator (duck-typed here; the
-    port's ``parallel/device_coord.py`` is ROADMAP item 18): it owns the fused program, the per-worker coded blocks,
-    the ``nwait`` policy, and the injected-delay schedule. ``repochs``
+    ``coordinator`` is a device coordinator (duck-typed here; see
+    :class:`~.parallel.device_coord.DeviceCoordinator`, a CUDA graph
+    per window on the card): it owns the fused program, the per-worker
+    coded blocks, the ``nwait`` policy, and the injected-delay
+    schedule. ``repochs``
     semantics are preserved exactly — the returned ``(epochs, n)``
     HISTORY's row ``j`` is bit-for-bit what the host loop's epoch
     ``pool.epoch + 1 + j`` call would have returned on the same

@@ -386,21 +386,30 @@ def test_default_precision_is_bf16_operands_with_f32_sums():
 
 
 def test_coded_gemm_later_features_raise_naming_their_item():
-    """``registry=`` is ported (its series: tests/test_torch_obs.py);
-    the fused K-epoch coordinator still raises naming item 18."""
+    """``registry=`` is ported (its series: tests/test_torch_obs.py),
+    and so is the fused K-epoch coordinator: ``coordinator()`` returns a
+    ``DeviceCoordinator`` over the workload's blocks and code (its
+    contract: tests/test_torch_device_coord.py)."""
     from mpistragglers_jl_tpu_torch.obs import MetricsRegistry
+    from mpistragglers_jl_tpu_torch.parallel.device_coord import (
+        DeviceCoordinator,
+    )
 
     A = np.zeros((12, 4), np.float32)
     reg = MetricsRegistry()
     tcg.CodedGemm(A, 8, 6, devices=CPU, registry=reg).backend.shutdown()
     assert reg.gauge("coded_gemm_k").value == 6
     cg = tcg.CodedGemm(A, 8, 6, devices=CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        cg.coordinator()
+    coord = cg.coordinator()
+    assert isinstance(coord, DeviceCoordinator)
+    assert (coord.decode, coord.n, coord.k, coord.nwait) == ("mds", 8, 6, 6)
+    assert coord._backend is cg.backend and coord.device == CPU[0]
     cg.backend.shutdown()
     lt = tcg.LTCodedGemm(np.zeros((8, 4), np.float32), 8, 4, devices=CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        lt.coordinator()
+    coord = lt.coordinator()
+    assert isinstance(coord, DeviceCoordinator)
+    assert (coord.decode, coord.n, coord.k, coord.nwait) == ("lt", 8, 4, 8)
+    assert np.array_equal(coord.G, lt.code.generator_rows(lt.shard_ids))
     lt.backend.shutdown()
 
 

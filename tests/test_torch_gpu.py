@@ -8,7 +8,10 @@ rateless GEMM's collected set, GF(256) coding and the hierarchical
 decode's batched solve on the card; and spawned worker processes that
 compute on the card through both host backends (config 2's product
 within its ``REL_TOL["highest"]`` of an in-process one, CUDA-tensor
-payloads snapshotted at dispatch, CUDA-tensor results bit-equal). Every
+payloads snapshotted at dispatch, CUDA-tensor results bit-equal); and
+fused K-epoch windows as replayed CUDA graphs (``repochs`` bit-equal to
+the host loop, the graph equal to the eager loop) and the folded pool
+over a one-rank mesh of the card. Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1452,3 +1455,150 @@ def test_router_over_paged_replicas_on_the_card_equals_oracle(policy):
     for s in scheds:
         s.pool.check()
         assert s.pool.used == 0
+
+
+# -- fused K-epoch windows and the mesh plane on the card -------------------
+
+
+def _window_case(dev, decode):
+    """A straggling (8, 6) MDS, an LT or a hierarchical workload on the
+    card, its coordinator, and the host loop's repochs over SimBackend
+    on the same virtual schedule."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, SimBackend, asyncmap
+    from mpistragglers_jl_tpu_torch.ops.coded_gemm import (
+        CodedGemm,
+        LTCodedGemm,
+    )
+    from mpistragglers_jl_tpu_torch.ops.hierarchical import (
+        HierarchicalCodedGemm,
+    )
+    from mpistragglers_jl_tpu_torch.parallel.device_coord import (
+        DeviceCoordinator,
+    )
+    from mpistragglers_jl_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(11)
+    base = faults.seeded_lognormal(0.01, 0.6, seed=3)
+    if decode == "hierarchical":
+        A = rng.standard_normal((2 * 3 * 8, 64)).astype(np.float32)
+        g = HierarchicalCodedGemm(A, groups=3, n_inner=4, k_inner=3,
+                                  devices=[dev], device_backend=False)
+        n = 12
+
+        def delay(w, e):
+            return base(w, e) + (50.0 if 4 <= w < 8 else 0.0)
+
+        coord = DeviceCoordinator.for_hierarchical(g, delay_fn=delay)
+        nwait = g.nwait
+    else:
+        n = 8
+        A = rng.standard_normal((6 * 16, 64)).astype(np.float32)
+
+        def delay(w, e):
+            return base(w, e) + (0.04 if w == 5 else 0.0)
+
+        if decode == "mds":
+            g = CodedGemm(A, 8, 6, devices=[dev])
+            nwait = 6
+        else:
+            g = LTCodedGemm(A, 8, 6, devices=[dev], seed=1)
+            nwait = 8
+        coord = g.coordinator(delay_fn=delay, nwait=nwait)
+    B = rng.standard_normal((64, 24)).astype(np.float32)
+    be = SimBackend(lambda i, p, e: p, n, delay_fn=delay)
+    pool = AsyncPool(n)
+    host = np.stack([asyncmap(pool, B, be, nwait=nwait).copy()
+                     for _ in range(32)])
+    return g, coord, A, B, host
+
+
+@pytest.mark.parametrize("decode", ["mds", "lt", "hierarchical"])
+def test_fused_window_on_the_card_equals_the_host_loop(decode):
+    """Two back-to-back K=16 windows on cuda:0, each a replayed CUDA
+    graph: ``repochs`` bit-equal to the host loop over SimBackend, and
+    every epoch's decode within 1e-5 x cond of ``A @ B`` (f32, TF32
+    off; the generator rows the decode solves with are at most 852
+    apart in condition for the (8, 6) Cauchy code)."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap_fused
+    from mpistragglers_jl_tpu_torch.parallel.device_coord import _GraphWindow
+
+    dev = _card()
+    g, coord, A, B, host = _window_case(dev, decode)
+    pool = AsyncPool(host.shape[1])
+    fused, decs = [], []
+    for _ in range(2):
+        fused.append(asyncmap_fused(pool, B, coord, epochs=16))
+        decs.append(coord.last_decoded.cpu().double().numpy())
+    assert all(isinstance(p, _GraphWindow) and p.graph is not None
+               for p in coord._programs.values())
+    assert np.array_equal(np.concatenate(fused), host)
+    want = A.astype(np.float64) @ B.astype(np.float64)
+    rows = want.shape[0]
+    for dec in decs:
+        err = np.abs(dec[:, :rows] - want).max() / np.abs(want).max()
+        assert err < 1e-5 * 852, err
+    if g.backend is not None:
+        g.backend.shutdown()
+
+
+def test_graph_window_equals_the_eager_window():
+    """The same window replayed from its CUDA graph and run eagerly on
+    the card: the same ``repochs`` and the same decoded bits."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap_fused
+
+    dev = _card()
+    g, coord, A, B, host = _window_case(dev, "mds")
+    eager = g.coordinator(delay_fn=coord.delay_fn)
+    eager._graph_windows = False
+    outs = []
+    for c in (coord, eager):
+        pool = AsyncPool(8)
+        hist = np.concatenate([asyncmap_fused(pool, B, c, epochs=8)
+                               for _ in range(4)])
+        outs.append((hist, c.last_decoded.cpu()))
+    assert np.array_equal(outs[0][0], outs[1][0])
+    assert np.array_equal(outs[0][0], host)
+    assert torch.equal(outs[0][1], outs[1][1])
+    g.backend.shutdown()
+
+
+def test_folded_pool_mesh_epoch_on_the_card_decodes_past_stragglers():
+    """The folded (8, 6) pool on a one-rank mesh of cuda:0: workers 2
+    and 5 stall 0.3 s before their products, the epoch returns at the
+    first 6 arrivals, and the in-place masked combine decodes through
+    the parity shards within 1e-5 x cond(G_S) of the f64 product."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.parallel import (
+        PoolMeshCodedGemm,
+        make_mesh,
+    )
+    from mpistragglers_jl_tpu_torch.pool import AsyncPool, waitall
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((6 * 64, 128)).astype(np.float32)
+    B = rng.standard_normal((128, 32)).astype(np.float32)
+    late = (2, 5)
+    fg = PoolMeshCodedGemm(
+        A, make_mesh(1, devices=[dev]), 6, n_workers=8,
+        delay_fn=lambda i, e: 0.3 if i in late else 0.0)
+    pool = AsyncPool(8)
+    try:
+        decoded = fg.epoch(pool, B, timeout=30.0)
+        fresh = pool.fresh_indices()
+        assert not set(late) & set(fresh.tolist())
+        assert decoded.local(0).device.type == "cuda"
+        want = A.astype(np.float64) @ B.astype(np.float64)
+        err = np.abs(fg.full(decoded) - want).max() / np.abs(want).max()
+        cond = np.linalg.cond(fg.code.G.astype(np.float64)[fresh[:6]])
+        assert err < 1e-5 * cond, (err, cond)
+        waitall(pool, fg.backend, timeout=30.0)
+    finally:
+        fg.shutdown()

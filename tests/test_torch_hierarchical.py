@@ -3,7 +3,8 @@
 package, over ``CUDADeviceBackend(devices=[cpu])`` and ``LocalBackend``.
 
 The contract is ``tests/test_hierarchical.py`` without its
-``host_groups`` cases (mesh partitions are ROADMAP.md item 18). Its
+``host_groups`` cases (partitions read off a mesh; they run in
+tests/test_torch_multihost.py). Its
 ``SimBackend`` matrix and ``sweep_hierarchical`` cases run on the port's
 ``sim`` (virtual time), and the same sweep gives the same table in both
 packages (tolerance: none). Elsewhere a dead host group is held by a

@@ -119,7 +119,16 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.chaos.report",
             "mpistragglers_jl_tpu_torch.chaos.scenarios",
             "mpistragglers_jl_tpu_torch.chaos.injector",
-            "mpistragglers_jl_tpu_torch.bench.router"} <= set(mods)
+            "mpistragglers_jl_tpu_torch.bench.router",
+            "mpistragglers_jl_tpu_torch.parallel",
+            "mpistragglers_jl_tpu_torch.parallel.mesh",
+            "mpistragglers_jl_tpu_torch.parallel.collectives",
+            "mpistragglers_jl_tpu_torch.parallel.mesh_gemm",
+            "mpistragglers_jl_tpu_torch.parallel.fused",
+            "mpistragglers_jl_tpu_torch.parallel.device_coord",
+            "mpistragglers_jl_tpu_torch.parallel.multihost",
+            "mpistragglers_jl_tpu_torch.bench.device_coord",
+            "mpistragglers_jl_tpu_torch.bench.fused"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

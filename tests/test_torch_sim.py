@@ -518,6 +518,10 @@ class TestEndToEnd:
         tracer = EpochTracer()
         pool = AsyncPool(4)
         try:
+            # one untraced round first, drained: every spawned worker
+            # has imported this module and answered once before the
+            # traced epochs, so start-up cannot reorder their arrivals
+            asyncmap(pool, np.zeros(1), backend, nwait=4, timeout=60.0)
             for _ in range(4):
                 asyncmap(
                     pool, np.zeros(1), backend, nwait=3, tracer=tracer
@@ -526,6 +530,9 @@ class TestEndToEnd:
         finally:
             backend.shutdown()
         trace = ReplayTrace.from_tracer(tracer)
+        # the trace starts after the warm-up: replay keys on the
+        # recorded epoch numbers, whatever the first one is
+        assert [s.epoch for s in trace.epochs] == [2, 3, 4, 5]
         res = replay(trace)  # same (recorded) nwait
         drift = compare(trace, res)
         assert drift["epochs"] == 4

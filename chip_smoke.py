@@ -18,7 +18,8 @@ caches (``utils/prng.py``, ``ops/sampling.py``, ``obs/``), training
 checkpoints and their resume, the pool simulator (``sim/``) and
 multi-tenant QoS admission (``qos/``) on the paged server, page-state migration between paged schedulers and the
 fleet prefix cache (``models/disagg.py``, ``cache/``), fused K-epoch
-device windows and the single-controller mesh plane (``parallel/``), and holds
+device windows and the single-controller mesh plane (``parallel/``), the
+sharded transformer over that mesh (ring and Ulysses attention), and holds
 every CUDA kernel of those paths against its plain PyTorch version:
 
 1. card name and power limit;
@@ -349,6 +350,25 @@ every CUDA kernel of those paths against its plain PyTorch version:
     window's and whose blocks equal them within 1e-12, and
     ``ring_allgather`` bit-exact; each rank's map time printed (the
     ranks share one card: no collective speed is claimed).
+57. the sharded transformer (``models/transformer.py`` given a ``Mesh``
+    of ranks on cuda:0): in f32 at full width (2 layers, batch 2, L=2048,
+    TF32 off) the sharded loss and every gradient leaf against the dense
+    ``loss_and_grads`` with the reference attention (phase 13's limits),
+    on (2, 2, 2) with Ulysses over the flash kernels and with ring
+    attention, and GQA kv=2 Ulysses on (1, 2, 4) (kv replicated and
+    sliced); a control (the tp psum dropped on rank 0) must break both
+    limits; replicas bit-equal. Then the training main path in bf16
+    (phase 14's model, batch and lr) on (1, 1, 1) and (2, 2, 2): 1
+    warm-up and 3 timed steps between a reset of the counts and a read
+    (K1-K3 each 8 layers x ranks x 4), the first loss within
+    ``TRAIN_BF16_ORACLE`` of the dense reference-attention loss (the
+    dropped psum and the zeroed attention as controls above it), each
+    leaf's change within ``TRAIN_BF16_UPDATE`` of the dense reference
+    step's (4 steps with the dp gradient sum dropped on (2, 2, 2) as the
+    control above it), replicas bit-equal; ms/step, tokens/s and peak
+    memory beside
+    phase 14's dense ms/step. Then one fused-backward (K4) step on (2, 2,
+    2) against the split step.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -358,6 +378,7 @@ phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
 ``{"slice13": ...}`` line with phases 46-49's, a ``{"slice14": ...}``
 line with phases 50-51's, a ``{"slice15": ...}`` line with phases
 52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
+``{"slice17": ...}`` line with phase 57's, a
 ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
@@ -527,7 +548,10 @@ TRAIN_F32_LOSS, TRAIN_F32_GRAD = 1e-5, 1e-3
 # zeroed (the attention's output dropped) and the window of L/2. On an
 # H100 80GB HBM3 at 700 W the sound reading was 0.162, the controls
 # 1.3e3 and 1.08; the limit sits near the geometric middle of the sound
-# reading and the nearer control. The loss itself does not fall
+# reading and the nearer control. Phase 57 holds the sharded step to it
+# too: on (2, 2, 2) the sound reading was 0.244 and its control, the dp
+# gradient sum dropped, 1.03 (H100 80GB HBM3, 400 W). The loss itself
+# does not fall
 # measurably at this learning rate (lr * g is under half a bf16 ulp for
 # nearly every weight; PERF.md §6), so it is printed, not held.
 TRAIN_BF16_ORACLE = 3e-5
@@ -4418,6 +4442,331 @@ def phase_slice16(dev, t_start) -> dict:
     return out
 
 
+# -- phase 57: the sharded transformer (slice 17) ---------------------------
+
+SHARD_AXES = ("dp", "sp", "tp")
+SHARD_MESH = (2, 2, 2)
+SHARD_F32_LAYERS = 2  # phase 57(a): phase 13's shape at 2 layers
+SHARD_TIMED = 3       # phase 57(b): 1 warm-up and 3 timed steps a mesh
+SHARD_CTRL_RANK = 0   # the control drops the tp psum on this rank
+
+
+def _card_mesh(dev, shape):
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, SHARD_AXES, devices=[dev] * int(np.prod(shape)))
+
+
+@contextlib.contextmanager
+def _tp_psum_dropped():
+    """The control of phase 57: on rank ``SHARD_CTRL_RANK`` the tp psum
+    returns the rank's own partial sum (its tp partners' heads and MLP
+    columns dropped); every other collective runs as it should."""
+    from mpistragglers_jl_tpu_torch.models import transformer as tmod
+
+    right = tmod.psum
+
+    def dropped(xs, mesh, axes, **kw):
+        out = right(xs, mesh, axes, **kw)
+        if axes == "tp":
+            out[SHARD_CTRL_RANK] = xs[SHARD_CTRL_RANK].clone()
+        return out
+
+    tmod.psum = dropped
+    try:
+        yield
+    finally:
+        tmod.psum = right
+
+
+@contextlib.contextmanager
+def _grad_sum_dropped(axis):
+    """The update control of phase 57(b): the replica-gradient sum (the
+    one ``psum`` called with a ``dtype``) skips ``axis``, so each
+    replica steps on its own ``axis`` member's share of the gradient
+    alone; the forward's collectives run as they should."""
+    from mpistragglers_jl_tpu_torch.models import transformer as tmod
+
+    right = tmod.psum
+
+    def dropped(xs, mesh, axes, **kw):
+        if kw.get("dtype") is not None:
+            axes = [a for a in axes if a != axis]
+        return right(xs, mesh, axes, **kw)
+
+    tmod.psum = dropped
+    try:
+        yield
+    finally:
+        tmod.psum = right
+
+
+def _dense_of(grads, dev) -> dict:
+    """A tree of ShardedTensors as the dense tree on ``dev``."""
+    return _rebuild(grads, iter(g.gather(dev) for g in _leaves(grads)))
+
+
+def _replicas_bit_equal(tree) -> bool:
+    """Every leaf's positions that hold one block hold equal bits."""
+    for leaf in _leaves(tree):
+        named = {a for a in leaf.spec if a is not None}
+        over = [a for a in leaf.mesh.axis_names if a not in named]
+        for group in leaf.mesh.axis_groups(over):
+            first = leaf.local(group[0])
+            if not all(torch.equal(leaf.local(r), first) for r in group[1:]):
+                return False
+    return True
+
+
+def _sharded_f32_leg(dev, label, shape, **kw) -> dict:
+    """One leg of phase 57(a): the sharded loss and gradients at full
+    width (2 layers, batch 2, f32) against the dense ``loss_and_grads``
+    with the reference attention; and, on the first leg, the control."""
+    from mpistragglers_jl_tpu_torch.models.transformer import (
+        shard_params,
+        sharded_loss_and_grads,
+    )
+
+    cfg = dataclasses.replace(_train_cfg(torch.float32),
+                              n_layers=SHARD_F32_LAYERS, **kw)
+    params = init_params(cfg, seed=0, device=dev)
+    inp, tgt = (t[:2] for t in train_batch(cfg.vocab, dev))
+    loss_r, g_r = loss_and_grads(
+        params, inp, tgt, dataclasses.replace(cfg, attn_impl="reference"))
+    mesh = _card_mesh(dev, shape)
+    sp = shard_params(params, cfg, mesh)
+    _zero_launches()
+    loss, grads = sharded_loss_and_grads(sp, inp, tgt, cfg, mesh)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    rel = abs(loss.item() - loss_r.item()) / abs(loss_r.item())
+    grad = max(_leaf_errors(_dense_of(grads, dev), g_r, relative_norm=False))
+    equal = _replicas_bit_equal(grads)
+    del grads
+    k = (SHARD_F32_LAYERS * mesh.size if cfg.attn_impl == "flash" else 0)
+    want = {"flash_fwd": k, "flash_bwd_dq": k, "flash_bwd_dkv": k,
+            "flash_bwd_fused": 0}
+    print(f"  {label} on {shape}: loss rel err {rel:.3e} (limit "
+          f"{TRAIN_F32_LOSS:.0e}), worst grad leaf {grad:.3e} of its max "
+          f"(limit {TRAIN_F32_GRAD:.0e}), replicas bit-equal {equal}; "
+          f"launches { {FLASH[n][0]: v for n, v in launches.items()} }")
+    _require(rel <= TRAIN_F32_LOSS and grad <= TRAIN_F32_GRAD and equal,
+             f"sharded f32 {label} disagrees with the dense step: loss "
+             f"{rel}, grad {grad}, replicas equal {equal}")
+    _require(launches == want, f"sharded f32 {label} launched {launches}")
+    out = {"mesh": list(shape), "loss_rel_err": rel, "grad_rel_err": grad,
+           "launches": launches}
+    if label == "ulysses":
+        with _tp_psum_dropped():
+            loss_c, g_c = sharded_loss_and_grads(sp, inp, tgt, cfg, mesh)
+        c_rel = abs(loss_c.item() - loss_r.item()) / abs(loss_r.item())
+        c_grad = max(_leaf_errors(_dense_of(g_c, dev), g_r,
+                                  relative_norm=False))
+        del g_c
+        print(f"  control, the tp psum dropped on rank {SHARD_CTRL_RANK}: "
+              f"loss rel err {c_rel:.3e}, worst grad leaf {c_grad:.3e}")
+        _require(c_rel > TRAIN_F32_LOSS and c_grad > TRAIN_F32_GRAD,
+                 f"the control passes the limits: {c_rel}, {c_grad}")
+        out["ctrl_loss_rel_err"], out["ctrl_grad_rel_err"] = c_rel, c_grad
+    return out
+
+
+def _sharded_bf16_run(dev, cfg, shape, params0, inp, tgt, want_changes,
+                      loss_oracle) -> tuple[dict, dict]:
+    """Phase 57(b) on one mesh: 1 warm-up and SHARD_TIMED timed SGD
+    steps (lr LR, donated) between a reset of the counts and a read."""
+    from mpistragglers_jl_tpu_torch.models.transformer import shard_params
+
+    mesh = _card_mesh(dev, shape)
+    sp = shard_params(params0, cfg, mesh)
+    step = make_train_step(cfg, mesh, lr=LR, donate=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    sp, loss0 = step(sp, inp, tgt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SHARD_TIMED):
+        sp, loss = step(sp, inp, tgt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SHARD_TIMED
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = SHARD_TIMED + 1
+    k = cfg.n_layers * mesh.size * steps
+    want = {"flash_fwd": k, "flash_bwd_dq": k, "flash_bwd_dkv": k,
+            "flash_bwd_fused": 0, K5: 0, K6: 0, K7: 0, SAMPLE: 0}
+    _require(launches == want, f"{shape}: launched {launches}, want {want}")
+    traj = [loss0.item()] + [x.item() for x in losses]
+    _require(bool(np.isfinite(traj).all()), f"non-finite loss: {traj}")
+    rel = abs(traj[0] - loss_oracle) / abs(loss_oracle)
+    equal = _replicas_bit_equal(sp)
+    got = [a.float() - b.float() for a, b in
+           zip((p.gather(dev) for p in _leaves(sp)), _leaves(params0))]
+    upd, n_leaves = _update_error(got, want_changes)
+    del got, sp
+    rep = {"mesh": list(shape), "ranks": mesh.size, "ms_per_step": dt * 1e3,
+           "tokens_per_s": BATCH * SEQ / dt, "peak_mem_gb": peak / 1e9,
+           "warmup_step_s": warm_s, "loss_trajectory": traj,
+           "loss_vs_oracle_rel_err": rel, "update_rel_err": upd,
+           "replicas_bit_equal": equal,
+           "launches": {FLASH.get(n, (n,))[0]: v
+                        for n, v in launches.items()}}
+    print(f"  {shape}: {steps} steps, launches {rep['launches']}; first "
+          f"loss rel err {rel:.3e} (limit {TRAIN_BF16_ORACLE:.0e}); worst "
+          f"leaf change {upd:.3e} (limit {TRAIN_BF16_UPDATE}) over "
+          f"{n_leaves} changed leaves; replicas bit-equal {equal}; "
+          f"{rep['ms_per_step']:.2f} ms/step, {rep['tokens_per_s']:.1f} "
+          f"tokens/s, peak {rep['peak_mem_gb']:.3f} GB, warm-up "
+          f"{warm_s:.2f} s")
+    _require(rel <= TRAIN_BF16_ORACLE,
+             f"{shape}: first loss {traj[0]} vs the oracle {loss_oracle}: "
+             f"{rel}")
+    _require(upd <= TRAIN_BF16_UPDATE,
+             f"{shape}: the update leaves the dense step's: {upd}")
+    _require(equal, f"{shape}: replicas differ after the steps")
+    return rep, launches
+
+
+def phase_sharded(dev, dense_ms: float) -> tuple[dict, dict]:
+    """Phase 57. Returns (report, launches per run for the kernels
+    line)."""
+    from mpistragglers_jl_tpu_torch.models.transformer import (
+        shard_params,
+        sharded_loss_and_grads,
+    )
+
+    out = {"f32": [
+        _sharded_f32_leg(dev, "ulysses", SHARD_MESH),
+        _sharded_f32_leg(dev, "ring", SHARD_MESH, attn="ring",
+                         attn_impl="reference"),
+        _sharded_f32_leg(dev, "GQA kv=2 ulysses", (1, 2, 4), n_kv_heads=2),
+    ]}
+    torch.cuda.empty_cache()
+    cfg = _train_cfg(torch.bfloat16)
+    params0 = init_params(cfg, seed=0, device=dev)
+    inp, tgt = train_batch(cfg.vocab, dev)
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    no_attn = {**params0, "layers": [
+        {**lp, "wo": torch.zeros_like(lp["wo"])}
+        for lp in params0["layers"]]}
+    with torch.no_grad():
+        loss_oracle = nll_loss(forward_dense(params0, inp, ref), tgt).item()
+        loss_zero = nll_loss(forward_dense(no_attn, inp, ref), tgt).item()
+    del no_attn
+    mesh = _card_mesh(dev, SHARD_MESH)
+    with _tp_psum_dropped():
+        loss_ctrl, _ = sharded_loss_and_grads(
+            shard_params(params0, cfg, mesh), inp, tgt, cfg, mesh)
+    ctrl = {"tp_psum_dropped": abs(loss_ctrl.item() - loss_oracle)
+            / abs(loss_oracle),
+            "attention_zeroed": abs(loss_zero - loss_oracle)
+            / abs(loss_oracle)}
+    print(f"  bf16 controls, first loss against the reference-attention "
+          f"oracle {loss_oracle:.5f}: tp psum dropped on rank "
+          f"{SHARD_CTRL_RANK} {ctrl['tp_psum_dropped']:.3e}, attention "
+          f"zeroed {ctrl['attention_zeroed']:.3e} (limit "
+          f"{TRAIN_BF16_ORACLE:.0e})")
+    _require(min(ctrl.values()) > TRAIN_BF16_ORACLE,
+             f"a control passes the first-loss limit: {ctrl}")
+    torch.cuda.empty_cache()
+    want_changes, ref_traj = _reference_changes(cfg, inp, tgt,
+                                                SHARD_TIMED + 1)
+    out["bf16"] = {"loss_oracle": loss_oracle, "controls": ctrl,
+                   "loss_trajectory_reference_attention": ref_traj,
+                   "dense_ms_per_step_phase14": dense_ms}
+    launches = {}
+    for shape in ((1, 1, 1), SHARD_MESH):
+        rep, launches[shape] = _sharded_bf16_run(
+            dev, cfg, shape, params0, inp, tgt, want_changes, loss_oracle)
+        out["bf16"]["x".join(map(str, shape))] = rep
+        torch.cuda.empty_cache()
+    # the update control: the dp gradient sum dropped over the steps
+    mesh = _card_mesh(dev, SHARD_MESH)
+    sp = shard_params(params0, cfg, mesh)
+    step = make_train_step(cfg, mesh, lr=LR, donate=True)
+    with _grad_sum_dropped("dp"):
+        for _ in range(SHARD_TIMED + 1):
+            sp, _ = step(sp, inp, tgt)
+    ctrl_upd = _update_error(
+        [a.float() - b.float() for a, b in
+         zip((p.gather(dev) for p in _leaves(sp)), _leaves(params0))],
+        want_changes)[0]
+    del want_changes, sp, step
+    sound = out["bf16"]["2x2x2"]["update_rel_err"]
+    print(f"  update control on {SHARD_MESH}, the dp gradient sum dropped "
+          f"over {SHARD_TIMED + 1} steps: worst leaf change "
+          f"{ctrl_upd:.3e} (limit {TRAIN_BF16_UPDATE}; sound {sound:.3e})")
+    _require(ctrl_upd > TRAIN_BF16_UPDATE,
+             f"a dropped dp gradient sum passes the update limit: "
+             f"{ctrl_upd}")
+    ctrl["update_dp_grad_sum_dropped"] = ctrl_upd
+    torch.cuda.empty_cache()
+    print(f"  ms/step: (1, 1, 1) "
+          f"{out['bf16']['1x1x1']['ms_per_step']:.2f}, (2, 2, 2) on one card "
+          f"{out['bf16']['2x2x2']['ms_per_step']:.2f}; the dense step of "
+          f"phase 14 {dense_ms:.2f} (8 ranks share the card: per-rank and "
+          "dispatch cost, no collective speed)")
+    # (c) one fused-backward step on (2, 2, 2) against the split step
+    fused = dataclasses.replace(cfg, flash_bwd="fused")
+    sp = shard_params(params0, cfg, mesh)
+    _zero_launches()
+    loss_f, g_f = sharded_loss_and_grads(sp, inp, tgt, fused, mesh)
+    torch.cuda.synchronize()
+    launches["fused"] = _launch_counts()
+    k = cfg.n_layers * mesh.size
+    want = {"flash_fwd": k, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": k, K5: 0, K6: 0, K7: 0, SAMPLE: 0}
+    _require(launches["fused"] == want,
+             f"fused sharded step launched {launches['fused']}")
+    g_f = _dense_of(g_f, dev)
+    loss_s, g_s = sharded_loss_and_grads(sp, inp, tgt, cfg, mesh)
+    errs = _leaf_errors(g_f, _dense_of(g_s, dev), relative_norm=True)
+    del g_f, g_s, sp
+    print(f"  fused backward on {SHARD_MESH}: K4 "
+          f"{launches['fused']['flash_bwd_fused']} launches, K2 0, K3 0; "
+          f"loss {loss_f.item():.5f} (split {loss_s.item():.5f}); worst grad "
+          f"leaf relative difference {max(errs):.3e} (limit "
+          f"{FUSED_BF16_GRAD:.0e})")
+    _require(loss_f.item() == loss_s.item(),
+             "the same sharded forward gave another loss")
+    _require(max(errs) <= FUSED_BF16_GRAD,
+             f"fused and split sharded gradients differ: {max(errs)}")
+    out["fused"] = {"grad_rel_err": max(errs),
+                    "launches": launches["fused"]}
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_slice17(dev, t_start, dense_ms) -> tuple[dict, dict]:
+    """Phase 57."""
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[57] the sharded transformer over {SHARD_MESH} ranks of one card: "
+          f"f32 parity at full width ({SHARD_F32_LAYERS} layers; Ulysses, "
+          "ring, GQA kv=2 on (1, 2, 4)) with a control; the bf16 main path "
+          f"on (1, 1, 1) and {SHARD_MESH} ({SHARD_TIMED} timed steps) with "
+          "an update control; one fused-backward step")
+    out, launches = phase_sharded(dev, dense_ms)
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def _phase57_launches(launches, kname) -> list:
+    """K1-K4's launches on phase 57's runs, for the kernels line."""
+    return [{"phase": 57, "mesh": list(shape) if shape != "fused"
+             else list(SHARD_MESH), "fused": shape == "fused",
+             "steps": 1 if shape == "fused" else SHARD_TIMED + 1,
+             "launches": counts[kname]}
+            for shape, counts in launches.items()]
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -4632,6 +4981,7 @@ def main() -> int:
     k6_50, k6_51, slice14 = phase_slice14(dev, t_start)
     k6_52, k6_53, slice15 = phase_slice15(dev, t_start)
     slice16 = phase_slice16(dev, t_start)
+    slice17, launches57 = phase_slice17(dev, t_start, train["ms_per_step"])
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -4662,7 +5012,9 @@ def main() -> int:
             kname, f"mpistragglers_jl_tpu/ops/flash_attention.py:{line}",
             launched, err_flash[kname], tim_flash[kname],
             source="flash_attention.cu"),
-            "launches_resume_phase46": launches46[kname]})
+            "launches_resume_phase46": launches46[kname],
+            "launches_sharded_phase57": _phase57_launches(launches57,
+                                                          kname)})
     # K7's time is its fullest variant's (full_nosm); all four beside it
     variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
     kernels.append({
@@ -4714,6 +5066,8 @@ def main() -> int:
     print(json.dumps({"slice15": slice15,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice16": slice16,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice17": slice17,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,10 @@ traces the fused backward (K4) instead of the split one (K2, K3).
 ``--moe`` traces the same step with every MLP replaced by
 ``bench/moe_train.py``'s 4 experts (cf 1.25, aux 0.01).
 
+``--mesh 2,2,2`` traces the sharded step of ``chip_smoke.py`` phase 57
+instead: a ``("dp", "sp", "tp")`` mesh of that shape whose ranks all
+share cuda:0 (per-rank and dispatch cost; no collective speed).
+
 ``--pair`` compares the two backwards in one process, in the order
 split, fused, fused, split: each run takes two warm steps, then times
 five untraced steps (host clock around a synchronised loop, and CUDA
@@ -22,7 +26,7 @@ bench's batch and sequence (e.g. batch 4 at sequence 4096 keeps the
 tokens per step).
 
     python -m mpistragglers_jl_tpu_torch.bench.train_profile [--fused]
-        [--moe]
+        [--moe] [--mesh 2,2,2]
     python -m mpistragglers_jl_tpu_torch.bench.train_profile --pair \
         [--batch 4 --seq 4096]
 """
@@ -43,6 +47,7 @@ from ..models.transformer import (
     TransformerConfig,
     init_params,
     make_train_step,
+    shard_params,
 )
 from ..ops import flash_attention as fa
 from .serving_profile import _busy_us
@@ -185,7 +190,13 @@ def main() -> int:
                     help="the mixture of experts of bench/moe_train.py")
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
+    ap.add_argument("--mesh", default=None,
+                    help="dp,sp,tp: trace the sharded step, every rank "
+                         "on cuda:0")
     args = ap.parse_args()
+    if args.mesh and (args.pair or args.moe):
+        ap.error("--mesh traces the sharded dense step: it takes neither "
+                 "--pair nor --moe")
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -215,7 +226,16 @@ def main() -> int:
         return 0
     cfg = dataclasses.replace(cfg,
                               flash_bwd="fused" if args.fused else "auto")
-    step = make_train_step(cfg, lr=LR, donate=True)
+    mesh = None
+    if args.mesh:
+        from ..parallel import make_mesh
+
+        dims = tuple(int(x) for x in args.mesh.split(","))
+        mesh = make_mesh(dims, ("dp", "sp", "tp"),
+                         devices=[dev] * int(np.prod(dims)))
+        params = shard_params(params, cfg, mesh)
+        shape["mesh"] = list(dims)
+    step = make_train_step(cfg, mesh, lr=LR, donate=True)
     for _ in range(2):
         params, loss = step(params, inp, tgt)
     torch.cuda.synchronize()

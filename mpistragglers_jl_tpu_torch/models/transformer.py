@@ -1,5 +1,6 @@
 """The flagship decoder-only transformer: configuration, parameters,
-the dense forward and the single-device train steps.
+the dense forward, and the train steps on one device and over a
+``("dp", "sp", "tp")`` mesh.
 
 Counterpart of ``mpistragglers_jl_tpu/models/transformer.py``. Slice 1
 ported what serving reads: the config, ``init_params`` (the same numpy
@@ -13,11 +14,47 @@ load-balance loss. The parameter layout is the reference's nested dict:
 projections ``(d_model, heads, head_dim)``, out-projection ``(heads,
 head_dim, d_model)``, tied embedding ``(vocab, d_model)``.
 
-The reference trains through one ``shard_map`` program over a
-``("dp", "sp", "tp")`` mesh (``("dp", "ep", "sp", "tp")`` with experts);
-on one device that program is ``forward_dense`` with the configured
-per-device attention and every expert resident, which is what the port
-runs. Sharded training is ``ROADMAP.md`` Queue 1 item 18.
+Slice 17 adds the sharded program (``param_specs``, ``shard_params``,
+``make_forward``, and the train steps given a ``parallel.mesh.Mesh``):
+
+* **dp**: the batch is split over ``dp``;
+* **sp**: the sequence is split over ``sp``; attention is ring or
+  Ulysses (``parallel/ring_attention.py``, ``cfg.attn``), RoPE reads
+  the global positions ``sp_index * Lc + arange(Lc)``;
+* **tp**: the Megatron split, heads and ``d_ff`` over ``tp``, one
+  ``psum`` after the attention out-projection and one after the MLP
+  (``b2`` added outside it). With GQA and ``kv_heads < tp``, ``wk`` and
+  ``wv`` stay replicated and each tp member slices the one kv head its
+  q heads read (``make_kv_slice``).
+
+The reference runs this as one ``shard_map``. The port's mesh is
+single-controller (``parallel/mesh.py``): each parameter is a
+``ShardedTensor`` holding one tensor per mesh position, and the program
+is a per-rank loop with explicit, differentiable collectives
+(``parallel/collectives.py``). Without a mesh (``mesh=None`` or one
+device) the train steps run ``forward_dense``, that program's
+one-device form. A mesh with experts (``n_experts > 0``) is item 18e,
+not yet ported.
+
+**The single-controller autograd rule.** ``shard_map`` transposes a
+replicated input's gradient into a sum over the devices that hold it.
+Here every replica is its own tensor, so the port does it by hand:
+
+1. the loss is one scalar equal to the dense mean NLL: every rank
+   computes a copy (``psum`` over the batch axes), and the step takes
+   flat rank 0's, never a sum of copies;
+2. one ``backward`` runs over every rank's graph through the
+   collectives;
+3. each leaf's gradient is summed over the mesh axes that its
+   ``param_specs`` entry does not name (dp and sp for every leaf, tp
+   for the replicated ones; an axis of size 1 has nothing to add), in
+   rank order and in float32, and the one
+   sum is written to every replica, so replicas stay bit-equal after
+   any number of SGD or AdamW steps.
+
+``remat=True`` checkpoints a whole layer across all ranks
+(``torch.utils.checkpoint``, non-reentrant), since the collectives
+cross ranks inside a layer.
 """
 
 from __future__ import annotations
@@ -32,19 +69,38 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..parallel.ring_attention import resolve_attention_impl
-from .moe import init_moe_layer, moe_ffn_dense
+from ..parallel.collectives import psum
+from ..parallel.mesh import (
+    Mesh,
+    PartitionSpec as P,
+    ShardedTensor,
+    from_local,
+    shard,
+)
+from ..parallel.ring_attention import (
+    resolve_attention_impl,
+    ring_self_attention,
+    ulysses_attention,
+)
+from .moe import init_moe_layer, moe_ffn_dense, moe_layer_specs
 
 __all__ = [
     "TransformerConfig",
     "adamw",
+    "batch_axes",
+    "data_spec",
     "forward_dense",
     "init_params",
     "loss_and_grads",
+    "make_forward",
+    "make_kv_slice",
     "make_optax_train_step",
     "make_train_step",
     "nll_loss",
+    "param_specs",
     "params_from_jax",
+    "shard_params",
+    "sharded_loss_and_grads",
 ]
 
 
@@ -261,16 +317,23 @@ def _mlp(x, lp):
 # --------------------------------------------------------------------------
 
 
-def _attn_block(x, lp, pos, attn_fn):
-    """Attention half-block on (B, L, D) activations: LayerNorm, the
-    QKV projections, RoPE at positions ``pos``, ``attn_fn`` and the
-    out-projection."""
+def _qkv(x, lp, pos, kv_slice=None):
+    """LayerNorm, the QKV projections (``kv_slice`` picks kv heads out
+    of tp-replicated K/V projections) and RoPE at positions ``pos``."""
     h = _ln(x, lp["ln1_s"], lp["ln1_b"])
     q = torch.einsum("bld,dhk->blhk", h, lp["wq"])
     k = torch.einsum("bld,dhk->blhk", h, lp["wk"])
     v = torch.einsum("bld,dhk->blhk", h, lp["wv"])
-    q, k = _rope(q, pos), _rope(k, pos)
-    o = attn_fn(q, k, v)
+    if kv_slice is not None:
+        k, v = kv_slice(k), kv_slice(v)
+    return _rope(q, pos), _rope(k, pos), v
+
+
+def _attn_block(x, lp, pos, attn_fn):
+    """Attention half-block on (B, L, D) activations: :func:`_qkv`,
+    ``attn_fn`` and the out-projection. The sharded program runs
+    :func:`_qkv` per rank and its attention across ranks."""
+    o = attn_fn(*_qkv(x, lp, pos))
     return torch.einsum("blhk,hkd->bld", o, lp["wo"])
 
 
@@ -321,24 +384,44 @@ def _forward_dense_aux(params, tokens, cfg: TransformerConfig):
     return logits, aux
 
 
-def nll_loss(logits, targets):
-    """Mean token NLL in logsumexp form (``lse - logits[target]``), in
-    f32: the same value and gradient as ``log_softmax`` + gather, but no
-    normalised (B, L, V) array is kept. One device, so no psum."""
+def _nll(logits, targets):
     logits = logits.float()
     targets = torch.as_tensor(targets, device=logits.device).long()
     lse = torch.logsumexp(logits, dim=-1)
     tl = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = lse - tl
-    return nll.sum() / nll.numel()
+    return lse - tl
+
+
+def nll_loss(logits, targets, axes=None, mesh: Mesh | None = None):
+    """Mean token NLL in logsumexp form (``lse - logits[target]``), in
+    f32: the same value and gradient as ``log_softmax`` + gather, but no
+    normalised (B, L, V) array is kept.
+
+    On one device (``axes`` None) ``logits`` and ``targets`` are
+    tensors. With ``axes`` and ``mesh`` they hold one tensor per mesh
+    position, and each position gets the mean over all positions of its
+    group over ``axes`` (the reference's psum of the sums over the
+    count)."""
+    if axes is None:
+        nll = _nll(logits, targets)
+        return nll.sum() / nll.numel()
+    sums = psum([_nll(lg, t).sum() for lg, t in zip(logits, targets)],
+                mesh, axes)
+    count = [0.0] * mesh.size
+    for group in mesh.axis_groups(axes):
+        total = float(sum(logits[r][..., 0].numel() for r in group))
+        for r in group:
+            count[r] = total
+    return [s_ / c for s_, c in zip(sums, count)]
 
 
 def _leaves(tree) -> list:
     """Tensors of a parameter tree, in the reference's pytree order
-    (dict keys sorted, list items in order)."""
+    (dict keys sorted, list items in order; a ``PartitionSpec`` is a
+    leaf)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
 
@@ -348,23 +431,24 @@ def _rebuild(tree, it):
     the items of iterator ``it``."""
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], it) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
         return [_rebuild(v, it) for v in tree]
     return next(it)
 
 
-def _check_mesh(mesh) -> None:
-    """One device only: ``None``, a device, or a collection holding one
-    device."""
+def _grads_fn(cfg: TransformerConfig, mesh):
+    """The train steps' ``(params, tokens, targets) -> (loss, grads)``:
+    ``mesh`` None (or one device, a ``str`` or ``torch.device``) runs the
+    dense program, a :class:`Mesh` the sharded one."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
-        return
-    n = int(np.asarray(mesh, dtype=object).size)
-    if n != 1:
-        raise NotImplementedError(
-            f"a mesh of {n} devices needs the sharded train step, "
-            "ROADMAP.md Queue 1 item 18 (not yet ported); pass mesh=None "
-            "or one device"
-        )
+        return partial(loss_and_grads, cfg=cfg)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a parallel.mesh.Mesh (make_mesh(shape, "
+            f"('dp', 'sp', 'tp'), devices=...)), one device or None; got "
+            f"{type(mesh).__name__}")
+    _check_sharded(cfg, mesh)
+    return partial(sharded_loss_and_grads, cfg=cfg, mesh=mesh)
 
 
 def loss_and_grads(params: dict, tokens, targets, cfg: TransformerConfig):
@@ -391,28 +475,347 @@ def loss_and_grads(params: dict, tokens, targets, cfg: TransformerConfig):
     return loss.detach(), _rebuild(params, iter(grads))
 
 
+# --------------------------------------------------------------------------
+# the sharded program over a ("dp", "sp", "tp") mesh
+# --------------------------------------------------------------------------
+
+
+def _kv_tp_sharded(cfg: TransformerConfig, mesh: Mesh | None) -> bool:
+    """Whether the K/V projections shard their (narrower) head dim over
+    ``tp``. With GQA/MQA the kv-head count can drop below the tp degree;
+    then wk/wv stay replicated and each tp member slices the one kv head
+    its q-head shard reads (:func:`make_kv_slice`). Requires kv_heads %
+    tp == 0 or tp % kv_heads == 0 — anything else has no aligned
+    grouping."""
+    if mesh is None or "tp" not in mesh.axis_names:
+        return True
+    tp = mesh.shape["tp"]
+    if cfg.n_heads % tp != 0:
+        raise ValueError(
+            f"n_heads {cfg.n_heads} must divide over tp={tp}"
+        )
+    if cfg.kv_heads % tp == 0:
+        return True
+    if tp % cfg.kv_heads == 0:
+        return False
+    raise ValueError(
+        f"kv_heads {cfg.kv_heads} and tp={tp} need one to divide the "
+        "other (grouped q-head shards must align to whole kv heads)"
+    )
+
+
+def param_specs(cfg: TransformerConfig, mesh: Mesh | None = None) -> dict:
+    """PartitionSpecs matching :func:`init_params`: heads and d_ff over
+    ``tp`` (Megatron split), everything else replicated. Pass ``mesh``
+    so GQA configs whose kv_heads < tp degree fall back to replicated
+    K/V projections (see :func:`_kv_tp_sharded`)."""
+    kv = P(None, "tp", None) if _kv_tp_sharded(cfg, mesh) else P()
+    layer = {
+        "ln1_s": P(), "ln1_b": P(),
+        "wq": P(None, "tp", None),
+        "wk": kv,
+        "wv": kv,
+        "wo": P("tp", None, None),
+        "ln2_s": P(), "ln2_b": P(),
+    }
+    if cfg.n_experts:
+        layer.update(moe_layer_specs())
+    else:
+        layer.update({
+            "w1": P(None, "tp"),
+            "b1": P("tp"),
+            "w2": P("tp", None),
+            "b2": P(),
+        })
+    return {
+        "emb": P(),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "lnf_s": P(),
+        "lnf_b": P(),
+    }
+
+
+def make_kv_slice(cfg: TransformerConfig, mesh: Mesh):
+    """GQA with kv_heads < tp: wk/wv arrive tp-REPLICATED
+    (:func:`_kv_tp_sharded`); the q-head shard [t*H/tp, (t+1)*H/tp) of
+    tp member t reads exactly one kv head, t*kv_heads // tp. Returns
+    ``kv_slice(a, rank)``, which slices that head out of rank
+    ``rank``'s (B, L, kv_heads, D) tensor, so the attention sees the
+    aligned local grouping (all local q heads -> local kv head 0); or
+    None when kv heads shard evenly (nothing to slice)."""
+    tp = mesh.shape["tp"]
+    if cfg.kv_heads % tp == 0:
+        return None
+    t = mesh.axis_index("tp")
+
+    def kv_slice(a, rank):
+        idx = t[rank] * cfg.kv_heads // tp
+        return a[:, :, idx:idx + 1]
+
+    return kv_slice
+
+
+def batch_axes(cfg: TransformerConfig) -> tuple[str, ...]:
+    """Mesh axes the batch/sequence is sharded over: MoE adds ``ep`` as
+    an extra batch-sharding axis so every ep member routes distinct
+    tokens (GShard layout)."""
+    return ("dp", "ep", "sp") if cfg.n_experts else ("dp", "sp")
+
+
+def data_spec(cfg: TransformerConfig) -> P:
+    """PartitionSpec of global (B, L) token arrays."""
+    return P(("dp", "ep"), "sp") if cfg.n_experts else P("dp", "sp")
+
+
+def _check_sharded(cfg: TransformerConfig, mesh: Mesh) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "a mesh with n_experts > 0 runs the expert-parallel program "
+            "(moe_layer_specs, moe_ffn_sharded), ROADMAP.md Queue 1 item "
+            "18e (not yet ported); pass mesh=None to train the experts on "
+            "one device")
+    missing = [a for a in ("dp", "sp", "tp") if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(
+            f"the sharded program runs over ('dp', 'sp', 'tp') mesh axes; "
+            f"mesh {dict(mesh.shape)} lacks {missing}")
+    if cfg.attn not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sharded attention kind {cfg.attn!r}")
+    mesh.require_local()
+    param_specs(cfg, mesh)  # the tp and kv-head alignment checks
+
+
+def _spec_key(spec) -> tuple:
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    return spec
+
+
+def _tensors(tree) -> list:
+    """Every tensor of a parameter tree in :func:`_leaves` order; a
+    :class:`ShardedTensor` leaf gives its shards in flat rank order."""
+    out = []
+    for leaf in _leaves(tree):
+        if isinstance(leaf, ShardedTensor):
+            out.extend(leaf.local(r) for r in range(leaf.mesh.size))
+        else:
+            out.append(leaf)
+    return out
+
+
+def _rebuild_tensors(tree, it):
+    """``tree`` with the tensors of :func:`_tensors` replaced by the
+    items of ``it``, each sharded leaf keeping its mesh and spec."""
+    new = []
+    for leaf in _leaves(tree):
+        if isinstance(leaf, ShardedTensor):
+            new.append(from_local(leaf.mesh, leaf.spec,
+                                  [next(it) for _ in range(leaf.mesh.size)],
+                                  leaf.shape))
+        else:
+            new.append(next(it))
+    return _rebuild(tree, iter(new))
+
+
+def _sharded_leaves(params, cfg, mesh) -> list:
+    leaves = _leaves(params)
+    specs = _leaves(param_specs(cfg, mesh))
+    if len(leaves) != len(specs):
+        raise ValueError(
+            f"params hold {len(leaves)} leaves, the config {len(specs)}")
+    for leaf, spec in zip(leaves, specs):
+        if not isinstance(leaf, ShardedTensor) or leaf.mesh is not mesh:
+            raise TypeError(
+                "over a mesh the parameters are ShardedTensors on that "
+                "mesh: lay them out with shard_params(params, cfg, mesh)")
+        if _spec_key(leaf.spec) != _spec_key(spec):
+            raise ValueError(
+                f"a parameter laid out as {leaf.spec}, param_specs says "
+                f"{spec}")
+    return leaves
+
+
+def _data_locals(x, cfg, mesh) -> tuple[list, tuple]:
+    """Each rank's block of a (B, L) token array, and the global shape."""
+    spec = data_spec(cfg)
+    if isinstance(x, ShardedTensor):
+        if x.mesh is not mesh or _spec_key(x.spec) != _spec_key(spec):
+            raise ValueError(f"tokens must be laid out as {spec} on the "
+                             "mesh")
+        return [x.local(r) for r in range(mesh.size)], x.shape
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    sh = shard(t, mesh, spec)
+    return [sh.local(r) for r in range(mesh.size)], sh.shape
+
+
+def _sharded_attention(cfg: TransformerConfig, mesh: Mesh):
+    """The sequence-parallel attention over ``sp``, list in, list out."""
+    if cfg.attn == "ring":
+        return partial(ring_self_attention, mesh=mesh, axis="sp",
+                       causal=True, window=cfg.attn_window)
+    return partial(ulysses_attention, mesh=mesh, axis="sp", causal=True,
+                   impl=cfg.attn_impl, window=cfg.attn_window,
+                   bwd_impl=cfg.flash_bwd)
+
+
+def _forward_local(lparams: list, ltokens: list, cfg: TransformerConfig,
+                   mesh: Mesh) -> list:
+    """The per-rank program: ``lparams[r]`` is position r's tree of
+    local shards, ``ltokens[r]`` its (B', Lc) block of tokens. Returns
+    each position's local (B', Lc, vocab) logits."""
+    sp = mesh.axis_index("sp")
+    devs = [lp["emb"].device for lp in lparams]
+    toks = [torch.as_tensor(t, device=d).long()
+            for t, d in zip(ltokens, devs)]
+    Lc = toks[0].shape[1]
+    pos = [sp[r] * Lc + torch.arange(Lc, device=d)
+           for r, d in enumerate(devs)]
+    attn = _sharded_attention(cfg, mesh)
+    kv = make_kv_slice(cfg, mesh)
+    slices = [None if kv is None else partial(kv, rank=r)
+              for r in range(mesh.size)]
+
+    def one_layer(xs, lps):
+        qkv = [_qkv(x, lp, pos[r], slices[r])
+               for r, (x, lp) in enumerate(zip(xs, lps))]
+        os_ = attn(*(list(t) for t in zip(*qkv)))
+        # tp combine: heads were a shard, the out-projection partial-sums
+        a = psum([torch.einsum("blhk,hkd->bld", o, lp["wo"])
+                  for o, lp in zip(os_, lps)], mesh, "tp")
+        xs = [x + ai for x, ai in zip(xs, a)]
+        y = psum([_mlp(_ln(x, lp["ln2_s"], lp["ln2_b"]), lp)
+                  for x, lp in zip(xs, lps)], mesh, "tp")  # d_ff shards
+        return [x + yi + lp["b2"]  # b2 replicated, outside the psum
+                for x, yi, lp in zip(xs, y, lps)]
+
+    xs = [lp["emb"][t] for lp, t in zip(lparams, toks)]
+    for i in range(cfg.n_layers):
+        lps = [lp["layers"][i] for lp in lparams]
+        # remat checkpoints the layer across every rank: its collectives
+        # cross ranks, so no rank's layer can be replayed alone
+        if cfg.remat and torch.is_grad_enabled():
+            xs = checkpoint(one_layer, xs, lps, use_reentrant=False)
+        else:
+            xs = one_layer(xs, lps)
+    return [torch.einsum("bld,vd->blv", _ln(x, lp["lnf_s"], lp["lnf_b"]),
+                         lp["emb"]) for x, lp in zip(xs, lparams)]
+
+
+def _loss_local(lparams, ltokens, ltargets, cfg, mesh) -> list:
+    """Each position's copy of the mean token NLL over the whole batch."""
+    logits = _forward_local(lparams, ltokens, cfg, mesh)
+    return nll_loss(logits, ltargets, batch_axes(cfg), mesh)
+
+
+def shard_params(params: dict, cfg: TransformerConfig, mesh: Mesh) -> dict:
+    """Lay a dense parameter tree out over ``mesh`` by
+    :func:`param_specs`: a tree of :class:`ShardedTensor`, each position
+    holding its own copy of its block on its device."""
+    _check_sharded(cfg, mesh)
+    return _rebuild(params, iter(
+        shard(x, mesh, spec)
+        for x, spec in zip(_leaves(params), _leaves(param_specs(cfg,
+                                                                mesh)))))
+
+
+def make_forward(cfg: TransformerConfig, mesh: Mesh):
+    """``fwd(params, tokens)``: the sharded forward over
+    :func:`shard_params`' tree and a global (B, L) token array (or one
+    laid out by :func:`data_spec`); returns the (B, L, vocab) logits as
+    a :class:`ShardedTensor` laid out by :func:`data_spec` (``gather()``
+    or ``np.asarray`` assembles them)."""
+    _check_sharded(cfg, mesh)
+
+    def fwd(params, tokens):
+        leaves = _sharded_leaves(params, cfg, mesh)
+        lparams = [_rebuild(params, iter(leaf.local(r) for leaf in leaves))
+                   for r in range(mesh.size)]
+        toks, (B, L) = _data_locals(tokens, cfg, mesh)
+        logits = _forward_local(lparams, toks, cfg, mesh)
+        return from_local(mesh, data_spec(cfg), logits, (B, L, cfg.vocab))
+
+    return fwd
+
+
+def sharded_loss_and_grads(params: dict, tokens, targets,
+                           cfg: TransformerConfig, mesh: Mesh):
+    """(loss, grads) of the sharded program: ``params`` is
+    :func:`shard_params`' tree, ``tokens`` and ``targets`` global (B, L)
+    arrays or values laid out by :func:`data_spec`. ``loss`` is flat
+    rank 0's copy of the mean NLL (a 0-d tensor); ``grads`` is a tree of
+    :class:`ShardedTensor` laid out as ``params``, each leaf's gradient
+    summed over the mesh axes of size > 1 that its spec does not name
+    (in float32, in rank order) and written to every replica (the
+    module docstring's
+    rule). The shards' ``requires_grad`` flags are restored on
+    return."""
+    _check_sharded(cfg, mesh)
+    leaves = _sharded_leaves(params, cfg, mesh)
+    n = mesh.size
+    shards = [[leaf.local(r) for r in range(n)] for leaf in leaves]
+    flat = [t for per_leaf in shards for t in per_leaf]
+    if len({id(t) for t in flat}) != len(flat):
+        raise ValueError("two positions share one parameter tensor: lay "
+                         "the parameters out with shard_params")
+    toks, _ = _data_locals(tokens, cfg, mesh)
+    tgts, _ = _data_locals(targets, cfg, mesh)
+    flags = [t.requires_grad for t in flat]
+    try:
+        for t in flat:
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            lparams = [_rebuild(params, iter(s_[r] for s_ in shards))
+                       for r in range(n)]
+            loss = _loss_local(lparams, toks, tgts, cfg, mesh)[0]
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    finally:
+        for t, f in zip(flat, flags):
+            t.requires_grad_(f)
+    it = iter(grads)
+    out = []
+    with torch.no_grad():
+        for leaf, per_leaf in zip(leaves, shards):
+            parts = [g if g is not None else torch.zeros_like(t)
+                     for g, t in zip((next(it) for _ in range(n)),
+                                     per_leaf)]
+            named = {a for part in leaf.spec if part is not None
+                     for a in ((part,) if isinstance(part, str) else part)}
+            over = [a for a in mesh.axis_names
+                    if a not in named and mesh.shape[a] > 1]
+            if over:
+                parts = [g.to(leaf.dtype) for g in
+                         psum(parts, mesh, over, dtype=torch.float32)]
+            out.append(from_local(mesh, leaf.spec, parts, leaf.shape))
+    return loss.detach(), _rebuild(params, iter(out))
+
+
 def make_train_step(cfg: TransformerConfig, mesh=None, *, lr: float = 1e-2,
                     donate: bool = False):
-    """(params, tokens, targets) -> (params, loss) SGD step on one
-    device: ``p - lr * g`` for every leaf.
+    """(params, tokens, targets) -> (params, loss) SGD step: ``p - lr *
+    g`` for every leaf.
 
-    ``donate=True`` updates the given parameter tensors in place under
-    ``torch.no_grad()`` and returns the same tree (the caller must not
-    expect the old values); otherwise new tensors are returned and the
-    input is left as it was. ``mesh`` is None or one device; a larger
-    mesh raises (ROADMAP.md item 18)."""
-    _check_mesh(mesh)
+    ``mesh`` None (or one device) steps a dense parameter tree; a
+    :class:`Mesh` steps the tree of :class:`ShardedTensor` that
+    :func:`shard_params` lays out, through the sharded program
+    (:func:`sharded_loss_and_grads`), with ``tokens`` and ``targets``
+    global ``(B, L)`` arrays or values laid out by :func:`data_spec`.
+    ``donate=True`` updates the given tensors (every rank's) in place
+    under ``torch.no_grad()`` and returns the same tree (the caller must
+    not expect the old values); otherwise new tensors are returned and
+    the input is left as it was."""
+    grads_of = _grads_fn(cfg, mesh)
 
     def step(params, tokens, targets):
-        loss, grads = loss_and_grads(params, tokens, targets, cfg)
-        pairs = zip(_leaves(params), _leaves(grads))
+        loss, grads = grads_of(params, tokens, targets)
+        pairs = zip(_tensors(params), _tensors(grads))
         with torch.no_grad():
             if donate:
                 for p, g in pairs:
                     p.sub_(lr * g.to(p.dtype))
                 return params, loss
-            new = [p - lr * g.to(p.dtype) for p, g in pairs]
-        return _rebuild(params, iter(new)), loss
+            new = iter([p - lr * g.to(p.dtype) for p, g in pairs])
+        return _rebuild_tensors(params, new), loss
 
     return step
 
@@ -435,29 +838,31 @@ def make_optax_train_step(cfg: TransformerConfig, mesh=None, tx=None):
     """Like :func:`make_train_step` but stepping a torch optimizer.
     ``tx`` is a factory such as :func:`adamw`. Returns ``(step,
     init_state)``: ``init_state(params)`` builds the optimizer over the
-    tree's tensors, and ``step(params, opt_state, tokens, targets) ->
-    (params, opt_state, loss)`` updates those tensors in place.
+    tree's tensors (over a :class:`Mesh`, every rank's shard: each
+    moment then lives beside its shard, laid out as its parameter), and
+    ``step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss)`` updates those tensors in place.
 
     >>> step, init_state = make_optax_train_step(cfg, tx=adamw(3e-4))
     >>> opt_state = init_state(params)
     >>> params, opt_state, loss = step(params, opt_state, inp, tgt)
     """
-    _check_mesh(mesh)
+    grads_of = _grads_fn(cfg, mesh)
     if tx is None:
         raise ValueError("tx is required, e.g. tx=adamw(3e-4)")
 
     def init_state(params):
-        return tx(_leaves(params))
+        return tx(_tensors(params))
 
     def step(params, opt_state, tokens, targets):
-        leaves = _leaves(params)
+        leaves = _tensors(params)
         held = opt_state.param_groups[0]["params"]
         if len(held) != len(leaves) or any(
                 a is not b for a, b in zip(held, leaves)):
             raise ValueError("opt_state was built over other tensors than "
                              "params: build it with init_state(params)")
-        loss, grads = loss_and_grads(params, tokens, targets, cfg)
-        for p, g in zip(leaves, _leaves(grads)):
+        loss, grads = grads_of(params, tokens, targets)
+        for p, g in zip(leaves, _tensors(grads)):
             p.grad = g
         opt_state.step()
         for p in leaves:

@@ -1,5 +1,5 @@
-"""The pool over a device mesh, and attention helpers shared by the
-model code (``ring_attention.py``).
+"""The pool over a device mesh, and the sequence-parallel attention
+the model code shares (``ring_attention.py``).
 
 The port of the JAX package's ``parallel/``: a single-controller mesh
 (``mesh.py``), its collectives, the mesh and pool-fused coded GEMMs,
@@ -23,6 +23,11 @@ _HOME = {
     "distributed_mds_decode": "collectives",
     "masked_psum_scatter_combine": "collectives",
     "ring_allgather": "collectives",
+    "psum": "collectives",
+    "ring_shift": "collectives",
+    "all_to_all": "collectives",
+    "make_ring_attention": "ring_attention",
+    "make_ulysses_attention": "ring_attention",
     "initialize_multihost": "multihost",
     "make_multihost_mesh": "multihost",
     "local_worker_indices": "multihost",

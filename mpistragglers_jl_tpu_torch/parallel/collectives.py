@@ -20,6 +20,19 @@ is, per output block j, a weighted sum over workers. Each rank computes
 its weighted contribution to every output block, and one
 reduce-scatter both sums the contributions and leaves output block j
 on rank j.
+
+The sharded transformer's collectives (:func:`psum`,
+:func:`ring_shift`, :func:`all_to_all`) run over the groups of one or
+more named axes of an N-d mesh (:meth:`.mesh.Mesh.axis_groups`). They
+take and return one tensor per flat mesh position (row-major), and are
+differentiable: they are built of ``.to``, out-of-place sums, ``split``
+and ``cat``, so one ``backward`` over every rank's graph runs their
+transposes (a ``psum``'s cotangents summed back to every member, the
+shift run backwards, the inverse all-to-all). Each result is a fresh
+tensor of its rank: ranks that share a card would otherwise alias
+another rank's tensor, which a later in-place update would change. The
+one exception is a ``psum`` group of one member, whose result is its
+own input.
 """
 
 from __future__ import annotations
@@ -30,10 +43,13 @@ import torch
 from .mesh import Mesh, PartitionSpec, ShardedTensor, from_local, shard
 
 __all__ = [
+    "all_to_all",
     "masked_psum_scatter_combine",
     "mds_decode_weights",
     "distributed_mds_decode",
+    "psum",
     "ring_allgather",
+    "ring_shift",
 ]
 
 
@@ -194,3 +210,78 @@ def ring_allgather(mesh: Mesh, axis: str = "w"):
                           (n, n * rows) + tuple(blocks[0].shape[1:]))
 
     return gather
+
+
+# --------------------------------------------------------------------------
+# collectives over named axes of an N-d mesh (the sharded transformer)
+# --------------------------------------------------------------------------
+
+
+def _per_position(xs, mesh: Mesh) -> list:
+    xs = list(xs)
+    if len(xs) != mesh.size:
+        raise ValueError(
+            f"need one tensor per mesh position ({mesh.size}), got {len(xs)}")
+    return xs
+
+
+def psum(xs, mesh: Mesh, axes, *, dtype=None) -> list:
+    """``jax.lax.psum`` over ``axes`` (one name or several): every
+    member of a group gets the sum of the group's tensors, added in
+    rank order on the group's first device (the same bits on every
+    member). ``dtype`` accumulates in that type (the result keeps it);
+    None adds in the tensors' own type. A group of one member has
+    nothing to add and gets its own tensor back (cast to ``dtype``)."""
+    xs = _per_position(xs, mesh)
+    devs = mesh.devices.flatten()
+    out = [None] * len(xs)
+    for group in mesh.axis_groups(axes):
+        if len(group) == 1:
+            out[group[0]] = xs[group[0]].to(dtype=dtype)
+            continue
+        dev0 = devs[group[0]]
+        acc = xs[group[0]].to(dev0, dtype=dtype, copy=True)
+        for r in group[1:]:
+            acc = acc + xs[r].to(dev0, dtype=dtype)
+        out[group[0]] = acc
+        for r in group[1:]:
+            out[r] = acc.to(devs[r], copy=True)
+    return out
+
+
+def ring_shift(xs, mesh: Mesh, axis: str) -> list:
+    """``jax.lax.ppermute`` with ``perm = [(j, (j + 1) % n)]`` over
+    ``axis``: the member at coordinate ``c`` receives the tensor of
+    the member at ``(c - 1) % n`` (a copy on its own device)."""
+    xs = _per_position(xs, mesh)
+    devs = mesh.devices.flatten()
+    out = [None] * len(xs)
+    for group in mesh.axis_groups(axis):
+        n = len(group)
+        for c, r in enumerate(group):
+            out[r] = xs[group[(c - 1) % n]].to(devs[r], copy=True)
+    return out
+
+
+def all_to_all(xs, mesh: Mesh, axis: str, split_dim: int,
+               concat_dim: int) -> list:
+    """Tiled ``jax.lax.all_to_all`` over ``axis``: each member splits
+    its tensor into n equal chunks along ``split_dim``; member ``j``
+    receives chunk ``j`` of every member and concatenates them along
+    ``concat_dim`` in the senders' coordinate order."""
+    xs = _per_position(xs, mesh)
+    devs = mesh.devices.flatten()
+    out = [None] * len(xs)
+    for group in mesh.axis_groups(axis):
+        n = len(group)
+        size = xs[group[0]].shape[split_dim]
+        if size % n:
+            raise ValueError(
+                f"dimension {split_dim} of size {size} does not split "
+                f"into {n} parts over {axis!r}")
+        chunks = [torch.split(xs[r], size // n, dim=split_dim)
+                  for r in group]
+        for j, r in enumerate(group):
+            out[r] = torch.cat([c[j].to(devs[r]) for c in chunks],
+                               dim=concat_dim)
+    return out

@@ -14,7 +14,9 @@ A :class:`ShardedTensor` stands where the reference returns a
 per mesh position, on that position's device. Two positions on
 the same card still hold separate tensors. There is no ``shard_map``
 emulator: each module writes its per-rank loop and calls the
-collectives explicitly.
+collectives explicitly. A per-rank program reads its coordinates
+with :meth:`Mesh.axis_index` (``jax.lax.axis_index``) and the members
+of a collective over named axes with :meth:`Mesh.axis_groups`.
 
 Every position of a mesh that this module shards over, and that the
 collectives run on, must be driven by this process. A mesh from
@@ -102,6 +104,38 @@ class Mesh:
                 f"need a 1-D ({axis!r},) mesh, got {self.axis_names}")
         self.require_local()
         return list(self.devices.flatten())
+
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(
+                    f"axis {a!r} not in mesh axes {self.axis_names}")
+        return axes
+
+    def axis_index(self, axis: str) -> list:
+        """Per flat position (row-major), its coordinate along ``axis``:
+        what ``jax.lax.axis_index(axis)`` reads on that device."""
+        (axis,) = self._axes(axis)
+        self.require_local()
+        d = self.axis_names.index(axis)
+        return [int(idx[d]) for idx in np.ndindex(self.devices.shape)]
+
+    def axis_groups(self, axes) -> list:
+        """The positions that differ only along ``axes`` (one name or
+        several), as lists of flat ranks, one list per group, each in
+        ascending rank order (row-major over ``axes`` in the mesh's axis
+        order, so along one axis the list is in coordinate order): the
+        members of a ``psum``, ``ppermute`` or ``all_to_all`` over
+        ``axes``. Every position is in exactly one group."""
+        axes = self._axes(axes)
+        self.require_local()
+        keep = [d for d, a in enumerate(self.axis_names) if a not in axes]
+        over = [d for d, a in enumerate(self.axis_names) if a in axes]
+        ranks = np.arange(self.size).reshape(self.devices.shape)
+        ranks = ranks.transpose(keep + over)
+        width = int(np.prod([self.devices.shape[d] for d in over]))
+        return [[int(r) for r in row] for row in ranks.reshape(-1, width)]
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, "
@@ -191,12 +225,13 @@ class ShardedTensor:
         """The tensor at flat position ``rank`` (row-major over axes)."""
         return self.shards.flat[int(rank)]
 
-    def gather(self) -> torch.Tensor:
-        """The global value on the host."""
-        out = torch.empty(self.shape, dtype=self.dtype)
+    def gather(self, device="cpu") -> torch.Tensor:
+        """The global value, assembled on ``device`` (the host by
+        default)."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
         for idx in np.ndindex(self.mesh.devices.shape):
             out[_slices(self.mesh, self.spec, self.shape, idx)] = \
-                self.shards[idx].detach().cpu()
+                self.shards[idx].detach().to(out.device)
         return out
 
     def __array__(self, dtype=None, copy=None):

@@ -11,7 +11,8 @@ within its ``REL_TOL["highest"]`` of an in-process one, CUDA-tensor
 payloads snapshotted at dispatch, CUDA-tensor results bit-equal); and
 fused K-epoch windows as replayed CUDA graphs (``repochs`` bit-equal to
 the host loop, the graph equal to the eager loop) and the folded pool
-over a one-rank mesh of the card. Every
+over a one-rank mesh of the card; and the sharded train step over eight
+ranks of the card against eight CPU ranks. Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1602,3 +1603,47 @@ def test_folded_pool_mesh_epoch_on_the_card_decodes_past_stragglers():
         waitall(pool, fg.backend, timeout=30.0)
     finally:
         fg.shutdown()
+
+
+def test_sharded_ulysses_flash_step_on_the_card_equals_cpu_ranks():
+    """The sharded train step on a (2, 2, 2) mesh of eight ranks on
+    cuda:0, Ulysses over the flash kernels (f32, TF32 off; D=128, one
+    head per rank after the all-to-all): its loss within 1e-5 and its
+    gradients within 1e-4 + 1e-3 |want| of the same step on eight CPU
+    ranks (the plain versions), each kernel launched once per rank per
+    layer, and after one SGD step every replica bit-equal."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.models import transformer as tt
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    dev = _card()
+    cfg = TransformerConfig(vocab=256, d_model=512, n_heads=4, n_layers=2,
+                            d_ff=512, attn="ulysses", attn_impl="flash")
+    tok = np.random.default_rng(11).integers(0, 256, (4, 257))
+    inp, tgt = tok[:, :-1], tok[:, 1:]
+    params = init_params(cfg, seed=3, device="cpu")
+    axes = ("dp", "sp", "tp")
+    card = make_mesh((2, 2, 2), axes, devices=[dev] * 8)
+    cpu = make_mesh((2, 2, 2), axes, devices=["cpu"] * 8)
+    sp_card = tt.shard_params(params, cfg, card)
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    loss, grads = tt.sharded_loss_and_grads(sp_card, inp, tgt, cfg, card)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 16, "flash_bwd_dq": 16,
+                           "flash_bwd_dkv": 16, "flash_bwd_fused": 0}
+    loss_c, grads_c = tt.sharded_loss_and_grads(
+        tt.shard_params(params, cfg, cpu), inp, tgt, cfg, cpu)
+    torch.testing.assert_close(loss.cpu(), loss_c, rtol=1e-5, atol=0)
+    for i, (a, b) in enumerate(zip(tt._leaves(grads), tt._leaves(grads_c))):
+        assert a.local(0).device.type == "cuda"
+        torch.testing.assert_close(a.gather(), b.gather(), rtol=1e-3,
+                                   atol=1e-4, msg=f"leaf {i}")
+    step = tt.make_train_step(cfg, card, lr=1e-2, donate=True)
+    sp_card, _ = step(sp_card, inp, tgt)
+    for leaf in tt._leaves(sp_card):
+        named = {a for a in leaf.spec if a is not None}
+        for group in card.axis_groups([a for a in axes if a not in named]):
+            assert all(torch.equal(leaf.local(r), leaf.local(group[0]))
+                       for r in group)

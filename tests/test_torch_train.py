@@ -23,6 +23,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from mpistragglers_jl_tpu.models import transformer as jt
 from mpistragglers_jl_tpu_torch.models import transformer as tt
+from mpistragglers_jl_tpu_torch.parallel import make_mesh
 
 SMALL = dict(vocab=61, d_model=32, n_heads=4, n_layers=2, d_ff=64,
              attn="ulysses", attn_impl="flash")
@@ -177,13 +178,30 @@ def test_fused_backward_config_matches_split():
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tt.make_train_step(tt.TransformerConfig(**SMALL), mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tt.make_optax_train_step(tt.TransformerConfig(**SMALL),
+    """A device list that is not a ``Mesh`` is refused; a ``Mesh`` of
+    several positions runs the sharded step; a mesh with experts (the
+    expert-parallel program) still raises, naming ROADMAP item 18."""
+    cfg = tt.TransformerConfig(**SMALL)
+    with pytest.raises(TypeError, match="Mesh"):
+        tt.make_train_step(cfg, mesh=["cpu", "cpu"])
+    with pytest.raises(TypeError, match="Mesh"):
+        tt.make_optax_train_step(cfg,
                                  mesh=np.array(["cpu"] * 4).reshape(2, 2, 1),
                                  tx=tt.adamw(1e-3))
-    tt.make_train_step(tt.TransformerConfig(**SMALL), mesh="cpu")
+    mesh = make_mesh((1, 2, 2), ("dp", "sp", "tp"), devices=["cpu"] * 4)
+    inp, tgt = _batch(SMALL["vocab"])
+    params = tt.shard_params(tt.init_params(cfg, seed=3, device="cpu"), cfg,
+                             mesh)
+    _, loss = tt.make_train_step(cfg, mesh, lr=0.1)(params, inp, tgt)
+    want, _ = tt.loss_and_grads(tt.init_params(cfg, seed=3, device="cpu"),
+                                inp, tgt, cfg)
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)
+    moe = tt.TransformerConfig(**SMALL, n_experts=2)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tt.make_train_step(moe, mesh)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tt.make_optax_train_step(moe, mesh, tx=tt.adamw(1e-3))
+    tt.make_train_step(cfg, mesh="cpu")
     with pytest.raises(ValueError) as want:
         jt.TransformerConfig(**dict(SMALL, attn="ring"))
     with pytest.raises(ValueError) as got:

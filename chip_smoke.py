@@ -19,8 +19,10 @@ checkpoints and their resume, the pool simulator (``sim/``) and
 multi-tenant QoS admission (``qos/``) on the paged server, page-state migration between paged schedulers and the
 fleet prefix cache (``models/disagg.py``, ``cache/``), fused K-epoch
 device windows and the single-controller mesh plane (``parallel/``), the
-sharded transformer over that mesh (ring and Ulysses attention), and holds
-every CUDA kernel of those paths against its plain PyTorch version:
+sharded transformer over that mesh (ring and Ulysses attention), its
+experts over ``ep`` and the pipeline (GPipe, circular, 1F1B with MoE
+stages), and holds every CUDA kernel of those paths against its plain
+PyTorch version:
 
 1. card name and power limit;
 2. build the kernels from the sources in this checkout, one ``nvcc``
@@ -154,11 +156,14 @@ every CUDA kernel of those paths against its plain PyTorch version:
 28. the MoE training main path (``bench/moe_train.py``: bf16, batch 8,
     sequence 2048, 4 experts at cf 1.25, aux 0.01, SGD lr 1e-3), after
     its first step's loss and gradients in f32 at batch 2 against the
-    reference attention (phase 13's limits): one warm-up and 5 timed
-    steps between a reset of the counts and a read (K1-K3 8 x 6 each),
-    ms/step, tokens/s, MFU against activated FLOPs, peak memory,
-    ``routing_overhead_share`` against the dense step timed alternately
-    in the same process, drop rates at cf 1.25 and 0.5, aux at init;
+    reference attention (phase 13's limits): through the sharded
+    program on a (1, 1, 1, 1) mesh and on one device, each one warm-up
+    and 5 timed steps between a reset of the counts and a read (K1-K3
+    8 x 6 each, on each side); the mesh step's ms/step, tokens/s, MFU
+    against activated FLOPs and peak memory, the one-device step's
+    ms/step and ``routing_overhead_share`` (the mesh step's beside it)
+    against the dense step timed alternately in the same process, drop
+    rates at cf 1.25 and 0.5, aux at init;
     the 12-step bf16 loss trajectory printed, and the same 12 steps in
     f32 at batch 2 must fall beyond their noise;
 29. MoE generation parity, f32, full width (phase 18's model with 4
@@ -184,7 +189,7 @@ every CUDA kernel of those paths against its plain PyTorch version:
 33. the slot-ring main path (phase 5's workload) three times in one
     process: greedy and dark, sampled and dark, sampled and
     lit (a registry, a span recorder, a flight recorder, a TraceBook and
-    an ObsServer on loopback port 0): ms/tick and decode tokens/s of each over 2 timed ticks,
+    an ObsServer on loopback port 0): ms/tick and decode tokens/s of each over 1 timed tick,
     kernels per inner step from one profiled 4-step tick of the first
     greedy and sampled runs; counts set to 0 before each run (K5 8 x 64
     per tick, the sampling kernel 8 + 64 per tick); lit, ``/metrics``
@@ -313,8 +318,8 @@ every CUDA kernel of those paths against its plain PyTorch version:
     to ``generate_ring_dense``, every pool drained; then
     ``bench/router.py``'s live half in bf16: the warm tick calibrated,
     replica 3 gated to 4x it, a closed burst for the fleet's rate, an
-    open loop of 24 requests at 0.8 of it under round_robin,
-    least_loaded, least_loaded, round_robin (TTFT p50/p99, the router's
+    open loop of 24 requests at 0.8 of it under round_robin and
+    least_loaded (TTFT p50/p99, the router's
     share of the stepping wall), and a kill/recover leg with 0 dropped
     and more than 0 re-routed; K6 counted over the phase, K5 none;
 53. ``two_tier``: two ``PrefillWorker`` and two ``DecodeReplica`` on one
@@ -368,7 +373,28 @@ every CUDA kernel of those paths against its plain PyTorch version:
     control above it), replicas bit-equal; ms/step, tokens/s and peak
     memory beside
     phase 14's dense ms/step. Then one fused-backward (K4) step on (2, 2,
-    2) against the split step.
+    2) against the split step;
+58. expert parallelism and the pipeline (ranks on cuda:0). (a) f32 at
+    full width (batch 4, L=2048, TF32 off), phase 13's limits: the MoE
+    over ``("dp", "sp", "tp", "ep")`` = (2, 1, 2, 2) at capacity factor
+    4 (no drops, no aux) against the dense ``loss_and_grads``, then at
+    1.25 with aux 0.01 against the dense loss of each (dp, ep) batch
+    shard alone, averaged (the experts' shards swapped across ep as the
+    control); GPipe and circular (v=2) dense, 4 layers, on ``("dp",
+    "pp")`` = (1, 2) against the dense step; 1F1B with MoE stages on (2,
+    2) against the dense loss of each microbatch alone, averaged (the
+    aux cotangent dropped as the control); exact K1-K3 counts.
+    (b) bf16, 8 layers, batch 8, lr 1e-3, donated, 1 warm-up and 3
+    timed steps each: the MoE step on (1, 1, 1, 1) and (2, 1, 2, 2)
+    (``MULTICHIP_r05.json``'s fifth leg), 1F1B MoE on (4, 2) with 2
+    microbatches (its fourth leg), GPipe and circular dense on (1, 4)
+    with 4 (``bench/pipeline_train.py``): exact K1-K3 counts (K4-K7 and
+    the sampler 0), the first loss within ``TRAIN_BF16_ORACLE`` of its
+    oracle, each leaf's change within ``TRAIN_BF16_UPDATE`` of the
+    oracle steps' (the dp gradient sum dropped on (2, 1, 2, 2) as the
+    control above it), replicas bit-equal, ``measure_bubble`` on the
+    card against ``bubble_fraction``; ms/step, tokens/s, peak memory
+    beside phase 28's one-device MoE step and phase 14's dense step.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -378,8 +404,8 @@ phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
 ``{"slice13": ...}`` line with phases 46-49's, a ``{"slice14": ...}``
 line with phases 50-51's, a ``{"slice15": ...}`` line with phases
 52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
-``{"slice17": ...}`` line with phase 57's, a
-``{"kernels": [...]}`` JSON line and, last,
+``{"slice17": ...}`` line with phase 57's, a ``{"slice18": ...}``
+line with phase 58's, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -425,6 +451,7 @@ from mpistragglers_jl_tpu_torch.bench import disagg as disagg_bench
 from mpistragglers_jl_tpu_torch.bench import fleet as fleet_bench
 from mpistragglers_jl_tpu_torch.bench.configs import DECODE
 from mpistragglers_jl_tpu_torch.bench import moe_train as mt
+from mpistragglers_jl_tpu_torch.bench import pipeline_train as pt
 from mpistragglers_jl_tpu_torch.bench import process_gemm as pg_bench
 from mpistragglers_jl_tpu_torch.bench import router as router_bench
 from mpistragglers_jl_tpu_torch.bench import transport as tr_bench
@@ -438,9 +465,11 @@ from mpistragglers_jl_tpu_torch.bench.train_profile import (
     LR,
     SEQ,
     TRAIN,
+    launch_counts,
     model_flops_per_step,
     raw_matmul_tflops,
     train_batch,
+    zero_launches,
 )
 from mpistragglers_jl_tpu_torch.models import decode as td
 from mpistragglers_jl_tpu_torch.models import moe
@@ -477,6 +506,7 @@ from mpistragglers_jl_tpu_torch.models.transformer import (
     nll_loss,
 )
 from mpistragglers_jl_tpu_torch.ops import _build
+from mpistragglers_jl_tpu_torch.parallel.mesh import from_local
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
 from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
 from mpistragglers_jl_tpu_torch.ops import sampling
@@ -509,9 +539,9 @@ K6 = "paged_decode_attention"
 K7 = "decode_attention_attrib"
 SAMPLE = "sample_rows"
 # phases 31-34: sampled serving at temperature 0.8 with top_k 50; the
-# main-path runs of phases 33 and 34 (S=8, n_inner=64) time 3 ticks
+# main-path runs of phases 33 and 34 (S=8, n_inner=64) time 1 tick
 SAMPLE_T, SAMPLE_TOP_K = 0.8, 50
-SERVE_INNER, SERVE_TICKS = 64, 2
+SERVE_INNER, SERVE_TICKS = 64, 1
 SERVE_VARIANTS = ("greedy-dark", "sampled-dark", "sampled-lit")
 PROFILE_INNER = 4  # inner steps of the profiled tick
 # phase 35: epochs of the instrumented coded trainer and coded GEMM
@@ -597,16 +627,6 @@ class SmokeFailure(RuntimeError):
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def _zero_launches() -> None:
-    for counts in (da.LAUNCHES, fa.LAUNCHES, sampling.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
-def _launch_counts() -> dict:
-    return {**da.LAUNCHES, **fa.LAUNCHES, **sampling.LAUNCHES}
 
 
 def _cache(B, L, Hkv, D, gen, dev):
@@ -717,7 +737,7 @@ def _capture_equals_eager(call, what: str) -> None:
     with torch.cuda.stream(side):  # warm-up off the default stream
         call()
     torch.cuda.current_stream().wait_stream(side)
-    before = _launch_counts()
+    before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = call()
@@ -727,7 +747,7 @@ def _capture_equals_eager(call, what: str) -> None:
         graph.replay()
         torch.cuda.synchronize()
         same.append(bool(torch.equal(got, want)))
-    after = _launch_counts()
+    after = launch_counts()
     print(f"  {what}: replays equal the eager output: {same}; counts "
           f"unchanged by capture and replays: {after == before}")
     _require(all(same), f"a CUDA-graph replay of {what} differs from the "
@@ -782,7 +802,7 @@ def phase_serving_parity_f32(dev) -> None:
         _require(sched.use_kernel == (toggle is None),
                  f"routing: use_kernel={sched.use_kernel} at toggle "
                  f"{toggle}")
-        _zero_launches()
+        zero_launches()
         reqs = [sched.submit(p, max_new=n) for p, n in zip(prompts, budgets)]
         sched.run()
         n = da.LAUNCHES[K5]
@@ -836,7 +856,7 @@ def phase_paged_parity_f32(dev) -> None:
         _require(sched.use_kernel == (toggle is None),
                  f"routing: use_kernel={sched.use_kernel} at toggle "
                  f"{toggle}")
-        _zero_launches()
+        zero_launches()
         ra = sched.submit(pa, max_new=n_ab)
         reqs = [sched.submit(p, max_new=n)
                 for p, n in zip(others[:6], budgets[:6])]
@@ -907,7 +927,7 @@ def phase_serving_bf16(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(2)
-    _zero_launches()
+    zero_launches()
     sched = ServingScheduler(params, cfg, slots=SLOTS, n_inner=n_inner,
                              prompt_chunk=Tp, max_prompt=Tp,
                              quantize_kv=True, device=dev)
@@ -919,7 +939,7 @@ def phase_serving_bf16(dev):
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
     dt = _timed_ticks(sched, ticks)
-    launches = _launch_counts()
+    launches = launch_counts()
     want = cfg.n_layers * n_inner * sched.decode_ticks
     _require(launches[K5] == want and launches[K6] == 0,
              f"main path launched K5 {launches[K5]} times (want {want}) "
@@ -952,7 +972,7 @@ def phase_paged_serving_bf16(dev):
                for _ in range(SLOTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_launches()
+    zero_launches()
     sched = ServingScheduler(params, cfg, slots=SLOTS, n_inner=n_inner,
                              prompt_chunk=256, max_prompt=512,
                              quantize_kv=True, page_tokens=PAGE, device=dev)
@@ -967,7 +987,7 @@ def phase_paged_serving_bf16(dev):
     torch.cuda.synchronize()
     t_admit = time.perf_counter() - t0
     dt = _timed_ticks(sched, ticks)
-    launches = _launch_counts()
+    launches = launch_counts()
     pool = sched.pool
     want = cfg.n_layers * n_inner * sched.decode_ticks
     print(f"  share hits {pool.share_hits} (want 28), prefill chunks "
@@ -1389,7 +1409,7 @@ def phase_train_parity_f32(dev, cfg=None) -> None:
     cfg = cfg or _train_cfg(torch.float32)
     params = init_params(cfg, seed=0, device=dev)
     inp, tgt = (t[:2] for t in train_batch(cfg.vocab, dev))
-    _zero_launches()
+    zero_launches()
     loss_f, g_f = loss_and_grads(params, inp, tgt, cfg)
     launches = dict(fa.LAUNCHES)
     loss_r, g_r = loss_and_grads(
@@ -1470,19 +1490,43 @@ def _reference_changes(cfg, inp, tgt, steps, zero_wo=False, **kw):
     return _changes(params, init), losses
 
 
-def _update_error(got, want) -> tuple[float, int]:
-    """(worst leaf's relative Frobenius difference of ``got``'s change
-    from ``want``'s, leaves compared). A leaf that changed in neither
-    run is left out (the norms' gains: lr * g stays under half a bf16
-    ulp of 1); one that changed only in ``got`` reads infinite."""
-    worst, n = 0.0, 0
+def _update_errors(got, want) -> list:
+    """Each leaf's relative Frobenius difference of ``got``'s change
+    from ``want``'s: None for a leaf that changed in neither run (the
+    norms' gains: lr * g stays under half a bf16 ulp of 1), infinite
+    for one that changed only in ``got``."""
+    out = []
     for a, b in zip(got, want):
         d, nb = (a - b).norm().item(), b.norm().item()
-        if d == 0.0 and nb == 0.0:
-            continue
-        n += 1
-        worst = max(worst, d / nb if nb > 0.0 else float("inf"))
-    return worst, n
+        out.append(None if d == 0.0 and nb == 0.0
+                   else d / nb if nb > 0.0 else float("inf"))
+    return out
+
+
+def _update_error(got, want) -> tuple[float, int]:
+    """(worst leaf's :func:`_update_errors`, leaves compared)."""
+    errs = [e for e in _update_errors(got, want) if e is not None]
+    return max(errs, default=0.0), len(errs)
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Each leaf's path in :func:`_leaves` order (``layers.3.be2``)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _worst_leaf(got, want, names) -> tuple[float, str, int]:
+    """(worst leaf's :func:`_update_errors`, its name, leaves
+    compared)."""
+    errs = [(e, n) for e, n in zip(_update_errors(got, want), names)
+            if e is not None]
+    worst = max(errs, default=(0.0, ""))
+    return worst[0], worst[1], len(errs)
 
 
 def phase_train_bf16(dev):
@@ -1499,7 +1543,7 @@ def phase_train_bf16(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_launches()
+    zero_launches()
     t0 = time.perf_counter()
     params, loss0 = step(params, inp, tgt)
     torch.cuda.synchronize()
@@ -1511,7 +1555,7 @@ def phase_train_bf16(dev):
         losses.append(loss)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
-    launches = _launch_counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     steps = timed + 1
     want = {"flash_fwd": cfg.n_layers * steps,
@@ -1605,11 +1649,11 @@ def phase_fused_bf16(params, batch):
     step's launches."""
     cfg = _train_cfg(torch.bfloat16)
     inp, tgt = batch
-    _zero_launches()
+    zero_launches()
     loss_f, g_f = loss_and_grads(params, inp, tgt,
                                  dataclasses.replace(cfg, flash_bwd="fused"))
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = launch_counts()
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_bwd_fused": cfg.n_layers,
             K5: 0, K6: 0, K7: 0, SAMPLE: 0}
@@ -1794,12 +1838,12 @@ def _generate(params, prompt, n_new, cfg, dev, **kw):
     """generate_dense with every launch count set to 0 just before and
     read just after: (tokens, seconds, launches)."""
     torch.cuda.synchronize()
-    _zero_launches()
+    zero_launches()
     t0 = time.perf_counter()
     toks = td.generate_dense(params, prompt, n_new, cfg, device=dev, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = _launch_counts()
+    launches = launch_counts()
     _require(tuple(toks.shape) == (len(prompt), n_new)
              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
              f"generate_dense gave {tuple(toks.shape)} tokens or tokens "
@@ -1922,12 +1966,12 @@ def phase_long_context_bf16(dev):
     with torch.no_grad():
         for _ in range(2):  # the first one warms up
             torch.cuda.synchronize()
-            _zero_launches()
+            zero_launches()
             t0 = time.perf_counter()
             logits, _ = td.prefill_dense(params, tp, cache0, cfg)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
-            _want_launches(_launch_counts(), cfg.n_layers, 0, "prefill")
+            _want_launches(launch_counts(), cfg.n_layers, 0, "prefill")
             _require(bool(torch.isfinite(logits[:, -1]).all()),
                      "non-finite prefill logits")
             del logits
@@ -2008,9 +2052,9 @@ def phase_attribution(dev):
     Returns (flagship result, K7 launches, plain and SDPA times, SDPA
     time by batch)."""
     torch.cuda.empty_cache()
-    _zero_launches()
+    zero_launches()
     results = attrib.main()
-    calls = _launch_counts()
+    calls = launch_counts()
     print(f"  launches {{K5: {calls[K5]}, K7: {calls[K7]}}} (eager calls; "
           f"{results[0]['graph_replays']} replays per variant of a graph of "
           f"{attrib.INNER} calls not counted)")
@@ -2393,17 +2437,20 @@ def phase_moe_train(dev) -> dict:
     phase_train_parity_f32(dev, mt.moe_config(torch.float32))
     torch.cuda.empty_cache()
     r = mt.bench_moe_train(dev, steps=MOE_STEPS, chains=2)
-    launches = r["launches"]
+    launches, one = r["launches"], r["one_device_launches"]
     steps = r["launch_steps"]
-    want = {"flash_fwd": TRAIN["n_layers"] * steps,
-            "flash_bwd_dq": TRAIN["n_layers"] * steps,
-            "flash_bwd_dkv": TRAIN["n_layers"] * steps,
-            "flash_bwd_fused": 0, K5: 0, K6: 0, K7: 0}
-    print(f"  {steps} steps (1 warm-up, {MOE_STEPS} timed), launches "
-          f"{ {FLASH.get(k, (k,))[0]: v for k, v in launches.items()} }")
-    print(f"  {r['ms_per_step']:.2f} ms/step (dense {r['dense_ms_per_step']:.2f}"
-          f"), {r['tokens_per_s']:.1f} tokens/s, routing_overhead_share "
-          f"{r['routing_overhead_share']:.3f}, MFU (activated) "
+    k = TRAIN["n_layers"] * steps
+    want = _want_all(k, k)
+    for side, counts in (("the mesh", launches), ("one device", one)):
+        print(f"  {side}: {steps} steps (1 warm-up, {MOE_STEPS} timed), "
+              f"launches "
+              f"{ {FLASH.get(n, (n,))[0]: v for n, v in counts.items()} }")
+    print(f"  {r['ms_per_step']:.2f} ms/step on {r['mesh']} (one device "
+          f"{r['one_device_ms_per_step']:.2f}, dense "
+          f"{r['dense_ms_per_step']:.2f}), {r['tokens_per_s']:.1f} tokens/s, "
+          f"routing_overhead_share {r['routing_overhead_share']:.3f} (one "
+          f"device; the mesh step's {r['mesh_routing_overhead_share']:.3f})"
+          f", MFU (activated) "
           f"{r['mfu_vs_raw_matmul']:.4f} of a raw bf16 matmul chain at "
           f"{r['raw_bf16_tflops_per_s']:.1f} TFLOP/s; peak memory "
           f"{r['peak_mem_gb']:.3f} GB; {r['params_m']:.1f} M params")
@@ -2414,6 +2461,8 @@ def phase_moe_train(dev) -> dict:
           f"{r['trajectory_noise_med2nd']:.3e})")
     _require(launches == want, f"MoE main path launched {launches}, "
                                f"want {want}")
+    _require(one == want, f"the one-device MoE step launched {one}, "
+                          f"want {want}")
     _require(bool(np.isfinite(r["trajectory"]).all()),
              f"non-finite MoE loss: {r['trajectory']}")
     # in bf16, lr * g is under half an ulp of nearly every weight (phase
@@ -2555,11 +2604,11 @@ def phase_sampled_parity_f32(dev) -> None:
                              quantize_kv=True, temperature=SAMPLE_T,
                              top_k=SAMPLE_TOP_K, device=dev)
     _require(sched.use_kernel, "the S=4 int8 tick did not route K5")
-    _zero_launches()
+    zero_launches()
     reqs = [sched.submit(p, max_new=n, key=k)
             for p, n, k in zip(prompts, budgets, keys)]
     sched.run()
-    n = _launch_counts()
+    n = launch_counts()
     want = len(reqs) + sched.n_inner * sched.decode_ticks
     print(f"  {sched.decode_ticks} decode ticks: sampling kernel "
           f"{n[SAMPLE]} launches (want {want}), K5 {n[K5]}")
@@ -2621,7 +2670,7 @@ def _serve_variant(dev, cfg, params, variant, paged, workload,
         obs["exporter"] = tobs.ObsServer(obs["registry"],
                                          flight=obs["flight"]).start()
     torch.cuda.synchronize()
-    _zero_launches()
+    zero_launches()
     sched = ServingScheduler(
         params, cfg, slots=SLOTS, n_inner=SERVE_INNER,
         prompt_chunk=256 if paged else 512, max_prompt=512,
@@ -2645,7 +2694,7 @@ def _serve_variant(dev, cfg, params, variant, paged, workload,
             t0 += time.perf_counter() - dt_pause  # scrapes not timed
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = _launch_counts()
+    launches = launch_counts()
     ticks_timed = sched.decode_ticks
     rep = {"ms_per_tick": dt / SERVE_TICKS * 1e3,
            "decode_tokens_per_s": SLOTS * SERVE_INNER * SERVE_TICKS / dt,
@@ -2814,7 +2863,7 @@ def phase_instrumented_coded(dev) -> dict:
                                else 0.0),
         tracer=tracer, registry=reg, spans=rec)
     pool = AsyncPool(ct_bench.N)
-    _zero_launches()
+    zero_launches()
     try:
         for _ in range(INSTR_EPOCHS):
             params = tr.step(pool, params, lr=ct_bench.LR)
@@ -2822,7 +2871,7 @@ def phase_instrumented_coded(dev) -> dict:
         torch.cuda.synchronize()
     finally:
         tr.backend.shutdown()
-    launches = _launch_counts()
+    launches = launch_counts()
     doc, n_ev = tobs.merged_chrome_trace(tracers=[tracer], recorders=[rec])
     tracks = {e["args"]["name"] for e in doc["traceEvents"]
               if e.get("name") == "thread_name"}
@@ -3271,7 +3320,7 @@ def phase_train_resume(dev, tmp) -> tuple[dict, dict, dict]:
     straight = {"params": params, "opt": opt.state_dict()}
     half = RESUME_STEPS // 2
     torch.cuda.synchronize()
-    _zero_launches()
+    zero_launches()
     params = fresh()
     opt = init_state(params)
     got = []
@@ -3310,7 +3359,7 @@ def phase_train_resume(dev, tmp) -> tuple[dict, dict, dict]:
         params, opt, loss = step(params, opt, inp, tgt)
         got.append(loss)
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = launch_counts()
     resumed = {"params": params, "opt": opt.state_dict()}
     bad_loss = [i for i, (a, b) in enumerate(zip(got, want))
                 if not _same_bits(a, b)]
@@ -3484,7 +3533,7 @@ def phase_qos_serving(dev) -> tuple[dict, dict]:
     cfg = TransformerConfig(**MODEL, dtype=torch.float32)
     params = init_params(cfg, seed=0, device=dev)
     prompts, tenants = _qos_workload(cfg.vocab)
-    _zero_launches()
+    zero_launches()
     sched = ServingScheduler(params, cfg, slots=SLOTS, n_inner=8,
                              prompt_chunk=256, max_prompt=512,
                              quantize_kv=True, page_tokens=PAGE,
@@ -3496,7 +3545,7 @@ def phase_qos_serving(dev) -> tuple[dict, dict]:
     while sched.pending or sched.active:
         sched.step()
         bronze_max = max(bronze_max, sched._tenant_usage("bronze"))
-    launches = _launch_counts()
+    launches = launch_counts()
     pool = sched.pool
     want = cfg.n_layers * sched.n_inner * sched.decode_ticks
     burst = seen["admitted"][1:7]
@@ -3644,7 +3693,7 @@ def phase_migration(dev) -> tuple[int, dict]:
     reader = MigrationRingReader(ring)
     routes = {"in_process": 0, "frames": 0}
     dst_k6 = 0
-    _zero_launches()
+    zero_launches()
     reqs = [pw.submit(p, max_new=MIG_NEW_F32) for p in prompts]
     moved: set[int] = set()
     while not all(r.finished for r in reqs):
@@ -3664,7 +3713,7 @@ def phase_migration(dev) -> tuple[int, dict]:
                 ticket.release()
                 routes["frames"] += 1
         dst_k6 += _stepped_k6(dr)
-    launches = _launch_counts()
+    launches = launch_counts()
     want_k6 = cfg.n_layers * dr.n_inner * dr.decode_ticks
     oracle = _oracle_rows(params, cfg, prompts, MIG_NEW_F32, dev)
     same = sum(r.tokens == o for r, o in zip(reqs, oracle))
@@ -3769,7 +3818,7 @@ def phase_fleet_cache(dev) -> tuple[int, dict]:
     params = init_params(cfg, seed=0, device=dev)
     prompts = _fleet_prompts(cfg, 4, 51)
     kw = _paged_kw(dev, max_prompt=1024)
-    _zero_launches()
+    zero_launches()
     hub = FleetPrefixCache(store_pages=FLEET_STORE_PAGES)
     reg_a, reg_b = tobs.MetricsRegistry(), tobs.MetricsRegistry()
     a = ServingScheduler(params, cfg, cache=hub, registry=reg_a, **kw)
@@ -3813,7 +3862,7 @@ def phase_fleet_cache(dev) -> tuple[int, dict]:
     peer_k6 = _fleet_run(b2, [rb2])
     a2.run()
     want_b2 = cfg.n_layers * b2.n_inner * b2.decode_ticks
-    launches = _launch_counts()
+    launches = launch_counts()
     print(f"  f32 peer route: B fetched {hub2.n_fetches['peer']} pages from "
           f"A's live pages, fallbacks {hub2.n_fallbacks}; B's K6 {peer_k6} "
           f"(want {want_b2}); K5 {launches[K5]} in the phase")
@@ -3906,7 +3955,7 @@ def phase_slice14(dev, t_start) -> tuple[int, int, dict]:
 ROUTE_PREFIX, ROUTE_OWN, ROUTE_NEW_F32 = 192, 64, 16
 ROUTE_POLICIES = ("round_robin", "least_loaded", "prefix_affinity",
                   "hedge_p99")
-ROUTE_LIVE_REQUESTS, ROUTE_LIVE_REPEATS = 24, 2
+ROUTE_LIVE_REQUESTS, ROUTE_LIVE_REPEATS = 24, 1
 ROUTE_SIM_REQUESTS, ROUTE_SIM_WITNESS = 100_000, 10_000
 FLEET_DAY_REQUESTS, CHAOS_SCALE = 3000, 0.5
 
@@ -3992,7 +4041,7 @@ def phase_router_live(dev, params, cfg, prompts, oracle) -> tuple[int, dict]:
     """Phase 52: the router over four live paged replicas. Returns (K6
     launches over the phase, report)."""
     out = {"f32": {}}
-    _zero_launches()
+    zero_launches()
     # the f32 tick, for the hedge deadline: one replica, one request
     warm = ServingScheduler(params, cfg, **_paged_kw(dev))
     warm.submit(prompts[2], ROUTE_NEW_F32)
@@ -4024,7 +4073,7 @@ def phase_router_live(dev, params, cfg, prompts, oracle) -> tuple[int, dict]:
           f"re-routed of {kill['requests']}")
     _require(kill["dropped"] == 0 and kill["rerouted"] > 0,
              f"kill leg: {kill}")
-    launches = _launch_counts()
+    launches = launch_counts()
     _require(launches[K6] > 0 and launches[K5] == 0,
              f"phase 52 launched K6 {launches[K6]}, K5 {launches[K5]}")
     return launches[K6], out
@@ -4057,10 +4106,10 @@ def phase_two_tier_live(dev, params, cfg, prompts, oracle) -> tuple[int, dict]:
     _require(all(r.use_kernel for r in fleet),
              "a tier's S=8 paged int8 tick did not route K6")
     router = RequestRouter(fleet, policy="two_tier", registry=reg)
-    _zero_launches()
+    zero_launches()
     rrs = [router.submit(p, ROUTE_NEW_F32) for p in prompts]
     router.drain()
-    launches = _launch_counts()
+    launches = launch_counts()
     same = sum(list(rr.tokens) == o for rr, o in zip(rrs, oracle))
     migrated = [rr for rr in rrs if rr.migrated]
     series = sorted(n for n in reg.snapshot() if n.startswith("disagg_"))
@@ -4535,7 +4584,7 @@ def _sharded_f32_leg(dev, label, shape, **kw) -> dict:
         params, inp, tgt, dataclasses.replace(cfg, attn_impl="reference"))
     mesh = _card_mesh(dev, shape)
     sp = shard_params(params, cfg, mesh)
-    _zero_launches()
+    zero_launches()
     loss, grads = sharded_loss_and_grads(sp, inp, tgt, cfg, mesh)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
@@ -4584,7 +4633,7 @@ def _sharded_bf16_run(dev, cfg, shape, params0, inp, tgt, want_changes,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_launches()
+    zero_launches()
     t0 = time.perf_counter()
     sp, loss0 = step(sp, inp, tgt)
     torch.cuda.synchronize()
@@ -4596,7 +4645,7 @@ def _sharded_bf16_run(dev, cfg, shape, params0, inp, tgt, want_changes,
         losses.append(loss)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / SHARD_TIMED
-    launches = _launch_counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     steps = SHARD_TIMED + 1
     k = cfg.n_layers * mesh.size * steps
@@ -4716,10 +4765,10 @@ def phase_sharded(dev, dense_ms: float) -> tuple[dict, dict]:
     # (c) one fused-backward step on (2, 2, 2) against the split step
     fused = dataclasses.replace(cfg, flash_bwd="fused")
     sp = shard_params(params0, cfg, mesh)
-    _zero_launches()
+    zero_launches()
     loss_f, g_f = sharded_loss_and_grads(sp, inp, tgt, fused, mesh)
     torch.cuda.synchronize()
-    launches["fused"] = _launch_counts()
+    launches["fused"] = launch_counts()
     k = cfg.n_layers * mesh.size
     want = {"flash_fwd": k, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_fused": k, K5: 0, K6: 0, K7: 0, SAMPLE: 0}
@@ -4765,6 +4814,442 @@ def _phase57_launches(launches, kname) -> list:
              "steps": 1 if shape == "fused" else SHARD_TIMED + 1,
              "launches": counts[kname]}
             for shape, counts in launches.items()]
+
+
+# -- phase 58: expert parallelism and the pipeline (slice 18) -------------
+
+EP_AXES = ("dp", "sp", "tp", "ep")
+EP_MESH = (2, 1, 2, 2)  # MULTICHIP_r05.json's fifth leg
+F32_BATCH = 4           # phase 58(a)'s batch
+PIPE_F32_LAYERS = 4     # circular: v=2 chunks over pp=2
+EXPERT_LEAVES = ("we1", "be1", "we2", "be2")
+
+
+def _ep_mesh(dev, shape):
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, EP_AXES, devices=[dev] * int(np.prod(shape)))
+
+
+def _flash_want(k1, k23) -> dict:
+    return {"flash_fwd": k1, "flash_bwd_dq": k23, "flash_bwd_dkv": k23,
+            "flash_bwd_fused": 0}
+
+
+def _per_shard_oracle(params, inp, tgt, cfg, shards):
+    """(loss, grads) of the dense step on each of ``shards`` equal row
+    blocks alone, averaged (losses and f32 gradients): the oracle where
+    each block routes its own tokens (``shards`` 1: the dense step)."""
+    rows = inp.shape[0] // shards
+    loss, acc = 0.0, None
+    for i in range(shards):
+        blk = slice(i * rows, (i + 1) * rows)
+        lo, g = loss_and_grads(params, inp[blk], tgt[blk], cfg)
+        loss += lo.item() / shards
+        g = [x.float() / shards for x in _leaves(g)]
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+        del g
+    return loss, _rebuild(params, iter(acc))
+
+
+def _oracle_changes(cfg, params0, inp, tgt, shards, steps):
+    """(each leaf's change, the losses) over ``steps`` SGD steps (lr LR)
+    from ``params0`` on the per-shard oracle's averaged gradients, with
+    the reference attention."""
+    ref = dataclasses.replace(cfg, attn_impl="reference")
+    params = _rebuild(params0, iter(p.clone() for p in _leaves(params0)))
+    losses = []
+    for _ in range(steps):
+        loss, g = _per_shard_oracle(params, inp, tgt, ref, shards)
+        with torch.no_grad():
+            for p, gi in zip(_leaves(params), _leaves(g)):
+                p.sub_(LR * gi.to(p.dtype))
+        losses.append(loss)
+        del g
+    return _changes(params, _leaves(params0)), losses
+
+
+def _swap_experts(sp, mesh):
+    """The EP control: every expert leaf's shards rotated one step along
+    ``ep``, so each member holds another member's experts."""
+    perm = list(range(mesh.size))
+    for g in mesh.axis_groups("ep"):
+        for a, b in zip(g, g[1:] + g[:1]):
+            perm[a] = b
+    layers = [{**lp, **{k: from_local(mesh, lp[k].spec,
+                                      [lp[k].local(perm[r])
+                                       for r in range(mesh.size)],
+                                      lp[k].shape)
+                        for k in EXPERT_LEAVES}}
+              for lp in sp["layers"]]
+    return {**sp, "layers": layers}
+
+
+def _unstack(tree, dev, v=None):
+    """A pipeline tree (stacked layers, device-major for the circular
+    layout when ``v``) as the dense tree on ``dev``, leaf by leaf."""
+    out = {k: tree[k].gather(dev) for k in ("emb", "lnf_s", "lnf_b")}
+    stacked = {}
+    for k, leaf in tree["layers"].items():
+        a = leaf.gather(dev)
+        if v is not None:  # (pp, v, lpc, ...) back to (L, ...)
+            a = a.transpose(0, 1).reshape(-1, *a.shape[3:])
+        stacked[k] = a
+    n = next(iter(stacked.values())).shape[0]
+    out["layers"] = [{k: a[i] for k, a in stacked.items()} for i in range(n)]
+    return out
+
+
+def _f32_errors(loss, grads, loss_r, g_r) -> tuple[float, float]:
+    rel = abs(loss - loss_r) / abs(loss_r)
+    return rel, max(_leaf_errors(grads, g_r, relative_norm=False))
+
+
+def _seed0_params(cfg, dev, cache) -> dict:
+    """``init_params(cfg, seed=0)`` drawn once per width, depth, expert
+    count and dtype (the host's numpy draws take seconds at full width;
+    the capacity factor and aux coefficient draw nothing). No caller
+    changes the tensors: every path lays out its own copies."""
+    key = (cfg.n_layers, cfg.n_experts, cfg.dtype)
+    if key not in cache:
+        cache[key] = init_params(cfg, seed=0, device=dev)
+    return cache[key]
+
+
+def _ep_f32_leg(dev, cf, aux, cache) -> dict:
+    """Phase 58(a), the MoE over EP_MESH: at ``cf`` 4 against the dense
+    step (nothing drops; no aux), at 1.25 against the per-shard oracle,
+    with the swapped-experts control."""
+    from mpistragglers_jl_tpu_torch.models.transformer import (
+        shard_params,
+        sharded_loss_and_grads,
+    )
+
+    t0 = time.perf_counter()
+    cfg = mt.moe_config(torch.float32, n_layers=SHARD_F32_LAYERS,
+                        capacity_factor=cf, moe_aux_coef=aux)
+    params = _seed0_params(cfg, dev, cache)
+    inp, tgt = (t[:F32_BATCH] for t in train_batch(cfg.vocab, dev))
+    mesh = _ep_mesh(dev, EP_MESH)
+    shards = 1 if cf == 4.0 else EP_MESH[0] * EP_MESH[3]
+    loss_r, g_r = _per_shard_oracle(
+        params, inp, tgt, dataclasses.replace(cfg, attn_impl="reference"),
+        shards)
+    sp = shard_params(params, cfg, mesh)
+    zero_launches()
+    loss, grads = sharded_loss_and_grads(sp, inp, tgt, cfg, mesh)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    rel, grad = _f32_errors(loss.item(), _dense_of(grads, dev), loss_r, g_r)
+    equal = _replicas_bit_equal(grads)
+    del grads
+    loss_c, g_c = sharded_loss_and_grads(_swap_experts(sp, mesh), inp, tgt,
+                                         cfg, mesh)
+    c_rel, c_grad = _f32_errors(loss_c.item(), _dense_of(g_c, dev), loss_r,
+                                g_r)
+    del g_c
+    k = SHARD_F32_LAYERS * mesh.size
+    oracle = "dense" if shards == 1 else f"{shards} shards alone"
+    print(f"  EP cf {cf} aux {aux} on {EP_MESH} against the {oracle}: loss "
+          f"rel err {rel:.3e} (limit {TRAIN_F32_LOSS:.0e}), worst grad leaf "
+          f"{grad:.3e} (limit {TRAIN_F32_GRAD:.0e}), replicas bit-equal "
+          f"{equal}; control, experts swapped across ep: {c_rel:.3e}, "
+          f"{c_grad:.3e}; launches {launches} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    _require(rel <= TRAIN_F32_LOSS and grad <= TRAIN_F32_GRAD and equal,
+             f"EP f32 cf {cf} disagrees with its oracle: {rel}, {grad}, "
+             f"{equal}")
+    _require(c_rel > TRAIN_F32_LOSS and c_grad > TRAIN_F32_GRAD,
+             f"swapped experts pass the limits: {c_rel}, {c_grad}")
+    _require(launches == _flash_want(k, k), f"EP f32 launched {launches}")
+    return {"mesh": list(EP_MESH), "capacity_factor": cf, "aux": aux,
+            "oracle_shards": shards, "loss_rel_err": rel,
+            "grad_rel_err": grad, "ctrl_loss_rel_err": c_rel,
+            "ctrl_grad_rel_err": c_grad, "launches": launches}
+
+
+def _pipe_f32_leg(dev, schedule, shape, M, moe_stages, oracles,
+                  cache) -> dict:
+    """Phase 58(a), a pipeline schedule's loss and gradients against
+    the dense step (dense stages) or the per-microbatch oracle (MoE
+    stages, 1F1B, with the dropped aux cotangent as the control);
+    ``oracles`` keeps each oracle for the next leg that needs it."""
+    from mpistragglers_jl_tpu_torch.parallel import pipeline as pl
+
+    t0 = time.perf_counter()
+    n_layers = SHARD_F32_LAYERS if moe_stages else PIPE_F32_LAYERS
+    cfg = (mt.moe_config(torch.float32, n_layers=n_layers) if moe_stages
+           else dataclasses.replace(_train_cfg(torch.float32),
+                                    n_layers=n_layers))
+    params = _seed0_params(cfg, dev, cache)
+    inp, tgt = (t[:F32_BATCH] for t in train_batch(cfg.vocab, dev))
+    shards = shape[0] * M if moe_stages else 1
+    key = (moe_stages, shards)
+    if key not in oracles:
+        oracles[key] = _per_shard_oracle(
+            params, inp, tgt,
+            dataclasses.replace(cfg, attn_impl="reference"), shards)
+    loss_r, g_r = oracles[key]
+    mesh = pt.pipeline_mesh(dev, shape)
+    v = pt.V if schedule == "circular" else None
+    pp_params = pl.shard_params_pipeline(params, cfg, mesh,
+                                         virtual_stages=v)
+    grad_fn = pl._pipeline_grad_fn(cfg, mesh, M, schedule, pt.V)
+    zero_launches()
+    loss, grads = grad_fn(pp_params, inp, tgt)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    rel, grad = _f32_errors(loss.item(), _unstack(grads, dev, v), loss_r,
+                            g_r)
+    equal = _replicas_bit_equal(grads)
+    del grads
+    k = n_layers * M * shape[0]
+    out = {"schedule": schedule, "mesh": list(shape), "n_microbatch": M,
+           "oracle_shards": shards, "loss_rel_err": rel,
+           "grad_rel_err": grad, "launches": launches}
+    ctrl = ""
+    if moe_stages:
+        right = pl._vjp
+
+        def dropped(outputs, inputs, grad_outputs):
+            if grad_outputs is not None:  # dL/d aux zeroed
+                grad_outputs = (grad_outputs[0],
+                                torch.zeros_like(grad_outputs[1]))
+            return right(outputs, inputs, grad_outputs)
+
+        pl._vjp = dropped
+        try:
+            loss_c, g_c = grad_fn(pp_params, inp, tgt)
+        finally:
+            pl._vjp = right
+        out["ctrl_loss_rel_err"], out["ctrl_grad_rel_err"] = _f32_errors(
+            loss_c.item(), _unstack(g_c, dev), loss_r, g_r)
+        del g_c
+        ctrl = (f"; control, the aux cotangent dropped: loss "
+                f"{out['ctrl_loss_rel_err']:.3e}, grad "
+                f"{out['ctrl_grad_rel_err']:.3e}")
+        _require(out["ctrl_grad_rel_err"] > TRAIN_F32_GRAD,
+                 f"a dropped aux cotangent passes: {out}")
+    print(f"  {schedule} {'MoE' if moe_stages else 'dense'} on {shape}, "
+          f"{M} microbatches: loss rel err {rel:.3e}, worst grad leaf "
+          f"{grad:.3e}, replicas bit-equal {equal}{ctrl}; launches "
+          f"{launches} ({time.perf_counter() - t0:.1f} s)")
+    _require(rel <= TRAIN_F32_LOSS and grad <= TRAIN_F32_GRAD and equal,
+             f"{schedule} f32 disagrees with its oracle: {out}")
+    want = _flash_want(2 * k if schedule == "1f1b" else k, k)
+    _require(launches == want, f"{schedule} f32 launched {launches}")
+    return out
+
+
+def _bf16_checks(label, rep, changes, oracle_changes, oracle_loss,
+                 equal, want, names) -> None:
+    """Phase 58(b)'s checks on one run's report (updated in place);
+    ``names`` the leaves' paths."""
+    launches = rep.pop("launches")
+    traj = rep["loss_trajectory"]
+    rel = abs(traj[0] - oracle_loss) / abs(oracle_loss)
+    upd, leaf, n = _worst_leaf(changes, oracle_changes, names)
+    rep.update({"loss_vs_oracle_rel_err": rel, "update_rel_err": upd,
+                "update_worst_leaf": leaf, "replicas_bit_equal": equal,
+                "launches": {FLASH.get(k, (k,))[0]: c
+                             for k, c in launches.items()}})
+    print(f"  {label}: {rep['steps']} steps, launches {rep['launches']}; "
+          f"first loss rel err {rel:.3e} (limit {TRAIN_BF16_ORACLE:.0e}); "
+          f"worst leaf change {upd:.3e} ({leaf}; limit "
+          f"{TRAIN_BF16_UPDATE}) over {n} changed leaves; replicas "
+          f"bit-equal {equal}; {rep['ms_per_step']:.2f} ms/step, {rep['tokens_per_s']:.1f} "
+          f"tokens/s, peak {rep['peak_mem_gb']:.3f} GB, warm-up "
+          f"{rep['warmup_step_s']:.2f} s")
+    _require(launches == want, f"{label}: launched {launches}, want {want}")
+    _require(bool(np.isfinite(traj).all()), f"{label}: loss {traj}")
+    _require(rel <= TRAIN_BF16_ORACLE,
+             f"{label}: first loss {traj[0]} vs the oracle {oracle_loss}")
+    _require(upd <= TRAIN_BF16_UPDATE, f"{label}: update off by {upd}")
+    _require(equal, f"{label}: replicas differ after the steps")
+
+
+def _want_all(k1, k23) -> dict:
+    return {**_flash_want(k1, k23), K5: 0, K6: 0, K7: 0, SAMPLE: 0}
+
+
+def _ep_bf16(dev, cache) -> tuple[dict, dict]:
+    """Phase 58(b), the MoE step over the mesh: (1, 1, 1, 1) and
+    EP_MESH, then the update control on EP_MESH."""
+    from mpistragglers_jl_tpu_torch.models.transformer import shard_params
+
+    cfg = mt.moe_config()
+    params0 = _seed0_params(cfg, dev, cache)
+    names = _leaf_names(params0)
+    inp, tgt = train_batch(cfg.vocab, dev)
+    out, launches = {}, {}
+    for shape in ((1, 1, 1, 1), EP_MESH):
+        shards = shape[0] * shape[3]
+        want_changes, oracle = _oracle_changes(cfg, params0, inp, tgt,
+                                               shards, pt.TIMED + 1)
+        mesh = _ep_mesh(dev, shape)
+        step = make_train_step(cfg, mesh, lr=LR, donate=True)
+        sp, rep = pt.train_run(step, shard_params(params0, cfg, mesh), inp,
+                               tgt, dev)
+        launches[shape] = rep["launches"]
+        k = cfg.n_layers * mesh.size * rep["steps"]
+        got = _changes(_dense_of(sp, dev), _leaves(params0))
+        _bf16_checks(f"EP {shape}", rep, got, want_changes, oracle[0],
+                     _replicas_bit_equal(sp), _want_all(k, k), names)
+        del sp
+        if mesh.size == 1:
+            rep["one_device"] = _one_device_update(
+                cfg, params0, inp, tgt, got, want_changes, names)
+        del got
+        rep.update({"mesh": list(shape), "ranks": mesh.size,
+                    "oracle_shards": shards, "oracle_trajectory": oracle})
+        out["x".join(map(str, shape))] = rep
+        torch.cuda.empty_cache()
+    mesh = _ep_mesh(dev, EP_MESH)
+    sp = shard_params(params0, cfg, mesh)
+    step = make_train_step(cfg, mesh, lr=LR, donate=True)
+    with _grad_sum_dropped("dp"):
+        for _ in range(pt.TIMED + 1):
+            sp, _ = step(sp, inp, tgt)
+    ctrl = _update_error(_changes(_dense_of(sp, dev), _leaves(params0)),
+                         want_changes)[0]
+    del sp, want_changes
+    sound = out["x".join(map(str, EP_MESH))]["update_rel_err"]
+    print(f"  update control on {EP_MESH}, the dp gradient sum dropped: "
+          f"worst leaf change {ctrl:.3e} (limit {TRAIN_BF16_UPDATE}; "
+          f"sound {sound:.3e})")
+    _require(ctrl > TRAIN_BF16_UPDATE,
+             f"a dropped dp gradient sum passes the update limit: {ctrl}")
+    out["update_ctrl_dp_grad_sum_dropped"] = ctrl
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _one_device_update(cfg, params0, inp, tgt, mesh_changes,
+                       want_changes, names) -> dict:
+    """Phase 58(b): the one-device MoE step (phase 28's) over the same
+    steps, its leaf changes held to the same oracle's and to the
+    (1, 1, 1, 1) mesh's, each with its worst leaf: the mesh's own share
+    of the gap to the oracle. Printed and recorded, not held."""
+    params = _rebuild(params0, iter(p.clone() for p in _leaves(params0)))
+    step = make_train_step(cfg, lr=LR, donate=True)
+    for _ in range(pt.TIMED + 1):
+        params, _ = step(params, inp, tgt)
+    one = _changes(params, _leaves(params0))
+    del params
+    rep = {}
+    for key, got, want in (("vs_oracle", one, want_changes),
+                           ("mesh_vs_one_device", mesh_changes, one)):
+        upd, leaf, n = _worst_leaf(got, want, names)
+        rep[key] = {"update_rel_err": upd, "worst_leaf": leaf,
+                    "leaves": n}
+    del one
+    print(f"    the one-device step over the same {pt.TIMED + 1} steps: "
+          f"worst leaf change against the oracle "
+          f"{rep['vs_oracle']['update_rel_err']:.3e} "
+          f"({rep['vs_oracle']['worst_leaf']}); the (1, 1, 1, 1) mesh's "
+          f"against it {rep['mesh_vs_one_device']['update_rel_err']:.3e} "
+          f"({rep['mesh_vs_one_device']['worst_leaf']}) over "
+          f"{rep['mesh_vs_one_device']['leaves']} leaves")
+    return rep
+
+
+def _pipe_bf16(dev, cache) -> tuple[dict, dict]:
+    """Phase 58(b), the pipeline cells of ``bench/pipeline_train.py``."""
+    out, launches = {}, {}
+    dense_oracle = None
+    for schedule, (shape, M, moe_stages) in pt.CELLS.items():
+        cfg = pt.cell_config(schedule)
+        params0 = _seed0_params(cfg, dev, cache)
+        inp, tgt = train_batch(cfg.vocab, dev)
+        shards = shape[0] * M if moe_stages else 1
+        if moe_stages or dense_oracle is None:
+            oracle = _oracle_changes(cfg, params0, inp, tgt, shards,
+                                     pt.TIMED + 1)
+            if not moe_stages:
+                dense_oracle = oracle
+        else:
+            oracle = dense_oracle
+        params, rep = pt.bench_cell(dev, schedule, params0)
+        launches[schedule] = rep["launches"]
+        k = cfg.n_layers * M * shape[0] * rep["steps"]
+        v = pt.V if schedule == "circular" else None
+        got = _changes(_unstack(params, dev, v), _leaves(params0))
+        _bf16_checks(f"{schedule} on {shape}, {M} microbatches", rep, got,
+                     oracle[0], oracle[1][0], _replicas_bit_equal(params),
+                     _want_all(2 * k if schedule == "1f1b" else k, k),
+                     _leaf_names(params0))
+        del got, params
+        gap = rep["bubble_measured"] - rep["bubble_formula"]
+        print(f"    measure_bubble on the card: {rep['bubble_measured']:.6f} "
+              f"against bubble_fraction {rep['bubble_formula']:.6f} over "
+              f"{rep['ticks']} ticks")
+        if schedule == "circular":
+            _require(abs(rep["bubble_measured"] - shape[1] / rep["ticks"])
+                     < 1e-12 and gap > 0, f"circular bubble {rep}")
+        else:
+            _require(abs(gap) < 1e-12, f"{schedule} bubble {rep}")
+        rep["oracle_shards"] = shards
+        out[schedule] = rep
+        torch.cuda.empty_cache()
+    del dense_oracle
+    return out, launches
+
+
+def phase_slice18(dev, t_start, dense_ms, moe_ms) -> tuple[dict, dict]:
+    """Phase 58. Returns (report, launches per run for the kernels
+    line)."""
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[58] expert parallelism and the pipeline, every rank on one "
+          f"card: f32 parity at full width (EP on {EP_MESH}, GPipe and "
+          "circular on (1, 2), 1F1B MoE on (2, 2)) with controls; bf16 "
+          f"main paths (EP on (1, 1, 1, 1) and {EP_MESH}, 1F1B MoE on (4, "
+          f"2), GPipe and circular on (1, 4); {pt.TIMED} timed steps)")
+    oracles, cache = {}, {}
+    out = {"f32": [
+        _ep_f32_leg(dev, 4.0, 0.0, cache),
+        _ep_f32_leg(dev, 1.25, 0.01, cache),
+        _pipe_f32_leg(dev, "gpipe", (1, 2), 2, False, oracles, cache),
+        _pipe_f32_leg(dev, "circular", (1, 2), 2, False, oracles, cache),
+        _pipe_f32_leg(dev, "1f1b", (2, 2), 2, True, oracles, cache)]}
+    oracles.clear()
+    cache.clear()
+    torch.cuda.empty_cache()
+    print(f"  f32 legs done (+{time.perf_counter() - t0:.1f} s)")
+    out["ep"], launches = _ep_bf16(dev, cache)
+    print(f"  EP runs done (+{time.perf_counter() - t0:.1f} s)")
+    out["pipeline"], more = _pipe_bf16(dev, cache)
+    cache.clear()
+    launches.update(more)
+    runs = {**{f"EP {k}": r for k, r in out["ep"].items()
+               if isinstance(r, dict)}, **out["pipeline"]}
+    print("  ms/step on one card: " + "; ".join(
+        f"{k} {r['ms_per_step']:.2f}" for k, r in runs.items())
+        + f"; the one-device MoE step of phase 28 {moe_ms:.2f}, the dense "
+        f"step of phase 14 {dense_ms:.2f} (ranks share the card: per-rank "
+        "and dispatch cost, no collective speed or pipeline overlap)")
+    out.update({"one_device_moe_ms_per_step_phase28": moe_ms,
+                "dense_ms_per_step_phase14": dense_ms,
+                "seconds": time.perf_counter() - t0})
+    return out, launches
+
+
+def _phase58_launches(launches, kname) -> list:
+    """K1-K3's launches on phase 58's bf16 runs, for the kernels line."""
+    rows = []
+    for run, counts in launches.items():
+        if isinstance(run, tuple):
+            rows.append({"phase": 58, "mesh": list(run), "axes": EP_AXES,
+                         "schedule": "expert-parallel",
+                         "steps": pt.TIMED + 1,
+                         "launches": counts[kname]})
+        else:
+            shape, M, _ = pt.CELLS[run]
+            rows.append({"phase": 58, "mesh": list(shape),
+                         "axes": ("dp", "pp"), "schedule": run,
+                         "n_microbatch": M, "steps": pt.TIMED + 1,
+                         "launches": counts[kname]})
+    return rows
 
 
 def _kernel_row(name, replaces, launches, err, tim,
@@ -4922,7 +5407,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print(f"[28] MoE training main path: bf16, batch {BATCH}, L={SEQ}, 4 "
-          f"experts, cf 1.25, aux 0.01, flash attention, SGD lr {LR}")
+          f"experts, cf 1.25, aux 0.01, flash attention, SGD lr {LR}, "
+          "through make_train_step(cfg, mesh) on a (1, 1, 1, 1) mesh beside "
+          "the one-device step")
     moe_train = phase_moe_train(dev)
     torch.cuda.empty_cache()
 
@@ -4982,6 +5469,9 @@ def main() -> int:
     k6_52, k6_53, slice15 = phase_slice15(dev, t_start)
     slice16 = phase_slice16(dev, t_start)
     slice17, launches57 = phase_slice17(dev, t_start, train["ms_per_step"])
+    slice18, launches58 = phase_slice18(
+        dev, t_start, train["ms_per_step"],
+        moe_train["one_device_ms_per_step"])
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -5014,7 +5504,10 @@ def main() -> int:
             source="flash_attention.cu"),
             "launches_resume_phase46": launches46[kname],
             "launches_sharded_phase57": _phase57_launches(launches57,
-                                                          kname)})
+                                                          kname),
+            **({} if kname == "flash_bwd_fused" else {
+                "launches_ep_pipeline_phase58": _phase58_launches(
+                    launches58, kname)})})
     # K7's time is its fullest variant's (full_nosm); all four beside it
     variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
     kernels.append({
@@ -5068,6 +5561,8 @@ def main() -> int:
     print(json.dumps({"slice16": slice16,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice17": slice17,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice18": slice18,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

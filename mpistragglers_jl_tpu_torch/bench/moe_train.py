@@ -3,9 +3,12 @@
 The flagship transformer (vocab 32768, d_model 1024, 8 layers, 8 heads
 of 128, d_ff 4096, bf16, Ulysses over the flash kernels K1-K3) with
 every layer's MLP replaced by 4 top-1 Switch experts of the same d_ff
-(``capacity_factor`` 1.25, aux-loss coefficient 0.01), all resident on
-the card, trained by SGD (lr 1e-3) at batch 8, sequence 2048, from
-seed 0; the dense flagship beside it in the same process.
+(``capacity_factor`` 1.25, aux-loss coefficient 0.01), trained by SGD
+(lr 1e-3) at batch 8, sequence 2048, from seed 0 through the sharded
+program ``make_train_step(cfg, mesh)`` on a (1, 1, 1, 1) ``("dp", "ep",
+"sp", "tp")`` mesh, as ``benchmarks/moe_bench.py`` does; beside it in
+the same process the same MoE on one device (``mesh=None``, every
+expert resident) and the dense flagship.
 
     python -m mpistragglers_jl_tpu_torch.bench.moe_train [--steps 4]
         [--chains 2]
@@ -14,9 +17,12 @@ Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line:
 
 * ms per step and tokens/s: CUDA events around a chain of ``steps``
-  steps, the least of ``chains`` chains, MoE and dense chains
-  alternated;
-* ``routing_overhead_share`` = (MoE step - dense step) / MoE step;
+  steps, the least of ``chains`` chains, the mesh, one-device and dense
+  chains alternated (``one_device_ms_per_step``, ``dense_ms_per_step``
+  beside the mesh step's ``ms_per_step``);
+* ``routing_overhead_share`` = (one-device MoE step - dense step) /
+  one-device MoE step; ``mesh_routing_overhead_share`` the same for the
+  mesh step (its layout copies and per-rank loop included);
 * MFU against activated FLOPs (each token runs one expert of the dense
   MLP's width, so the dense step's matmul FLOPs,
   ``train_profile.model_flops_per_step``), over a raw bf16 matmul chain
@@ -27,8 +33,10 @@ line:
 * a 12-step loss trajectory and the reference's check of it
   (``trajectory_ok``: the loss falls by more than 5 times the median
   |second difference|, its own noise);
-* the flash kernels' launches over the MoE side's warm-up step and
-  first chain (every count set to 0 just before), and its peak memory.
+* every kernel's launches over the mesh side's warm-up step and first
+  chain (``launches``) and over the one-device side's
+  (``one_device_launches``), each count set to 0 just before each, and
+  the mesh side's peak memory.
 """
 
 from __future__ import annotations
@@ -45,9 +53,8 @@ from ..models.transformer import (
     _leaves,
     init_params,
     make_train_step,
+    shard_params,
 )
-from ..ops import decode_attention as da
-from ..ops import flash_attention as fa
 from .decode_kernel_attrib import card
 from .train_profile import (
     BATCH,
@@ -55,12 +62,15 @@ from .train_profile import (
     SEQ,
     TRAIN,
     _free_garbage,
+    launch_counts,
     model_flops_per_step,
     raw_matmul_tflops,
+    zero_launches,
 )
 
-# benchmarks/moe_bench.py's experts
+# benchmarks/moe_bench.py's experts and mesh
 MOE = dict(n_experts=4, capacity_factor=1.25, moe_aux_coef=0.01)
+MESH_AXES = ("dp", "ep", "sp", "tp")
 TRAJ_STEPS = 12
 
 
@@ -69,23 +79,19 @@ def moe_config(dtype=torch.bfloat16, **kw) -> TransformerConfig:
     return TransformerConfig(**{**TRAIN, **MOE, **kw}, dtype=dtype)
 
 
-def _zero_launches() -> None:
-    for counts in (da.LAUNCHES, fa.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
 class _Side:
-    """One model's state: params from seed 0, its batch, its step and
-    its best chain."""
+    """One model's state: ``params`` (laid out over ``mesh`` as copies,
+    or stepped in place on one device), its batch (``data``, (B, L +
+    1)), its step and its best chain."""
 
-    def __init__(self, cfg, rng, dev):
+    def __init__(self, cfg, params, data, dev, mesh=None):
         self.cfg = cfg
-        self.params = init_params(cfg, seed=0, device=dev)
-        data = rng.integers(0, cfg.vocab, (BATCH, SEQ + 1), dtype=np.int32)
+        self.params = params
+        if mesh is not None:
+            self.params = shard_params(params, cfg, mesh)
         tok = torch.as_tensor(data, device=dev)
         self.inp, self.tgt = tok[:, :-1], tok[:, 1:]
-        self.step = make_train_step(cfg, lr=LR, donate=True)
+        self.step = make_train_step(cfg, mesh, lr=LR, donate=True)
         self.best = None
         self.loss0 = self.loss = None
 
@@ -124,6 +130,12 @@ def trajectory(step, params, inp, tgt, steps: int = TRAJ_STEPS):
                     "trajectory_ok": bool(drop > 5 * max(noise, 1e-9))}
 
 
+def _local0(leaf):
+    """A leaf's tensor on flat rank 0 (the whole of it on a mesh of
+    one position)."""
+    return leaf if isinstance(leaf, torch.Tensor) else leaf.local(0)
+
+
 def layer0_routing(params, inp, cfg) -> dict:
     """Layer 0's router on the batch's embeddings: the dropped share of
     tokens at the config's capacity factor and at 0.5, and the aux
@@ -131,8 +143,8 @@ def layer0_routing(params, inp, cfg) -> dict:
     T = inp.numel()
     E = cfg.n_experts
     with torch.no_grad():
-        x = params["emb"][inp.long()].reshape(T, cfg.d_model)
-        wg = params["layers"][0]["wg"]
+        x = _local0(params["emb"])[inp.long()].reshape(T, cfg.d_model)
+        wg = _local0(params["layers"][0]["wg"])
         table, _, _, aux = switch_route_indices(
             x, wg, _capacity(T, E, cfg.capacity_factor))
         table_h = switch_route_indices(x, wg, _capacity(T, E, 0.5))[0]
@@ -142,31 +154,47 @@ def layer0_routing(params, inp, cfg) -> dict:
 
 
 def bench_moe_train(dev, *, steps: int = 4, chains: int = 2) -> dict:
+    from ..parallel import make_mesh
+
     rng = np.random.default_rng(0)
-    moe = _Side(moe_config(), rng, dev)
-    cfg = moe.cfg
-    n_params = sum(p.numel() for p in _leaves(moe.params))
+    data = rng.integers(0, TRAIN["vocab"], (BATCH, SEQ + 1), dtype=np.int32)
+    mesh = make_mesh((1,) * len(MESH_AXES), MESH_AXES, devices=[dev])
+    cfg = moe_config()
+    params = init_params(cfg, seed=0, device=dev)  # the host draws once
+    moe = _Side(cfg, params, data, dev, mesh)
+    n_params = sum(_local0(p).numel() for p in _leaves(moe.params))
     at_init = layer0_routing(moe.params, moe.inp, cfg)
     _free_garbage()
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_launches()
+    zero_launches()
     moe.warm()
     moe.chain(steps)
-    launches = {**da.LAUNCHES, **fa.LAUNCHES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    dense = _Side(moe_config(n_experts=0, moe_aux_coef=0.0), rng, dev)
+    one = _Side(cfg, params, data, dev)
+    zero_launches()
+    one.warm()
+    one.chain(steps)
+    one_launches = launch_counts()
+    dcfg = moe_config(n_experts=0, moe_aux_coef=0.0)
+    dense = _Side(dcfg, init_params(dcfg, seed=0, device=dev),
+                  rng.integers(0, TRAIN["vocab"], (BATCH, SEQ + 1),
+                               dtype=np.int32), dev)
     dense.warm()
     dense.chain(steps)
     for _ in range(chains - 1):
         moe.chain(steps)
+        one.chain(steps)
         dense.chain(steps)
+    del one.params, params
     moe.params, tr = trajectory(moe.step, moe.params, moe.inp, moe.tgt)
     routing = layer0_routing(moe.params, moe.inp, cfg)
     raw = raw_matmul_tflops(dev)
     flops = model_flops_per_step(cfg, BATCH, SEQ)
     ms = moe.best
     out = {
-        "metric": "moe-train-step", "ms_per_step": ms,
+        "metric": "moe-train-step", "mesh": dict(mesh.shape),
+        "ms_per_step": ms,
         "tokens_per_s": BATCH * SEQ / ms * 1e3,
         "activated_tflops_per_s": flops / ms / 1e9,
         "mfu_vs_raw_matmul": flops / ms / 1e9 / raw,
@@ -184,9 +212,13 @@ def bench_moe_train(dev, *, steps: int = 4, chains: int = 2) -> dict:
         "launches": launches, "launch_steps": 1 + steps,
         "peak_mem_gb": peak / 1e9, "batch": BATCH, "seq": SEQ,
         "steps_per_chain": steps, "chains_min_of": chains,
+        "one_device_ms_per_step": one.best,
+        "one_device_loss_first": one.loss0,
+        "one_device_launches": one_launches,
         "dense_ms_per_step": dense.best,
         "dense_tokens_per_s": BATCH * SEQ / dense.best * 1e3,
-        "routing_overhead_share": (ms - dense.best) / ms,
+        "routing_overhead_share": (one.best - dense.best) / one.best,
+        "mesh_routing_overhead_share": (ms - dense.best) / ms,
         "dense_loss_first": dense.loss0, "chains_alternated": True,
     }
     return out

@@ -15,7 +15,9 @@ traces the fused backward (K4) instead of the split one (K2, K3).
 
 ``--mesh 2,2,2`` traces the sharded step of ``chip_smoke.py`` phase 57
 instead: a ``("dp", "sp", "tp")`` mesh of that shape whose ranks all
-share cuda:0 (per-rank and dispatch cost; no collective speed).
+share cuda:0 (per-rank and dispatch cost; no collective speed). With
+``--moe`` the mesh is ``("dp", "sp", "tp", "ep")`` (``--mesh 2,1,2,2``,
+the expert-parallel step of phase 58).
 
 ``--pair`` compares the two backwards in one process, in the order
 split, fused, fused, split: each run takes two warm steps, then times
@@ -26,7 +28,7 @@ bench's batch and sequence (e.g. batch 4 at sequence 4096 keeps the
 tokens per step).
 
     python -m mpistragglers_jl_tpu_torch.bench.train_profile [--fused]
-        [--moe] [--mesh 2,2,2]
+        [--moe] [--mesh 2,2,2 | --moe --mesh 2,1,2,2]
     python -m mpistragglers_jl_tpu_torch.bench.train_profile --pair \
         [--batch 4 --seq 4096]
 """
@@ -49,7 +51,9 @@ from ..models.transformer import (
     make_train_step,
     shard_params,
 )
+from ..ops import decode_attention as da
 from ..ops import flash_attention as fa
+from ..ops import sampling
 from .serving_profile import _busy_us
 
 # benchmarks/transformer_train_bench.py bench_transformer_train's
@@ -93,6 +97,19 @@ def _free_garbage() -> None:
     torch.cuda.empty_cache()
 
 
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0 (the flash, decode
+    and sampling kernels'), just before a main path's run."""
+    for counts in (da.LAUNCHES, fa.LAUNCHES, sampling.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last :func:`zero_launches`."""
+    return {**da.LAUNCHES, **fa.LAUNCHES, **sampling.LAUNCHES}
+
+
 def raw_matmul_tflops(dev, n: int = 8192, chain: int = 20,
                       reps: int = 3) -> float:
     """A chain of ``chain`` dependent bf16 n x n matmuls after one
@@ -133,8 +150,7 @@ def train_batch(vocab: int, device, batch: int = BATCH, seq: int = SEQ):
 
 def _traced_step(step, params, inp, tgt):
     """One step under the profiler: (params, loss, report, profile)."""
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    zero_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -191,12 +207,15 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--mesh", default=None,
-                    help="dp,sp,tp: trace the sharded step, every rank "
-                         "on cuda:0")
+                    help="dp,sp,tp (dp,sp,tp,ep with --moe): trace the "
+                         "sharded step, every rank on cuda:0")
     args = ap.parse_args()
-    if args.mesh and (args.pair or args.moe):
-        ap.error("--mesh traces the sharded dense step: it takes neither "
-                 "--pair nor --moe")
+    axes = ("dp", "sp", "tp", "ep") if args.moe else ("dp", "sp", "tp")
+    if args.mesh and args.pair:
+        ap.error("--mesh traces one sharded step: it does not take --pair")
+    if args.mesh and len(args.mesh.split(",")) != len(axes):
+        ap.error(f"--mesh takes one size per axis of {axes}"
+                 + ("" if args.moe else " (with --moe: dp,sp,tp,ep)"))
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -231,8 +250,7 @@ def main() -> int:
         from ..parallel import make_mesh
 
         dims = tuple(int(x) for x in args.mesh.split(","))
-        mesh = make_mesh(dims, ("dp", "sp", "tp"),
-                         devices=[dev] * int(np.prod(dims)))
+        mesh = make_mesh(dims, axes, devices=[dev] * int(np.prod(dims)))
         params = shard_params(params, cfg, mesh)
         shape["mesh"] = list(dims)
     step = make_train_step(cfg, mesh, lr=LR, donate=True)

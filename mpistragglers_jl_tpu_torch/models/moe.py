@@ -21,9 +21,17 @@ correctness oracle and its single-chip execution mode.
 * :func:`switch_route` (the one-hot formulation) and
   :func:`_scatter_combine` (the scatter-add combine) are the oracles the
   gather form is tested against; no path of the port runs them.
-
-The expert-parallel mesh path (:func:`moe_layer_specs`,
-:func:`moe_ffn_sharded`) is ``ROADMAP.md`` Queue 1 item 18.
+* **Expert parallelism over ``"ep"``** (:func:`moe_layer_specs`,
+  :func:`moe_ffn_sharded`). The experts are split over the ``ep`` mesh
+  axis and each expert's hidden dim over ``tp``; the batch is split
+  over ``(dp, ep)``, so every ep member routes its own tokens (GShard:
+  routing and capacity over the member's local tokens). One tiled
+  all-to-all ships each member's ``(E, C, D)`` slots to the experts'
+  owners, each owner runs its ``E/ep`` experts on its ``d_ff/tp``
+  shard, and the inverse all-to-all ships the results home. The caller
+  sums the result over ``tp``; ``be2`` rides outside that sum. The
+  reference runs it inside ``shard_map``; here it is a per-rank loop
+  over the collectives of ``parallel/collectives.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_gather, all_to_all
+from ..parallel.mesh import PartitionSpec as P
 
 __all__ = [
     "init_moe_layer",
@@ -70,25 +81,64 @@ def init_moe_layer(rng: np.random.Generator, d_model: int, d_ff: int,
     }
 
 
-def _sharded_later(what: str):
-    return NotImplementedError(
-        f"{what} is the expert-parallel mesh path, ROADMAP.md Queue 1 "
-        "item 18 (not yet ported); the port runs moe_ffn_dense on one "
-        "device"
-    )
+def moe_layer_specs() -> dict:
+    """PartitionSpecs for :func:`init_moe_layer`: experts over ``ep``,
+    the expert hidden dim over ``tp``, router replicated."""
+    return {
+        "wg": P(),
+        "we1": P("ep", None, "tp"),
+        "be1": P("ep", "tp"),
+        "we2": P("ep", "tp", None),
+        "be2": P("ep", None),
+    }
 
 
-def moe_layer_specs():
-    """The reference's PartitionSpecs of the experts over an ``"ep"``
-    mesh axis; raises (ROADMAP.md item 18)."""
-    raise _sharded_later("moe_layer_specs")
+def moe_ffn_sharded(xs: list, mps: list, capacity_factor: float, *,
+                    mesh):
+    """Expert-parallel MoE FFN, per rank: ``xs[r]`` is flat position r's
+    (B', L', D) activations (batch split over (dp, ep), sequence over
+    sp), ``mps[r]`` its expert shards laid out by
+    :func:`moe_layer_specs`. Returns per-rank lists ``(y_partial,
+    ybias, aux)`` with ``y = psum(y_partial, "tp") + ybias``: ``be2`` is
+    replicated over tp, so its per-token term ``kept_gate * be2[expert]``
+    stays outside the caller's tp sum.
 
-
-def moe_ffn_sharded(x, mp: dict, capacity_factor: float, *,
-                    ep_axis: str = "ep", tp_axis: str = "tp"):
-    """The reference's expert-parallel FFN (all_to_all over ``ep``);
-    raises (ROADMAP.md item 18)."""
-    raise _sharded_later("moe_ffn_sharded")
+    Routing and capacity are over each rank's local tokens. Chunk ``j``
+    of a rank's (E, C, D) slots is experts ``[j E/ep, (j+1) E/ep)``, the
+    experts whose ``we1`` shard sits at ep coordinate ``j``: the
+    all-to-all (split dim 0, concat dim 1) hands it there, the owner's
+    FFN runs on (E/ep, ep*C, D), and the inverse (split dim 1, concat
+    dim 0) returns each member's (E, C, D)."""
+    ep = mesh.shape["ep"]
+    routes, xes, auxes = [], [], []
+    for x, mp in zip(xs, mps):
+        B, L, D = x.shape
+        E = mp["we1"].shape[0] * ep
+        T = B * L
+        C = _capacity(T, E, capacity_factor)
+        x2d = x.reshape(T, D)
+        table, expert, slot, gate, aux = _route_tables(x2d, mp["wg"], C)
+        xes.append(_GatherDispatch.apply(x2d, table, expert, slot))
+        routes.append((table, expert, slot, gate, C))
+        auxes.append(aux)
+    # my tokens for your experts, then each owner's experts on its shard
+    xes = all_to_all(xes, mesh, "ep", split_dim=0, concat_dim=1)
+    yes = [_expert_ffn(xe, mp) for xe, mp in zip(xes, mps)]
+    yes = all_to_all(yes, mesh, "ep", split_dim=1, concat_dim=0)
+    be2s = all_gather([mp["be2"] for mp in mps], mesh, "ep", dim=0)
+    ys, biases = [], []
+    for x, ye, be2, (table, expert, slot, gate, C) in zip(xs, yes, be2s,
+                                                         routes):
+        yt = _CombinePerToken.apply(ye, table, expert, slot)
+        kg = torch.where(slot < C, gate, 0.0).to(x.dtype)  # dropped -> 0
+        ys.append((yt * kg[:, None]).reshape(x.shape))
+        # kg[t] * be2[expert[t]] as a (T, E) @ (E, D) product: one term
+        # is nonzero, so the value is the elementwise product's, and the
+        # backward is a product too where the row gather's would be a
+        # scatter-add of T rows onto E
+        sel = F.one_hot(expert, be2.shape[0]).to(x.dtype) * kg[:, None]
+        biases.append((sel @ be2).reshape(x.shape))
+    return ys, biases, auxes
 
 
 def _route(x2d: torch.Tensor, wg: torch.Tensor):

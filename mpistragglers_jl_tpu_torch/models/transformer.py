@@ -33,8 +33,15 @@ single-controller (``parallel/mesh.py``): each parameter is a
 is a per-rank loop with explicit, differentiable collectives
 (``parallel/collectives.py``). Without a mesh (``mesh=None`` or one
 device) the train steps run ``forward_dense``, that program's
-one-device form. A mesh with experts (``n_experts > 0``) is item 18e,
-not yet ported.
+one-device form.
+
+With experts (``n_experts > 0``) the mesh is ``("dp", "sp", "tp",
+"ep")``: the batch is split over ``(dp, ep)`` and each layer's MoE runs
+expert-parallel (``models/moe.py`` ``moe_ffn_sharded``: an all-to-all
+over ``ep`` each way, the experts' hidden dim over ``tp``), its
+output summed over ``tp`` with ``be2``'s term outside the sum; the loss
+adds ``moe_aux_coef`` times the mean of the ranks' aux losses over the
+batch axes, as the reference.
 
 **The single-controller autograd rule.** ``shard_map`` transposes a
 replicated input's gradient into a sum over the devices that hold it.
@@ -47,8 +54,8 @@ Here every replica is its own tensor, so the port does it by hand:
    collectives;
 3. each leaf's gradient is summed over the mesh axes that its
    ``param_specs`` entry does not name (dp and sp for every leaf, tp
-   for the replicated ones; an axis of size 1 has nothing to add), in
-   rank order and in float32, and the one
+   for the replicated ones, ep for all but the experts; an axis of
+   size 1 has nothing to add), in rank order and in float32, and the one
    sum is written to every replica, so replicas stay bit-equal after
    any number of SGD or AdamW steps.
 
@@ -59,6 +66,7 @@ cross ranks inside a layer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from functools import partial
 from typing import Any
@@ -82,7 +90,12 @@ from ..parallel.ring_attention import (
     ring_self_attention,
     ulysses_attention,
 )
-from .moe import init_moe_layer, moe_ffn_dense, moe_layer_specs
+from .moe import (
+    init_moe_layer,
+    moe_ffn_dense,
+    moe_ffn_sharded,
+    moe_layer_specs,
+)
 
 __all__ = [
     "TransformerConfig",
@@ -352,6 +365,18 @@ def forward_dense(params: dict, tokens, cfg: TransformerConfig):
     return _forward_dense_aux(params, tokens, cfg)[0]
 
 
+def _layer(x, lp, pos, attn_fn, cfg: TransformerConfig):
+    """One layer on (B, L, D) activations with every weight local:
+    ``(x, the layer's MoE aux loss in f32)``, the aux None without
+    experts. The dense forward and the pipeline's stages run it."""
+    x = x + _attn_block(x, lp, pos, attn_fn)
+    h = _ln(x, lp["ln2_s"], lp["ln2_b"])
+    if cfg.n_experts:
+        y, a = moe_ffn_dense(h, lp, cfg.capacity_factor)
+        return x + y, a
+    return x + _mlp(h, lp) + lp["b2"], None
+
+
 def _forward_dense_aux(params, tokens, cfg: TransformerConfig):
     """Dense forward returning (logits, the layers' summed MoE aux loss
     in f32; 0 without experts). Under ``remat`` the backward recomputes
@@ -360,18 +385,9 @@ def _forward_dense_aux(params, tokens, cfg: TransformerConfig):
     tokens = torch.as_tensor(tokens, device=dev).long()
     pos = torch.arange(tokens.shape[1], device=dev)
     x = params["emb"][tokens]
-    attn_fn = _local_attention(cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-
-    def one_layer(x, lp):
-        x = x + _attn_block(x, lp, pos, attn_fn)
-        h = _ln(x, lp["ln2_s"], lp["ln2_b"])
-        if cfg.n_experts:
-            y, a = moe_ffn_dense(h, lp, cfg.capacity_factor)
-            return x + y, a
-        return x + _mlp(h, lp) + lp["b2"], zero
-
-    aux = zero
+    one_layer = partial(_layer, pos=pos, attn_fn=_local_attention(cfg),
+                        cfg=cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(one_layer, x, lp, use_reentrant=False)
@@ -568,19 +584,22 @@ def data_spec(cfg: TransformerConfig) -> P:
 
 
 def _check_sharded(cfg: TransformerConfig, mesh: Mesh) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "a mesh with n_experts > 0 runs the expert-parallel program "
-            "(moe_layer_specs, moe_ffn_sharded), ROADMAP.md Queue 1 item "
-            "18e (not yet ported); pass mesh=None to train the experts on "
-            "one device")
-    missing = [a for a in ("dp", "sp", "tp") if a not in mesh.axis_names]
+    need = ("dp", "sp", "tp") + (("ep",) if cfg.n_experts else ())
+    missing = [a for a in need if a not in mesh.axis_names]
     if missing:
+        what = "expert-parallel" if cfg.n_experts else "sharded"
         raise ValueError(
-            f"the sharded program runs over ('dp', 'sp', 'tp') mesh axes; "
-            f"mesh {dict(mesh.shape)} lacks {missing}")
+            f"the {what} program runs over {need} mesh axes; mesh "
+            f"{dict(mesh.shape)} lacks {missing}")
     if cfg.attn not in ("ring", "ulysses"):
         raise ValueError(f"unknown sharded attention kind {cfg.attn!r}")
+    if cfg.n_experts:
+        ep, tp = mesh.shape["ep"], mesh.shape["tp"]
+        if cfg.n_experts % ep:
+            raise ValueError(
+                f"n_experts {cfg.n_experts} must divide over ep={ep}")
+        if cfg.d_ff % tp:
+            raise ValueError(f"d_ff {cfg.d_ff} must divide over tp={tp}")
     mesh.require_local()
     param_specs(cfg, mesh)  # the tp and kv-head alignment checks
 
@@ -619,8 +638,16 @@ def _rebuild_tensors(tree, it):
 
 
 def _sharded_leaves(params, cfg, mesh) -> list:
+    return _laid_out(params, param_specs(cfg, mesh), mesh,
+                     "shard_params(params, cfg, mesh)")
+
+
+def _laid_out(params, spec_tree, mesh, how: str) -> list:
+    """``params``' leaves, each checked to be a ShardedTensor on
+    ``mesh`` laid out by its entry of ``spec_tree`` (``how`` names the
+    function that lays them out)."""
     leaves = _leaves(params)
-    specs = _leaves(param_specs(cfg, mesh))
+    specs = _leaves(spec_tree)
     if len(leaves) != len(specs):
         raise ValueError(
             f"params hold {len(leaves)} leaves, the config {len(specs)}")
@@ -628,7 +655,7 @@ def _sharded_leaves(params, cfg, mesh) -> list:
         if not isinstance(leaf, ShardedTensor) or leaf.mesh is not mesh:
             raise TypeError(
                 "over a mesh the parameters are ShardedTensors on that "
-                "mesh: lay them out with shard_params(params, cfg, mesh)")
+                f"mesh: lay them out with {how}")
         if _spec_key(leaf.spec) != _spec_key(spec):
             raise ValueError(
                 f"a parameter laid out as {leaf.spec}, param_specs says "
@@ -660,10 +687,11 @@ def _sharded_attention(cfg: TransformerConfig, mesh: Mesh):
 
 
 def _forward_local(lparams: list, ltokens: list, cfg: TransformerConfig,
-                   mesh: Mesh) -> list:
+                   mesh: Mesh) -> tuple[list, list]:
     """The per-rank program: ``lparams[r]`` is position r's tree of
     local shards, ``ltokens[r]`` its (B', Lc) block of tokens. Returns
-    each position's local (B', Lc, vocab) logits."""
+    each position's local (B', Lc, vocab) logits and its layers' summed
+    MoE aux loss (f32; 0 without experts)."""
     sp = mesh.axis_index("sp")
     devs = [lp["emb"].device for lp in lparams]
     toks = [torch.as_tensor(t, device=d).long()
@@ -684,28 +712,48 @@ def _forward_local(lparams: list, ltokens: list, cfg: TransformerConfig,
         a = psum([torch.einsum("blhk,hkd->bld", o, lp["wo"])
                   for o, lp in zip(os_, lps)], mesh, "tp")
         xs = [x + ai for x, ai in zip(xs, a)]
-        y = psum([_mlp(_ln(x, lp["ln2_s"], lp["ln2_b"]), lp)
-                  for x, lp in zip(xs, lps)], mesh, "tp")  # d_ff shards
+        hs = [_ln(x, lp["ln2_s"], lp["ln2_b"]) for x, lp in zip(xs, lps)]
+        if cfg.n_experts:
+            # the experts' hidden dims are tp shards; be2's term rides
+            # outside the psum (moe_ffn_sharded)
+            y, bias, a = moe_ffn_sharded(hs, lps, cfg.capacity_factor,
+                                         mesh=mesh)
+            y = psum(y, mesh, "tp")
+            return [x + yi + bi for x, yi, bi in zip(xs, y, bias)], a
+        y = psum([_mlp(h, lp) for h, lp in zip(hs, lps)], mesh,
+                 "tp")  # d_ff shards
         return [x + yi + lp["b2"]  # b2 replicated, outside the psum
-                for x, yi, lp in zip(xs, y, lps)]
+                for x, yi, lp in zip(xs, y, lps)], None
 
     xs = [lp["emb"][t] for lp, t in zip(lparams, toks)]
+    aux = [torch.zeros((), dtype=torch.float32, device=d) for d in devs]
     for i in range(cfg.n_layers):
         lps = [lp["layers"][i] for lp in lparams]
         # remat checkpoints the layer across every rank: its collectives
         # cross ranks, so no rank's layer can be replayed alone
         if cfg.remat and torch.is_grad_enabled():
-            xs = checkpoint(one_layer, xs, lps, use_reentrant=False)
+            xs, a = checkpoint(one_layer, xs, lps, use_reentrant=False)
         else:
-            xs = one_layer(xs, lps)
-    return [torch.einsum("bld,vd->blv", _ln(x, lp["lnf_s"], lp["lnf_b"]),
-                         lp["emb"]) for x, lp in zip(xs, lparams)]
+            xs, a = one_layer(xs, lps)
+        if a is not None:
+            aux = [s_ + ai for s_, ai in zip(aux, a)]
+    logits = [torch.einsum("bld,vd->blv", _ln(x, lp["lnf_s"], lp["lnf_b"]),
+                           lp["emb"]) for x, lp in zip(xs, lparams)]
+    return logits, aux
 
 
 def _loss_local(lparams, ltokens, ltargets, cfg, mesh) -> list:
-    """Each position's copy of the mean token NLL over the whole batch."""
-    logits = _forward_local(lparams, ltokens, cfg, mesh)
-    return nll_loss(logits, ltargets, batch_axes(cfg), mesh)
+    """Each position's copy of the mean token NLL over the whole batch,
+    plus ``moe_aux_coef`` times the mean of the positions' aux losses
+    over the batch axes when the config has experts."""
+    logits, aux = _forward_local(lparams, ltokens, cfg, mesh)
+    axes = batch_axes(cfg)
+    loss = nll_loss(logits, ltargets, axes, mesh)
+    if cfg.n_experts and cfg.moe_aux_coef:
+        members = len(mesh.axis_groups(axes)[0])
+        loss = [lo + cfg.moe_aux_coef * a / members
+                for lo, a in zip(loss, psum(aux, mesh, axes))]
+    return loss
 
 
 def shard_params(params: dict, cfg: TransformerConfig, mesh: Mesh) -> dict:
@@ -732,7 +780,7 @@ def make_forward(cfg: TransformerConfig, mesh: Mesh):
         lparams = [_rebuild(params, iter(leaf.local(r) for leaf in leaves))
                    for r in range(mesh.size)]
         toks, (B, L) = _data_locals(tokens, cfg, mesh)
-        logits = _forward_local(lparams, toks, cfg, mesh)
+        logits, _ = _forward_local(lparams, toks, cfg, mesh)
         return from_local(mesh, data_spec(cfg), logits, (B, L, cfg.vocab))
 
     return fwd
@@ -752,26 +800,49 @@ def sharded_loss_and_grads(params: dict, tokens, targets,
     return."""
     _check_sharded(cfg, mesh)
     leaves = _sharded_leaves(params, cfg, mesh)
-    n = mesh.size
-    shards = [[leaf.local(r) for r in range(n)] for leaf in leaves]
+    toks, _ = _data_locals(tokens, cfg, mesh)
+    tgts, _ = _data_locals(targets, cfg, mesh)
+    return _replica_loss_and_grads(
+        params, leaves, mesh,
+        lambda lparams: _loss_local(lparams, toks, tgts, cfg, mesh))
+
+
+@contextlib.contextmanager
+def _shards_requiring_grad(leaves, mesh):
+    """Context manager over the shards of ``leaves``: yields the
+    per-leaf lists of shards with ``requires_grad`` set, and restores
+    the flags on exit."""
+    shards = [[leaf.local(r) for r in range(mesh.size)] for leaf in leaves]
     flat = [t for per_leaf in shards for t in per_leaf]
     if len({id(t) for t in flat}) != len(flat):
         raise ValueError("two positions share one parameter tensor: lay "
                          "the parameters out with shard_params")
-    toks, _ = _data_locals(tokens, cfg, mesh)
-    tgts, _ = _data_locals(targets, cfg, mesh)
     flags = [t.requires_grad for t in flat]
     try:
         for t in flat:
             t.requires_grad_(True)
-        with torch.enable_grad():
-            lparams = [_rebuild(params, iter(s_[r] for s_ in shards))
-                       for r in range(n)]
-            loss = _loss_local(lparams, toks, tgts, cfg, mesh)[0]
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        yield shards
     finally:
         for t, f in zip(flat, flags):
             t.requires_grad_(f)
+
+
+def _replica_loss_and_grads(params, leaves, mesh: Mesh, loss_local):
+    """The single-controller autograd rule (module docstring) over any
+    per-rank program: ``loss_local(lparams)`` takes one tree of local
+    shards per flat position and returns each position's copy of the
+    loss. Returns flat rank 0's copy and the gradient tree of
+    :class:`ShardedTensor`, each leaf summed over the mesh axes of size
+    > 1 that its spec does not name. The pipeline's autodiff schedules
+    share it."""
+    n = mesh.size
+    with _shards_requiring_grad(leaves, mesh) as shards:
+        flat = [t for per_leaf in shards for t in per_leaf]
+        with torch.enable_grad():
+            lparams = [_rebuild(params, iter(s_[r] for s_ in shards))
+                       for r in range(n)]
+            loss = loss_local(lparams)[0]
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     it = iter(grads)
     out = []
     with torch.no_grad():
@@ -804,7 +875,12 @@ def make_train_step(cfg: TransformerConfig, mesh=None, *, lr: float = 1e-2,
     under ``torch.no_grad()`` and returns the same tree (the caller must
     not expect the old values); otherwise new tensors are returned and
     the input is left as it was."""
-    grads_of = _grads_fn(cfg, mesh)
+    return _sgd_step(_grads_fn(cfg, mesh), lr, donate)
+
+
+def _sgd_step(grads_of, lr: float, donate: bool):
+    """The SGD update over any ``grads_of(params, tokens, targets) ->
+    (loss, grads)``: :func:`make_train_step`'s and the pipeline's."""
 
     def step(params, tokens, targets):
         loss, grads = grads_of(params, tokens, targets)
@@ -847,7 +923,12 @@ def make_optax_train_step(cfg: TransformerConfig, mesh=None, tx=None):
     >>> opt_state = init_state(params)
     >>> params, opt_state, loss = step(params, opt_state, inp, tgt)
     """
-    grads_of = _grads_fn(cfg, mesh)
+    return _optax_step(_grads_fn(cfg, mesh), tx)
+
+
+def _optax_step(grads_of, tx):
+    """``(step, init_state)`` of a torch optimizer over any
+    ``grads_of``: :func:`make_optax_train_step`'s and the pipeline's."""
     if tx is None:
         raise ValueError("tx is required, e.g. tx=adamw(3e-4)")
 

@@ -26,6 +26,7 @@ _HOME = {
     "psum": "collectives",
     "ring_shift": "collectives",
     "all_to_all": "collectives",
+    "all_gather": "collectives",
     "make_ring_attention": "ring_attention",
     "make_ulysses_attention": "ring_attention",
     "initialize_multihost": "multihost",

@@ -22,7 +22,7 @@ reduce-scatter both sums the contributions and leaves output block j
 on rank j.
 
 The sharded transformer's collectives (:func:`psum`,
-:func:`ring_shift`, :func:`all_to_all`) run over the groups of one or
+:func:`ring_shift`, :func:`all_to_all`, :func:`all_gather`) run over the groups of one or
 more named axes of an N-d mesh (:meth:`.mesh.Mesh.axis_groups`). They
 take and return one tensor per flat mesh position (row-major), and are
 differentiable: they are built of ``.to``, out-of-place sums, ``split``
@@ -43,6 +43,7 @@ import torch
 from .mesh import Mesh, PartitionSpec, ShardedTensor, from_local, shard
 
 __all__ = [
+    "all_gather",
     "all_to_all",
     "masked_psum_scatter_combine",
     "mds_decode_weights",
@@ -249,17 +250,35 @@ def psum(xs, mesh: Mesh, axes, *, dtype=None) -> list:
     return out
 
 
-def ring_shift(xs, mesh: Mesh, axis: str) -> list:
-    """``jax.lax.ppermute`` with ``perm = [(j, (j + 1) % n)]`` over
+def ring_shift(xs, mesh: Mesh, axis: str, *, shift: int = 1) -> list:
+    """``jax.lax.ppermute`` with ``perm = [(j, (j + shift) % n)]`` over
     ``axis``: the member at coordinate ``c`` receives the tensor of
-    the member at ``(c - 1) % n`` (a copy on its own device)."""
+    the member at ``(c - shift) % n`` (a copy on its own device). An
+    entry may be None, a member with nothing to send (a pipeline's idle
+    slot): its receiver gets None and nothing moves."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
     out = [None] * len(xs)
     for group in mesh.axis_groups(axis):
         n = len(group)
         for c, r in enumerate(group):
-            out[r] = xs[group[(c - 1) % n]].to(devs[r], copy=True)
+            src = xs[group[(c - shift) % n]]
+            if src is not None:
+                out[r] = src.to(devs[r], copy=True)
+    return out
+
+
+def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:
+    """Tiled ``jax.lax.all_gather`` over ``axis``: every member gets the
+    members' tensors concatenated along ``dim`` in coordinate order.
+    The backward hands each member's cotangent slice back to its owner,
+    where autograd sums them: ``psum_scatter``, JAX's transpose."""
+    xs = _per_position(xs, mesh)
+    devs = mesh.devices.flatten()
+    out = [None] * len(xs)
+    for group in mesh.axis_groups(axis):
+        for r in group:
+            out[r] = torch.cat([xs[m].to(devs[r]) for m in group], dim=dim)
     return out
 
 

@@ -181,21 +181,31 @@ def make_mesh(
     return Mesh(arr.reshape(tuple(axis_sizes)), tuple(axis_names))
 
 
+def _axis_names(part) -> tuple:
+    """The mesh axes of one spec entry: none, one name, or a tuple of
+    names (the dimension split over their product, the first major)."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
 def _slices(mesh: Mesh, spec, shape, idx) -> tuple:
     """The index of position ``idx``'s block of a ``shape`` value."""
     out = []
     for d, size in enumerate(shape):
-        axis = spec[d] if d < len(spec) else None
-        if axis is None:
+        axes = _axis_names(spec[d] if d < len(spec) else None)
+        if not axes:
             out.append(slice(None))
             continue
-        parts = mesh.shape[axis]
+        parts, i = 1, 0
+        for a in axes:  # row-major over the axes, as JAX lays them out
+            n = mesh.shape[a]
+            parts, i = parts * n, i * n + idx[mesh.axis_names.index(a)]
         if size % parts:
             raise ValueError(
                 f"dimension {d} of size {size} does not split into "
-                f"{parts} parts over {axis!r}")
+                f"{parts} parts over {spec[d]!r}")
         step = size // parts
-        i = idx[mesh.axis_names.index(axis)]
         out.append(slice(i * step, (i + 1) * step))
     return tuple(out)
 
@@ -210,10 +220,11 @@ class ShardedTensor:
     def __init__(self, mesh: Mesh, spec, shards, shape):
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
-        for axis in self.spec:
-            if axis is not None and axis not in mesh.axis_names:
-                raise ValueError(
-                    f"axis {axis!r} not in mesh axes {mesh.axis_names}")
+        for part in self.spec:
+            for axis in _axis_names(part):
+                if axis not in mesh.axis_names:
+                    raise ValueError(
+                        f"axis {axis!r} not in mesh axes {mesh.axis_names}")
         self.shards = shards
         self.shape = tuple(int(s) for s in shape)
 

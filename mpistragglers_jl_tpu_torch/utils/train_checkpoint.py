@@ -22,8 +22,11 @@ writes the same ``leaf_<i>`` as the JAX package's parameter pytree; a
 bf16 tensor is stored as its raw 2-byte payload (``V2``), as ``np.savez``
 stores a JAX bf16 array. ``restore(target=...)`` rebuilds each leaf with
 the target's dtype and device; without a target the structure comes from
-``tree.json`` (tensors on the CPU). Writes are numpy only: a step written
-by orbax (a ``state/`` directory) is refused by name.
+``tree.json`` (tensors on the CPU). A :class:`..parallel.mesh.ShardedTensor`
+leaf (a parameter laid out over a mesh) is written as its gathered global
+value, the array a JAX-saved sharded array holds, and a target's sharded
+leaf is laid out again by its own mesh and spec. Writes are numpy only: a
+step written by orbax (a ``state/`` directory) is refused by name.
 
 >>> ckpt = TrainCheckpointer(dir)
 >>> ckpt.save(12, {"params": params, "opt": opt.state_dict()}, pool=pool)
@@ -42,6 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedTensor, shard
 from ..pool import AsyncPool
 from .checkpoint import state_dict as pool_state_dict
 from .coded_checkpoint import (leaf_like, to_numpy, tree_leaves,
@@ -63,7 +67,7 @@ def _spec(tree):
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return {kind: [_spec(v) for v in tree]}
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, ShardedTensor)):
         return {"tensor": str(tree.dtype).removeprefix("torch.")}
     if type(tree) in _SCALARS.values():
         return {"scalar": type(tree).__name__}
@@ -86,6 +90,13 @@ def _from_spec(spec, it):
     if kind == "scalar":
         return _SCALARS[val](arr.item())
     return arr
+
+
+def _lay_out(arr: np.ndarray, like: ShardedTensor) -> ShardedTensor:
+    """A global array laid out as the target leaf ``like``: its dtype,
+    mesh and spec, each block on its position's device."""
+    host = leaf_like(arr, torch.empty(0, dtype=like.dtype))
+    return shard(host, like.mesh, like.spec)
 
 
 class TrainCheckpointer:
@@ -137,7 +148,8 @@ class TrainCheckpointer:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         np.savez(os.path.join(tmp, "state.npz"),
-                 **{f"leaf_{i}": to_numpy(x)
+                 **{f"leaf_{i}": to_numpy(
+                     x.gather() if isinstance(x, ShardedTensor) else x)
                     for i, x in enumerate(tree_leaves(state))})
         with open(os.path.join(tmp, "tree.json"), "w") as f:
             json.dump(_spec(state), f)
@@ -167,7 +179,8 @@ class TrainCheckpointer:
         """Load ``(state, pool_state_dict_or_None, step)``.
 
         ``step=None`` loads the latest. ``target`` (a matching nest)
-        rebuilds each leaf with the target leaf's type, dtype and device;
+        rebuilds each leaf with the target leaf's type, dtype and device
+        (a ShardedTensor's mesh and spec);
         without it the structure comes from ``tree.json``, which a step
         written by the JAX package lacks. Feed the pool dict to
         :func:`.checkpoint.load_state_dict`.
@@ -195,7 +208,9 @@ class TrainCheckpointer:
             if n != len(leaves):
                 raise ValueError(f"checkpoint holds {len(leaves)} leaves, "
                                  f"target has {n}")
-            state = tree_rebuild(target, iter(leaves))
+            state = tree_rebuild(target, iter(
+                _lay_out(a, like) if isinstance(like, ShardedTensor) else a
+                for a, like in zip(leaves, tree_leaves(target))))
         else:
             spec_path = os.path.join(d, "tree.json")
             if not os.path.exists(spec_path):

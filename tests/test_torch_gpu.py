@@ -12,7 +12,8 @@ payloads snapshotted at dispatch, CUDA-tensor results bit-equal); and
 fused K-epoch windows as replayed CUDA graphs (``repochs`` bit-equal to
 the host loop, the graph equal to the eager loop) and the folded pool
 over a one-rank mesh of the card; and the sharded train step over eight
-ranks of the card against eight CPU ranks. Every
+ranks of the card against eight CPU ranks, the expert-parallel step over
+eight and the 1F1B pipeline with MoE stages over four. Every
 test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1647,3 +1648,105 @@ def test_sharded_ulysses_flash_step_on_the_card_equals_cpu_ranks():
         for group in card.axis_groups([a for a in axes if a not in named]):
             assert all(torch.equal(leaf.local(r), leaf.local(group[0]))
                        for r in group)
+
+
+_EP_CFG = dict(vocab=256, d_model=512, n_heads=4, n_layers=2, d_ff=512,
+               attn="ulysses", attn_impl="flash", n_experts=4,
+               capacity_factor=1.25, moe_aux_coef=0.01)
+
+
+def _replicas_equal_on(tree, mesh):
+    for leaf in _tree_leaves(tree):
+        named = {a for part in leaf.spec if part is not None
+                 for a in ((part,) if isinstance(part, str) else part)}
+        over = [a for a in mesh.axis_names if a not in named]
+        for group in mesh.axis_groups(over):
+            assert all(torch.equal(leaf.local(r), leaf.local(group[0]))
+                       for r in group)
+
+
+def _tree_leaves(tree):
+    from mpistragglers_jl_tpu_torch.models.transformer import _leaves
+
+    return _leaves(tree)
+
+
+def _close_trees(grads, grads_c):
+    for i, (a, b) in enumerate(zip(_tree_leaves(grads),
+                                   _tree_leaves(grads_c))):
+        assert a.local(0).device.type == "cuda"
+        torch.testing.assert_close(a.gather(), b.gather(), rtol=1e-3,
+                                   atol=1e-4, msg=f"leaf {i}")
+
+
+def test_ep_step_on_the_card_equals_cpu_ranks():
+    """The expert-parallel MoE step on a (dp, sp, tp, ep) = (2, 1, 2, 2)
+    mesh of eight ranks on cuda:0 (f32, TF32 off; D=128, Ulysses over the
+    flash kernels; 4 experts at cf 1.25 with aux 0.01): loss within 1e-5
+    and gradients within 1e-4 + 1e-3 |want| of the same step on eight CPU
+    ranks, K1-K3 once per rank per layer, replicas bit-equal after an
+    SGD step."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.models import transformer as tt
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    dev = _card()
+    cfg = TransformerConfig(**_EP_CFG)
+    tok = np.random.default_rng(12).integers(0, 256, (4, 257))
+    inp, tgt = tok[:, :-1], tok[:, 1:]
+    params = init_params(cfg, seed=3, device="cpu")
+    axes = ("dp", "sp", "tp", "ep")
+    card = make_mesh((2, 1, 2, 2), axes, devices=[dev] * 8)
+    cpu = make_mesh((2, 1, 2, 2), axes, devices=["cpu"] * 8)
+    sp_card = tt.shard_params(params, cfg, card)
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    loss, grads = tt.sharded_loss_and_grads(sp_card, inp, tgt, cfg, card)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 16, "flash_bwd_dq": 16,
+                           "flash_bwd_dkv": 16, "flash_bwd_fused": 0}
+    loss_c, grads_c = tt.sharded_loss_and_grads(
+        tt.shard_params(params, cfg, cpu), inp, tgt, cfg, cpu)
+    torch.testing.assert_close(loss.cpu(), loss_c, rtol=1e-5, atol=0)
+    _close_trees(grads, grads_c)
+    step = tt.make_train_step(cfg, card, lr=1e-2, donate=True)
+    sp_card, _ = step(sp_card, inp, tgt)
+    _replicas_equal_on(sp_card, card)
+
+
+def test_1f1b_moe_step_on_the_card_equals_cpu_ranks():
+    """The 1F1B pipeline with MoE stages on a (dp, pp) = (2, 2) mesh of
+    four ranks on cuda:0, 2 microbatches (f32, TF32 off; D=128, the
+    flash kernels in every stage): loss within 1e-5 and gradients within
+    1e-4 + 1e-3 |want| of the same step on four CPU ranks; K1 twice per
+    layer and microbatch (forward slot and recompute), K2 and K3 once;
+    replicas bit-equal after an SGD step."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+    from mpistragglers_jl_tpu_torch.parallel import pipeline as pl
+
+    dev = _card()
+    cfg = TransformerConfig(**_EP_CFG)
+    tok = np.random.default_rng(13).integers(0, 256, (4, 257))
+    inp, tgt = tok[:, :-1], tok[:, 1:]
+    params = init_params(cfg, seed=4, device="cpu")
+    card = make_mesh((2, 2), ("dp", "pp"), devices=[dev] * 4)
+    cpu = make_mesh((2, 2), ("dp", "pp"), devices=["cpu"] * 4)
+    sp_card = pl.shard_params_pipeline(params, cfg, card)
+    grad_fn = pl._pipeline_grad_fn(cfg, card, 2, "1f1b", 2)
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    loss, grads = grad_fn(sp_card, inp, tgt)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 16, "flash_bwd_dq": 8,
+                           "flash_bwd_dkv": 8, "flash_bwd_fused": 0}
+    loss_c, grads_c = pl._pipeline_grad_fn(cfg, cpu, 2, "1f1b", 2)(
+        pl.shard_params_pipeline(params, cfg, cpu), inp, tgt)
+    torch.testing.assert_close(loss.cpu(), loss_c, rtol=1e-5, atol=0)
+    _close_trees(grads, grads_c)
+    step = pl.make_pipeline_train_step(cfg, card, n_microbatch=2, lr=1e-2,
+                                       donate=True)
+    sp_card, _ = step(sp_card, inp, tgt)
+    _replicas_equal_on(sp_card, card)

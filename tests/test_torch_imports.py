@@ -127,6 +127,8 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.parallel.fused",
             "mpistragglers_jl_tpu_torch.parallel.device_coord",
             "mpistragglers_jl_tpu_torch.parallel.multihost",
+            "mpistragglers_jl_tpu_torch.parallel.pipeline",
+            "mpistragglers_jl_tpu_torch.bench.pipeline_train",
             "mpistragglers_jl_tpu_torch.bench.device_coord",
             "mpistragglers_jl_tpu_torch.bench.fused"} <= set(mods)
     code = (

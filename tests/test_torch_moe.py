@@ -445,10 +445,24 @@ def test_moe_prefill_logits_match_the_forward():
 
 
 def test_the_mesh_path_raises_and_the_scheduler_refuses_moe():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tm.moe_layer_specs()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tm.moe_ffn_sharded(torch.zeros(1, 2, 4), {}, 1.0)
+    """The mesh path runs (its contracts are tests/test_torch_moe_sharded
+    .py): the specs are the reference's and ``moe_ffn_sharded`` on a
+    one-member ep axis equals ``moe_ffn_dense``; the serving scheduler
+    still refuses experts."""
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    want = jm.moe_layer_specs()
+    assert {k: tuple(v) for k, v in tm.moe_layer_specs().items()} == {
+        k: tuple(v) for k, v in want.items()}
+    mp = tm.init_moe_layer(np.random.default_rng(1), 8, 16, 2, 1,
+                           torch.float32)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((1, 6, 8)),
+                        dtype=torch.float32)
+    mesh = make_mesh(1, "ep", devices=["cpu"])
+    (y,), (bias,), (aux,) = tm.moe_ffn_sharded([x], [mp], 1.0, mesh=mesh)
+    y_d, aux_d = tm.moe_ffn_dense(x, mp, 1.0)
+    torch.testing.assert_close(y + bias, y_d, atol=1e-6, rtol=1e-6)
+    assert aux.item() == aux_d.item()
     cfg = tt.TransformerConfig(**GEN, attn_window=8)
     p = tt.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="serving scheduler covers "

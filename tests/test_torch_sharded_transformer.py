@@ -419,7 +419,7 @@ def test_mesh_checks():
     with pytest.raises(TypeError, match="shard_params"):
         tt.make_forward(cfg, mesh)(tt.init_params(cfg, device="cpu"),
                                    _tokens(61))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match=r"lacks \['ep'\]"):
         tt.make_forward(tt.TransformerConfig(**CFG, n_experts=2), mesh)
     # positions another process drives: no collective crosses processes
     from mpistragglers_jl_tpu_torch.parallel import Mesh
@@ -428,7 +428,7 @@ def test_mesh_checks():
                   process_index=np.arange(4).reshape(1, 2, 2) % 2)
     with pytest.raises(ValueError, match="across processes"):
         tt.make_train_step(cfg, spread)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match=r"lacks \['ep'\]"):
         tt.shard_params({}, tt.TransformerConfig(**CFG, n_experts=2), mesh)
     assert tt.batch_axes(cfg) == ("dp", "sp")
     assert tt.data_spec(cfg) == P("dp", "sp")
@@ -448,3 +448,21 @@ def test_train_profile_refuses_mesh_with_other_modes(other, monkeypatch,
         train_profile.main()
     assert exc.value.code == 2
     assert "--mesh" in capsys.readouterr().err
+
+
+def test_train_profile_takes_moe_with_a_four_axis_mesh(monkeypatch,
+                                                      capsys):
+    """``--moe --mesh`` names the four axes of the expert-parallel step:
+    the arguments pass and only the missing card stops it here."""
+    from mpistragglers_jl_tpu_torch.bench import train_profile
+
+    monkeypatch.setattr("sys.argv", ["train_profile", "--moe", "--mesh",
+                                     "2,1,2,2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train_profile.main()
+    monkeypatch.setattr("sys.argv", ["train_profile", "--mesh", "2,1,2,2"])
+    with pytest.raises(SystemExit) as exc:
+        train_profile.main()
+    assert exc.value.code == 2
+    assert "--moe" in capsys.readouterr().err

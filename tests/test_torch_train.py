@@ -179,8 +179,10 @@ def test_fused_backward_config_matches_split():
 
 def test_unported_configurations_raise():
     """A device list that is not a ``Mesh`` is refused; a ``Mesh`` of
-    several positions runs the sharded step; a mesh with experts (the
-    expert-parallel program) still raises, naming ROADMAP item 18."""
+    several positions runs the sharded step; experts need an ``"ep"``
+    axis: without one the mesh is refused by name, with one the
+    expert-parallel step runs (capacity factor 2 over 2 experts drops no
+    token, so its loss is the dense step's)."""
     cfg = tt.TransformerConfig(**SMALL)
     with pytest.raises(TypeError, match="Mesh"):
         tt.make_train_step(cfg, mesh=["cpu", "cpu"])
@@ -197,10 +199,17 @@ def test_unported_configurations_raise():
                                 inp, tgt, cfg)
     np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)
     moe = tt.TransformerConfig(**SMALL, n_experts=2)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match=r"lacks \['ep'\]"):
         tt.make_train_step(moe, mesh)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match=r"lacks \['ep'\]"):
         tt.make_optax_train_step(moe, mesh, tx=tt.adamw(1e-3))
+    ep_mesh = make_mesh((1, 1, 2, 2), ("dp", "sp", "tp", "ep"),
+                        devices=["cpu"] * 4)
+    dense = tt.init_params(moe, seed=3, device="cpu")
+    _, loss = tt.make_train_step(moe, ep_mesh, lr=0.1)(
+        tt.shard_params(dense, moe, ep_mesh), inp, tgt)
+    want, _ = tt.loss_and_grads(dense, inp, tgt, moe)
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-5)
     tt.make_train_step(cfg, mesh="cpu")
     with pytest.raises(ValueError) as want:
         jt.TransformerConfig(**dict(SMALL, attn="ring"))

@@ -1,9 +1,12 @@
 """Training checkpoints of the port (``utils/train_checkpoint.py``)
 against the JAX package, both ways.
 
-The contract is ``tests/test_train_checkpoint.py`` (its five cases run
-here on the port; the 1F1B pipeline case waits for ROADMAP.md item 18).
-Tolerance: none. Leaves, losses and pool state are held bit-equal: a
+The contract is ``tests/test_train_checkpoint.py`` (its six cases run
+here on the port, the 1F1B pipeline case over a (2, 2) mesh of CPU
+ranks; a pipeline step saved by the JAX package resumes in the port).
+Tolerance: none, but for the pipeline cases (the reference's 1e-6 for
+the resumed trajectory, 1e-5 against the JAX step). Leaves, losses and
+pool state are held bit-equal: a
 step written by the port restores in the JAX package (its npz route,
 taken whenever ``state/`` is not a directory) and one written by the JAX
 package's npz route restores in the port, f32 and bf16 parameters and
@@ -199,10 +202,117 @@ def test_resume_matches_uninterrupted_training(tmp_path):
     assert pool3.epoch == 10  # epoch numbering continued, not restarted
 
 
-@pytest.mark.slow
-def test_1f1b_pipeline_resume_matches_uninterrupted():
-    pytest.skip("the 1F1B pipeline train step (parallel/pipeline.py) is "
-                "ROADMAP.md Queue 1 item 18")
+def _pipeline_case():
+    """tests/test_train_checkpoint.py's 1F1B case: the config, a (2, 2)
+    ("dp", "pp") mesh of CPU ranks and its batch."""
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    fields = dict(vocab=31, d_model=16, n_heads=2, n_layers=4, d_ff=32)
+    mesh = make_mesh((2, 2), ("dp", "pp"), devices=["cpu"] * 4)
+    data = np.random.default_rng(0).integers(0, 31, (4, 9))
+    return fields, mesh, data[:, :-1], data[:, 1:]
+
+
+def test_1f1b_pipeline_resume_matches_uninterrupted(tmp_path):
+    """Checkpoint/resume composes with the 1F1B pipeline train step:
+    save mid-training, restore into the live tree's layout (each leaf
+    laid out again by its mesh and spec), and the resumed trajectory
+    matches the uninterrupted one."""
+    from mpistragglers_jl_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_params_pipeline,
+    )
+
+    fields, mesh, toks, tgts = _pipeline_case()
+    cfg = tt.TransformerConfig(**fields)
+    step = make_pipeline_train_step(cfg, mesh, n_microbatch=2, lr=0.1,
+                                    schedule="1f1b")
+    dense = tt.init_params(cfg, seed=1, device="cpu")
+
+    ref = shard_params_pipeline(dense, cfg, mesh)
+    for _ in range(6):
+        ref, _ = step(ref, toks, tgts)
+
+    ckpt = TrainCheckpointer(tmp_path / "pp")
+    cur = shard_params_pipeline(dense, cfg, mesh)
+    for _ in range(3):
+        cur, _ = step(cur, toks, tgts)
+    ckpt.save(3, cur)
+
+    restored, _, step_no = ckpt.restore(target=cur)
+    assert step_no == 3
+    for a, b in zip(tt._leaves(restored), tt._leaves(cur)):
+        assert a.mesh is mesh and a.spec == b.spec
+        assert all(a.local(r) is not b.local(r) for r in range(4))
+    del cur
+    for _ in range(3):
+        restored, _ = step(restored, toks, tgts)
+    for a, b in zip(tt._leaves(restored), tt._leaves(ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_jax_pipeline_checkpoint_resumes_in_port(tmp_path, dt):
+    """A step of the JAX 1F1B pipeline saved by the JAX package (its npz
+    route: sharded arrays as their global values) restores into the
+    port's pipeline layout bit for bit, and the port's next steps equal
+    the JAX package's (f32) or stay finite and bit-equal across
+    replicas (bf16)."""
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from mpistragglers_jl_tpu.parallel import make_mesh as jmake_mesh
+    from mpistragglers_jl_tpu.parallel import pipeline as jpl
+    from mpistragglers_jl_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        shard_params_pipeline,
+    )
+
+    tdt, jdt = DTYPES[dt]
+    fields, mesh, toks, tgts = _pipeline_case()
+    jcfg = jt.TransformerConfig(**fields, dtype=jdt)
+    jmesh = jmake_mesh((2, 2), ("dp", "pp"))
+    jstep = jpl.make_pipeline_train_step(jcfg, jmesh, n_microbatch=2,
+                                         lr=0.1, schedule="1f1b")
+
+    def place(a):
+        return jax.device_put(jnp.asarray(a, jnp.int32),
+                              NamedSharding(jmesh, JP("dp")))
+
+    jparams = jpl.shard_params_pipeline(jt.init_params(jcfg, seed=1), jcfg,
+                                        jmesh)
+    for _ in range(2):
+        jparams, _ = jstep(jparams, place(toks), place(tgts))
+    ref = RefCheckpointer(tmp_path / "ck")
+    ref._ocp = None  # the JAX package's npz route
+    ref.save(2, jparams)
+
+    cfg = tt.TransformerConfig(**fields, dtype=tdt)
+    like = shard_params_pipeline(tt.init_params(cfg, seed=9, device="cpu"),
+                                 cfg, mesh)
+    state, _, at = TrainCheckpointer(tmp_path / "ck").restore(target=like)
+    assert at == 2
+    _assert_bit_equal([a.gather() for a in tt._leaves(state)],
+                      jax.tree.leaves(jparams), "restored pipeline leaves")
+    step = make_pipeline_train_step(cfg, mesh, n_microbatch=2, lr=0.1,
+                                    schedule="1f1b")
+    got = []
+    for _ in range(2):
+        state, loss = step(state, toks, tgts)
+        jparams, jl = jstep(jparams, place(toks), place(tgts))
+        got.append((loss.item(), float(jl)))
+    if dt == "f32":
+        np.testing.assert_allclose(*zip(*got), rtol=1e-5)
+        for a, b in zip(tt._leaves(state), jax.tree.leaves(jparams)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       atol=1e-5, rtol=1e-5)
+    assert all(np.isfinite(g[0]) for g in got)
+    for leaf in tt._leaves(state):
+        named = {a for a in leaf.spec if a is not None}
+        over = [a for a in mesh.axis_names if a not in named]
+        for group in mesh.axis_groups(over):
+            assert all(torch.equal(leaf.local(r), leaf.local(group[0]))
+                       for r in group)
 
 
 # -- the leaf rule, optimizer state and orbax ------------------------------

@@ -21,7 +21,9 @@ fleet prefix cache (``models/disagg.py``, ``cache/``), fused K-epoch
 device windows and the single-controller mesh plane (``parallel/``), the
 sharded transformer over that mesh (ring and Ulysses attention), its
 experts over ``ep`` and the pipeline (GPipe, circular, 1F1B with MoE
-stages), and holds every CUDA kernel of those paths against its plain
+stages), sharded inference over that mesh (prefill, decode, extend,
+generation, the ring, speculation, the serving tick) and the multi-device
+dry run, and holds every CUDA kernel of those paths against its plain
 PyTorch version:
 
 1. card name and power limit;
@@ -249,7 +251,7 @@ PyTorch version:
     (``bench/process_gemm.py``): 4 spawned workers per backend
     (``ProcessBackend`` and ``NativeProcessBackend``, each with a
     registry), every worker with its own CUDA context and its row block
-    of A made from the seed; one chain of 10 epochs each, the product
+    of A made from the seed; one chain of 5 epochs each, the product
     within ``REL_TOL["highest"]`` of an on-card ``torch.matmul``, equal
     across epochs; the workers' telemetry spans merged; then on the
     native backend worker 2 exits in the fifth of 10 epochs: a
@@ -284,8 +286,8 @@ PyTorch version:
     ``generate_ring_dense``, the first burst of admissions 2:1, bronze
     within its quota, retired prefix pages gone cold and reshared, the
     pool checked, K6 counted from a reset before it; then in bf16
-    ms/tick with and without ``qos=`` in 2 alternating pairs, with each
-    variant's spread.
+    ms/tick with and without ``qos=`` in one ordered pair (one pair
+    keeps the whole run inside its time limit), printed, not held.
 50. page-state migration on the paged main path (pages of 64, S=8,
     int8): a ``PrefillWorker`` and a ``DecodeReplica`` with one
     ``MigrationPlanner``, 8 f32 requests (4 on one 256-token prefix),
@@ -394,7 +396,39 @@ PyTorch version:
     oracle steps' (the dp gradient sum dropped on (2, 1, 2, 2) as the
     control above it), replicas bit-equal, ``measure_bubble`` on the
     card against ``bubble_fraction``; ms/step, tokens/s, peak memory
-    beside phase 28's one-device MoE step and phase 14's dense step.
+    beside phase 28's one-device MoE step and phase 14's dense step;
+59. sharded inference (ranks on cuda:0; ``models/decode.py``
+    ``make_prefill``, ``make_decode_step``, ``make_extend``,
+    ``make_generate``, ``make_ring_generate``, ``models/speculative.py``
+    ``make_speculative``, ``models/serving.py`` ``make_serving_scan``,
+    ``parallel/dryrun.py``). (a) f32 at the decode rung's full width, 2
+    layers, TF32 off, prompts of 504 tokens (504 + 8 = 512 positions,
+    a length K5's block picker takes): prefill and 4 decode steps on
+    ``("dp", "tp")`` = (2, 4) (kv heads replicated and sliced) against
+    ``prefill_dense`` and ``decode_step_dense``, logits within
+    ``INF_F32_LOGITS`` (the tp psum dropped on one rank as the control);
+    ``make_generate`` token for token against ``generate_dense``:
+    greedy, int8 at B=8 (K5 routed at 4 rows a rank) and sampled;
+    ``make_ring_generate`` int8 on (2, 2) against
+    ``generate_ring_dense``; ``make_extend`` in 4 chunks against the
+    prefill; ``make_speculative`` on (1, 4), both drafters, against
+    ``generate_speculative_dense`` (tokens, forwards, every rank's
+    buffer bit-equal); the int8 serving tick on (2, 2), S=8, against the
+    dense per-row step; MoE ``make_generate`` on ``("dp", "ep", "tp")``
+    = (2, 2, 2) at ``moe_bench.py``'s width against ``generate_dense``;
+    exact K1, K5 and sampler counts per run (K2-K4, K6, K7 0). (b) bf16,
+    8 layers: ``bench_decode``'s own path on (1, 1), prompt 16384, B=1,
+    int8 with K5 forced (prefill s; decode ms/token by slope over 64
+    steps for ``make_generate`` and, in the same run at the same cache
+    length and steps, ``generate_dense``, beside phase 19's slope; the
+    streams equal); ``make_generate`` int8 on (2, 4), B=8, prompt 2048,
+    n_new 32; the int8 serving tick, S=8, 64 inner steps, on (2, 2),
+    after a 4-step warm-up tick; ``make_speculative`` on (1, 4) at
+    ``bench_spec_decode``'s prompt, its stream equal to
+    ``generate_dense``'s; MoE ``make_generate`` on (2, 2, 2), its tp
+    replicas bit-equal; counts, times and peak memory (ranks share the
+    card: no collective speed). (c) the port's ``dryrun_multichip(8)`` on eight ranks of
+    cuda:0.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -405,7 +439,8 @@ phases 36-41's, a ``{"process_pool": ...}`` line with phases 42-45's, a
 line with phases 50-51's, a ``{"slice15": ...}`` line with phases
 52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
 ``{"slice17": ...}`` line with phase 57's, a ``{"slice18": ...}``
-line with phase 58's, a ``{"kernels": [...]}`` JSON line and, last,
+line with phase 58's, a ``{"slice19": ...}`` line with phase 59's, a
+``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -2991,7 +3026,7 @@ def phase_pool_utils(dev, t_start) -> dict:
 
 # cuts (PERF.md section 4): the transport bench's round trips 200 -> 50
 # epochs (its broadcasts 20 -> 5); config 2 over process workers runs one
-# chain of 10 epochs (phase 23's stream rung 40 x 3), and both backends'
+# chain of 5 epochs (phase 23's stream rung 40 x 3), and both backends'
 # workers start together; the launcher's run 3 epochs
 NATIVE_LIBS = ("transport", "lt_peel", "rs_gf256")
 TRANSPORT_EPOCHS = 50
@@ -3162,9 +3197,9 @@ def phase_process_gemm(streams_ms: float) -> list:
     """Phase 44: config 2 over process workers on the card, then the
     respawn run on the native backend (bench/process_gemm.py)."""
     with _workers_skip_this_script():
-        # one chain of 10 epochs per backend (bench/process_gemm.py's
-        # default is the least of 3): the run's time limit
-        res = pg_bench.run(("process", "native"), epochs=10, chains=1,
+        # one chain of 5 epochs per backend (bench/process_gemm.py's
+        # default is the least of 3 of 10): the run's time limit
+        res = pg_bench.run(("process", "native"), epochs=5, chains=1,
                            respawn=True)
     for r in res:
         print(f"  {r['backend']}: {r['ms_per_epoch']:.3f} ms/epoch (streams "
@@ -3237,7 +3272,7 @@ def phase_host_backends(dev, builds, streams_ms, t_start) -> dict:
     out["transport"] = phase_transport()
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
     print("[44] config 2 over 4 spawned workers on the card per backend: "
-          "4096^3 f32, nwait=4, one chain of 10 epochs; then worker 2 exits "
+          "4096^3 f32, nwait=4, one chain of 5 epochs; then worker 2 exits "
           "in epoch 5 of 10 and is respawned")
     out["config2"] = phase_process_gemm(streams_ms)
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
@@ -3262,7 +3297,7 @@ CKPT_N, CKPT_K = 8, 6
 # two of its requests at a time); parity in f32 with 24 new tokens,
 # then ms/tick in bf16 with and without qos= in alternating pairs
 QOS_REQUESTS, QOS_OWN, QOS_NEW_F32 = 16, 64, 24
-QOS_INNER, QOS_TICKS, QOS_PAIRS = 32, 2, 2
+QOS_INNER, QOS_TICKS, QOS_PAIRS = 32, 2, 1
 QOS_NEW_BF16 = QOS_INNER * (QOS_TICKS + 3)
 QOS_BRONZE_PAGES = 16
 
@@ -4558,7 +4593,8 @@ def _dense_of(grads, dev) -> dict:
 def _replicas_bit_equal(tree) -> bool:
     """Every leaf's positions that hold one block hold equal bits."""
     for leaf in _leaves(tree):
-        named = {a for a in leaf.spec if a is not None}
+        named = {n for a in leaf.spec if a is not None
+                 for n in ((a,) if isinstance(a, str) else a)}
         over = [a for a in leaf.mesh.axis_names if a not in named]
         for group in leaf.mesh.axis_groups(over):
             first = leaf.local(group[0])
@@ -5252,6 +5288,469 @@ def _phase58_launches(launches, kname) -> list:
     return rows
 
 
+# -- phase 59: sharded inference (slice 19) -------------------------------
+
+INF_MESH = (2, 4)       # MULTICHIP_r05.json's sixth leg: ("dp", "tp")
+INF_F32_LAYERS = 2
+# (a)'s batch, prompt and n_new: 504 + 8 = 512 cache positions, a length
+# K5's block picker takes (a routed int8 step then launches K5)
+INF_B, INF_TP, INF_NEW = 8, 504, 8
+INF_STEPS = 4           # (a)'s teacher-forced decode steps
+INF_CHUNK = 126         # (a)'s extend chunks: 4 of them
+INF_SPEC_NEW = 32       # (a)'s speculative n_new
+INF_INNER = 8           # (a)'s serving tick
+# f32 logits of the per-rank program against the dense program's: both
+# sum in f32, the tp partial sums in another order than the dense
+# einsum's; the control (a dropped tp psum) must break it
+INF_F32_LOGITS = 1e-5
+# (b): the 16k decode slope, make_generate on (1, 1) and generate_dense
+# (phase 19's program) each timed at both n_new, back to back at one
+# cache length: ms/token = (t(96) - t(32)) / 64
+INF_SLOPE_NEW = (32, 96)
+INF_LONG_LEN = 18432    # (b): cache positions, 16384 + 128 rounded up
+INF_GEN_BF16 = (8, 2048, 32)   # (b): (B, prompt, n_new) on (2, 4)
+INF_SPEC_BF16_NEW = 64  # (b): bench_spec_decode's 256 cut to 64
+INF_MOE_BF16 = (8, 512, 16)    # (b): (B, prompt, n_new) on (2, 2, 2)
+INF_WARM_INNER = 4      # (b): the serving tick's warm-up inner steps
+
+
+def _inf_mesh(dev, shape, axes=("dp", "tp")):
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, axes, devices=[dev] * int(np.prod(shape)))
+
+
+def _counted(fn):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after: (its result, seconds, launches)."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def _want_counts(launches, what, k1=0, k5=0, sample=0) -> dict:
+    """Hold a run's launches to exact K1, K5 and sampler counts, every
+    other kernel 0; returns the three."""
+    want = {"flash_fwd": k1, K5: k5, SAMPLE: sample}
+    got = {n: launches[n] for n in want}
+    others = {n: v for n, v in launches.items() if n not in want and v}
+    print(f"  {what}: K1 {got['flash_fwd']} (want {k1}), K5 {got[K5]} "
+          f"(want {k5}), sampler {got[SAMPLE]} (want {sample}), others "
+          f"{others or 0}")
+    _require(got == want and not others,
+             f"{what} launched {launches}, want {want} and no other")
+    return {"K1": k1, "K5": k5, "sampler": sample}
+
+
+@contextlib.contextmanager
+def _inf_psum_dropped():
+    """Phase 59's control: on rank ``SHARD_CTRL_RANK`` the decode
+    program's tp psum returns the rank's own partial sum."""
+    right = td.psum
+
+    def dropped(xs, mesh, axes, **kw):
+        out = right(xs, mesh, axes, **kw)
+        if axes == "tp":
+            out[SHARD_CTRL_RANK] = xs[SHARD_CTRL_RANK].clone()
+        return out
+
+    td.psum = dropped
+    try:
+        yield
+    finally:
+        td.psum = right
+
+
+def _same_tokens(got, want, what) -> int:
+    got = got.gather(want.device) if hasattr(got, "gather") else got
+    same = int((got.long() == want.long()).all(dim=1).sum())
+    print(f"  {what}: {same}/{want.shape[0]} streams equal")
+    _require(same == want.shape[0], f"{what}: the streams differ")
+    return same
+
+
+def _inf_f32_logits(dev, cfg, params, sp, mesh, prompt) -> dict:
+    """(a) prefill and INF_STEPS teacher-forced decode steps on mesh
+    against the dense programs; the control."""
+    B, n, L = INF_B, mesh.size, cfg.n_layers
+    tp = torch.as_tensor(prompt, device=dev)
+    c = td.init_cache(cfg, B, INF_TP + INF_NEW, mesh, device=dev)
+    prefill = td.make_prefill(cfg, mesh)
+    (lg, c), _, k = _counted(lambda: prefill(sp, prompt[:, :INF_TP], c))
+    counts = {"prefill": _want_counts(k, f"prefill on {INF_MESH}",
+                                      k1=L * n)}
+    dc = td.init_cache(cfg, B, INF_TP + INF_NEW, device=dev)
+    with torch.no_grad():
+        dlg, dc = td.prefill_dense(params, tp[:, :INF_TP], dc, cfg)
+    errs = [(lg.gather(dev) - dlg[:, -1]).abs().max().item()]
+    del dlg
+    step = td.make_decode_step(cfg, mesh)
+    for t in range(INF_TP, INF_TP + INF_STEPS):
+        (lg, c), _, k = _counted(lambda: step(sp, prompt[:, t], c, t))
+        _require(k["flash_fwd"] == 0 and k[K5] == 0,
+                 f"an f32-cache decode step launched {k}")
+        with torch.no_grad():
+            dlg, dc = td.decode_step_dense(params, tp[:, t], dc, t, cfg)
+        errs.append((lg.gather(dev) - dlg).abs().max().item())
+    err = max(errs)
+    with _inf_psum_dropped():
+        lg_c, _ = prefill(sp, prompt[:, :INF_TP],
+                          td.init_cache(cfg, B, INF_TP, mesh, device=dev))
+    with torch.no_grad():
+        dlg, _ = td.prefill_dense(params, tp[:, :INF_TP],
+                                  td.init_cache(cfg, B, INF_TP, device=dev),
+                                  cfg)
+    ctrl = (lg_c.gather(dev) - dlg[:, -1]).abs().max().item()
+    del dlg, dc, c
+    print(f"  prefill + {INF_STEPS} decode steps on {INF_MESH} against the "
+          f"dense programs: worst logit {err:.3e} (limit "
+          f"{INF_F32_LOGITS:.0e}); control, the tp psum dropped on rank "
+          f"{SHARD_CTRL_RANK}: {ctrl:.3e}")
+    _require(err <= INF_F32_LOGITS, f"sharded logits differ by {err}")
+    _require(ctrl > INF_F32_LOGITS, f"the control passes the limit: {ctrl}")
+    return {"logit_abs_err": err, "ctrl_tp_psum_dropped": ctrl,
+            "launches": counts}
+
+
+def _inf_f32(dev) -> tuple[dict, dict]:
+    """Phase 59(a). Returns (report, launches per run)."""
+    from mpistragglers_jl_tpu_torch.models import serving as sv
+    from mpistragglers_jl_tpu_torch.models import speculative as tsp
+    from mpistragglers_jl_tpu_torch.models.transformer import shard_params
+
+    cfg = TransformerConfig(**{**DECODE, "n_layers": INF_F32_LAYERS},
+                            dtype=torch.float32)
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, device=dev)
+    mesh = _inf_mesh(dev, INF_MESH)
+    n = mesh.size
+    sp = shard_params(params, cfg, mesh)
+    prompt = _prompt(cfg.vocab, INF_B, INF_TP + INF_NEW, seed=59)
+    pr = prompt[:, :INF_TP]
+    out = _inf_f32_logits(dev, cfg, params, sp, mesh, prompt)
+    counts = dict(out.pop("launches"))
+    steps = INF_NEW - 1
+    key = prng.key(59)
+    for name, kw, k5, smp in (
+            ("greedy", {}, 0, 0),
+            ("int8", {"quantize_kv": True}, L * n * steps, 0),
+            ("sampled", {"temperature": SAMPLE_T, "top_k": SAMPLE_TOP_K},
+             0, n * INF_NEW)):
+        sampled = "temperature" in kw
+        gen = td.make_generate(cfg, mesh, INF_NEW, **kw)
+        toks, dt, k = _counted(lambda: gen(sp, pr, key if sampled else None))
+        counts[f"generate_{name}"] = _want_counts(
+            k, f"make_generate {name} on {INF_MESH}, {dt:.2f} s", k1=L * n,
+            k5=k5, sample=smp)
+        want = td.generate_dense(params, pr, INF_NEW, cfg, device=dev,
+                                 **({"key": key} if sampled else {}), **kw)
+        _same_tokens(toks, want, f"make_generate {name} vs generate_dense")
+    # the int8 ring on (2, 2): the aligned prefill attends the cache
+    cfg_w = dataclasses.replace(cfg, attn_window=MODEL["attn_window"])
+    mesh22 = _inf_mesh(dev, (2, 2))
+    sp22 = shard_params(params, cfg_w, mesh22)
+    gen = td.make_ring_generate(cfg_w, mesh22, INF_NEW, quantize_kv=True)
+    toks, dt, k = _counted(lambda: gen(sp22, pr))
+    counts["ring_int8"] = _want_counts(
+        k, f"make_ring_generate int8 on (2, 2), {dt:.2f} s",
+        k5=L * 4 * steps)
+    _same_tokens(toks, td.generate_ring_dense(params, pr, INF_NEW, cfg_w,
+                                              quantize_kv=True, device=dev),
+                 "make_ring_generate int8 vs generate_ring_dense")
+    # make_extend in chunks against the one-shot prefill
+    ext = td.make_extend(cfg, mesh)
+    c = td.init_cache(cfg, INF_B, INF_TP, mesh, device=dev)
+
+    def chunks():
+        nonlocal c
+        for i in range(0, INF_TP, INF_CHUNK):
+            lg, c = ext(sp, pr[:, i:i + INF_CHUNK], c, i)
+        return lg
+
+    lg_ext, _, k = _counted(chunks)
+    counts["extend"] = _want_counts(k, f"make_extend, {INF_TP // INF_CHUNK} "
+                                    "chunks")
+    lg_one, _ = td.make_prefill(cfg, mesh)(
+        sp, pr, td.init_cache(cfg, INF_B, INF_TP, mesh, device=dev))
+    ext_err = (lg_ext.gather(dev)[:, -1] - lg_one.gather(dev)).abs().max()
+    print(f"  make_extend's last logits against make_prefill's: "
+          f"{ext_err.item():.3e} (limit {INF_F32_LOGITS:.0e})")
+    _require(ext_err.item() <= INF_F32_LOGITS, "extend and prefill differ")
+    out["extend_vs_prefill_abs_err"] = ext_err.item()
+    del lg_ext, lg_one, c
+    # speculative decoding on (1, 4), both drafters
+    mesh14 = _inf_mesh(dev, (1, 4))
+    sp14 = shard_params(params, cfg, mesh14)
+    d = min(SPEC_DRAFT_LAYERS, L - 1)
+    for layers in (None, d):
+        run = tsp.make_speculative(cfg, mesh14, INF_TP, INF_SPEC_NEW,
+                                   k=SPEC_K, draft_layers=layers)
+        (toks, fwd), dt, k = _counted(lambda: run(sp14, pr[:1]))
+        name = "n-gram" if layers is None else f"draft_layers={layers}"
+        counts[f"speculative_{name}"] = _want_counts(
+            k, f"make_speculative {name} on (1, 4), {dt:.2f} s",
+            k1=4 * (L + (layers or 0)))
+        want, want_fwd = generate_speculative_dense(
+            params, pr[:1], INF_SPEC_NEW, cfg, k=SPEC_K, draft_layers=layers,
+            device=dev)
+        equal = all(torch.equal(toks.local(r), toks.local(0))
+                    for r in range(4))
+        print(f"  make_speculative {name}: {fwd} verify forwards (dense "
+              f"{want_fwd}); ranks' buffers bit-equal {equal}")
+        _same_tokens(toks, want, f"make_speculative {name}")
+        _require(fwd == want_fwd and equal,
+                 f"speculative {name}: forwards {fwd} vs {want_fwd}, "
+                 f"buffers equal {equal}")
+        out[f"speculative_{name}_forwards"] = fwd
+    # the int8 serving tick on (2, 2) against the dense per-row step
+    rng = np.random.default_rng(59)
+    W, S = cfg_w.attn_window, SLOTS
+    tok = rng.integers(1, cfg.vocab, S).astype(np.int32)
+    pos = rng.integers(W // 2, 3 * W, S).astype(np.int32)  # some wrapped
+    caches = []
+    for _ in range(L):
+        layer = {}
+        for kk in ("k", "v"):
+            x = torch.randn((S, W, cfg.kv_heads, cfg.head_dim),
+                            generator=torch.Generator().manual_seed(
+                                len(caches) * 2 + len(layer)))
+            layer[kk], layer[kk + "_s"] = (
+                t.to(dev) for t in td._kv_quantize(x))
+        caches.append(layer)
+    tick = sv.make_serving_scan(cfg_w, mesh22, INF_INNER, quantize_kv=True)
+    res, dt, k = _counted(lambda: tick(sp22, tok, pos, np.zeros(S, bool),
+                                       [dict(c) for c in caches]))
+    counts["serving_tick_int8"] = _want_counts(
+        k, f"make_serving_scan int8 on (2, 2), S={S}, {INF_INNER} inner "
+        f"steps, {dt:.2f} s", k5=L * 4 * INF_INNER)
+    dtok = torch.as_tensor(tok, device=dev)
+    dpos = torch.as_tensor(pos, device=dev)
+    dc = [{kk: a.clone() for kk, a in c.items()} for c in caches]
+    want = []
+    for _ in range(INF_INNER):
+        lg, dc = sv.serving_decode_step_dense(params, dtok, dpos, dc, cfg_w)
+        dtok, dpos = torch.argmax(lg, dim=-1).to(torch.int32), dpos + 1
+        want.append(dtok)
+    _same_tokens(res[4], torch.stack(want, dim=1),
+                 "the sharded tick vs the dense per-row step (slots)")
+    del caches, dc, res, sp, sp22, sp14, params
+    torch.cuda.empty_cache()
+    # MoE over ("dp", "ep", "tp") at moe_bench's width: 4 experts at
+    # capacity factor 4 (= the expert count: no token dropped in either
+    # program, the reference test's condition, as phase 29)
+    cfg_m = mt.moe_config(dtype=torch.float32, n_layers=L,
+                          capacity_factor=4.0, moe_aux_coef=0.0)
+    params_m = init_params(cfg_m, seed=0, device=dev)
+    mesh_m = _inf_mesh(dev, (2, 2, 2), ("dp", "ep", "tp"))
+    prm = pr[:4]
+    gen = td.make_generate(cfg_m, mesh_m, INF_NEW)
+    toks, dt, k = _counted(lambda: gen(shard_params(params_m, cfg_m, mesh_m),
+                                       prm))
+    counts["moe_generate"] = _want_counts(
+        k, f"MoE make_generate on (2, 2, 2), B=4, {dt:.2f} s", k1=L * 8)
+    _same_tokens(toks, td.generate_dense(params_m, prm, INF_NEW, cfg_m,
+                                         device=dev),
+                 "MoE make_generate vs generate_dense")
+    del params_m
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _inf_bf16(dev, serve_ms_per_step, phase19_ms) -> tuple[dict, dict]:
+    """Phase 59(b); ``phase19_ms`` is phase 19's int8 + K5 decode slope,
+    printed beside this phase's. Returns (report, launches per run)."""
+    from mpistragglers_jl_tpu_torch.models import serving as sv
+    from mpistragglers_jl_tpu_torch.models import speculative as tsp
+    from mpistragglers_jl_tpu_torch.models.transformer import shard_params
+
+    cfg = TransformerConfig(**DECODE, dtype=torch.bfloat16)
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, counts = {}, {}
+    # bench_decode's path on (1, 1): prefill, then the K5-forced slope
+    mesh11 = _inf_mesh(dev, (1, 1))
+    sp = shard_params(params, cfg, mesh11)
+    prompt = _prompt(cfg.vocab, 1, LONG_PROMPT)
+    prefill = td.make_prefill(cfg, mesh11, quantize_kv=True)
+    c = td.init_cache(cfg, 1, INF_LONG_LEN, mesh11, quantize_kv=True,
+                      device=dev)
+    for _ in range(2):  # the first one warms up
+        (lg, c), prefill_s, k = _counted(lambda: prefill(sp, prompt, c))
+    counts["prefill_16k_1x1"] = _want_counts(
+        k, f"prefill on (1, 1), prompt {LONG_PROMPT}, {prefill_s:.3f} s",
+        k1=L)
+    _require(bool(torch.isfinite(lg.local(0)).all()), "non-finite logits")
+    del c, lg
+    # K5 forced on both programs; each one's n_new 4 run warms it up
+    n0, n1 = INF_SLOPE_NEW
+    td.use_decode_kernel(True)
+    try:
+        gens = {nn: td.make_generate(cfg, mesh11, nn, max_len=INF_LONG_LEN,
+                                     quantize_kv=True)
+                for nn in (4, n0, n1)}
+        runs = {("mesh", nn): lambda nn=nn: gens[nn](sp, prompt)
+                for nn in (4, n0, n1)}
+        runs.update({("dense", nn): lambda nn=nn: td.generate_dense(
+            params, prompt, nn, cfg, max_len=INF_LONG_LEN, quantize_kv=True,
+            device=dev) for nn in (4, n0, n1)})
+        totals, toks = {}, {}
+        for key in (("mesh", 4), ("dense", 4), ("mesh", n0), ("dense", n0),
+                    ("mesh", n1), ("dense", n1)):
+            name, nn = key
+            toks[key], totals[key], k = _counted(runs[key])
+            counts[f"generate_16k_1x1_{name}_n{nn}"] = _want_counts(
+                k, f"{'make_generate' if name == 'mesh' else 'generate_dense'}"
+                f" int8 K5 forced on (1, 1), n_new {nn}, {totals[key]:.3f} s",
+                k1=L, k5=L * (nn - 1))
+    finally:
+        td.use_decode_kernel(None)
+    slope = {name: (totals[name, n1] - totals[name, n0]) / (n1 - n0) * 1e3
+             for name in ("mesh", "dense")}
+    _same_tokens(toks["mesh", n1], toks["dense", n1], f"(1, 1) 16k stream "
+                 f"vs generate_dense at {INF_LONG_LEN} cache positions")
+    out["long_1x1"] = {"prompt": LONG_PROMPT, "prefill_s": prefill_s,
+                       "decode_ms_per_token": slope["mesh"],
+                       "dense_ms_per_token": slope["dense"],
+                       "phase19_ms_per_token": phase19_ms,
+                       "slope_steps": n1 - n0, "slope_from_n_new": n0,
+                       "cache_len": INF_LONG_LEN}
+    print(f"  (1, 1): prefill {prefill_s:.3f} s; decode ms/token by slope "
+          f"over n_new {n0} -> {n1} at {INF_LONG_LEN} cache positions, K5 "
+          f"forced: make_generate {slope['mesh']:.3f}, generate_dense "
+          f"{slope['dense']:.3f} (the same run); phase 19's generate_dense "
+          f"{phase19_ms and round(phase19_ms, 3)} (n_new {LONG_NEW} -> "
+          f"{LONG_NEW + SLOPE_STEPS}, caches of {LONG_PROMPT + LONG_NEW} and "
+          f"{LONG_PROMPT + LONG_NEW + SLOPE_STEPS} positions)")
+    del sp, toks
+    torch.cuda.empty_cache()
+    # make_generate int8 on (2, 4)
+    B, Tp, nn = INF_GEN_BF16
+    mesh = _inf_mesh(dev, INF_MESH)
+    sp = shard_params(params, cfg, mesh)
+    pr = _prompt(cfg.vocab, B, Tp, seed=1)
+    gen = td.make_generate(cfg, mesh, nn, quantize_kv=True)
+    toks, dt, k = _counted(lambda: gen(sp, pr))
+    counts["generate_int8_2x4"] = _want_counts(
+        k, f"make_generate int8 on {INF_MESH}, B={B}, prompt {Tp}, n_new "
+        f"{nn}, {dt:.2f} s", k1=L * 8, k5=L * 8 * (nn - 1))
+    _require(bool(((toks.gather() >= 0) & (toks.gather() < cfg.vocab)).all()),
+             "out-of-vocabulary tokens")
+    out["generate_int8_2x4"] = {"B": B, "prompt": Tp, "n_new": nn,
+                                "total_s": dt, "ms_per_token": dt / nn * 1e3}
+    del sp
+    # the int8 serving tick on (2, 2): one warm-up, one timed
+    cfg_w = dataclasses.replace(cfg, attn_window=MODEL["attn_window"])
+    mesh22 = _inf_mesh(dev, (2, 2))
+    sp22 = shard_params(params, cfg_w, mesh22)
+    W, S = cfg_w.attn_window, SLOTS
+    rng = np.random.default_rng(60)
+    tok = rng.integers(1, cfg.vocab, S).astype(np.int32)
+    pos = rng.integers(W, 3 * W, S).astype(np.int32)
+    caches = td.shard_cache(td.init_cache(cfg_w, S, W, mesh22,
+                                          quantize_kv=True, device=dev),
+                            cfg_w, mesh22)
+    state = (tok, pos, np.zeros(S, bool))
+    ms = []
+    for n_inner in (INF_WARM_INNER, SERVE_INNER):  # a short warm-up first
+        tick = sv.make_serving_scan(cfg_w, mesh22, n_inner, quantize_kv=True)
+        res, dt, k = _counted(lambda: tick(sp22, *state, caches))
+        state = res[:3]
+        ms.append(dt * 1e3)
+    one_device = (None if serve_ms_per_step is None
+                  else serve_ms_per_step * SERVE_INNER)
+    counts["serving_tick_int8_2x2"] = _want_counts(
+        k, f"make_serving_scan int8 on (2, 2), S={S}, {SERVE_INNER} inner "
+        f"steps: {ms[1]:.1f} ms/tick ({INF_WARM_INNER}-step warm-up "
+        f"{ms[0]:.1f}; phase 5's "
+        f"one-device scheduler {one_device and round(one_device, 1)})",
+        k5=L * 4 * SERVE_INNER)
+    out["serving_tick_2x2"] = {"ms_per_tick": ms[1], "warmup_ms": ms[0],
+                               "phase5_ms_per_tick": one_device}
+    del caches, sp22
+    # make_speculative on (1, 4) at bench_spec_decode's prompt
+    mesh14 = _inf_mesh(dev, (1, 4))
+    sp14 = shard_params(params, cfg, mesh14)
+    pr = _prompt(cfg.vocab, 1, SPEC_BF16[0], seed=2)
+    run = tsp.make_speculative(cfg, mesh14, SPEC_BF16[0], INF_SPEC_BF16_NEW,
+                               k=SPEC_K)
+    (toks, fwd), dt, k = _counted(lambda: run(sp14, pr))
+    counts["speculative_1x4"] = _want_counts(
+        k, f"make_speculative on (1, 4), prompt {SPEC_BF16[0]}, n_new "
+        f"{INF_SPEC_BF16_NEW}, {dt:.2f} s, {fwd} verify forwards", k1=L * 4)
+    _require(all(torch.equal(toks.local(r), toks.local(0))
+                 for r in range(4)), "the ranks' token buffers differ")
+    _same_tokens(toks, td.generate_dense(params, pr, INF_SPEC_BF16_NEW, cfg,
+                                         device=dev),
+                 "make_speculative on (1, 4) vs generate_dense")
+    out["speculative_1x4"] = {"prompt": SPEC_BF16[0],
+                              "n_new": INF_SPEC_BF16_NEW, "total_s": dt,
+                              "verify_forwards": fwd,
+                              "tokens_per_forward":
+                                  (INF_SPEC_BF16_NEW - 1) / max(fwd, 1)}
+    del sp14, params
+    torch.cuda.empty_cache()
+    # MoE make_generate on (2, 2, 2) at moe_bench's width
+    cfg_m = mt.moe_config(dtype=torch.bfloat16)
+    mesh_m = _inf_mesh(dev, (2, 2, 2), ("dp", "ep", "tp"))
+    B, Tp, nn = INF_MOE_BF16
+    spm = shard_params(init_params(cfg_m, seed=0, device=dev), cfg_m, mesh_m)
+    gen = td.make_generate(cfg_m, mesh_m, nn)
+    toks, dt, k = _counted(lambda: gen(spm, _prompt(cfg_m.vocab, B, Tp, 3)))
+    counts["moe_generate_2x2x2"] = _want_counts(
+        k, f"MoE make_generate on (2, 2, 2), B={B}, prompt {Tp}, n_new {nn}, "
+        f"{dt:.2f} s", k1=cfg_m.n_layers * 8)
+    _require(_replicas_bit_equal(toks), "MoE: the tp replicas' tokens differ")
+    _require(bool(((toks.gather() >= 0) & (toks.gather() < cfg_m.vocab)).all()),
+             "MoE: out-of-vocabulary tokens")
+    print("  MoE make_generate: tp replicas bit-equal, tokens in the "
+          "vocabulary")
+    out["moe_generate_2x2x2"] = {"B": B, "prompt": Tp, "n_new": nn,
+                                 "total_s": dt,
+                                 "ms_per_token": dt / nn * 1e3}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del spm
+    torch.cuda.empty_cache()
+    print(f"  peak memory {out['peak_mem_gb']:.2f} GB; every rank on one "
+          "card: per-rank and dispatch cost, no collective speed")
+    return out, counts
+
+
+def phase_slice19(dev, t_start, serve_ms_per_step,
+                  phase19_ms) -> tuple[dict, dict]:
+    """Phase 59. Returns (report, launches per run for the kernels
+    line)."""
+    from mpistragglers_jl_tpu_torch.parallel import dryrun_multichip
+
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print(f"[59] sharded inference, every rank on one card: (a) f32 parity "
+          f"at full width ({INF_F32_LAYERS} layers) on {INF_MESH}, (2, 2), "
+          "(1, 4) and (2, 2, 2) with a control; (b) the bf16 paths (8 "
+          "layers); (c) dryrun_multichip(8)")
+    out, counts = {}, {}
+    out["f32"], counts["f32"] = _inf_f32(dev)
+    print(f"  (a) done (+{time.perf_counter() - t0:.1f} s)")
+    out["bf16"], counts["bf16"] = _inf_bf16(dev, serve_ms_per_step,
+                                                phase19_ms)
+    print(f"  (b) done (+{time.perf_counter() - t0:.1f} s)")
+    t1 = time.perf_counter()
+    dryrun_multichip(8, device=dev)
+    out["dryrun_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out, counts
+
+
+def _phase59_launches(counts, key) -> dict:
+    """One kernel's launches on phase 59's runs, for the kernels line."""
+    return {f"{part} {run}": c[key] for part, runs in counts.items()
+            for run, c in runs.items() if c[key]}
+
+
 def _kernel_row(name, replaces, launches, err, tim,
                 source="decode_attention.cu"):
     return {
@@ -5472,6 +5971,9 @@ def main() -> int:
     slice18, launches58 = phase_slice18(
         dev, t_start, train["ms_per_step"],
         moe_train["one_device_ms_per_step"])
+    slice19, launches59 = phase_slice19(
+        dev, t_start, serve["ms_per_step"],
+        long_ctx["decode_ms_per_token_int8_kernel"])
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -5495,6 +5997,8 @@ def main() -> int:
          "launches_router_phase52": k6_52,
          "launches_two_tier_phase53": k6_53},
     ]
+    kernels[0]["launches_sharded_inference_phase59"] = _phase59_launches(
+        launches59, "K5")
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
                     else launches14)[kname]
@@ -5507,7 +6011,10 @@ def main() -> int:
                                                           kname),
             **({} if kname == "flash_bwd_fused" else {
                 "launches_ep_pipeline_phase58": _phase58_launches(
-                    launches58, kname)})})
+                    launches58, kname)}),
+            **({} if kname != "flash_fwd" else {
+                "launches_sharded_inference_phase59": _phase59_launches(
+                    launches59, "K1")})})
     # K7's time is its fullest variant's (full_nosm); all four beside it
     variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
     kernels.append({
@@ -5528,6 +6035,8 @@ def main() -> int:
                        "pallas_call: a port-only kernel",
         "launches_are": "the first slot-ring sampled-lit run of phase 33 "
                         "(admissions + inner steps)",
+        "launches_sharded_inference_phase59": _phase59_launches(
+            launches59, "sampler"),
     })
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
@@ -5563,6 +6072,8 @@ def main() -> int:
     print(json.dumps({"slice17": slice17,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice18": slice18,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice19": slice19,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

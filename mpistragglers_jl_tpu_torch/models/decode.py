@@ -20,6 +20,24 @@ Differences from the reference, all deliberate:
   misplaces K/V, see ``models/serving.py``);
 * a Python loop replaces ``lax.scan``.
 
+Over a mesh (``make_prefill``, ``make_decode_step``, ``make_extend``,
+``make_generate``, ``make_ring_generate``; the cache by ``init_cache``
+with ``mesh``, ``cache_specs`` and ``shard_cache``) the reference's
+``shard_map`` program is a per-rank loop on the single-controller mesh
+(``parallel/mesh.py``), as the sharded training forward
+(``models/transformer.py`` ``_forward_local``): batch over ``dp`` (and
+``ep`` with experts), q heads and ``d_ff`` over ``tp``, one ``psum``
+over ``tp`` after the attention out-projection and one after the MLP
+(``b2``, or the experts' ``be2`` term, outside it). With ``kv_heads <
+tp`` the cache's head axis has ``tp`` slots, slot ``t`` holding kv head
+``t * kv_heads // tp`` (the replicated-groups layout). Every rank's
+cache block is its own buffer, written in place; the entry points take
+:func:`~.transformer.shard_params`' tree and global or laid-out token
+arrays, and return :class:`~..parallel.mesh.ShardedTensor` values.
+Each rank's prefill chunk runs ``cfg.attn_impl`` (K1 under flash) and
+each rank's int8 decode step K5 when routed, the routing resolved at
+the rank's local batch.
+
 Sampling (``temperature > 0``, ``top_k``, a ``key`` from
 ``utils/prng.py``) draws the reference's tokens: ``utils/prng.py`` is
 bit-equal to ``jax.random``, and ``ops/sampling.py`` ``sample_rows``
@@ -34,9 +52,20 @@ verbatim, so the port routes exactly the calls the JAX package routes.
 
 from __future__ import annotations
 
+from functools import partial
+
+import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.collectives import psum
+from ..parallel.mesh import (
+    Mesh,
+    PartitionSpec as P,
+    ShardedTensor,
+    from_local,
+    shard,
+)
 from ..parallel.ring_attention import (
     _band_mask,
     _group_pv,
@@ -44,17 +73,38 @@ from ..parallel.ring_attention import (
     resolve_attention_impl,
 )
 from ..ops.sampling import sample_rows
-from .moe import moe_ffn_dense
-from .transformer import TransformerConfig, _ln, _mlp, _rope
+from .moe import moe_ffn_dense, moe_ffn_sharded
+from .transformer import (
+    TransformerConfig,
+    _check_layout,
+    _kv_tp_sharded,
+    _laid_out,
+    _ln,
+    _mlp,
+    _qkv,
+    _rebuild,
+    _spec_key,
+    make_kv_slice,
+    param_specs,
+)
 
 __all__ = [
     "init_cache",
+    "cache_specs",
+    "decode_batch_axes",
+    "shard_cache",
     "init_ring_cache",
     "ring_from_cache",
+    "prefill_dense",
     "decode_step_dense",
     "decode_step_ring_dense",
     "generate_dense",
     "generate_ring_dense",
+    "make_prefill",
+    "make_decode_step",
+    "make_extend",
+    "make_generate",
+    "make_ring_generate",
     "use_decode_kernel",
 ]
 
@@ -220,16 +270,30 @@ def _zero_cache_layer(B, L, H, Dh, dtype, quantize_kv, device):
     return layer
 
 
-def init_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
-               quantize_kv: bool = False, device=None) -> list[dict]:
+def _cache_heads_global(cfg: TransformerConfig, mesh: Mesh | None) -> int:
+    """Global cache head count: ``kv_heads``, or ``tp`` replicated-group
+    slots when kv_heads < tp (slot ``t`` holds kv head ``t * kv_heads //
+    tp``, computed by tp member t from its tp-replicated K/V
+    projections: the layout needs no extra collective)."""
+    if mesh is None or "tp" not in mesh.axis_names:
+        return cfg.kv_heads
+    return cfg.kv_heads if _kv_tp_sharded(cfg, mesh) else mesh.shape["tp"]
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               mesh: Mesh | None = None, *, quantize_kv: bool = False,
+               device=None) -> list[dict]:
     """Zeroed per-layer positional cache: {"k","v"} of
-    ``(B, max_len, kv_heads, head_dim)``, int8 plus f32 ``(B, max_len,
-    kv_heads)`` scales {"k_s","v_s"} when ``quantize_kv``. Every leaf
-    is its own buffer (writes are in place)."""
+    ``(B, max_len, cache_heads, head_dim)``, int8 plus f32 ``(B,
+    max_len, cache_heads)`` scales {"k_s","v_s"} when ``quantize_kv``.
+    ``cache_heads`` is ``kv_heads``, or the ``tp`` slots of the
+    replicated-groups layout when ``mesh``'s tp exceeds kv_heads
+    (:func:`shard_cache` then lays it out). Every leaf is its own
+    buffer (writes are in place)."""
     dev = resolve_device(device)
     return [
-        _zero_cache_layer(batch, max_len, cfg.kv_heads, cfg.head_dim,
-                          cfg.dtype, quantize_kv, dev)
+        _zero_cache_layer(batch, max_len, _cache_heads_global(cfg, mesh),
+                          cfg.head_dim, cfg.dtype, quantize_kv, dev)
         for _ in range(cfg.n_layers)
     ]
 
@@ -275,16 +339,13 @@ def _ring_cached_attention(q, cache_l, pos, scale, use_kernel=_UNSET):
     return _cache_pv(p, cache_l).to(q.dtype)
 
 
-def _incremental_layer(x, lp, cache_l, qpos, off: int, cfg, *,
-                       chunk_attn, ring=False, decode_kernel=_UNSET):
-    """One layer of the incremental forward: write the chunk's K/V at
-    ``off`` (slot ``off % W`` in ring mode) in place, attend, MLP (or
-    the experts). Returns (x, cache_l)."""
-    h = _ln(x, lp["ln1_s"], lp["ln1_b"])
-    q = torch.einsum("bld,dhk->blhk", h, lp["wq"])
-    k = torch.einsum("bld,dhk->blhk", h, lp["wk"])
-    v = torch.einsum("bld,dhk->blhk", h, lp["wv"])
-    q, k = _rope(q, qpos), _rope(k, qpos)
+def _attend(q, k, v, cache_l, qpos, off: int, cfg, *, chunk_attn,
+            ring=False, decode_kernel=_UNSET):
+    """Write a chunk's K/V at ``off`` (slot ``off % W`` in ring mode) in
+    place, then attend: the one write-and-attend path of the dense and
+    the per-rank forwards, so the int8 kernel's routing
+    (``_route_kernel`` at the caller's local batch, ``_kernel_viable``)
+    is decided in one place. Returns (o, cache_l)."""
     if ring:
         off = off % cache_l["k"].shape[1]
     cache_l = _cache_write(cache_l, k, v, off)
@@ -292,18 +353,46 @@ def _incremental_layer(x, lp, cache_l, qpos, off: int, cfg, *,
     if chunk_attn is not None:
         # prefill at offset 0: attention on the exact chunk K/V; only
         # the cache quantizes
-        o = chunk_attn(q, k, v)
-    elif ring:
-        o = _ring_cached_attention(q, cache_l, qpos[0], scale,
-                                   use_kernel=decode_kernel)
-    else:
-        o = _cached_attention(q, cache_l, qpos, scale, cfg.attn_window,
-                              use_kernel=decode_kernel)
+        return chunk_attn(q, k, v), cache_l
+    if ring:
+        return _ring_cached_attention(q, cache_l, qpos[0], scale,
+                                      use_kernel=decode_kernel), cache_l
+    return _cached_attention(q, cache_l, qpos, scale, cfg.attn_window,
+                             use_kernel=decode_kernel), cache_l
+
+
+def _incremental_layer(x, lp, cache_l, qpos, off: int, cfg, *,
+                       chunk_attn, ring=False, decode_kernel=_UNSET):
+    """One layer of the incremental forward: write the chunk's K/V at
+    ``off`` (slot ``off % W`` in ring mode) in place, attend, MLP (or
+    the experts). Returns (x, cache_l)."""
+    o, cache_l = _attend(*_qkv(x, lp, qpos), cache_l, qpos, off, cfg,
+                         chunk_attn=chunk_attn, ring=ring,
+                         decode_kernel=decode_kernel)
     x = x + torch.einsum("blhk,hkd->bld", o, lp["wo"])
     h2 = _ln(x, lp["ln2_s"], lp["ln2_b"])
     if cfg.n_experts:
         return x + moe_ffn_dense(h2, lp, cfg.capacity_factor)[0], cache_l
     return x + _mlp(h2, lp) + lp["b2"], cache_l
+
+
+def _check_ring_chunk(T: int, prefill: bool, ring: bool) -> None:
+    if ring and (T != 1 or prefill):
+        raise ValueError(
+            "ring cache reads are decode-only (T == 1): prefill runs "
+            "positionally, then ring_from_cache gathers the window"
+        )
+
+
+def _chunk_attention(cfg: TransformerConfig):
+    """The prefill chunk's attention: ``cfg.attn_impl`` (flash runs K1),
+    causal, the config's window."""
+    impl = resolve_attention_impl(cfg.attn_impl)
+
+    def chunk_attn(q, k, v):
+        return impl(q, k, v, causal=True, window=cfg.attn_window)
+
+    return chunk_attn
 
 
 def _incremental_forward(params, tokens, cache, offset: int, cfg, *,
@@ -314,19 +403,9 @@ def _incremental_forward(params, tokens, cache, offset: int, cfg, *,
     otherwise attention reads the cache (the O(W) ring when
     ``ring=True``, decode only)."""
     T = tokens.shape[1]
-    if ring and (T != 1 or prefill):
-        raise ValueError(
-            "ring cache reads are decode-only (T == 1): prefill runs "
-            "positionally, then ring_from_cache gathers the window"
-        )
+    _check_ring_chunk(T, prefill, ring)
     qpos = offset + torch.arange(T, device=tokens.device)
-    chunk_attn = None
-    if prefill:
-        impl = resolve_attention_impl(cfg.attn_impl)
-
-        def chunk_attn(q, k, v):
-            return impl(q, k, v, causal=True, window=cfg.attn_window)
-
+    chunk_attn = _chunk_attention(cfg) if prefill else None
     x = params["emb"][tokens]
     new_cache = []
     for lp, cache_l in zip(params["layers"], cache):
@@ -383,11 +462,14 @@ def _check_ring_cfg(cfg: TransformerConfig) -> int:
     return cfg.attn_window
 
 
-def init_ring_cache(cfg: TransformerConfig, batch: int, *,
-                    quantize_kv: bool = False, device=None) -> list[dict]:
-    """Zeroed per-layer ring cache: (B, attn_window, kv_heads, Dh)."""
+def init_ring_cache(cfg: TransformerConfig, batch: int,
+                    mesh: Mesh | None = None, *, quantize_kv: bool = False,
+                    device=None) -> list[dict]:
+    """Zeroed per-layer ring cache: (B, attn_window, cache_heads, Dh),
+    laid out over a mesh by :func:`cache_specs` as the positional
+    cache."""
     W = _check_ring_cfg(cfg)
-    return init_cache(cfg, batch, W, quantize_kv=quantize_kv,
+    return init_cache(cfg, batch, W, mesh, quantize_kv=quantize_kv,
                       device=device)
 
 
@@ -468,10 +550,11 @@ def _pick_token(logits, pos=None, keys=None, rows=None,
     return sample_rows(logits, pos, keys, rows, temperature, top_k)
 
 
-def _picker(B: int, dev, temperature: float, top_k, key):
+def _picker(B: int, dev, temperature: float, top_k, key, row0: int = 0):
     """The generators' choice ``pick(logits, pos)`` at a host position:
     greedy, or batch row b sampled with ``fold_in(fold_in(key, pos),
-    b)``, the reference's fold (``row0 = 0`` on one device)."""
+    row0 + b)``, the reference's fold: ``row0`` is the global batch row
+    of this rank's first row (0 on one device)."""
     if temperature == 0.0:
         return lambda lg, pos: _pick_token(lg)
     keys = torch.as_tensor(key).to(dev, torch.int64)
@@ -479,7 +562,7 @@ def _picker(B: int, dev, temperature: float, top_k, key):
         raise ValueError(f"key must be one key of shape (2,), got "
                          f"{tuple(keys.shape)}")
     keys = keys.expand(B, 2).contiguous()
-    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    rows = row0 + torch.arange(B, dtype=torch.int32, device=dev)
 
     def pick(lg, pos: int):
         p = torch.full((B,), pos, dtype=torch.int32, device=dev)
@@ -497,25 +580,37 @@ def _eos_clamp(nxt, tok, done, eos_id):
     return torch.where(done, torch.full_like(nxt, eos_id), nxt), done
 
 
-def _decode_loop(params, tok, c, Tp: int, n_new: int, cfg, *, ring,
-                 use_kernel, eos_id, pick):
-    """The decode loop shared by both generators: ``tok`` (B,) is the
-    prefill's pick, then ``n_new - 1`` decode forwards, each token
-    chosen by ``pick(logits, pos)`` at the position it was fed at (the
-    last token emitted is never fed back). Returns (B, n_new) int32
-    tokens."""
-    done = torch.zeros_like(tok, dtype=torch.bool)
-    toks = []
+def _decode_loop(step, toks, Tp: int, n_new: int, eos_id, picks) -> list:
+    """The decode loop of every generator, dense (one rank) or over a
+    mesh: ``toks`` holds each rank's (B,) prefill pick, then ``n_new -
+    1`` decode forwards ``step(toks, pos) -> [logits (B, V)]`` (one per
+    rank), each rank's token chosen by its ``picks[r](logits, pos)`` at
+    the position it was fed at (the last token emitted is never fed
+    back). Returns each rank's (B, n_new) int32 tokens."""
+    done = [torch.zeros_like(t, dtype=torch.bool) for t in toks]
+    out = [[] for _ in toks]
     for pos in range(Tp, Tp + n_new - 1):
-        lg, c = _incremental_forward(
-            params, tok[:, None], c, pos, cfg, prefill=False, ring=ring,
+        nxt = []
+        for r, lg in enumerate(step(toks, pos)):
+            t, done[r] = _eos_clamp(picks[r](lg, pos), toks[r], done[r],
+                                    eos_id)
+            out[r].append(toks[r])
+            nxt.append(t)
+        toks = nxt
+    return [torch.stack(o + [t], dim=1) for o, t in zip(out, toks)]
+
+
+def _dense_step(params, c, cfg, *, ring, use_kernel):
+    """:func:`_decode_loop`'s step on one device, over cache ``c``."""
+
+    def step(toks, pos):
+        lg, _ = _incremental_forward(
+            params, toks[0][:, None], c, pos, cfg, prefill=False, ring=ring,
             decode_kernel=use_kernel,
         )
-        nxt, done = _eos_clamp(pick(lg[:, 0], pos), tok, done, eos_id)
-        toks.append(tok)
-        tok = nxt
-    toks.append(tok)
-    return torch.stack(toks, dim=1)
+        return [lg[:, 0]]
+
+    return step
 
 
 def _generation_setup(prompt, n_new: int, temperature, top_k, key,
@@ -575,9 +670,8 @@ def generate_dense(params, prompt, n_new: int, cfg: TransformerConfig,
         logits, c = prefill_dense(params, prompt, c, cfg)
         tok = pick(logits[:, -1], Tp - 1)
         del logits  # the (B, Tp, V) prefill logits, before the loop
-        return _decode_loop(params, tok, c, Tp, n_new, cfg, ring=False,
-                            use_kernel=use_kernel, eos_id=eos_id,
-                            pick=pick)
+        step = _dense_step(params, c, cfg, ring=False, use_kernel=use_kernel)
+        return _decode_loop(step, [tok], Tp, n_new, eos_id, [pick])[0]
 
 
 def generate_ring_dense(params, prompt, n_new: int,
@@ -607,6 +701,373 @@ def generate_ring_dense(params, prompt, n_new: int,
         else:
             logits, c = prefill_dense(params, prompt, c, cfg)
         c = [_ring_from_cache(cl, Tp, W) for cl in c]
-        return _decode_loop(params, pick(logits[:, -1], Tp - 1), c, Tp,
-                            n_new, cfg, ring=True, use_kernel=use_kernel,
-                            eos_id=eos_id, pick=pick)
+        step = _dense_step(params, c, cfg, ring=True, use_kernel=use_kernel)
+        return _decode_loop(step, [pick(logits[:, -1], Tp - 1)], Tp, n_new,
+                            eos_id, [pick])[0]
+
+
+# --------------------------------------------------------------------------
+# sharded (dp [x ep] x tp mesh) API
+# --------------------------------------------------------------------------
+
+
+def decode_batch_axes(cfg: TransformerConfig) -> tuple[str, ...]:
+    """Mesh axes the batch shards over at decode: MoE configs add
+    ``ep`` (every expert-parallel member routes distinct rows, the
+    training path's GShard layout)."""
+    return ("dp", "ep") if cfg.n_experts else ("dp",)
+
+
+def cache_specs(cfg: TransformerConfig, *,
+                quantize_kv: bool = False) -> list[dict]:
+    """PartitionSpecs of the cache: batch over dp (and ep for MoE),
+    heads over tp; int8 scales shard as their K/V."""
+    s = P(decode_batch_axes(cfg), None, "tp", None)
+    layer = {"k": s, "v": s}
+    if quantize_kv:
+        ss = P(decode_batch_axes(cfg), None, "tp")
+        layer["k_s"], layer["v_s"] = ss, ss
+    return [dict(layer) for _ in range(cfg.n_layers)]
+
+
+def shard_cache(cache, cfg: TransformerConfig, mesh: Mesh) -> list[dict]:
+    """Lay a global cache (:func:`init_cache` with ``mesh``) out by
+    :func:`cache_specs`: a tree of :class:`ShardedTensor` in which every
+    position holds its own copy of its block, so a position replicated
+    over an axis the specs do not name writes only its own buffer."""
+    return [{kk: shard(a, mesh, spec[kk]) for kk, a in layer.items()}
+            for layer, spec in zip(cache, cache_specs(
+                cfg, quantize_kv=_is_quantized(cache[0])))]
+
+
+def _check_decode_mesh(cfg: TransformerConfig, mesh: Mesh) -> None:
+    """MoE decode composes expert parallelism: the mesh carries ``ep``
+    (size 1 folds the experts onto each member) beside dp and tp, as
+    the training path; then :func:`~.transformer._check_layout`."""
+    need = {"dp", "tp"} | ({"ep"} if cfg.n_experts else set())
+    missing = need - set(mesh.axis_names)
+    if missing:
+        raise ValueError(
+            f"decode mesh is missing axes {sorted(missing)}; MoE "
+            "configs shard over (dp, ep, tp), dense over (dp, tp)"
+        )
+    _check_layout(cfg, mesh)
+
+
+def _rank_params(params, cfg, mesh) -> list:
+    """Each position's tree of local shards of :func:`shard_params`'
+    tree."""
+    leaves = _laid_out(params, param_specs(cfg, mesh), mesh,
+                       "shard_params(params, cfg, mesh)")
+    return [_rebuild(params, iter(leaf.local(r) for leaf in leaves))
+            for r in range(mesh.size)]
+
+
+def _rank_blocks(x, mesh: Mesh, spec) -> tuple[list, tuple]:
+    """Each position's block of ``x`` (a global array, or a
+    :class:`ShardedTensor` laid out by ``spec``) and the global shape."""
+    if isinstance(x, ShardedTensor):
+        if x.mesh is not mesh or _spec_key(x.spec) != _spec_key(spec):
+            raise ValueError(f"expected a value laid out as {spec} on the "
+                             f"mesh, got {x}")
+        return [x.local(r) for r in range(mesh.size)], x.shape
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+    sh = shard(t, mesh, spec)
+    return [sh.local(r) for r in range(mesh.size)], sh.shape
+
+
+def _rank_tokens(x, cfg, mesh, trailing: int) -> tuple[list, tuple]:
+    """Each position's int64 token block of a (B[, T]) array laid out
+    over the decode batch axes."""
+    spec = P(decode_batch_axes(cfg), *([None] * trailing))
+    blocks, shape = _rank_blocks(x, mesh, spec)
+    return [b.long() for b in blocks], shape
+
+
+def _rank_caches(cache, cfg, mesh, quantize_kv: bool):
+    """(the cache as a tree of ShardedTensor, each position's list of
+    layer dicts of its local blocks). A global cache is laid out first
+    (a copy: the caller then reads the returned tree); a laid-out one is
+    checked against :func:`cache_specs` and written in place."""
+    if _is_quantized(cache[0]) != quantize_kv:
+        raise ValueError(
+            f"quantize_kv={quantize_kv} but the cache is "
+            f"{'int8' if _is_quantized(cache[0]) else 'not int8'}: build "
+            "it with init_cache(..., quantize_kv=...) to match")
+    heads = _cache_heads_global(cfg, mesh)
+    if cache[0]["k"].shape[2] != heads:
+        raise ValueError(
+            f"the cache holds {cache[0]['k'].shape[2]} heads, the mesh's "
+            f"layout {heads}: build it with init_cache(cfg, B, L, mesh)")
+    if not isinstance(cache[0]["k"], ShardedTensor):
+        cache = shard_cache(cache, cfg, mesh)
+    for layer, spec in zip(cache, cache_specs(cfg, quantize_kv=quantize_kv)):
+        for kk, a in layer.items():
+            if a.mesh is not mesh or _spec_key(a.spec) != _spec_key(spec[kk]):
+                raise ValueError(f"cache leaf {kk} laid out as {a.spec}, "
+                                 f"cache_specs says {spec[kk]}")
+    local = [[{kk: a.local(r) for kk, a in layer.items()} for layer in cache]
+             for r in range(mesh.size)]
+    return cache, local
+
+
+def _layers_local(lparams, xs, cfg, mesh, attend):
+    """The per-rank layer stack over a mesh, shared by the decode and
+    serving programs: ``lparams[r]`` and ``xs[r]`` (B', T, d) are flat
+    position r's. Per layer ``attend(r, i, x, lp, kv_slice)`` gives
+    rank r's attention output on its q-head shard (its cache written in
+    place; ``kv_slice``, from :func:`make_kv_slice`, picks the rank's kv
+    head when kv_heads < tp), then the out-projection's partial sums
+    meet in a ``psum`` over ``tp``, as do the MLP's d_ff shards, ``b2``
+    added outside it (with experts ``moe_ffn_sharded``, its ``be2``
+    term outside). Every tp member ends with the same logits. Returns
+    each rank's (B', T, V) logits."""
+    kv = make_kv_slice(cfg, mesh)
+    slices = [None if kv is None else partial(kv, rank=r)
+              for r in range(mesh.size)]
+    for i in range(cfg.n_layers):
+        lps = [lp["layers"][i] for lp in lparams]
+        outs = [torch.einsum("blhk,hkd->bld", attend(r, i, x, lp, slices[r]),
+                             lp["wo"])
+                for r, (x, lp) in enumerate(zip(xs, lps))]
+        xs = [x + a for x, a in zip(xs, psum(outs, mesh, "tp"))]
+        hs = [_ln(x, lp["ln2_s"], lp["ln2_b"]) for x, lp in zip(xs, lps)]
+        if cfg.n_experts:
+            y, bias, _ = moe_ffn_sharded(hs, lps, cfg.capacity_factor,
+                                         mesh=mesh)
+            xs = [x + yi + bi
+                  for x, yi, bi in zip(xs, psum(y, mesh, "tp"), bias)]
+        else:
+            y = psum([_mlp(h, lp) for h, lp in zip(hs, lps)], mesh, "tp")
+            xs = [x + yi + lp["b2"] for x, yi, lp in zip(xs, y, lps)]
+    return [torch.einsum("bld,vd->blv", _ln(x, lp["lnf_s"], lp["lnf_b"]),
+                         lp["emb"]) for x, lp in zip(xs, lparams)]
+
+
+def _incremental_forward_local(lparams, ltokens, lcaches, offset: int, cfg,
+                               mesh, *, prefill, ring=False,
+                               decode_kernel=_UNSET):
+    """The per-rank incremental forward over a mesh: ``lparams[r]``,
+    ``ltokens[r]`` (B', T) and ``lcaches[r]`` (layer dicts) are flat
+    position r's. :func:`_layers_local` with :func:`_attend` as each
+    rank's attention half. Returns (each rank's (B', T, V) logits, each
+    rank's caches, written in place)."""
+    _check_ring_chunk(ltokens[0].shape[1], prefill, ring)
+    T = ltokens[0].shape[1]
+    qpos = [offset + torch.arange(T, device=t.device) for t in ltokens]
+    chunk_attn = _chunk_attention(cfg) if prefill else None
+
+    def attend(r, i, x, lp, kv_slice):
+        o, lcaches[r][i] = _attend(
+            *_qkv(x, lp, qpos[r], kv_slice), lcaches[r][i], qpos[r], offset,
+            cfg, chunk_attn=chunk_attn, ring=ring,
+            decode_kernel=decode_kernel)
+        return o
+
+    xs = [lp["emb"][t] for lp, t in zip(lparams, ltokens)]
+    return _layers_local(lparams, xs, cfg, mesh, attend), lcaches
+
+
+def _aligned_quantized_prefill_local(lparams, lprompts, lcaches, cfg, mesh,
+                                     *, decode_kernel, chunk=512):
+    """:func:`_aligned_quantized_prefill` per rank: the quantized-ring
+    oracle prefill in C-token chunks, each attending the already
+    quantized cache. Returns each rank's last-chunk logits and
+    caches."""
+    Tp = lprompts[0].shape[1]
+    _check_prefill_fits(Tp, lcaches[0])
+    logits = None
+    for off in range(0, Tp, chunk):
+        logits, lcaches = _incremental_forward_local(
+            lparams, [p[:, off:off + chunk] for p in lprompts], lcaches,
+            off, cfg, mesh, prefill=False, decode_kernel=decode_kernel)
+    return logits, lcaches
+
+
+def _batch_row0(cfg, mesh: Mesh, r: int, B: int) -> int:
+    """The global batch row of flat position ``r``'s first row: the
+    mixed-radix index over :func:`decode_batch_axes` (dp-major, then
+    ep) times the local batch ``B``."""
+    row0 = 0
+    for ax in decode_batch_axes(cfg):
+        row0 = row0 * mesh.shape[ax] + mesh.axis_index(ax)[r]
+    return row0 * B
+
+
+def make_prefill(cfg: TransformerConfig, mesh: Mesh, *,
+                 quantize_kv: bool = False):
+    """``prefill(params, tokens (B, Tp), cache) -> (last-position logits
+    (B, V), cache)`` over ``mesh``: :func:`shard_params`' tree, tokens
+    global or laid out over the batch axes (:func:`decode_batch_axes`),
+    the cache from :func:`init_cache` with ``mesh`` (laid out here) or
+    :func:`shard_cache`, written in place. Batch over dp (and ep for
+    MoE, expert routing sharded with the all-to-alls over ep, as in
+    training), heads over tp; every rank's prefill chunk runs
+    ``cfg.attn_impl`` (flash launches K1 once per rank per layer).
+    ``quantize_kv`` must match the cache. Logits come back as a
+    :class:`ShardedTensor` laid out ``P(batch axes, None)``."""
+    _check_decode_mesh(cfg, mesh)
+    bax = decode_batch_axes(cfg)
+
+    def prefill(params, tokens, cache):
+        lparams = _rank_params(params, cfg, mesh)
+        toks, (B, _) = _rank_tokens(tokens, cfg, mesh, 1)
+        cache, lcaches = _rank_caches(cache, cfg, mesh, quantize_kv)
+        _check_prefill_fits(toks[0].shape[1], lcaches[0])
+        with torch.no_grad():
+            logits, _ = _incremental_forward_local(
+                lparams, toks, lcaches, 0, cfg, mesh, prefill=True)
+        return from_local(mesh, P(bax, None), [lg[:, -1] for lg in logits],
+                          (B, cfg.vocab)), cache
+
+    return prefill
+
+
+def make_decode_step(cfg: TransformerConfig, mesh: Mesh, *,
+                     quantize_kv: bool = False):
+    """``step(params, token (B,), cache, pos) -> (logits (B, V),
+    cache)``: one decode step at host position ``pos`` (a write past the
+    cache raises). The int8 kernel's routing is snapshotted now and
+    resolved at each rank's local batch: an int8 cache takes K5 once per
+    rank per layer when routed."""
+    _check_decode_mesh(cfg, mesh)
+    bax = decode_batch_axes(cfg)
+    use_kernel = _USE_DECODE_KERNEL  # make-time snapshot
+
+    def step(params, token, cache, pos):
+        lparams = _rank_params(params, cfg, mesh)
+        toks, (B,) = _rank_tokens(token, cfg, mesh, 0)
+        cache, lcaches = _rank_caches(cache, cfg, mesh, quantize_kv)
+        with torch.no_grad():
+            logits, _ = _incremental_forward_local(
+                lparams, [t[:, None] for t in toks], lcaches, int(pos), cfg,
+                mesh, prefill=False, decode_kernel=use_kernel)
+        return from_local(mesh, P(bax, None), [lg[:, 0] for lg in logits],
+                          (B, cfg.vocab)), cache
+
+    return step
+
+
+def make_extend(cfg: TransformerConfig, mesh: Mesh, *,
+                quantize_kv: bool = False):
+    """``extend(params, tokens (B, T), cache, offset) -> (logits (B, T,
+    V), cache)``: a T-token chunk at any host ``offset``, attending
+    causally within the chunk and to everything cached below it (the
+    masked cached-attention path), so a streaming prefill equals the
+    one-shot :func:`make_prefill` position for position. A chunk past
+    the cache raises (the reference clamps its offset)."""
+    _check_decode_mesh(cfg, mesh)
+    bax = decode_batch_axes(cfg)
+    use_kernel = _USE_DECODE_KERNEL  # make-time snapshot
+
+    def extend(params, tokens, cache, offset):
+        lparams = _rank_params(params, cfg, mesh)
+        toks, (B, T) = _rank_tokens(tokens, cfg, mesh, 1)
+        cache, lcaches = _rank_caches(cache, cfg, mesh, quantize_kv)
+        _check_prefill_fits(T, lcaches[0])
+        with torch.no_grad():
+            logits, _ = _incremental_forward_local(
+                lparams, toks, lcaches, int(offset), cfg, mesh,
+                prefill=False, decode_kernel=use_kernel)
+        return from_local(mesh, P(bax, None, None), logits,
+                          (B, T, cfg.vocab)), cache
+
+    return extend
+
+
+def make_generate(cfg: TransformerConfig, mesh: Mesh, n_new: int,
+                  max_len: int | None = None, *,
+                  temperature: float = 0.0, top_k: int | None = None,
+                  eos_id: int | None = None, quantize_kv: bool = False,
+                  ring: bool = False):
+    """``gen(params, prompt (B, Tp)[, key]) -> (B, n_new)`` int32 tokens
+    over ``mesh`` (a :class:`ShardedTensor` laid out ``P(batch axes,
+    None)``): every rank prefills its batch rows (K1 per rank per layer
+    under flash) into its own cache, then ``n_new - 1`` decode steps run
+    the per-rank forward (an int8 cache through K5 per rank per layer
+    when routed). Greedy by default; ``temperature > 0`` samples
+    (optionally top-k) with ``key``, each rank folding its rows'
+    GLOBAL batch index (:func:`_batch_row0`), so the stream equals
+    :func:`generate_dense`'s for the same key however the batch is
+    split, and every tp member draws the same token from the identical
+    post-psum logits. Rows that emit ``eos_id`` keep emitting it.
+
+    The routing snapshot is taken now and resolved at each rank's local
+    batch; with int8 routed and a cache past 2048 positions its length
+    rounds up to a multiple of 2048 (the kernel's block picker accepts
+    it; extra slots are masked). ``ring=True`` (see
+    :func:`make_ring_generate`) decodes over the O(W) ring; ``max_len``
+    is then ignored."""
+    _check_decode_mesh(cfg, mesh)
+    W = _check_ring_cfg(cfg) if ring else None
+    bax = decode_batch_axes(cfg)
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    _check_sampling_params(temperature, top_k)
+    use_kernel = _USE_DECODE_KERNEL  # make-time snapshot
+    Hc = _cache_heads_global(cfg, mesh) // mesh.shape["tp"]
+
+    def gen(params, prompt, key=None):
+        _check_sampling(temperature, top_k, key)
+        lparams = _rank_params(params, cfg, mesh)
+        prompts, (Bg, Tp) = _rank_tokens(prompt, cfg, mesh, 1)
+        B = prompts[0].shape[0]
+        routed = (_kernel_possible(cfg, quantize_kv, use_kernel)
+                  and _route_kernel(use_kernel, B))
+        if ring:
+            L = Tp  # transient positional prefill cache, gathered below
+        else:
+            L = max_len if max_len is not None else Tp + n_new
+            if L < Tp + n_new:
+                raise ValueError(
+                    f"max_len {L} < prompt {Tp} + n_new {n_new}: decode "
+                    "positions would not fit the cache")
+            if quantize_kv and routed and L > 2048:
+                L = -(-L // 2048) * 2048
+        with torch.no_grad():
+            lcaches = [[_zero_cache_layer(B, L, Hc, cfg.head_dim, cfg.dtype,
+                                          quantize_kv, p.device)
+                        for _ in range(cfg.n_layers)] for p in prompts]
+            if ring and quantize_kv:
+                logits, lcaches = _aligned_quantized_prefill_local(
+                    lparams, prompts, lcaches, cfg, mesh,
+                    decode_kernel=routed)
+            else:
+                logits, lcaches = _incremental_forward_local(
+                    lparams, prompts, lcaches, 0, cfg, mesh, prefill=True)
+            if ring:
+                lcaches = [[_ring_from_cache(cl, Tp, W) for cl in c]
+                           for c in lcaches]
+            picks = [_picker(B, p.device, float(temperature), top_k, key,
+                             _batch_row0(cfg, mesh, r, B))
+                     for r, p in enumerate(prompts)]
+            toks = [pk(lg[:, -1], Tp - 1) for pk, lg in zip(picks, logits)]
+            del logits
+
+            def step(toks, pos):
+                lg, _ = _incremental_forward_local(
+                    lparams, [t[:, None] for t in toks], lcaches, pos, cfg,
+                    mesh, prefill=False, ring=ring, decode_kernel=routed)
+                return [x[:, 0] for x in lg]
+
+            out = _decode_loop(step, toks, Tp, n_new, eos_id, picks)
+        return from_local(mesh, P(bax, None), out, (Bg, n_new))
+
+    return gen
+
+
+def make_ring_generate(cfg: TransformerConfig, mesh: Mesh, n_new: int, *,
+                       temperature: float = 0.0, top_k: int | None = None,
+                       eos_id: int | None = None,
+                       quantize_kv: bool = False):
+    """Sharded sliding-window generation over the O(W) ring cache:
+    ``gen(params, prompt (B, Tp)[, key]) -> (B, n_new)`` tokens, equal
+    to :func:`generate_ring_dense`'s. :func:`make_generate` with the
+    decode steps' cache replaced by the ring: prefill runs positionally
+    into a Tp-long transient per rank (quantized, through the per-rank
+    aligned prefill), each layer's last W positions gather into ring
+    slots, and every step writes slot ``pos % W`` and reads W."""
+    return make_generate(
+        cfg, mesh, n_new, temperature=temperature, top_k=top_k,
+        eos_id=eos_id, quantize_kv=quantize_kv, ring=True,
+    )

@@ -102,16 +102,30 @@ from .decode import (
     _kernel_possible,
     _kernel_viable,
     _kv_quantize,
+    _layers_local,
     _paged_kernel_possible,
     _pick_token,
     _ring_from_cache,
+    _rank_blocks,
+    _rank_caches,
+    _rank_params,
     _route_kernel,
     init_cache,
 )
+from . import decode as _decode
+from ..parallel.mesh import PartitionSpec as P, from_local
 from .paging import NULL_PAGE, PagePool, PagePoolExhausted, prefix_page_digests
-from .transformer import TransformerConfig, _ln, _mlp, _rope_freqs
+from .transformer import (
+    TransformerConfig,
+    _check_layout,
+    _ln,
+    _mlp,
+    _qkv,
+    _rope_freqs,
+)
 
-__all__ = ["Request", "ServingScheduler", "serving_decode_step_dense"]
+__all__ = ["Request", "ServingScheduler", "make_serving_scan",
+           "serving_decode_step_dense"]
 
 
 # --------------------------------------------------------------------------
@@ -194,16 +208,13 @@ def _paged_attention_rows(q, cache_l, paged, pos, scale):
                                       page_table=pt, page_tokens=P)
 
 
-def _serving_layer(x, lp, cache_l, pos, cfg, index, *, use_kernel=False,
-                   paged=None):
-    """One layer of the per-row serving step (decode.py's
-    ``_incremental_layer`` with per-row positions). ``paged = (pt, P)``
-    reads the page pool through the kernel; None is the slot ring."""
-    h = _ln(x, lp["ln1_s"], lp["ln1_b"])
-    q = torch.einsum("bld,dhk->blhk", h, lp["wq"])
-    k = torch.einsum("bld,dhk->blhk", h, lp["wk"])
-    v = torch.einsum("bld,dhk->blhk", h, lp["wv"])
-    q, k = _rope_rows(q, pos), _rope_rows(k, pos)
+def _serving_attend(q, k, v, cache_l, pos, cfg, index, *, use_kernel=False,
+                    paged=None):
+    """The serving step's write-and-attend, one rank's: the rows' K/V
+    (per-row RoPE applied) written in place at ``index``, then
+    single-query attention over the slot ring (``use_kernel`` its
+    routing) or, with ``paged = (pt, P)``, the page pool through the
+    kernel. Returns (o, cache_l)."""
     scale = cfg.head_dim ** -0.5
     cache_l = _write_rows(cache_l, k, v, index)
     if paged is None:
@@ -211,6 +222,17 @@ def _serving_layer(x, lp, cache_l, pos, cfg, index, *, use_kernel=False,
                                  use_kernel=use_kernel)
     else:
         o = _paged_attention_rows(q, cache_l, paged, pos, scale)
+    return o, cache_l
+
+
+def _serving_layer(x, lp, cache_l, pos, cfg, index, *, use_kernel=False,
+                   paged=None):
+    """One layer of the per-row serving step (decode.py's
+    ``_incremental_layer`` with per-row positions). ``paged = (pt, P)``
+    reads the page pool through the kernel; None is the slot ring."""
+    o, cache_l = _serving_attend(*_qkv(x, lp, pos, rope=_rope_rows),
+                                 cache_l, pos, cfg, index,
+                                 use_kernel=use_kernel, paged=paged)
     x = x + torch.einsum("blhk,hkd->bld", o, lp["wo"])
     h2 = _ln(x, lp["ln2_s"], lp["ln2_b"])
     return x + _mlp(h2, lp) + lp["b2"], cache_l
@@ -243,20 +265,138 @@ def serving_decode_step_dense(params, tok, pos, caches,
         return _serving_forward(params, tok, pos, caches, cfg)
 
 
+def _scan_ranks(forward, tok, pos, done, eos_id, n_inner, picks):
+    """``n_inner`` decode steps for every rank's slots, on the device,
+    with no host sync: ``forward(tok, pos) -> logits (S', V)`` per rank
+    (one rank on one device; every rank of a mesh, whose forward sums
+    over tp), ``picks[r](logits, pos)`` choosing rank r's tokens. Lists
+    hold one tensor per rank. Returns (tok, pos, done, toks (S',
+    n_inner)), a list each."""
+    tok, pos, done = list(tok), list(pos), list(done)
+    toks = [torch.empty((t.shape[0], n_inner), dtype=torch.int32,
+                        device=t.device) for t in tok]
+    for t in range(n_inner):
+        for r, lg in enumerate(forward(tok, pos)):
+            nxt, done[r] = _eos_clamp(picks[r](lg, pos[r]), tok[r], done[r],
+                                      eos_id)
+            toks[r][:, t] = nxt
+            tok[r], pos[r] = nxt, pos[r] + 1
+    return tok, pos, done, toks
+
+
 def _scan_body(params, tok, pos, done, caches, cfg, eos_id, n_inner,
                pick, *, use_kernel=False, paged=None):
-    """``n_inner`` decode steps for all S slots, on the device, with no
-    host sync; ``pick(logits, pos)`` chooses each step's tokens.
-    Returns (tok, pos, done, caches, toks (S, n_inner))."""
-    toks = torch.empty((tok.shape[0], n_inner), dtype=torch.int32,
-                       device=tok.device)
-    for t in range(n_inner):
-        lg, caches = _serving_forward(params, tok, pos, caches, cfg,
-                                      use_kernel=use_kernel, paged=paged)
-        nxt, done = _eos_clamp(pick(lg, pos), tok, done, eos_id)
-        toks[:, t] = nxt
-        tok, pos = nxt, pos + 1
+    """``n_inner`` decode steps for all S slots of one device (the
+    caches written in place); ``pick(logits, pos)`` chooses each step's
+    tokens. Returns (tok, pos, done, caches, toks (S, n_inner))."""
+
+    def forward(tok, pos):
+        lg, _ = _serving_forward(params, tok[0], pos[0], caches, cfg,
+                                 use_kernel=use_kernel, paged=paged)
+        return [lg]
+
+    (tok,), (pos,), (done,), (toks,) = _scan_ranks(
+        forward, [tok], [pos], [done], eos_id, n_inner, [pick])
     return tok, pos, done, caches, toks
+
+
+def _serving_forward_local(lparams, tok, pos, lcaches, cfg, mesh, *,
+                           use_kernel):
+    """The per-row serving step per rank over a mesh: ``lparams[r]``,
+    ``tok[r]``, ``pos[r]`` (S',) and ``lcaches[r]`` are flat position
+    r's. decode.py's per-rank layer stack with :func:`_serving_attend`
+    (``use_kernel[r]`` its routing) as each rank's attention half.
+    Returns each rank's logits (S', V)."""
+    W = lcaches[0][0]["k"].shape[1]
+    index = [_write_index(p, W, None) for p in pos]
+
+    def attend(r, i, x, lp, kv_slice):
+        o, lcaches[r][i] = _serving_attend(
+            *_qkv(x, lp, pos[r], kv_slice, rope=_rope_rows), lcaches[r][i],
+            pos[r], cfg, index[r], use_kernel=use_kernel[r])
+        return o
+
+    xs = [lp["emb"][t[:, None]] for lp, t in zip(lparams, tok)]
+    return [lg[:, 0] for lg in _layers_local(lparams, xs, cfg, mesh, attend)]
+
+
+def make_serving_scan(cfg: TransformerConfig, mesh, n_inner: int, *,
+                      eos_id: int | None = None, quantize_kv: bool = False,
+                      temperature: float = 0.0, top_k: int | None = None):
+    """The serving tick over a mesh: slots over ``dp``, heads over
+    ``tp`` (the training path's psum placement; the mesh counterpart of
+    ``make_decode_step`` with per-row positions). Returns ``f(params,
+    tok, pos, done, caches, keys=None) -> (tok, pos, done, caches, toks
+    (S, n_inner))``: ``params`` is ``shard_params``' tree; ``tok``,
+    ``pos``, ``done`` (S,) and ``keys`` (S, 2) (the slots' request keys,
+    read only at ``temperature > 0``) global or laid out ``P("dp")``;
+    ``caches`` the (S, W, cache_heads, head_dim) ring (int8 plus scales
+    with ``quantize_kv``) global or laid out by ``decode.cache_specs``,
+    written in place per rank. Each rank runs ``n_inner`` decode steps
+    for its slots, each picking its tokens (greedy, or every slot as
+    row 0 of its own stream with its own key), the int8 kernel's routing
+    snapshotted now and resolved at the rank's local slot count: a
+    routed int8 ring launches K5's ring mode once per rank per layer
+    per inner step. With ``kv_heads < tp`` the cache's head axis has
+    ``tp`` slots (``decode.init_cache(..., mesh)``'s replicated groups).
+    A mesh axis the specs do not name (``sp``) replicates: its ranks
+    compute the same rows. Outputs are ShardedTensors."""
+    _check_ring_cfg(cfg)
+    _check_sampling_params(temperature, top_k)
+    if cfg.n_experts:
+        raise ValueError(
+            "serving scheduler covers dense-FFN configs; MoE decode "
+            "routes per chunk (models/decode.py prefill caveat) and is "
+            "served via make_generate"
+        )
+    missing = sorted({"dp", "tp"} - set(mesh.axis_names))
+    if missing:
+        raise ValueError(f"the serving tick shards over (dp, tp); mesh "
+                         f"{dict(mesh.shape)} lacks {missing}")
+    tp = int(mesh.shape["tp"])
+    if cfg.kv_heads % tp != 0 and tp % cfg.kv_heads != 0:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} and tp {tp} must nest (one "
+            "divide the other) for the sharded serving tick's cache "
+            "layout"
+        )
+    _check_layout(cfg, mesh)
+    use_kernel = _decode._USE_DECODE_KERNEL  # make-time snapshot
+    slots = P("dp")
+
+    def pick_for(keys):
+        if temperature == 0.0:
+            return lambda lg, pos: _pick_token(lg)
+        rows = torch.zeros(keys.shape[0], dtype=torch.int32,
+                           device=keys.device)
+        return lambda lg, pos: _pick_token(lg, pos, keys, rows, temperature,
+                                           top_k)
+
+    def f(params, tok, pos, done, caches, keys=None):
+        if temperature > 0.0 and keys is None:
+            raise ValueError("temperature > 0 needs the slots' keys")
+        lparams = _rank_params(params, cfg, mesh)
+        ltok, (S,) = _rank_blocks(tok, mesh, slots)
+        lpos, _ = _rank_blocks(pos, mesh, slots)
+        ldone, _ = _rank_blocks(done, mesh, slots)
+        lkeys = ([None] * mesh.size if keys is None else
+                 [k.to(torch.int64) for k in _rank_blocks(keys, mesh,
+                                                          slots)[0]])
+        caches, lcaches = _rank_caches(caches, cfg, mesh, quantize_kv)
+        routed = [_kernel_possible(cfg, quantize_kv, use_kernel)
+                  and _route_kernel(use_kernel, t.shape[0]) for t in ltok]
+        with torch.no_grad():
+            ltok, lpos, ldone, ltoks = _scan_ranks(
+                lambda t, p: _serving_forward_local(
+                    lparams, t, p, lcaches, cfg, mesh, use_kernel=routed),
+                ltok, lpos, [d.bool() for d in ldone], eos_id, n_inner,
+                [pick_for(k) for k in lkeys])
+        return (from_local(mesh, slots, ltok, (S,)),
+                from_local(mesh, slots, lpos, (S,)),
+                from_local(mesh, slots, ldone, (S,)), caches,
+                from_local(mesh, P("dp", None), ltoks, (S, n_inner)))
+
+    return f
 
 
 # --------------------------------------------------------------------------

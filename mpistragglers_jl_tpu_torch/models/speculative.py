@@ -1,9 +1,10 @@
 """Speculative decoding: draft ``k`` tokens, verify them in one
 ``k + 1``-token forward, keep the longest prefix the model agrees with.
 
-Counterpart of ``mpistragglers_jl_tpu/models/speculative.py`` (the
-dense program; the mesh-sharded ``make_speculative`` waits for the
-multi-device slice, ``ROADMAP.md`` Queue 1 item 18). The output is
+Counterpart of ``mpistragglers_jl_tpu/models/speculative.py``: the
+dense program, and ``make_speculative`` over a ``(dp=1, tp)`` mesh,
+where every rank runs the per-rank forward of ``models/decode.py`` and
+keeps its own token buffer. The output is
 exactly :func:`~.decode.generate_dense`'s greedy stream: a draft token
 is accepted only when it equals the model's argmax at that position
 teacher-forced on the accepted prefix, and the first rejected position
@@ -25,6 +26,9 @@ before anything reads it. Two drafters share the loop:
 The reference's ``lax.while_loop`` is a Python ``while`` here: the
 token buffer and caches stay on the device, and each iteration fetches
 one number, the count of accepted drafts, which moves the host cursor.
+Over a mesh every tp member computes the same post-psum logits, hence
+the same drafts and acceptance, so the count is fetched from rank 0
+alone and every rank's buffer ends bit-equal.
 """
 
 from __future__ import annotations
@@ -34,10 +38,21 @@ import dataclasses
 import torch
 
 from .._device import resolve_device
-from .decode import _incremental_forward, init_cache, prefill_dense
+from ..parallel.mesh import PartitionSpec as P, from_local
+from .decode import (
+    _cache_heads_global,
+    _check_decode_mesh,
+    _incremental_forward,
+    _incremental_forward_local,
+    _rank_blocks,
+    _rank_params,
+    _zero_cache_layer,
+    init_cache,
+)
 from .transformer import TransformerConfig
 
-__all__ = ["generate_speculative_dense", "make_speculative_dense"]
+__all__ = ["generate_speculative_dense", "make_speculative",
+           "make_speculative_dense"]
 
 
 def _bigram_draft(buf, cursor: int, k: int):
@@ -56,78 +71,88 @@ def _bigram_draft(buf, cursor: int, k: int):
     return torch.where(has, dr, buf[cursor - 1])
 
 
-def _make_model_draft(params_d, cfg_d: TransformerConfig, k: int):
-    """Truncated-layer draft model: ``(draft_init, draft_step)`` over a
-    draft cache. ``draft_init(prompt, cache_d)`` prefills it;
-    ``draft_step(buf, cursor, cache_d) -> (draft (k,), cache_d)``
-    teacher-forces the trailing ``k + 1`` window (rewrites are
-    idempotent, so stale positions of a rejected tail are covered) and
-    drafts ``k`` tokens greedily."""
+def _make_model_draft(fwd, k: int):
+    """Truncated-layer draft model over any per-rank forward ``fwd(tokens,
+    cache, offset, prefill) -> (logits, cache)`` (tokens and logits one
+    per rank: one device's, or every rank's of a mesh):
+    ``(draft_init, draft_step)``. ``draft_init(prompts, cache_d)``
+    prefills the draft cache; ``draft_step(bufs, cursor, cache_d) ->
+    (drafts (k,) per rank, cache_d)`` teacher-forces the trailing ``k +
+    1`` window (rewrites are idempotent, so stale positions of a
+    rejected tail are covered) and drafts ``k`` tokens greedily."""
 
-    def draft_init(prompt, cache_d):
-        _, cache_d = _incremental_forward(params_d, prompt, cache_d, 0,
-                                          cfg_d, prefill=True)
+    def draft_init(prompts, cache_d):
+        _, cache_d = fwd(prompts, cache_d, 0, True)
         return cache_d
 
-    def draft_step(buf, cursor: int, cache_d):
+    def draft_step(bufs, cursor: int, cache_d):
         off = max(cursor - 1 - k, 0)
-        lg, cache_d = _incremental_forward(
-            params_d, buf[off:off + k + 1][None], cache_d, off, cfg_d,
-            prefill=False,
-        )
+        lg, cache_d = fwd([b[off:off + k + 1][None] for b in bufs], cache_d,
+                          off, False)
         # the logits at local index cursor-1-off predict position cursor
-        tok = torch.argmax(lg[0, cursor - 1 - off])
-        toks = []
+        tok = [torch.argmax(x[0, cursor - 1 - off]) for x in lg]
+        toks = [[] for _ in bufs]
         for i in range(k - 1):
-            lg1, cache_d = _incremental_forward(
-                params_d, tok.reshape(1, 1), cache_d, cursor + i, cfg_d,
-                prefill=False,
-            )
-            toks.append(tok)
-            tok = torch.argmax(lg1[0, 0])
-        toks.append(tok)
-        return torch.stack(toks).to(buf.dtype), cache_d
+            lg1, cache_d = fwd([t.reshape(1, 1) for t in tok], cache_d,
+                               cursor + i, False)
+            for ts, t in zip(toks, tok):
+                ts.append(t)
+            tok = [torch.argmax(x[0, 0]) for x in lg1]
+        return [torch.stack(ts + [t]).to(b.dtype)
+                for ts, t, b in zip(toks, tok, bufs)], cache_d
 
     return draft_init, draft_step
 
 
-def _spec_loop(params, cfg: TransformerConfig, cache, prompt, n_new: int,
-               k: int, draft=None, dstate=None):
-    """THE draft/verify loop, shared by both drafters: exact prefill
-    through :func:`~.decode.prefill_dense`, then one ``k + 1``-token
-    verify forward per iteration. ``draft(buf, cursor, dstate) ->
-    (draft (k,), dstate)``, the n-gram lookup by default. Returns
-    (tokens (n_new,), verify forwards)."""
+def _spec_loop(prefill, step, cache, prompts, n_new: int, k: int,
+               draft=None, dstate=None):
+    """THE draft/verify loop, shared by both drafters and by the dense
+    and mesh programs (the exact-greedy acceptance lives here once):
+    ``prefill(prompts, cache) -> (logits, cache)``, then one ``k +
+    1``-token verify forward ``step(chunks, cache, offset) -> (logits,
+    cache)`` per iteration. Prompts, chunks and logits hold one tensor
+    per rank (one, on one device), and every rank keeps its own token
+    buffer. ``draft(bufs, cursor, dstate) -> (drafts (k,) per rank,
+    dstate)``, the n-gram lookup by default. The cursor moves by rank
+    0's accepted count, the iteration's one host fetch: over a mesh
+    every rank sees the same post-psum logits, so the counts agree.
+    Returns (each rank's tokens (n_new,), verify forwards)."""
     if draft is None:
-        def draft(buf, cursor, dstate):
-            return _bigram_draft(buf, cursor, k), dstate
+        def draft(bufs, cursor, dstate):
+            return [_bigram_draft(b, cursor, k) for b in bufs], dstate
 
-    dev, Tp = prompt.device, prompt.shape[1]
+    Tp = prompts[0].shape[1]
     Lbuf = Tp + n_new + k + 1  # slack: the last verify may overrun
-    logits, cache = prefill_dense(params, prompt, cache, cfg)
-    buf = torch.zeros((Lbuf,), dtype=prompt.dtype, device=dev)
-    buf[:Tp] = prompt[0]
-    buf[Tp] = torch.argmax(logits[0, -1])
+    logits, cache = prefill(prompts, cache)
+    bufs = []
+    for p, lg in zip(prompts, logits):
+        buf = torch.zeros((Lbuf,), dtype=p.dtype, device=p.device)
+        buf[:Tp] = p[0]
+        buf[Tp] = torch.argmax(lg[0, -1])
+        bufs.append(buf)
     del logits
-    lanes = torch.arange(k + 1, device=dev)
+    lanes = [torch.arange(k + 1, device=b.device) for b in bufs]
     cursor, iters = Tp + 1, 0
     while cursor < Tp + n_new:
-        dr, dstate = draft(buf, cursor, dstate)  # (k,)
+        drs, dstate = draft(bufs, cursor, dstate)  # (k,) per rank
         # positions cursor-1 .. cursor+k-1
-        chunk = torch.cat([buf[cursor - 1:cursor], dr])[None]
-        lg, cache = _incremental_forward(params, chunk, cache, cursor - 1,
-                                         cfg, prefill=False)
-        # greedy[i]: the model's token for position cursor+i given the
-        # exact prefix; drafts are accepted while they match it
-        greedy = torch.argmax(lg[0], dim=-1).to(buf.dtype)
-        m = torch.cumprod((greedy[:k] == dr).to(torch.int32), 0).sum()
-        # emit[i < m] = draft[i] (== greedy[i]); emit[m] = greedy[m], the
-        # correction; later entries are overwritten before any read
-        emit = torch.where(lanes < m, torch.cat([dr, dr[-1:]]), greedy)
-        buf[cursor:cursor + k + 1] = emit
-        cursor += int(m) + 1  # the one host fetch of the iteration
+        chunks = [torch.cat([b[cursor - 1:cursor], dr])[None]
+                  for b, dr in zip(bufs, drs)]
+        lg, cache = step(chunks, cache, cursor - 1)
+        ms = []
+        for buf, dr, x, ln in zip(bufs, drs, lg, lanes):
+            # greedy[i]: the model's token for position cursor+i given
+            # the exact prefix; drafts are accepted while they match it
+            greedy = torch.argmax(x[0], dim=-1).to(buf.dtype)
+            m = torch.cumprod((greedy[:k] == dr).to(torch.int32), 0).sum()
+            # emit[i < m] = draft[i] (== greedy[i]); emit[m] = greedy[m],
+            # the correction; later entries are overwritten before any read
+            buf[cursor:cursor + k + 1] = torch.where(
+                ln < m, torch.cat([dr, dr[-1:]]), greedy)
+            ms.append(m)
+        cursor += int(ms[0]) + 1  # the one host fetch of the iteration
         iters += 1
-    return buf[Tp:Tp + n_new], iters
+    return [b[Tp:Tp + n_new] for b in bufs], iters
 
 
 def _truncated(params, d: int):
@@ -146,6 +171,18 @@ def _check_draft_layers(cfg: TransformerConfig, draft_layers):
             f"(a strict truncation of the model), got {draft_layers}"
         )
     return d
+
+
+def _dense_fwd(params, cfg: TransformerConfig):
+    """:func:`_spec_loop`'s forward on one device: one rank's tokens in,
+    one rank's logits out, the cache written in place."""
+
+    def fwd(toks, cache, off: int, prefill: bool):
+        lg, cache = _incremental_forward(params, toks[0], cache, off, cfg,
+                                         prefill=prefill)
+        return [lg], cache
+
+    return fwd
 
 
 def make_speculative_dense(cfg: TransformerConfig, Tp: int, n_new: int,
@@ -174,12 +211,15 @@ def make_speculative_dense(cfg: TransformerConfig, Tp: int, n_new: int,
             if d is not None:
                 cfg_d = dataclasses.replace(cfg, n_layers=d)
                 draft_init, draft = _make_model_draft(
-                    _truncated(params, d), cfg_d, k)
-                dstate = draft_init(prompt, init_cache(cfg_d, 1, Lbuf,
-                                                       device=dev))
-            toks, iters = _spec_loop(params, cfg, cache, prompt, n_new, k,
-                                     draft=draft, dstate=dstate)
-        return toks[None], iters
+                    _dense_fwd(_truncated(params, d), cfg_d), k)
+                dstate = draft_init([prompt], init_cache(cfg_d, 1, Lbuf,
+                                                         device=dev))
+            fwd = _dense_fwd(params, cfg)
+            toks, iters = _spec_loop(
+                lambda pr, c: fwd(pr, c, 0, True),
+                lambda ch, c, off: fwd(ch, c, off, False),
+                cache, [prompt], n_new, k, draft=draft, dstate=dstate)
+        return toks[0][None], iters
 
     return run
 
@@ -210,3 +250,82 @@ def generate_speculative_dense(params, prompt, n_new: int,
     return make_speculative_dense(cfg, Tp, n_new, k,
                                   draft_layers=draft_layers,
                                   device=device)(params, prompt)
+
+
+def make_speculative(cfg: TransformerConfig, mesh, Tp: int, n_new: int, *,
+                     k: int = 4, draft_layers: int | None = None):
+    """Speculative generation over a ``(dp=1, tp)`` mesh: ``run(params,
+    prompt (1, Tp)) -> (tokens (1, n_new), verify forwards)``, the
+    stream and count of :func:`generate_speculative_dense`. ``params``
+    is :func:`~.transformer.shard_params`' tree; the prompt goes to
+    every rank. Every rank runs the per-rank forward (the prefill chunk
+    through ``cfg.attn_impl``, K1 per rank per layer under flash) into
+    its own cache and keeps its own token buffer: ``tokens`` is a
+    :class:`~..parallel.mesh.ShardedTensor` laid out ``P()``, each
+    rank's copy its own buffer's tokens. ``draft_layers=d``: the
+    truncated-layer drafter, sharded as the verify stack.
+
+    Per-stream (B=1; shard streams over dp by running one program per
+    stream, so ``dp > 1`` is refused), dense configs only (the
+    reference refuses MoE: its expert all-to-all makes the loop's
+    carries vary over ep)."""
+    _check_decode_mesh(cfg, mesh)
+    if cfg.n_experts:
+        raise ValueError(
+            "sharded speculative decoding supports dense configs only "
+            "(MoE expert-parallel carries cannot replicate across the "
+            "speculation loop); serve MoE with make_generate"
+        )
+    if int(mesh.shape["dp"]) != 1:
+        raise ValueError(
+            "speculative decode is per-stream: use dp=1 (run one "
+            "program per stream for batch serving)"
+        )
+    if Tp < 2 or n_new < 1 or k < 1:
+        raise ValueError(f"need Tp >= 2, n_new >= 1, k >= 1; got "
+                         f"{(Tp, n_new, k)}")
+    Tp, n_new, k = int(Tp), int(n_new), int(k)
+    d = _check_draft_layers(cfg, draft_layers)
+    Lbuf = Tp + n_new + k + 1
+    heads = _cache_heads_global(cfg, mesh) // mesh.shape["tp"]
+
+    def caches(c, devices):
+        return [[_zero_cache_layer(1, Lbuf, heads, c.head_dim, c.dtype,
+                                   False, dev) for _ in range(c.n_layers)]
+                for dev in devices]
+
+    def forward(lparams, c):
+        def fwd(toks, cache, off: int, prefill: bool):
+            return _incremental_forward_local(lparams, toks, cache, off, c,
+                                              mesh, prefill=prefill)
+
+        return fwd
+
+    def run(params, prompt):
+        lparams = _rank_params(params, cfg, mesh)
+        prompts, shape = _rank_blocks(prompt, mesh, P())
+        if tuple(shape) != (1, Tp):
+            raise ValueError(
+                f"made for a (1, Tp={Tp}) prompt, got {tuple(shape)}: its "
+                "caches and token buffer are sized for Tp")
+        prompts = [p.long() for p in prompts]
+        devices = [p.device for p in prompts]
+        with torch.no_grad():
+            draft, dstate = None, None
+            if d is not None:
+                # the draft stack shards as the verify stack (same tp
+                # psum, same kv slicing), so its argmax replicates too
+                cfg_d = dataclasses.replace(cfg, n_layers=d)
+                draft_init, draft = _make_model_draft(
+                    forward([_truncated(lp, d) for lp in lparams], cfg_d), k)
+                dstate = draft_init(prompts, caches(cfg_d, devices))
+            fwd = forward(lparams, cfg)
+            toks, iters = _spec_loop(
+                lambda pr, c: fwd(pr, c, 0, True),
+                lambda ch, c, off: fwd(ch, c, off, False),
+                caches(cfg, devices), prompts, n_new, k, draft=draft,
+                dstate=dstate)
+        return from_local(mesh, P(), [t[None] for t in toks],
+                          (1, n_new)), iters
+
+    return run

@@ -330,16 +330,17 @@ def _mlp(x, lp):
 # --------------------------------------------------------------------------
 
 
-def _qkv(x, lp, pos, kv_slice=None):
+def _qkv(x, lp, pos, kv_slice=None, rope=_rope):
     """LayerNorm, the QKV projections (``kv_slice`` picks kv heads out
-    of tp-replicated K/V projections) and RoPE at positions ``pos``."""
+    of tp-replicated K/V projections) and ``rope`` at positions ``pos``
+    (the serving step passes its per-row RoPE)."""
     h = _ln(x, lp["ln1_s"], lp["ln1_b"])
     q = torch.einsum("bld,dhk->blhk", h, lp["wq"])
     k = torch.einsum("bld,dhk->blhk", h, lp["wk"])
     v = torch.einsum("bld,dhk->blhk", h, lp["wv"])
     if kv_slice is not None:
         k, v = kv_slice(k), kv_slice(v)
-    return _rope(q, pos), _rope(k, pos), v
+    return rope(q, pos), rope(k, pos), v
 
 
 def _attn_block(x, lp, pos, attn_fn):
@@ -584,6 +585,8 @@ def data_spec(cfg: TransformerConfig) -> P:
 
 
 def _check_sharded(cfg: TransformerConfig, mesh: Mesh) -> None:
+    """The training program's checks: its mesh axes, its attention kind,
+    then :func:`_check_layout`."""
     need = ("dp", "sp", "tp") + (("ep",) if cfg.n_experts else ())
     missing = [a for a in need if a not in mesh.axis_names]
     if missing:
@@ -593,6 +596,21 @@ def _check_sharded(cfg: TransformerConfig, mesh: Mesh) -> None:
             f"{dict(mesh.shape)} lacks {missing}")
     if cfg.attn not in ("ring", "ulysses"):
         raise ValueError(f"unknown sharded attention kind {cfg.attn!r}")
+    _check_layout(cfg, mesh)
+
+
+def _check_layout(cfg: TransformerConfig, mesh: Mesh) -> None:
+    """What :func:`param_specs` needs of a mesh, whatever program runs
+    over it: a ``tp`` axis (and ``ep`` with experts), the experts and
+    ``d_ff`` divisible over them, the tp and kv-head alignment, and
+    every position driven by this process. The decode meshes (``("dp",
+    "tp")``, ``("dp", "ep", "tp")``) pass it."""
+    need = ("tp",) + (("ep",) if cfg.n_experts else ())
+    missing = [a for a in need if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(
+            f"the parameters lay out over {need} mesh axes; mesh "
+            f"{dict(mesh.shape)} lacks {missing}")
     if cfg.n_experts:
         ep, tp = mesh.shape["ep"], mesh.shape["tp"]
         if cfg.n_experts % ep:
@@ -605,7 +623,10 @@ def _check_sharded(cfg: TransformerConfig, mesh: Mesh) -> None:
 
 
 def _spec_key(spec) -> tuple:
-    spec = tuple(spec)
+    """A spec's layout: trailing Nones dropped, a one-axis tuple as its
+    name (``P(("dp",))`` splits as ``P("dp")``)."""
+    spec = tuple(part[0] if isinstance(part, tuple) and len(part) == 1
+                 else part for part in spec)
     while spec and spec[-1] is None:
         spec = spec[:-1]
     return spec
@@ -759,8 +780,10 @@ def _loss_local(lparams, ltokens, ltargets, cfg, mesh) -> list:
 def shard_params(params: dict, cfg: TransformerConfig, mesh: Mesh) -> dict:
     """Lay a dense parameter tree out over ``mesh`` by
     :func:`param_specs`: a tree of :class:`ShardedTensor`, each position
-    holding its own copy of its block on its device."""
-    _check_sharded(cfg, mesh)
+    holding its own copy of its block on its device. Any local mesh
+    with a ``tp`` axis (and ``ep`` with experts) will do: the training
+    program's ``("dp", "sp", "tp")`` and the decode meshes alike."""
+    _check_layout(cfg, mesh)
     return _rebuild(params, iter(
         shard(x, mesh, spec)
         for x, spec in zip(_leaves(params), _leaves(param_specs(cfg,

@@ -3,8 +3,9 @@ the model code shares (``ring_attention.py``).
 
 The port of the JAX package's ``parallel/``: a single-controller mesh
 (``mesh.py``), its collectives, the mesh and pool-fused coded GEMMs,
-fused K-epoch device windows (``device_coord.py``) and the
-multi-process runtime (``multihost.py``). Names load on first use.
+fused K-epoch device windows (``device_coord.py``), the
+multi-process runtime (``multihost.py``) and the multi-device dry run
+over all of them (``dryrun.py``). Names load on first use.
 """
 
 _HOME = {
@@ -33,6 +34,7 @@ _HOME = {
     "make_multihost_mesh": "multihost",
     "local_worker_indices": "multihost",
     "host_groups": "multihost",
+    "dryrun_multichip": "dryrun",
 }
 
 __all__ = list(_HOME)

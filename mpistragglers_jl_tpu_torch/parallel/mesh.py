@@ -95,7 +95,8 @@ class Mesh:
                 f"mesh positions are driven by process(es) {others}, not "
                 f"by this one ({me}): the mesh plane moves shards with "
                 "`.to(device)` inside one process, and a collective "
-                "across processes is ROADMAP item 18d-18f")
+                "across processes is ROADMAP item 18g (collectives "
+                "across processes)")
 
     def axis_devices(self, axis: str) -> list:
         """The devices along ``axis`` of a 1-D mesh, in rank order."""

@@ -12,7 +12,7 @@ position, so :func:`local_worker_indices` and :func:`host_groups` read
 ownership off it. The mesh plane itself is single-controller: sharding
 over, or running a collective on, a mesh with positions of another
 process raises (``Mesh.require_local``); a collective across processes
-is ROADMAP item 18d-18f.
+is ROADMAP item 18g (collectives across processes).
 
 Single-process runs (tests, the one-card bench) need none of this:
 every function degrades to the local-device path, so the same program

@@ -13,8 +13,10 @@ fused K-epoch windows as replayed CUDA graphs (``repochs`` bit-equal to
 the host loop, the graph equal to the eager loop) and the folded pool
 over a one-rank mesh of the card; and the sharded train step over eight
 ranks of the card against eight CPU ranks, the expert-parallel step over
-eight and the 1F1B pipeline with MoE stages over four. Every
-test here is ``gpu``-marked and skips without a card. This file
+eight and the 1F1B pipeline with MoE stages over four; and sharded
+inference on four ranks of the card (int8 generation, positional and
+ring, against the dense generators; the int8 serving tick against four
+CPU ranks), with exact K1 and K5 counts. Every test here is ``gpu``-marked and skips without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -1750,3 +1752,109 @@ def test_1f1b_moe_step_on_the_card_equals_cpu_ranks():
                                        donate=True)
     sp_card, _ = step(sp_card, inp, tgt)
     _replicas_equal_on(sp_card, card)
+
+
+_DEC_CFG = dict(vocab=256, d_model=512, n_heads=4, n_kv_heads=2,
+                n_layers=2, d_ff=512, attn="ulysses", attn_impl="flash")
+
+
+def _zero_counts():
+    for counts in (fa.LAUNCHES, da.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_sharded_int8_generate_on_the_card_equals_dense(ring):
+    """``make_generate`` (``ring=False``) and ``make_ring_generate`` over
+    a (dp, tp) = (2, 2) mesh of four ranks on cuda:0, int8 cache, B=8
+    (4 rows a rank: AUTO routes K5), f32 with TF32 off, D=128: tokens
+    equal to the dense generator's on the card and to the same program on
+    four CPU ranks; K1 once per rank per layer in the positional prefill
+    (the ring's quantized prefill attends the cache: no K1), K5 once per
+    rank per layer per decode step."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.models import transformer as tt
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    dev = _card()
+    cfg = TransformerConfig(**_DEC_CFG)
+    if ring:
+        cfg = dataclasses.replace(cfg, attn_window=128)
+    prompt = np.random.default_rng(14).integers(0, 256, (8, 200))
+    n_new = 6
+    params = init_params(cfg, seed=5, device="cpu")
+    card = make_mesh((2, 2), ("dp", "tp"), devices=[dev] * 4)
+    cpu = make_mesh((2, 2), ("dp", "tp"), devices=["cpu"] * 4)
+    make = td.make_ring_generate if ring else td.make_generate
+    _zero_counts()
+    got = make(cfg, card, n_new, quantize_kv=True)(
+        tt.shard_params(params, cfg, card), prompt)
+    torch.cuda.synchronize()
+    k1 = 0 if ring else cfg.n_layers * 4
+    assert fa.LAUNCHES["flash_fwd"] == k1
+    assert da.LAUNCHES["quantized_decode_attention"] == cfg.n_layers * 4 * (n_new - 1)
+    dense = (td.generate_ring_dense if ring else td.generate_dense)(
+        tt._to(params, dev), prompt, n_new, cfg, quantize_kv=True)
+    assert torch.equal(got.gather(dev), dense)
+    want = make(cfg, cpu, n_new, quantize_kv=True)(
+        tt.shard_params(params, cfg, cpu), prompt)
+    assert torch.equal(got.gather(), want.gather())
+
+
+def test_sharded_int8_serving_tick_on_the_card_equals_cpu_ranks():
+    """``make_serving_scan`` over (dp, tp) = (2, 2) ranks of cuda:0, an
+    int8 ring of S=8 slots (4 a rank: K5's ring mode routed), 4 inner
+    steps: tokens, positions and done flags equal the same tick on four
+    CPU ranks and the dense per-row step; K5 once per rank per layer
+    per inner step."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.models import serving as sv
+    from mpistragglers_jl_tpu_torch.models import transformer as tt
+    from mpistragglers_jl_tpu_torch.parallel import make_mesh
+
+    dev = _card()
+    cfg = dataclasses.replace(TransformerConfig(**_DEC_CFG),
+                              attn_window=256)
+    S, n_inner = 8, 4
+    rng = np.random.default_rng(15)
+    tok = rng.integers(1, 256, S).astype(np.int32)
+    pos = rng.integers(100, 600, S).astype(np.int32)
+    caches = []
+    for _ in range(cfg.n_layers):
+        layer = {}
+        for kk in ("k", "v"):
+            x = torch.as_tensor(rng.standard_normal(
+                (S, cfg.attn_window, cfg.kv_heads, cfg.head_dim)) * 0.5,
+                dtype=torch.float32)
+            layer[kk], layer[kk + "_s"] = td._kv_quantize(x)
+        caches.append(layer)
+    params = init_params(cfg, seed=6, device="cpu")
+    outs = {}
+    for name, devs in (("card", [dev] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh((2, 2), ("dp", "tp"), devices=devs)
+        _zero_counts()
+        outs[name] = sv.make_serving_scan(cfg, mesh, n_inner,
+                                          quantize_kv=True)(
+            tt.shard_params(params, cfg, mesh), tok, pos,
+            np.zeros(S, bool), [dict(c) for c in caches])
+        if name == "card":
+            torch.cuda.synchronize()
+            assert da.LAUNCHES["quantized_decode_attention"] == (
+                cfg.n_layers * 4 * n_inner)
+    for a, b in zip(outs["card"][:3] + (outs["card"][4],),
+                    outs["cpu"][:3] + (outs["cpu"][4],)):
+        assert torch.equal(a.gather(), b.gather())
+    dtok, dpos = torch.as_tensor(tok), torch.as_tensor(pos)
+    dc = [{kk: a.clone() for kk, a in c.items()} for c in caches]
+    p_cpu = tt._to(params, "cpu")
+    for _ in range(n_inner):
+        lg, dc = sv.serving_decode_step_dense(p_cpu, dtok, dpos, dc, cfg)
+        dtok, dpos = torch.argmax(lg, dim=-1).to(torch.int32), dpos + 1
+    assert torch.equal(outs["card"][0].gather(), dtok)

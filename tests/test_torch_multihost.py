@@ -157,7 +157,8 @@ def test_mesh_plane_refuses_positions_of_another_process(entry):
             np.ones((8, 2, 4)), decode="mds",
             G=MDSCode(8, 6, dtype=np.float64).G, k=6, mesh=m),
     }
-    with pytest.raises(ValueError, match=r"process\(es\) \[1\].*item 18d-18f"):
+    with pytest.raises(ValueError,
+                       match=r"process\(es\) \[1\].*item 18g \(collectives"):
         calls[entry](mixed)
     obj = calls[entry](mine)  # the same call on this process's mesh runs
     if hasattr(obj, "shutdown"):
@@ -356,7 +357,7 @@ def test_two_gloo_ranks_refuse_a_mesh_across_them(two_ranks):
             msg = r["refused_" + name]
             assert f"process(es) [{other}], not by this one ({r['rank']})" \
                 in msg
-            assert "ROADMAP item 18d-18f" in msg
+            assert "ROADMAP item 18g (collectives across processes)" in msg
         assert r["own_owners"] == [r["rank"]] * 2
         assert r["own_gather"] == [[0.0, 1.0], [2.0, 3.0]]
 

@@ -422,13 +422,31 @@ PyTorch version:
     steps for ``make_generate`` and, in the same run at the same cache
     length and steps, ``generate_dense``, beside phase 19's slope; the
     streams equal); ``make_generate`` int8 on (2, 4), B=8, prompt 2048,
-    n_new 32; the int8 serving tick, S=8, 64 inner steps, on (2, 2),
+    n_new 16; the int8 serving tick, S=8, 32 inner steps, on (2, 2),
     after a 4-step warm-up tick; ``make_speculative`` on (1, 4) at
     ``bench_spec_decode``'s prompt, its stream equal to
-    ``generate_dense``'s; MoE ``make_generate`` on (2, 2, 2), its tp
-    replicas bit-equal; counts, times and peak memory (ranks share the
+    ``generate_dense``'s; MoE ``make_generate`` on (2, 2, 2), 8 new, its
+    tp replicas bit-equal; counts, times and peak memory (ranks share the
     card: no collective speed). (c) the port's ``dryrun_multichip(8)`` on eight ranks of
-    cuda:0.
+    cuda:0;
+60. the mesh plane across processes (``bench/multiproc.py``): two
+    processes spawned on cuda:0, each loading the kernels built above.
+    Each asks for ``nccl`` first (two processes on one card: refused,
+    naming ``backend="gloo"``), then joins the job over ``gloo`` and
+    drives four ranks of ``make_multihost_mesh((2, 2, 2), ("dp", "sp",
+    "tp"), dcn_axis="dp")`` and of ``((2, 4), ("dp", "tp"))``. (a) f32,
+    TF32 off, 2 layers, batch 2: one SGD step's loss and leaves bit-equal
+    to the single-controller (2, 2, 2) step the same process runs on its
+    own eight ranks (the bytes across processes dropped as the control:
+    the loss must move); ``make_generate`` greedy and int8 on (2, 4) at
+    the decode rung's width (2 layers, B=8, prompt 504, 8 new), each
+    stream equal to the single-controller one. (b) bf16 at phase 14's
+    width: 2 SGD steps across the processes, the first loss within
+    ``TRAIN_BF16_ORACLE`` of phase 57's reference-attention oracle, each
+    leaf's change within ``TRAIN_BF16_UPDATE`` of 2 reference steps',
+    ms/step beside phases 57 and 14; then phase 59(b)'s (2, 4) int8
+    generation, its stream equal to phase 59's. Exact K1-K3 and K5 counts
+    per process (each drives four ranks).
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -440,6 +458,7 @@ line with phases 50-51's, a ``{"slice15": ...}`` line with phases
 52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
 ``{"slice17": ...}`` line with phase 57's, a ``{"slice18": ...}``
 line with phase 58's, a ``{"slice19": ...}`` line with phase 59's, a
+``{"slice20": ...}`` line with phase 60's, a
 ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
@@ -5308,9 +5327,14 @@ INF_F32_LOGITS = 1e-5
 # cache length: ms/token = (t(96) - t(32)) / 64
 INF_SLOPE_NEW = (32, 96)
 INF_LONG_LEN = 18432    # (b): cache positions, 16384 + 128 rounded up
-INF_GEN_BF16 = (8, 2048, 32)   # (b): (B, prompt, n_new) on (2, 4)
+# (b): (B, prompt, n_new) on (2, 4); n_new 32 -> 16, MoE's 16 -> 8 and the
+# timed tick's 64 inner steps -> 32 once phase 60 was added (the ROADMAP's
+# depth cuts for a whole run past 600 s); phase 60 generates the same
+# (2, 4) stream
+INF_GEN_BF16 = (8, 2048, 16)
 INF_SPEC_BF16_NEW = 64  # (b): bench_spec_decode's 256 cut to 64
-INF_MOE_BF16 = (8, 512, 16)    # (b): (B, prompt, n_new) on (2, 2, 2)
+INF_MOE_BF16 = (8, 512, 8)     # (b): (B, prompt, n_new) on (2, 2, 2)
+INF_TICK_INNER = 32     # (b): the timed tick's inner steps
 INF_WARM_INNER = 4      # (b): the serving tick's warm-up inner steps
 
 
@@ -5641,7 +5665,8 @@ def _inf_bf16(dev, serve_ms_per_step, phase19_ms) -> tuple[dict, dict]:
     _require(bool(((toks.gather() >= 0) & (toks.gather() < cfg.vocab)).all()),
              "out-of-vocabulary tokens")
     out["generate_int8_2x4"] = {"B": B, "prompt": Tp, "n_new": nn,
-                                "total_s": dt, "ms_per_token": dt / nn * 1e3}
+                                "total_s": dt, "ms_per_token": dt / nn * 1e3,
+                                "stream": toks.gather().tolist()}
     del sp
     # the int8 serving tick on (2, 2): one warm-up, one timed
     cfg_w = dataclasses.replace(cfg, attn_window=MODEL["attn_window"])
@@ -5656,19 +5681,19 @@ def _inf_bf16(dev, serve_ms_per_step, phase19_ms) -> tuple[dict, dict]:
                             cfg_w, mesh22)
     state = (tok, pos, np.zeros(S, bool))
     ms = []
-    for n_inner in (INF_WARM_INNER, SERVE_INNER):  # a short warm-up first
+    for n_inner in (INF_WARM_INNER, INF_TICK_INNER):  # a warm-up first
         tick = sv.make_serving_scan(cfg_w, mesh22, n_inner, quantize_kv=True)
         res, dt, k = _counted(lambda: tick(sp22, *state, caches))
         state = res[:3]
         ms.append(dt * 1e3)
     one_device = (None if serve_ms_per_step is None
-                  else serve_ms_per_step * SERVE_INNER)
+                  else serve_ms_per_step * INF_TICK_INNER)
     counts["serving_tick_int8_2x2"] = _want_counts(
-        k, f"make_serving_scan int8 on (2, 2), S={S}, {SERVE_INNER} inner "
+        k, f"make_serving_scan int8 on (2, 2), S={S}, {INF_TICK_INNER} inner "
         f"steps: {ms[1]:.1f} ms/tick ({INF_WARM_INNER}-step warm-up "
         f"{ms[0]:.1f}; phase 5's "
-        f"one-device scheduler {one_device and round(one_device, 1)})",
-        k5=L * 4 * SERVE_INNER)
+        f"one-device scheduler {one_device and round(one_device, 1)} for "
+        "as many steps)", k5=L * 4 * INF_TICK_INNER)
     out["serving_tick_2x2"] = {"ms_per_tick": ms[1], "warmup_ms": ms[0],
                                "phase5_ms_per_tick": one_device}
     del caches, sp22
@@ -5743,6 +5768,158 @@ def phase_slice19(dev, t_start, serve_ms_per_step,
     out["dryrun_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     return out, counts
+
+
+MP_TIMEOUT = 300  # phase 60: both processes, start-up included
+
+
+def _mp_counts(launches, what, **want) -> dict:
+    """Hold one process's run of phase 60 to exact counts (the flash
+    kernels and K5 by their K names), every other kernel 0."""
+    names = {"K1": "flash_fwd", "K2": "flash_bwd_dq",
+             "K3": "flash_bwd_dkv", "K5": K5}
+    exp = {names[k]: v for k, v in want.items() if v}
+    print(f"  {what}: {launches} (want {exp})")
+    _require(launches == exp, f"{what} launched {launches}, want {exp}")
+    return want
+
+
+def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
+                  stream59) -> tuple[dict, dict]:
+    """Phase 60. ``loss_oracle`` is phase 57's first bf16 loss with the
+    reference attention, ``dense_ms`` and ``sharded_ms`` phase 14's and
+    phase 57's (2, 2, 2) ms/step, ``stream59`` phase 59(b)'s (2, 4) int8
+    stream. Returns (report, launches per run of one process)."""
+    from mpistragglers_jl_tpu_torch.bench import multiproc as mp
+
+    t0 = time.perf_counter()
+    print(f"  (+{t0 - t_start:.1f} s)")
+    print("[60] the mesh plane across two processes on one card (gloo), "
+          "four ranks each: (a) f32 bit-equality with the single-controller "
+          "step and streams, a control; (b) bf16 at full width, "
+          f"{mp.SGD_STEPS} steps, and phase 59's (2, 4) int8 generation")
+    cfg = _train_cfg(torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        handle = mp.start(tmp)
+        # the oracle steps run while the processes start up
+        inp, tgt = train_batch(cfg.vocab, dev)
+        want_changes, ref_traj = _reference_changes(cfg, inp, tgt,
+                                                    mp.SGD_STEPS)
+        init = _leaves(init_params(cfg, seed=0, device=dev))
+        del inp, tgt
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t1
+        reps = mp.wait(handle, timeout=MP_TIMEOUT)
+        run_s = time.perf_counter() - t1
+        final = torch.load(os.path.join(tmp, "params.pt"))
+    upd, n_leaves = _update_error(
+        [a.to(dev).float() - b.float() for a, b in zip(final, init)],
+        want_changes)
+    del final, init, want_changes
+    torch.cuda.empty_cache()
+    L, Lg = SHARD_F32_LAYERS, TransformerConfig(**DECODE).n_layers
+    k_new = mp.GEN_F32[2] - 1
+    counts = {}
+    for rep in reps:
+        r = rep["rank"]
+        msg = rep["nccl_shared_card"] or ""
+        print(f"  process {r}: nccl on the shared card refused: "
+              f"{msg[:110]}...; backend {rep['backend']}; start-up "
+              f"{rep['init_s']:.1f} s, (a) {rep['f32_s']:.1f} s, the whole "
+              f"process {rep['seconds']:.1f} s")
+        _require("share cuda:0" in msg and "backend='gloo'" in msg,
+                 f"process {r}: nccl on one card was not refused by name: "
+                 f"{msg!r}")
+        _require(rep["backend"] == "gloo", f"process {r}: {rep['backend']}")
+        a = rep["f32"]
+        ctrl = abs(a["ctrl_loss"] - a["step_x"]["loss"]) / abs(
+            a["step_x"]["loss"])
+        print(f"  process {r} (a): loss {a['step_x']['loss']:.7f}, the "
+              f"step bit-equal to the single-controller one "
+              f"{a['step_bit_equal']} ({a['step_x']['s']:.2f} s against "
+              f"{a['step_s']['s']:.2f}); control, the bytes across "
+              f"processes dropped: loss moves {ctrl:.3e} (must pass "
+              f"{TRAIN_F32_LOSS:.0e}); streams equal greedy "
+              f"{a['generate_greedy_equal']}, int8 "
+              f"{a['generate_int8_equal']}")
+        _require(a["step_bit_equal"], f"process {r}: the f32 step across "
+                 "processes differs from the single-controller step")
+        _require(ctrl > TRAIN_F32_LOSS, f"process {r}: the control passes")
+        _require(a["generate_greedy_equal"] and a["generate_int8_equal"],
+                 f"process {r}: a stream across processes differs")
+        b = rep["bf16"]
+        _require(b["exchanges"] > 0 and b["exchange_gb"] > 0,
+                 f"process {r}: the timed bf16 step counted "
+                 f"{b['exchanges']} exchanges across processes")
+        k_bf16 = cfg.n_layers * 4 * mp.SGD_STEPS
+        c = {
+            "f32 step": _mp_counts(a["step_x"]["launches"],
+                                   f"process {r} f32 step", K1=L * 4,
+                                   K2=L * 4, K3=L * 4),
+            "f32 single-controller step": _mp_counts(
+                a["step_s"]["launches"], f"process {r} f32 step on its own "
+                "8 ranks", K1=L * 8, K2=L * 8, K3=L * 8),
+            "f32 generate greedy": _mp_counts(
+                a["generate_greedy_x"]["launches"],
+                f"process {r} greedy make_generate", K1=L * 4),
+            "f32 generate int8": _mp_counts(
+                a["generate_int8_x"]["launches"],
+                f"process {r} int8 make_generate", K1=L * 4,
+                K5=L * 4 * k_new),
+            "bf16 steps": _mp_counts(
+                b["launches"], f"process {r} bf16, {mp.SGD_STEPS} steps",
+                K1=k_bf16, K2=k_bf16, K3=k_bf16),
+            "bf16 generate int8": _mp_counts(
+                b["generate_int8"]["launches"],
+                f"process {r} bf16 int8 make_generate", K1=Lg * 4,
+                K5=Lg * 4 * (mp.GEN_BF16[2] - 1)),
+        }
+        counts.setdefault("per process", c)
+        _require(c == counts["per process"], "the processes' counts differ")
+    b0, b1 = (rep["bf16"] for rep in reps)
+    rel = abs(b0["losses"][0] - loss_oracle) / abs(loss_oracle)
+    stream = b0["generate_int8"]["stream"]
+    print(f"  (b) losses {b0['losses']} (process 1: {b1['losses']}); first "
+          f"against phase 57's oracle {loss_oracle:.5f}: {rel:.3e} (limit "
+          f"{TRAIN_BF16_ORACLE:.0e}); worst leaf change {upd:.3e} (limit "
+          f"{TRAIN_BF16_UPDATE}) over {n_leaves} changed leaves; "
+          f"{b0['ms_per_step']:.1f} ms/step (process 1 "
+          f"{b1['ms_per_step']:.1f}; the warm-up step "
+          f"{b0['step_s'][0] * 1e3:.1f}), phase 57's (2, 2, 2) in one "
+          f"process {sharded_ms:.1f}, phase 14's dense {dense_ms:.1f}; in "
+          f"the timed step {b0['exchanges']} exchanges across processes "
+          f"took {b0['exchange_ms']:.1f} ms for {b0['exchange_gb']:.3f} GB "
+          f"out (process 1: {b1['exchange_ms']:.1f} ms); peak "
+          f"{b0.get('peak_mem_gb', 0):.2f} GB a process")
+    _require(b0["losses"] == b1["losses"], "the processes' losses differ")
+    _require(rel <= TRAIN_BF16_ORACLE, f"first loss {rel} off the oracle")
+    _require(upd <= TRAIN_BF16_UPDATE, f"the update leaves the oracle's: "
+             f"{upd}")
+    same = sum(a == w for a, w in zip(stream, stream59))
+    print(f"  (b) make_generate int8 on (2, 4) across processes: "
+          f"{b0['generate_int8']['s']:.2f} s; {same}/{len(stream59)} "
+          "streams equal to phase 59's")
+    _require(stream == b1["generate_int8"]["stream"] and same == len(
+        stream59) == len(stream), "the (2, 4) stream differs from phase 59's")
+    for rep in reps:
+        rep["bf16"]["generate_int8"].pop("stream")
+    out = {"processes": reps, "run_s": run_s, "oracle_steps_s": ref_s,
+           "bf16": {"loss_oracle": loss_oracle, "first_loss_rel_err": rel,
+                    "update_rel_err": upd, "reference_losses": ref_traj,
+                    "ms_per_step": [b0["ms_per_step"], b1["ms_per_step"]],
+                    "phase57_ms_per_step": sharded_ms,
+                    "phase14_ms_per_step": dense_ms},
+           "seconds": time.perf_counter() - t0}
+    print(f"  phase 60: {out['seconds']:.1f} s (the processes "
+          f"{run_s:.1f}, the oracle steps beside their start-up "
+          f"{ref_s:.1f})")
+    return out, counts["per process"]
+
+
+def _phase60_launches(counts, key) -> dict:
+    """One kernel's launches per process on phase 60's runs."""
+    return {run: c[key] for run, c in counts.items() if c.get(key)}
 
 
 def _phase59_launches(counts, key) -> dict:
@@ -5974,6 +6151,10 @@ def main() -> int:
     slice19, launches59 = phase_slice19(
         dev, t_start, serve["ms_per_step"],
         long_ctx["decode_ms_per_token_int8_kernel"])
+    slice20, launches60 = phase_slice20(
+        dev, t_start, slice17["bf16"]["loss_oracle"], train["ms_per_step"],
+        slice17["bf16"]["2x2x2"]["ms_per_step"],
+        slice19["bf16"]["generate_int8_2x4"]["stream"])
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
@@ -5999,6 +6180,8 @@ def main() -> int:
     ]
     kernels[0]["launches_sharded_inference_phase59"] = _phase59_launches(
         launches59, "K5")
+    kernels[0]["launches_per_process_phase60"] = _phase60_launches(
+        launches60, "K5")
     for kname, (_, line) in FLASH.items():
         launched = (launches15 if kname == "flash_bwd_fused"
                     else launches14)[kname]
@@ -6014,7 +6197,10 @@ def main() -> int:
                     launches58, kname)}),
             **({} if kname != "flash_fwd" else {
                 "launches_sharded_inference_phase59": _phase59_launches(
-                    launches59, "K1")})})
+                    launches59, "K1")}),
+            **({} if kname == "flash_bwd_fused" else {
+                "launches_per_process_phase60": _phase60_launches(
+                    launches60, FLASH[kname][0])})})
     # K7's time is its fullest variant's (full_nosm); all four beside it
     variants = {m: flag[k] for m, k in attrib.VARIANTS.items()}
     kernels.append({
@@ -6074,6 +6260,8 @@ def main() -> int:
     print(json.dumps({"slice18": slice18,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice19": slice19,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"slice20": slice20,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,13 @@ cache block is its own buffer, written in place; the entry points take
 arrays, and return :class:`~..parallel.mesh.ShardedTensor` values.
 Each rank's prefill chunk runs ``cfg.attn_impl`` (K1 under flash) and
 each rank's int8 decode step K5 when routed, the routing resolved at
-the rank's local batch.
+the rank's local batch. Over a mesh that spans processes each process
+prefills and decodes its own ranks' rows and the tp psums cross
+processes where tp does; the decode loop runs a fixed ``n_new`` with no
+stop vote, so no agreement across processes is needed, and the tokens
+come back as a value every process can ``gather``. The ring generator
+(and ``make_speculative``, ``make_serving_scan``) refuse such a mesh
+(ROADMAP item 18h).
 
 Sampling (``temperature > 0``, ``top_k``, a ``key`` from
 ``utils/prng.py``) draws the reference's tokens: ``utils/prng.py`` is
@@ -760,7 +766,7 @@ def _rank_params(params, cfg, mesh) -> list:
     leaves = _laid_out(params, param_specs(cfg, mesh), mesh,
                        "shard_params(params, cfg, mesh)")
     return [_rebuild(params, iter(leaf.local(r) for leaf in leaves))
-            for r in range(mesh.size)]
+            for r in mesh.local_ranks()]
 
 
 def _rank_blocks(x, mesh: Mesh, spec) -> tuple[list, tuple]:
@@ -770,10 +776,10 @@ def _rank_blocks(x, mesh: Mesh, spec) -> tuple[list, tuple]:
         if x.mesh is not mesh or _spec_key(x.spec) != _spec_key(spec):
             raise ValueError(f"expected a value laid out as {spec} on the "
                              f"mesh, got {x}")
-        return [x.local(r) for r in range(mesh.size)], x.shape
+        return x.locals(), x.shape
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
     sh = shard(t, mesh, spec)
-    return [sh.local(r) for r in range(mesh.size)], sh.shape
+    return sh.locals(), sh.shape
 
 
 def _rank_tokens(x, cfg, mesh, trailing: int) -> tuple[list, tuple]:
@@ -807,15 +813,16 @@ def _rank_caches(cache, cfg, mesh, quantize_kv: bool):
                 raise ValueError(f"cache leaf {kk} laid out as {a.spec}, "
                                  f"cache_specs says {spec[kk]}")
     local = [[{kk: a.local(r) for kk, a in layer.items()} for layer in cache]
-             for r in range(mesh.size)]
+             for r in mesh.local_ranks()]
     return cache, local
 
 
 def _layers_local(lparams, xs, cfg, mesh, attend):
     """The per-rank layer stack over a mesh, shared by the decode and
-    serving programs: ``lparams[r]`` and ``xs[r]`` (B', T, d) are flat
-    position r's. Per layer ``attend(r, i, x, lp, kv_slice)`` gives
-    rank r's attention output on its q-head shard (its cache written in
+    serving programs: ``lparams[j]`` and ``xs[j]`` (B', T, d) are those
+    of the j-th position this process drives (``mesh.local_ranks()``).
+    Per layer ``attend(j, i, x, lp, kv_slice)`` gives that rank's
+    attention output on its q-head shard (its cache written in
     place; ``kv_slice``, from :func:`make_kv_slice`, picks the rank's kv
     head when kv_heads < tp), then the out-projection's partial sums
     meet in a ``psum`` over ``tp``, as do the MLP's d_ff shards, ``b2``
@@ -824,7 +831,7 @@ def _layers_local(lparams, xs, cfg, mesh, attend):
     each rank's (B', T, V) logits."""
     kv = make_kv_slice(cfg, mesh)
     slices = [None if kv is None else partial(kv, rank=r)
-              for r in range(mesh.size)]
+              for r in mesh.local_ranks()]
     for i in range(cfg.n_layers):
         lps = [lp["layers"][i] for lp in lparams]
         outs = [torch.einsum("blhk,hkd->bld", attend(r, i, x, lp, slices[r]),
@@ -847,9 +854,9 @@ def _layers_local(lparams, xs, cfg, mesh, attend):
 def _incremental_forward_local(lparams, ltokens, lcaches, offset: int, cfg,
                                mesh, *, prefill, ring=False,
                                decode_kernel=_UNSET):
-    """The per-rank incremental forward over a mesh: ``lparams[r]``,
-    ``ltokens[r]`` (B', T) and ``lcaches[r]`` (layer dicts) are flat
-    position r's. :func:`_layers_local` with :func:`_attend` as each
+    """The per-rank incremental forward over a mesh: ``lparams[j]``,
+    ``ltokens[j]`` (B', T) and ``lcaches[j]`` (layer dicts) are those of
+    the j-th position this process drives. :func:`_layers_local` with :func:`_attend` as each
     rank's attention half. Returns (each rank's (B', T, V) logits, each
     rank's caches, written in place)."""
     _check_ring_chunk(ltokens[0].shape[1], prefill, ring)
@@ -999,6 +1006,8 @@ def make_generate(cfg: TransformerConfig, mesh: Mesh, n_new: int,
     :func:`make_ring_generate`) decodes over the O(W) ring; ``max_len``
     is then ignored."""
     _check_decode_mesh(cfg, mesh)
+    if ring:
+        mesh.require_local("the ring generator")
     W = _check_ring_cfg(cfg) if ring else None
     bax = decode_batch_axes(cfg)
     if n_new < 1:
@@ -1040,7 +1049,7 @@ def make_generate(cfg: TransformerConfig, mesh: Mesh, n_new: int,
                            for c in lcaches]
             picks = [_picker(B, p.device, float(temperature), top_k, key,
                              _batch_row0(cfg, mesh, r, B))
-                     for r, p in enumerate(prompts)]
+                     for r, p in zip(mesh.local_ranks(), prompts)]
             toks = [pk(lg[:, -1], Tp - 1) for pk, lg in zip(picks, logits)]
             del logits
 

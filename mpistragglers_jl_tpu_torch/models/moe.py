@@ -109,6 +109,7 @@ def moe_ffn_sharded(xs: list, mps: list, capacity_factor: float, *,
     all-to-all (split dim 0, concat dim 1) hands it there, the owner's
     FFN runs on (E/ep, ep*C, D), and the inverse (split dim 1, concat
     dim 0) returns each member's (E, C, D)."""
+    mesh.require_local("moe_ffn_sharded")
     ep = mesh.shape["ep"]
     routes, xes, auxes = [], [], []
     for x, mp in zip(xs, mps):

@@ -361,6 +361,7 @@ def make_serving_scan(cfg: TransformerConfig, mesh, n_inner: int, *,
             "layout"
         )
     _check_layout(cfg, mesh)
+    mesh.require_local("make_serving_scan")
     use_kernel = _decode._USE_DECODE_KERNEL  # make-time snapshot
     slots = P("dp")
 

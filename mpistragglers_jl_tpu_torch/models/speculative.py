@@ -270,6 +270,7 @@ def make_speculative(cfg: TransformerConfig, mesh, Tp: int, n_new: int, *,
     reference refuses MoE: its expert all-to-all makes the loop's
     carries vary over ep)."""
     _check_decode_mesh(cfg, mesh)
+    mesh.require_local("make_speculative")
     if cfg.n_experts:
         raise ValueError(
             "sharded speculative decoding supports dense configs only "

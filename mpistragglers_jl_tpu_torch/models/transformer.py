@@ -50,8 +50,10 @@ Here every replica is its own tensor, so the port does it by hand:
 1. the loss is one scalar equal to the dense mean NLL: every rank
    computes a copy (``psum`` over the batch axes), and the step takes
    flat rank 0's, never a sum of copies;
-2. one ``backward`` runs over every rank's graph through the
-   collectives;
+2. one ``autograd.grad`` runs over every rank's graph through the
+   collectives, from every rank's loss copy, seeded 1 on flat rank 0's
+   copy and 0 on every other (a ``psum``'s backward sums its members'
+   cotangents, so the zeros add nothing);
 3. each leaf's gradient is summed over the mesh axes that its
    ``param_specs`` entry does not name (dp and sp for every leaf, tp
    for the replicated ones, ep for all but the experts; an axis of
@@ -62,6 +64,17 @@ Here every replica is its own tensor, so the port does it by hand:
 ``remat=True`` checkpoints a whole layer across all ranks
 (``torch.utils.checkpoint``, non-reentrant), since the collectives
 cross ranks inside a layer.
+
+**Across processes.** Over a mesh from ``make_multihost_mesh`` that
+spans processes each process runs the per-rank program on its own
+positions (``Mesh.local_ranks``; every per-rank list is indexed by
+position in it) and the collectives cross processes
+(``parallel/collectives.py``). Rule 2 is one ``autograd.grad`` per
+process over its local ranks' loss copies: every process then enters
+every backward collective, in the same order, and the gradients are
+the single-controller ones. Rule 3's replica sum crosses processes in rank
+order, in float32. The experts over ``ep`` do not run across processes
+yet (ROADMAP item 18h).
 """
 
 from __future__ import annotations
@@ -416,20 +429,18 @@ def nll_loss(logits, targets, axes=None, mesh: Mesh | None = None):
 
     On one device (``axes`` None) ``logits`` and ``targets`` are
     tensors. With ``axes`` and ``mesh`` they hold one tensor per mesh
-    position, and each position gets the mean over all positions of its
-    group over ``axes`` (the reference's psum of the sums over the
-    count)."""
+    position this process drives, and each position gets the mean over
+    all positions of its group over ``axes`` (the reference's psum of
+    the sums over the count)."""
     if axes is None:
         nll = _nll(logits, targets)
         return nll.sum() / nll.numel()
     sums = psum([_nll(lg, t).sum() for lg, t in zip(logits, targets)],
                 mesh, axes)
-    count = [0.0] * mesh.size
-    for group in mesh.axis_groups(axes):
-        total = float(sum(logits[r][..., 0].numel() for r in group))
-        for r in group:
-            count[r] = total
-    return [s_ / c for s_, c in zip(sums, count)]
+    # every member of a group holds an equal block of the batch
+    members = len(mesh.axis_groups(axes)[0])
+    return [s_ / float(lg[..., 0].numel() * members)
+            for s_, lg in zip(sums, logits)]
 
 
 def _leaves(tree) -> list:
@@ -603,8 +614,9 @@ def _check_layout(cfg: TransformerConfig, mesh: Mesh) -> None:
     """What :func:`param_specs` needs of a mesh, whatever program runs
     over it: a ``tp`` axis (and ``ep`` with experts), the experts and
     ``d_ff`` divisible over them, the tp and kv-head alignment, and
-    every position driven by this process. The decode meshes (``("dp",
-    "tp")``, ``("dp", "ep", "tp")``) pass it."""
+    every process of the mesh in the job; experts over a mesh that spans
+    processes are refused by name. The decode meshes (``("dp", "tp")``,
+    ``("dp", "ep", "tp")``) pass it."""
     need = ("tp",) + (("ep",) if cfg.n_experts else ())
     missing = [a for a in need if a not in mesh.axis_names]
     if missing:
@@ -618,7 +630,8 @@ def _check_layout(cfg: TransformerConfig, mesh: Mesh) -> None:
                 f"n_experts {cfg.n_experts} must divide over ep={ep}")
         if cfg.d_ff % tp:
             raise ValueError(f"d_ff {cfg.d_ff} must divide over tp={tp}")
-    mesh.require_local()
+        mesh.require_local("the mixture of experts over a mesh")
+    mesh.local_ranks()  # every process of the mesh in the job
     param_specs(cfg, mesh)  # the tp and kv-head alignment checks
 
 
@@ -634,11 +647,12 @@ def _spec_key(spec) -> tuple:
 
 def _tensors(tree) -> list:
     """Every tensor of a parameter tree in :func:`_leaves` order; a
-    :class:`ShardedTensor` leaf gives its shards in flat rank order."""
+    :class:`ShardedTensor` leaf gives this process's shards in
+    ``local_ranks`` order."""
     out = []
     for leaf in _leaves(tree):
         if isinstance(leaf, ShardedTensor):
-            out.extend(leaf.local(r) for r in range(leaf.mesh.size))
+            out.extend(leaf.locals())
         else:
             out.append(leaf)
     return out
@@ -650,9 +664,9 @@ def _rebuild_tensors(tree, it):
     new = []
     for leaf in _leaves(tree):
         if isinstance(leaf, ShardedTensor):
-            new.append(from_local(leaf.mesh, leaf.spec,
-                                  [next(it) for _ in range(leaf.mesh.size)],
-                                  leaf.shape))
+            new.append(from_local(
+                leaf.mesh, leaf.spec,
+                [next(it) for _ in leaf.mesh.local_ranks()], leaf.shape))
         else:
             new.append(next(it))
     return _rebuild(tree, iter(new))
@@ -685,16 +699,17 @@ def _laid_out(params, spec_tree, mesh, how: str) -> list:
 
 
 def _data_locals(x, cfg, mesh) -> tuple[list, tuple]:
-    """Each rank's block of a (B, L) token array, and the global shape."""
+    """Each local rank's block of a (B, L) token array, and the global
+    shape."""
     spec = data_spec(cfg)
     if isinstance(x, ShardedTensor):
         if x.mesh is not mesh or _spec_key(x.spec) != _spec_key(spec):
             raise ValueError(f"tokens must be laid out as {spec} on the "
                              "mesh")
-        return [x.local(r) for r in range(mesh.size)], x.shape
+        return x.locals(), x.shape
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     sh = shard(t, mesh, spec)
-    return [sh.local(r) for r in range(mesh.size)], sh.shape
+    return sh.locals(), sh.shape
 
 
 def _sharded_attention(cfg: TransformerConfig, mesh: Mesh):
@@ -709,21 +724,22 @@ def _sharded_attention(cfg: TransformerConfig, mesh: Mesh):
 
 def _forward_local(lparams: list, ltokens: list, cfg: TransformerConfig,
                    mesh: Mesh) -> tuple[list, list]:
-    """The per-rank program: ``lparams[r]`` is position r's tree of
-    local shards, ``ltokens[r]`` its (B', Lc) block of tokens. Returns
-    each position's local (B', Lc, vocab) logits and its layers' summed
-    MoE aux loss (f32; 0 without experts)."""
+    """The per-rank program: ``lparams[i]`` is the tree of local shards
+    of the i-th position this process drives (``mesh.local_ranks()``),
+    ``ltokens[i]`` its (B', Lc) block of tokens. Returns each such
+    position's local (B', Lc, vocab) logits and its layers' summed MoE
+    aux loss (f32; 0 without experts)."""
     sp = mesh.axis_index("sp")
+    ranks = mesh.local_ranks()
     devs = [lp["emb"].device for lp in lparams]
     toks = [torch.as_tensor(t, device=d).long()
             for t, d in zip(ltokens, devs)]
     Lc = toks[0].shape[1]
     pos = [sp[r] * Lc + torch.arange(Lc, device=d)
-           for r, d in enumerate(devs)]
+           for r, d in zip(ranks, devs)]
     attn = _sharded_attention(cfg, mesh)
     kv = make_kv_slice(cfg, mesh)
-    slices = [None if kv is None else partial(kv, rank=r)
-              for r in range(mesh.size)]
+    slices = [None if kv is None else partial(kv, rank=r) for r in ranks]
 
     def one_layer(xs, lps):
         qkv = [_qkv(x, lp, pos[r], slices[r])
@@ -801,7 +817,7 @@ def make_forward(cfg: TransformerConfig, mesh: Mesh):
     def fwd(params, tokens):
         leaves = _sharded_leaves(params, cfg, mesh)
         lparams = [_rebuild(params, iter(leaf.local(r) for leaf in leaves))
-                   for r in range(mesh.size)]
+                   for r in mesh.local_ranks()]
         toks, (B, L) = _data_locals(tokens, cfg, mesh)
         logits, _ = _forward_local(lparams, toks, cfg, mesh)
         return from_local(mesh, data_spec(cfg), logits, (B, L, cfg.vocab))
@@ -814,7 +830,9 @@ def sharded_loss_and_grads(params: dict, tokens, targets,
     """(loss, grads) of the sharded program: ``params`` is
     :func:`shard_params`' tree, ``tokens`` and ``targets`` global (B, L)
     arrays or values laid out by :func:`data_spec`. ``loss`` is flat
-    rank 0's copy of the mean NLL (a 0-d tensor); ``grads`` is a tree of
+    rank 0's copy of the mean NLL (a 0-d tensor; across processes, this
+    process's first copy, which holds the same bits); ``grads`` is a
+    tree of
     :class:`ShardedTensor` laid out as ``params``, each leaf's gradient
     summed over the mesh axes of size > 1 that its spec does not name
     (in float32, in rank order) and written to every replica (the
@@ -832,10 +850,10 @@ def sharded_loss_and_grads(params: dict, tokens, targets,
 
 @contextlib.contextmanager
 def _shards_requiring_grad(leaves, mesh):
-    """Context manager over the shards of ``leaves``: yields the
-    per-leaf lists of shards with ``requires_grad`` set, and restores
-    the flags on exit."""
-    shards = [[leaf.local(r) for r in range(mesh.size)] for leaf in leaves]
+    """Context manager over this process's shards of ``leaves``: yields
+    the per-leaf lists of shards with ``requires_grad`` set, and
+    restores the flags on exit."""
+    shards = [leaf.locals() for leaf in leaves]
     flat = [t for per_leaf in shards for t in per_leaf]
     if len({id(t) for t in flat}) != len(flat):
         raise ValueError("two positions share one parameter tensor: lay "
@@ -853,19 +871,30 @@ def _shards_requiring_grad(leaves, mesh):
 def _replica_loss_and_grads(params, leaves, mesh: Mesh, loss_local):
     """The single-controller autograd rule (module docstring) over any
     per-rank program: ``loss_local(lparams)`` takes one tree of local
-    shards per flat position and returns each position's copy of the
-    loss. Returns flat rank 0's copy and the gradient tree of
-    :class:`ShardedTensor`, each leaf summed over the mesh axes of size
-    > 1 that its spec does not name. The pipeline's autodiff schedules
-    share it."""
-    n = mesh.size
+    shards per position this process drives and returns each such
+    position's copy of the loss. Returns flat rank 0's copy (across
+    processes this process's first copy, the same bits) and the gradient
+    tree of :class:`ShardedTensor`, each leaf summed over the mesh axes
+    of size > 1 that its spec does not name. The pipeline's autodiff
+    schedules share it."""
+    ranks = mesh.local_ranks()
+    n = len(ranks)
     with _shards_requiring_grad(leaves, mesh) as shards:
         flat = [t for per_leaf in shards for t in per_leaf]
         with torch.enable_grad():
-            lparams = [_rebuild(params, iter(s_[r] for s_ in shards))
-                       for r in range(n)]
-            loss = loss_local(lparams)[0]
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            lparams = [_rebuild(params, iter(s_[i] for s_ in shards))
+                       for i in range(n)]
+            losses = loss_local(lparams)
+            loss = losses[0]
+            # one backward over every local copy, seeded 1 on flat rank
+            # 0's and 0 elsewhere: across processes every process then
+            # enters every backward collective
+            roots = [(lo, torch.ones_like(lo) if r == 0 else
+                      torch.zeros_like(lo))
+                     for lo, r in zip(losses, ranks) if lo.requires_grad]
+            grads = torch.autograd.grad(
+                [lo for lo, _ in roots], flat, allow_unused=True,
+                grad_outputs=[g for _, g in roots])
     it = iter(grads)
     out = []
     with torch.no_grad():

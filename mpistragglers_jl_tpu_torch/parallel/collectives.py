@@ -1,4 +1,4 @@
-"""Sharded decode and combine collectives over a single-controller mesh.
+"""Sharded decode and combine collectives over a mesh.
 
 The port of the JAX package's ``parallel/collectives.py``. Computation
 stays per-rank independent (the pool's map step: a straggling rank
@@ -33,25 +33,91 @@ tensor of its rank: ranks that share a card would otherwise alias
 another rank's tensor, which a later in-place update would change. The
 one exception is a ``psum`` group of one member, whose result is its
 own input.
+
+**Across processes.** Over a mesh that spans processes
+(:func:`.multihost.make_multihost_mesh`) every collective takes and
+returns this process's list, one tensor per position of
+:meth:`.mesh.Mesh.local_ranks`. A group whose members are all local
+runs as above. A group that spans processes moves its members' tensors
+over a ``torch.distributed`` subgroup of the processes that hold them
+(made once per mesh and axes, in group order, on every process, since
+``new_group`` is collective over the whole job): every process gathers
+the group's tensors as bytes (through host memory under ``gloo``, on
+the card under ``nccl``) and computes its members' results from them as
+the single-controller loop does, sums in rank order 0..n-1 included,
+so a run over processes gives the bits of the single-controller program
+on the same mesh shape. All of one call's groups that span processes
+form one ``torch.autograd.Function``, whose backward is JAX's
+transpose (a ``psum``'s cotangents ``psum``-ed back to every member,
+each ``all_gather`` slice summed back to its owner, the inverse
+``all_to_all``, the shift run backwards): every process enters the
+same backward collectives in the same order. The members of such a
+group share one shape and dtype, and each process holds as many of
+them as every other. :data:`EXCHANGES` counts the gathers, their
+bytes and seconds; :func:`exchanges_dropped` is the control that skips
+them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+from functools import partial
+
 import numpy as np
 import torch
 
-from .mesh import Mesh, PartitionSpec, ShardedTensor, from_local, shard
+from .mesh import (
+    Mesh,
+    PartitionSpec,
+    ShardedTensor,
+    _dist,
+    from_bytes,
+    from_local,
+    shard,
+    to_bytes,
+)
 
 __all__ = [
+    "EXCHANGES",
     "all_gather",
     "all_to_all",
+    "exchanges_dropped",
     "masked_psum_scatter_combine",
     "mds_decode_weights",
     "distributed_mds_decode",
     "psum",
     "ring_allgather",
     "ring_shift",
+    "zero_exchanges",
 ]
+
+# Per process, since the last zero_exchanges(): the exchanges across
+# processes that ran (one per group that spans processes and holds a
+# member of this one), the bytes this process put in them (its members'
+# tensors, sent once to each other process of the group), and their
+# seconds on the host clock (the copy to the host included under gloo;
+# under nccl the host only enqueues).
+EXCHANGES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+_dropped = False
+
+
+def zero_exchanges() -> None:
+    EXCHANGES.update(calls=0, bytes=0, seconds=0.0)
+
+
+@contextlib.contextmanager
+def exchanges_dropped():
+    """A control: inside, no exchange across processes runs and each
+    hands back zeros for the members of other processes (their bytes
+    never arrive), so a result that does not move has not used them.
+    Counts nothing in :data:`EXCHANGES`."""
+    global _dropped
+    _dropped = True
+    try:
+        yield
+    finally:
+        _dropped = False
 
 
 def mds_decode_weights(code, idx) -> np.ndarray:
@@ -111,6 +177,39 @@ def ring_pass(blocks, devices) -> list:
     return out
 
 
+def over_pool(op, xs, mesh: Mesh, axis: str = "w", **kw) -> list:
+    """Run the rank-list collective ``op`` (:func:`reduce_scatter`,
+    :func:`all_reduce` or :func:`ring_pass`) over the 1-D ``(axis,)``
+    pool mesh: ``xs`` holds one tensor per rank this process drives, in
+    :meth:`.mesh.Mesh.local_ranks` order, and so does the result. Across
+    processes the members' tensors are gathered first
+    (:func:`_exchange`), and each local member's result is computed from
+    them as the single-controller loop computes it: the same bits."""
+    devices = mesh.local_axis_devices(axis)
+    if not mesh.spans_processes:
+        return op(xs, devices, **kw)
+    devs = mesh.devices.flatten()
+    out = []
+    for group, pg, mine, local in _per_group(
+            mesh, _cross_groups(mesh, axis), xs):
+        every = _exchange(mesh, group, pg, local)
+        if op is all_reduce:
+            out += all_reduce(every, [devs[r] for r in mine])
+        elif op is reduce_scatter:
+            fold = kw.get("fold", 1)
+            for r in mine:
+                j = group.index(r)
+                out += reduce_scatter(
+                    [t[j * fold:(j + 1) * fold] for t in every], [devs[r]],
+                    fold)
+        elif op is ring_pass:
+            out += [torch.stack([b.to(devs[r]) for b in every])
+                    for r in mine]
+        else:
+            raise ValueError(f"no pool collective {op!r}")
+    return out
+
+
 def _as_sharded(x, mesh: Mesh, axis: str) -> ShardedTensor:
     if isinstance(x, ShardedTensor):
         return x
@@ -146,18 +245,19 @@ def masked_psum_scatter_combine(mesh: Mesh, axis: str = "w",
     one card): each rank contributes its local group with one einsum
     and the same reduce-scatter places the output groups.
     """
-    devices = mesh.axis_devices(axis)
+    devices = mesh.local_axis_devices(axis)
+    ranks = mesh.local_ranks()
     fold = int(fold)
 
     def combine(shards, weights) -> ShardedTensor:
         sh = _as_sharded(shards, mesh, axis)
         ws = per_rank(weights, devices)
         parts = []
-        for w, dev in enumerate(devices):
+        for i, w in enumerate(ranks):
             local = sh.local(w)  # (fold, rows, cols)
-            wsel = ws[w][:, w * fold:(w + 1) * fold].to(local.dtype)
+            wsel = ws[i][:, w * fold:(w + 1) * fold].to(local.dtype)
             parts.append(torch.einsum("jl,lrc->jrc", wsel, local))
-        out = reduce_scatter(parts, devices, fold)
+        out = over_pool(reduce_scatter, parts, mesh, axis, fold=fold)
         return from_local(mesh, PartitionSpec(axis), out, sh.shape)
 
     return combine
@@ -197,13 +297,13 @@ def ring_allgather(mesh: Mesh, axis: str = "w"):
     split along ``axis``, moving one block per step around the ring
     (n-1 steps).
     """
-    devices = mesh.axis_devices(axis)
-    n = len(devices)
+    mesh.local_axis_devices(axis)  # a 1-D (axis,) mesh of this job
+    n = mesh.shape[axis]
 
     def gather(x) -> ShardedTensor:
         sh = _as_sharded(x, mesh, axis)
-        blocks = [sh.local(i)[0] for i in range(n)]
-        full = ring_pass(blocks, devices)
+        blocks = [t[0] for t in sh.locals()]
+        full = over_pool(ring_pass, blocks, mesh, axis)
         rows = blocks[0].shape[0]
         locals_ = [f.reshape((1, n * rows) + tuple(f.shape[2:]))
                    for f in full]
@@ -220,10 +320,144 @@ def ring_allgather(mesh: Mesh, axis: str = "w"):
 
 def _per_position(xs, mesh: Mesh) -> list:
     xs = list(xs)
-    if len(xs) != mesh.size:
+    n = len(mesh.local_ranks())
+    if len(xs) != n:
         raise ValueError(
-            f"need one tensor per mesh position ({mesh.size}), got {len(xs)}")
+            f"need one tensor per mesh position this process drives ({n}), "
+            f"got {len(xs)}")
     return xs
+
+
+def _owners(mesh: Mesh, group) -> tuple:
+    """The processes that drive ``group``'s members, ascending."""
+    return tuple(sorted({int(mesh.process_index.flat[r]) for r in group}))
+
+
+def _cross_groups(mesh: Mesh, axes) -> list:
+    """The groups over ``axes`` whose members span processes, each with
+    the ``torch.distributed`` group of those processes (None: the whole
+    job). Made on first use, for every such group in group order on
+    every process (``new_group`` is collective over the job, members or
+    not), and cached on the mesh."""
+    if not mesh.spans_processes:
+        return []
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if axes not in mesh._cross:
+        dist = _dist()
+        job = tuple(range(dist.get_world_size()))
+        out = []
+        for group in mesh.axis_groups(axes):
+            procs = _owners(mesh, group)
+            if len(procs) < 2:
+                continue
+            if procs not in mesh._pgroups:
+                mesh._pgroups[procs] = (None if procs == job
+                                        else dist.new_group(list(procs)))
+            out.append((group, mesh._pgroups[procs]))
+        mesh._cross[axes] = out
+    return mesh._cross[axes]
+
+
+def _per_group(mesh: Mesh, cross, ts):
+    """Walk the groups of :func:`_cross_groups` that hold positions of
+    this process, with this process's tensors ``ts`` (their members'
+    tensors, group after group): yields (group, process group, the
+    local members' ranks, their tensors)."""
+    at = set(mesh.local_ranks())
+    it = iter(ts)
+    for group, pg in cross:
+        mine = [r for r in group if r in at]
+        if mine:
+            yield group, pg, mine, [next(it) for _ in mine]
+
+
+def _exchange(mesh: Mesh, group, pg, local) -> list:
+    """Every member's tensor of ``group``, in group order, from this
+    process's members' tensors ``local``: one all-gather of their bytes
+    over ``pg``. The local members' entries are their own tensors; the
+    others arrive on the host (``gloo``) or on this process's card
+    (``nccl``)."""
+    owners = mesh.process_index.flatten()
+    procs = _owners(mesh, group)
+    held = [[r for r in group if owners[r] == p] for p in procs]
+    if len({len(h) for h in held}) != 1:
+        raise ValueError(
+            f"the processes {list(procs)} hold {[len(h) for h in held]} "
+            f"members of a group over the mesh's axes: a collective across "
+            "processes needs as many on each")
+    like = local[0]
+    me = int(_dist().get_rank())
+    if _dropped:
+        got = dict(zip(held[procs.index(me)], local))
+        return [got[r] if r in got else torch.zeros_like(like)
+                for r in group]
+    t0 = time.perf_counter()
+    payload = torch.cat([to_bytes(t, mesh.backend) for t in local])
+    bufs = [torch.empty_like(payload) for _ in procs]
+    _dist().all_gather(bufs, payload, group=pg)
+    got = {}
+    for p, ranks, buf in zip(procs, held, bufs):
+        if p == me:
+            got.update(zip(ranks, local))
+            continue
+        for r, part in zip(ranks, buf.chunk(len(ranks))):
+            got[r] = from_bytes(part, like.dtype, like.shape)
+    EXCHANGES["calls"] += 1
+    EXCHANGES["bytes"] += payload.numel()
+    EXCHANGES["seconds"] += time.perf_counter() - t0
+    return [got[r] for r in group]
+
+
+class _Crossing(torch.autograd.Function):
+    """One collective call's groups that span processes, as one autograd
+    node: ``fwd`` maps this process's members' tensors to their results,
+    ``bwd`` their cotangents to the inputs' (the transpose). Every
+    process enters both, in the same order as every other."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *xs):
+        ctx.bwd = bwd
+        return tuple(fwd(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *ctx.bwd(list(gs)))
+
+
+def _collective(xs, mesh: Mesh, axes, local_fn, fwd, bwd) -> list:
+    """Run one collective over ``axes``: ``local_fn(group, at, out)``
+    fills ``out`` for each group wholly on this process (``at`` maps a
+    flat rank to its place in the local list); the groups that span
+    processes run through ``fwd``/``bwd`` (:class:`_Crossing`) on their
+    local members' tensors, given with the cross groups as
+    ``fwd(cross, ts)``."""
+    at = {r: i for i, r in enumerate(mesh.local_ranks())}
+    cross = _cross_groups(mesh, axes)
+    spanning = {r for group, _ in cross for r in group}
+    out = [None] * len(xs)
+    for group in mesh.axis_groups(axes):
+        if group[0] not in spanning and group[0] in at:
+            local_fn(group, at, out)
+    ranks = [r for group, _ in cross for r in group if r in at]
+    if ranks:
+        res = _Crossing.apply(partial(fwd, cross), partial(bwd, cross),
+                              *[xs[at[r]] for r in ranks])
+        for r, t in zip(ranks, res):
+            out[at[r]] = t
+    return out
+
+
+def _psum_cross(mesh, cross, ts, dtype=None) -> list:
+    devs = mesh.devices.flatten()
+    out = []
+    for group, pg, mine, local in _per_group(mesh, cross, ts):
+        every = _exchange(mesh, group, pg, local)
+        dev0 = devs[mine[0]]
+        acc = every[0].to(dev0, dtype=dtype, copy=True)
+        for t in every[1:]:
+            acc = acc + t.to(dev0, dtype=dtype)
+        out += [acc] + [acc.to(devs[r], copy=True) for r in mine[1:]]
+    return out
 
 
 def psum(xs, mesh: Mesh, axes, *, dtype=None) -> list:
@@ -232,21 +466,45 @@ def psum(xs, mesh: Mesh, axes, *, dtype=None) -> list:
     rank order on the group's first device (the same bits on every
     member). ``dtype`` accumulates in that type (the result keeps it);
     None adds in the tensors' own type. A group of one member has
-    nothing to add and gets its own tensor back (cast to ``dtype``)."""
+    nothing to add and gets its own tensor back (cast to ``dtype``).
+    Across processes the members' tensors are gathered first and each
+    process adds them in rank order on its first member's device."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
-    out = [None] * len(xs)
-    for group in mesh.axis_groups(axes):
+
+    def local_fn(group, at, out):
         if len(group) == 1:
-            out[group[0]] = xs[group[0]].to(dtype=dtype)
-            continue
+            out[at[group[0]]] = xs[at[group[0]]].to(dtype=dtype)
+            return
         dev0 = devs[group[0]]
-        acc = xs[group[0]].to(dev0, dtype=dtype, copy=True)
+        acc = xs[at[group[0]]].to(dev0, dtype=dtype, copy=True)
         for r in group[1:]:
-            acc = acc + xs[r].to(dev0, dtype=dtype)
-        out[group[0]] = acc
+            acc = acc + xs[at[r]].to(dev0, dtype=dtype)
+        out[at[group[0]]] = acc
         for r in group[1:]:
-            out[r] = acc.to(devs[r], copy=True)
+            out[at[r]] = acc.to(devs[r], copy=True)
+
+    # the inputs' types, in the order of the members that cross
+    at = {r: i for i, r in enumerate(mesh.local_ranks())}
+    types = [xs[at[r]].dtype for group, _ in _cross_groups(mesh, axes)
+             for r in group if r in at]
+
+    def bwd(cross, gs):
+        return [g.to(dt) for g, dt in
+                zip(_psum_cross(mesh, cross, gs), types)]
+
+    return _collective(xs, mesh, axes, local_fn,
+                       partial(_psum_cross, mesh, dtype=dtype), bwd)
+
+
+def _shift_cross(mesh, shift, cross, ts) -> list:
+    devs = mesh.devices.flatten()
+    out = []
+    for group, pg, mine, local in _per_group(mesh, cross, ts):
+        every = _exchange(mesh, group, pg, local)
+        n = len(group)
+        out += [every[(group.index(r) - shift) % n].to(devs[r], copy=True)
+                for r in mine]
     return out
 
 
@@ -255,17 +513,26 @@ def ring_shift(xs, mesh: Mesh, axis: str, *, shift: int = 1) -> list:
     ``axis``: the member at coordinate ``c`` receives the tensor of
     the member at ``(c - shift) % n`` (a copy on its own device). An
     entry may be None, a member with nothing to send (a pipeline's idle
-    slot): its receiver gets None and nothing moves."""
+    slot): its receiver gets None and nothing moves (within one
+    process only)."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
-    out = [None] * len(xs)
-    for group in mesh.axis_groups(axis):
+
+    def local_fn(group, at, out):
         n = len(group)
         for c, r in enumerate(group):
-            src = xs[group[(c - shift) % n]]
+            src = xs[at[group[(c - shift) % n]]]
             if src is not None:
-                out[r] = src.to(devs[r], copy=True)
-    return out
+                out[at[r]] = src.to(devs[r], copy=True)
+
+    at = {r: i for i, r in enumerate(mesh.local_ranks())}
+    if any(xs[at[r]] is None for group, _ in _cross_groups(mesh, axis)
+           for r in group if r in at):
+        raise ValueError("a ring shift across processes moves a tensor "
+                         "from every member; got None")
+    return _collective(xs, mesh, axis, local_fn,
+                       partial(_shift_cross, mesh, shift),
+                       partial(_shift_cross, mesh, -shift))
 
 
 def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:
@@ -275,10 +542,47 @@ def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:
     where autograd sums them: ``psum_scatter``, JAX's transpose."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
-    out = [None] * len(xs)
-    for group in mesh.axis_groups(axis):
+
+    def local_fn(group, at, out):
         for r in group:
-            out[r] = torch.cat([xs[m].to(devs[r]) for m in group], dim=dim)
+            out[at[r]] = torch.cat([xs[at[m]].to(devs[r]) for m in group],
+                                   dim=dim)
+
+    def fwd(cross, ts):
+        out = []
+        for group, pg, mine, local in _per_group(mesh, cross, ts):
+            every = _exchange(mesh, group, pg, local)
+            out += [torch.cat([t.to(devs[r]) for t in every], dim=dim)
+                    for r in mine]
+        return out
+
+    def bwd(cross, gs):
+        size = xs[0].shape[dim]
+        out = []
+        for group, pg, mine, local in _per_group(mesh, cross, gs):
+            every = _exchange(mesh, group, pg, local)
+            for r in mine:
+                c = group.index(r)
+                acc = every[0].narrow(dim, c * size, size).to(devs[r],
+                                                              copy=True)
+                for g in every[1:]:
+                    acc = acc + g.narrow(dim, c * size, size).to(devs[r])
+                out.append(acc)
+        return out
+
+    return _collective(xs, mesh, axis, local_fn, fwd, bwd)
+
+
+def _a2a_cross(mesh, split_dim, concat_dim, cross, ts) -> list:
+    devs = mesh.devices.flatten()
+    out = []
+    for group, pg, mine, local in _per_group(mesh, cross, ts):
+        n = len(group)
+        size = local[0].shape[split_dim]
+        every = _exchange(mesh, group, pg, local)
+        chunks = [torch.split(t, size // n, dim=split_dim) for t in every]
+        out += [torch.cat([c[group.index(r)].to(devs[r]) for c in chunks],
+                          dim=concat_dim) for r in mine]
     return out
 
 
@@ -290,17 +594,21 @@ def all_to_all(xs, mesh: Mesh, axis: str, split_dim: int,
     ``concat_dim`` in the senders' coordinate order."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
-    out = [None] * len(xs)
-    for group in mesh.axis_groups(axis):
-        n = len(group)
-        size = xs[group[0]].shape[split_dim]
-        if size % n:
+    n = mesh.shape[axis]
+    for x in xs:
+        if x.shape[split_dim] % n:
             raise ValueError(
-                f"dimension {split_dim} of size {size} does not split "
-                f"into {n} parts over {axis!r}")
-        chunks = [torch.split(xs[r], size // n, dim=split_dim)
+                f"dimension {split_dim} of size {x.shape[split_dim]} does "
+                f"not split into {n} parts over {axis!r}")
+
+    def local_fn(group, at, out):
+        size = xs[at[group[0]]].shape[split_dim]
+        chunks = [torch.split(xs[at[r]], size // n, dim=split_dim)
                   for r in group]
         for j, r in enumerate(group):
-            out[r] = torch.cat([c[j].to(devs[r]) for c in chunks],
-                               dim=concat_dim)
-    return out
+            out[at[r]] = torch.cat([c[j].to(devs[r]) for c in chunks],
+                                   dim=concat_dim)
+
+    return _collective(xs, mesh, axis, local_fn,
+                       partial(_a2a_cross, mesh, split_dim, concat_dim),
+                       partial(_a2a_cross, mesh, concat_dim, split_dim))

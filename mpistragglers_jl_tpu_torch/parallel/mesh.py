@@ -1,7 +1,8 @@
-"""Device meshes and values laid out over them, single-controller.
+"""Device meshes and values laid out over them.
 
 The port of the JAX package's ``parallel/mesh.py``. A JAX ``Mesh`` is
-one process driving N devices; so is this one. A :class:`Mesh` is an
+one process driving N devices; so is this one, or several processes
+that each drive their own. A :class:`Mesh` is an
 ndarray of ``torch.device`` with named axes, and one device may appear
 at several positions (ranks): eight logical ranks can share one card,
 ``make_mesh(8, devices=[torch.device("cuda", 0)] * 8)``. On a host
@@ -18,13 +19,19 @@ collectives explicitly. A per-rank program reads its coordinates
 with :meth:`Mesh.axis_index` (``jax.lax.axis_index``) and the members
 of a collective over named axes with :meth:`Mesh.axis_groups`.
 
-Every position of a mesh that this module shards over, and that the
-collectives run on, must be driven by this process. A mesh from
-:func:`.multihost.make_multihost_mesh` that spans processes serves the
-ownership reads of :mod:`.multihost` only: :func:`shard`,
-:func:`from_local` and :meth:`Mesh.axis_devices` (through which every
-collective and mesh GEMM finds its ranks) refuse it, rather than run
-each process's copy of the whole collective on its own devices.
+A mesh from :func:`.multihost.make_multihost_mesh` spans processes:
+``process_index`` names the process that drives each position and
+``backend`` the ``torch.distributed`` backend that moves its bytes.
+Each process then drives only its own positions,
+:meth:`Mesh.local_ranks`, and every per-rank list a module builds is
+indexed by position in that list (on a single-controller mesh it is
+``range(size)``, so the same program text runs on both). :func:`shard`
+and :func:`from_local` fill only the local positions (a
+:class:`ShardedTensor` holds None at another process's), and
+:meth:`ShardedTensor.gather` is a collective: every process calls it
+and gets the whole value. The entry points that do not run across
+processes yet call :meth:`Mesh.require_local`, which names the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -52,19 +59,38 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple(self)!r}"
 
 
-def _process_index() -> int:
+def _dist():
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_rank())
-    return 0
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _process_index() -> int:
+    dist = _dist()
+    return 0 if dist is None else int(dist.get_rank())
+
+
+def _process_count() -> int:
+    dist = _dist()
+    return 1 if dist is None else int(dist.get_world_size())
+
+
+def dist_backend() -> str | None:
+    """The ``torch.distributed`` backend that moves CUDA tensors in this
+    job: ``"nccl"`` or ``"gloo"``, None without a job."""
+    dist = _dist()
+    if dist is None:
+        return None
+    return "nccl" if "nccl" in str(dist.get_backend()) else "gloo"
 
 
 class Mesh:
     """Devices on named axes. ``shape`` is an ordered mapping, so
     ``mesh.shape[axis]`` reads as in JAX; ``process_index`` holds, per
     position, the process that drives it (all this process's in a
-    single-controller mesh, see :mod:`.multihost`)."""
+    single-controller mesh, see :mod:`.multihost`); :attr:`backend` is
+    the ``torch.distributed`` backend that moves the bytes of a mesh
+    that spans processes."""
 
     def __init__(self, devices, axis_names: Sequence[str],
                  process_index=None):
@@ -81,30 +107,71 @@ class Mesh:
         if process_index is None:
             process_index = np.full(arr.shape, _process_index(), dtype=int)
         self.process_index = np.asarray(process_index, dtype=int)
+        self.spans_processes = len(np.unique(self.process_index)) > 1
+        self._local = None  # (process, world, local ranks)
+        self._pgroups: dict = {}  # process tuple -> torch.distributed group
+        self._cross: dict = {}  # axes -> [(group, process group)]
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
-    def require_local(self) -> None:
-        """Raise unless this process drives every position."""
+    @property
+    def backend(self) -> str | None:
+        """The job's :func:`dist_backend` over a mesh that spans
+        processes (``"gloo"``: bytes cross through host memory;
+        ``"nccl"``: they stay on the cards), None otherwise."""
+        return dist_backend() if self.spans_processes else None
+
+    def local_ranks(self) -> list:
+        """The flat ranks (row-major) this process drives, ascending:
+        ``range(size)`` on a single-controller mesh. Raises for a mesh
+        that names a process absent from the job."""
+        me, world = _process_index(), _process_count()
+        if self._local is None or self._local[:2] != (me, world):
+            owners = [int(p) for p in self.process_index.flat]
+            absent = sorted(set(owners) - set(range(world)))
+            if absent:
+                raise ValueError(
+                    f"mesh positions are driven by process(es) {absent}, "
+                    f"absent from this job of {world} process(es): a mesh "
+                    "across processes comes from make_multihost_mesh after "
+                    "initialize_multihost")
+            self._local = (me, world,
+                           [r for r, p in enumerate(owners) if p == me])
+        return list(self._local[2])
+
+    def local_devices(self) -> list:
+        """The devices of :meth:`local_ranks`, in that order."""
+        flat = self.devices.flatten()
+        return [flat[r] for r in self.local_ranks()]
+
+    def require_local(self, what: str = "this entry point") -> None:
+        """Raise unless this process drives every position: ``what``
+        runs over a mesh of this process's alone."""
         me = _process_index()
         others = sorted({int(p) for p in self.process_index.flat} - {me})
         if others:
             raise ValueError(
                 f"mesh positions are driven by process(es) {others}, not "
-                f"by this one ({me}): the mesh plane moves shards with "
-                "`.to(device)` inside one process, and a collective "
-                "across processes is ROADMAP item 18g (collectives "
-                "across processes)")
+                f"by this one ({me}): {what} runs over a mesh that one "
+                "process drives whole, and across processes it is ROADMAP "
+                "item 18h (the rest of the mesh plane across processes)")
 
     def axis_devices(self, axis: str) -> list:
-        """The devices along ``axis`` of a 1-D mesh, in rank order."""
+        """The devices along ``axis`` of a 1-D mesh that this process
+        drives whole, in rank order (the pool-fused GEMMs and the device
+        coordinator's mesh window)."""
+        self.require_local()
+        return self.local_axis_devices(axis)
+
+    def local_axis_devices(self, axis: str) -> list:
+        """:meth:`local_devices` of a 1-D ``(axis,)`` mesh (a pool
+        axis, whose ranks are the workers)."""
         if len(self.axis_names) != 1 or self.axis_names[0] != axis:
             raise ValueError(
                 f"need a 1-D ({axis!r},) mesh, got {self.axis_names}")
-        self.require_local()
-        return list(self.devices.flatten())
+        return self.local_devices()
 
     def _axes(self, axes) -> tuple:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -118,7 +185,6 @@ class Mesh:
         """Per flat position (row-major), its coordinate along ``axis``:
         what ``jax.lax.axis_index(axis)`` reads on that device."""
         (axis,) = self._axes(axis)
-        self.require_local()
         d = self.axis_names.index(axis)
         return [int(idx[d]) for idx in np.ndindex(self.devices.shape)]
 
@@ -130,7 +196,6 @@ class Mesh:
         members of a ``psum``, ``ppermute`` or ``all_to_all`` over
         ``axes``. Every position is in exactly one group."""
         axes = self._axes(axes)
-        self.require_local()
         keep = [d for d, a in enumerate(self.axis_names) if a not in axes]
         over = [d for d, a in enumerate(self.axis_names) if a in axes]
         ranks = np.arange(self.size).reshape(self.devices.shape)
@@ -231,19 +296,53 @@ class ShardedTensor:
 
     @property
     def dtype(self):
-        return self.local(0).dtype
+        return self.local(self.mesh.local_ranks()[0]).dtype
 
     def local(self, rank: int) -> torch.Tensor:
-        """The tensor at flat position ``rank`` (row-major over axes)."""
+        """The tensor at flat position ``rank`` (row-major over axes);
+        None at a position another process drives."""
         return self.shards.flat[int(rank)]
+
+    def locals(self) -> list:
+        """This process's tensors, in :meth:`Mesh.local_ranks` order."""
+        return [self.shards.flat[r] for r in self.mesh.local_ranks()]
 
     def gather(self, device="cpu") -> torch.Tensor:
         """The global value, assembled on ``device`` (the host by
-        default)."""
+        default). Over a mesh that spans processes this is a collective:
+        every process calls it and gets the whole value, each block sent
+        by the process of the lowest rank that holds it (a block that
+        every process holds is not sent)."""
+        mesh = self.mesh
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        for idx in np.ndindex(self.mesh.devices.shape):
-            out[_slices(self.mesh, self.spec, self.shape, idx)] = \
-                self.shards[idx].detach().to(out.device)
+        if not mesh.spans_processes:
+            for idx in np.ndindex(mesh.devices.shape):
+                out[_slices(mesh, self.spec, self.shape, idx)] = \
+                    self.shards[idx].detach().to(out.device)
+            return out
+        blocks: dict = {}  # block index -> the ranks that hold it
+        for r, idx in enumerate(np.ndindex(mesh.devices.shape)):
+            sl = _slices(mesh, self.spec, self.shape, idx)
+            blocks.setdefault(tuple((b.start, b.stop) for b in sl),
+                              []).append(r)
+        owners = mesh.process_index.flatten()
+        me, world = _process_index(), _process_count()
+        for key, ranks in blocks.items():
+            sl = tuple(slice(a, b) for a, b in key)
+            mine = [r for r in ranks if owners[r] == me]
+            if mine and {int(owners[r]) for r in ranks} >= set(range(world)):
+                out[sl] = self.local(mine[0]).detach().to(out.device)
+                continue
+            src = int(owners[ranks[0]])
+            like = self.local(mine[0] if mine else
+                              mesh.local_ranks()[0])
+            blk = (self.local(ranks[0]).detach() if src == me else
+                   torch.empty(out[sl].shape, dtype=self.dtype,
+                               device=like.device))
+            buf = to_bytes(blk, mesh.backend)
+            _dist().broadcast(buf, src=src)
+            out[sl] = from_bytes(buf, self.dtype,
+                                 out[sl].shape).to(out.device)
         return out
 
     def __array__(self, dtype=None, copy=None):
@@ -255,24 +354,46 @@ class ShardedTensor:
                 f"mesh={dict(self.mesh.shape)})")
 
 
+def to_bytes(t: torch.Tensor, backend) -> torch.Tensor:
+    """``t``'s bytes as a flat uint8 tensor, where ``backend`` moves
+    them: on the host for ``gloo`` (it has no CUDA transport), on ``t``'s
+    card for ``nccl``. Any dtype crosses as bytes, bit for bit."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return b if backend == "nccl" else b.cpu()
+
+
+def from_bytes(buf: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """:func:`to_bytes`' inverse: a view of ``buf`` as ``dtype`` of
+    ``shape``."""
+    return buf.view(dtype).reshape(shape)
+
+
 def shard(x, mesh: Mesh, spec) -> ShardedTensor:
-    """Lay ``x`` (numpy or torch) out over ``mesh`` by ``spec``: each
-    position gets its own copy of its block on its device, never a view
-    of another position's."""
-    mesh.require_local()
+    """Lay ``x`` (numpy or torch; the global value, which every process
+    holds) out over ``mesh`` by ``spec``: each position this process
+    drives gets its own copy of its block on its device, never a view of
+    another position's; another process's positions hold None."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     spec = PartitionSpec(*spec)
     shards = np.empty(mesh.devices.shape, dtype=object)
-    for idx in np.ndindex(mesh.devices.shape):
+    idxs = list(np.ndindex(mesh.devices.shape))
+    for r in mesh.local_ranks():
+        idx = idxs[r]
         blk = t[_slices(mesh, spec, tuple(t.shape), idx)]
         shards[idx] = blk.to(mesh.devices[idx], copy=True).contiguous()
     return ShardedTensor(mesh, spec, shards, t.shape)
 
 
 def from_local(mesh: Mesh, spec, locals_, shape) -> ShardedTensor:
-    """Wrap per-position tensors (flat, row-major) as one value."""
-    mesh.require_local()
+    """Wrap this process's tensors, one per position of
+    :meth:`Mesh.local_ranks` in that order, as one value."""
+    ranks = mesh.local_ranks()
+    locals_ = list(locals_)
+    if len(locals_) != len(ranks):
+        raise ValueError(
+            f"need one tensor per position this process drives "
+            f"({len(ranks)}), got {len(locals_)}")
     shards = np.empty(mesh.devices.shape, dtype=object)
-    for i, t in enumerate(locals_):
-        shards.flat[i] = t
+    for r, t in zip(ranks, locals_):
+        shards.flat[r] = t
     return ShardedTensor(mesh, spec, shards, shape)

@@ -12,6 +12,11 @@ a ``("w",)`` mesh:
   collective places source block j on rank j.
 
 Output stays sharded; ``full()`` gathers to the host only on demand.
+
+Over a mesh that spans processes (:mod:`.multihost`) each process
+computes its own workers' products and the decode's reduce-scatter (or
+all-reduce) crosses processes (:mod:`.collectives`); ``full()`` is then
+a collective every process calls.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 from ..ops._batch import as_tensor, check_precision, matmul
 from ..ops.coding import MDSCode
 from ..ops.matdot import MatDotCode, MatDotWeightCache, _matdot_worker
-from .collectives import all_reduce, distributed_mds_decode, per_rank
+from .collectives import all_reduce, distributed_mds_decode, over_pool, \
+    per_rank
 from .mesh import Mesh, PartitionSpec, ShardedTensor, from_local, shard
 
 __all__ = ["MeshCodedGemm", "MeshMatDotGemm"]
@@ -58,7 +64,8 @@ class MeshCodedGemm:
             raise ValueError(f"rows {m} must divide evenly into k={k} blocks")
         self.mesh = mesh
         self.axis = axis
-        self.devices = mesh.axis_devices(axis)
+        self.devices = mesh.local_axis_devices(axis)
+        self.ranks = mesh.local_ranks()
         self.code = MDSCode(n, k, parity=parity, dtype=_np_dtype(A))
         self.n, self.k = n, k
         self.block_rows = m // k
@@ -70,8 +77,8 @@ class MeshCodedGemm:
     def map_step(self, B) -> ShardedTensor:
         """Per-rank coded shard products (n, m/k, cols), sharded."""
         Bs = per_rank(as_tensor(B), self.devices)
-        out = [matmul(self.blocks.local(w)[0], Bs[w], self.precision)[None]
-               for w in range(self.n)]
+        out = [matmul(self.blocks.local(w)[0], b, self.precision)[None]
+               for w, b in zip(self.ranks, Bs)]
         return from_local(self.mesh, PartitionSpec(self.axis), out,
                           (self.n, self.block_rows, out[0].shape[-1]))
 
@@ -126,7 +133,8 @@ class MeshMatDotGemm:
             )
         self.mesh = mesh
         self.axis = axis
-        self.devices = mesh.axis_devices(axis)
+        self.devices = mesh.local_axis_devices(axis)
+        self.ranks = mesh.local_ranks()
         self.code = MatDotCode(p, n, dtype=_np_dtype(A))
         self.p, self.n, self.k = p, n, self.code.k
         self.precision = check_precision(precision)
@@ -159,11 +167,11 @@ class MeshMatDotGemm:
         Bs = per_rank(B, self.devices)
         wC = per_rank(torch.from_numpy(w).to(B.dtype), self.devices)
         parts = []
-        for i in range(self.n):
+        for j, i in enumerate(self.ranks):
             Ct = _matdot_worker(self.A_evals.local(i)[0],
-                                self.B_weights.local(i)[0], Bs[i], self.p,
+                                self.B_weights.local(i)[0], Bs[j], self.p,
                                 self.precision)
-            parts.append(wC[i][i] * Ct)
-        out = all_reduce(parts, self.devices)
+            parts.append(wC[j][i] * Ct)
+        out = over_pool(all_reduce, parts, self.mesh, self.axis)
         return from_local(self.mesh, PartitionSpec(), out,
                           tuple(out[0].shape))

@@ -5,14 +5,16 @@ of the mesh plane that maps onto ``torch.distributed``: the reference
 scales across hosts by launching more ranks and wiring them into one
 runtime (``jax.distributed.initialize``, the analog of ``MPI.Init()``);
 here :func:`initialize_multihost` is ``init_process_group`` (``gloo``
-for CPU ranks, ``nccl`` for one card per process). A mesh built by
-:func:`make_multihost_mesh` lists every process's devices, process-major,
-with ``mesh.process_index`` naming the process that drives each
-position, so :func:`local_worker_indices` and :func:`host_groups` read
-ownership off it. The mesh plane itself is single-controller: sharding
-over, or running a collective on, a mesh with positions of another
-process raises (``Mesh.require_local``); a collective across processes
-is ROADMAP item 18g (collectives across processes).
+for CPU ranks, or for processes that share a card; ``nccl`` for one
+card per process). A mesh built by :func:`make_multihost_mesh` lists
+every process's devices, process-major, with ``mesh.process_index``
+naming the process that drives each position and ``mesh.backend`` the
+backend that moves its bytes. Each process drives its own positions
+(``Mesh.local_ranks``): the sharded programs run their ranks' share of
+the per-rank loops, and the collectives of :mod:`.collectives` cross
+processes over ``torch.distributed`` where a group's members do.
+:func:`local_worker_indices` and :func:`host_groups` read ownership off
+the mesh.
 
 Single-process runs (tests, the one-card bench) need none of this:
 every function degrades to the local-device path, so the same program
@@ -22,15 +24,17 @@ text runs everywhere.
 from __future__ import annotations
 
 import os
+import socket
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from .mesh import Mesh
+from .mesh import Mesh, dist_backend
 
 __all__ = [
+    "backend",
     "initialize_multihost",
     "make_multihost_mesh",
     "local_worker_indices",
@@ -68,6 +72,7 @@ def initialize_multihost(
     local_device_ids: Sequence[int] | None = None,
     *,
     device=None,
+    backend: str | None = None,
 ) -> None:
     """Wire this process into a multi-process runtime (idempotent).
 
@@ -81,7 +86,13 @@ def initialize_multihost(
 
     ``device`` is this process's device: the card by default
     (``local_device_ids[0]``, else ``process_id`` modulo the visible
-    cards; ``nccl``), or ``"cpu"`` (``gloo``)."""
+    cards), or ``"cpu"``. ``backend`` moves the mesh's bytes: ``"gloo"``
+    (through host memory; the default for a CPU device, and legal with a
+    card) or ``"nccl"`` (on the cards; the default for a card). Right
+    after ``init_process_group`` every process's (host, device) is
+    gathered once: ``nccl`` needs a card of its own per process, and two
+    processes on one card raise a ``ValueError`` that asks for
+    ``backend="gloo"`` (the backend is never switched quietly)."""
     global _initialized, _local_devices
     if _initialized:
         return
@@ -109,13 +120,55 @@ def initialize_multihost(
             device = torch.device(
                 "cuda", rank % max(torch.cuda.device_count(), 1))
     dev = resolve_device(device)
+    if backend is None:
+        backend = "gloo" if dev.type == "cpu" else "nccl"
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(
+            f"backend='nccl' moves CUDA tensors, and this process's device "
+            f"is {dev}: pass backend='gloo'")
+    # object collectives (the check below, make_multihost_mesh's device
+    # gather) run over gloo in both cases; CUDA tensors over nccl
     dist.init_process_group(
-        "gloo" if dev.type == "cpu" else "nccl",
-        init_method=url, world_size=world, rank=rank,
-        device_id=dev if dev.type == "cuda" else None,
-    )
+        "gloo" if backend == "gloo" else "cpu:gloo,cuda:nccl",
+        init_method=url, world_size=world, rank=rank)
+    every: list = [None] * world
+    dist.all_gather_object(every, (socket.gethostname(), str(dev)))
+    try:
+        check_backend(backend, every)
+    except ValueError:
+        dist.destroy_process_group()
+        raise
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
     _local_devices = [dev]
     _initialized = True
+
+
+def check_backend(backend: str, every: Sequence) -> None:
+    """Raise unless ``backend`` can serve processes whose (host name,
+    device) pairs are ``every`` (indexed by process): ``nccl`` refuses
+    two ranks of one communicator on one GPU, at its first collective
+    and with its own error, so two processes on one card are refused
+    here, by name."""
+    if backend != "nccl":
+        return
+    seen: dict = {}
+    for p, (host, dev) in enumerate(every):
+        if (host, dev) in seen:
+            raise ValueError(
+                f"processes {seen[host, dev]} and {p} share {dev} on host "
+                f"{host!r}: nccl needs a card of its own per process; pass "
+                "backend='gloo' to run them on one card")
+        seen[host, dev] = p
+
+
+def backend() -> str | None:
+    """The backend :func:`initialize_multihost` chose (``"gloo"`` or
+    ``"nccl"``), or None in a single-process run: what ``mesh.backend``
+    reads (:func:`.mesh.dist_backend`)."""
+    return dist_backend()
 
 
 def _global_devices(devices) -> tuple[list, list]:
@@ -161,13 +214,16 @@ def make_multihost_mesh(
     """Build a mesh over *all* processes' devices, the cross-process axis
     outermost.
 
-    ``dcn_axis`` names the one axis allowed to span processes; in a
-    multi-process run its size must be a multiple of the process count
-    and the mesh must span *all* global devices (a partial mesh cannot
-    guarantee the axis actually crosses processes). With one process
-    this is ``make_mesh`` over the local devices. ``devices=`` is what
-    this process contributes (default: its device from
-    :func:`initialize_multihost`, or the visible cards).
+    ``dcn_axis`` moves one axis outermost, so it is the axis that spans
+    processes; in a multi-process run its size must be a multiple of the
+    process count and the mesh must span *all* global devices (a partial
+    mesh cannot guarantee the axis actually crosses processes). Without
+    it the devices fill the mesh row-major, process-major, so the
+    outermost axis crosses processes. Any axis may cross: the
+    collectives over it run across processes (:mod:`.collectives`).
+    With one process this is ``make_mesh`` over the local devices.
+    ``devices=`` is what this process contributes (default: its device
+    from :func:`initialize_multihost`, or the visible cards).
 
     >>> initialize_multihost()
     >>> mesh = make_multihost_mesh((4, 8), ("dp", "tp"), dcn_axis="dp")

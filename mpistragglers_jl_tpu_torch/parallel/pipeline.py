@@ -632,7 +632,7 @@ def _check_mesh(cfg, mesh):
     if cfg.n_layers % pp != 0:
         raise ValueError(
             f"n_layers {cfg.n_layers} not divisible by pp size {pp}")
-    mesh.require_local()
+    mesh.require_local("the pipeline")
 
 
 def make_pipeline_train_step(cfg, mesh, *, n_microbatch: int,

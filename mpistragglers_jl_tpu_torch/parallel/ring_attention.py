@@ -23,8 +23,10 @@ over an ``"sp"`` axis of a single-controller mesh (``mesh.py``):
 
 The reference writes both as per-shard functions called inside a
 ``shard_map``. Here they are per-rank programs: each takes and returns
-one tensor per flat mesh position (row-major), on that position's
-device, and the collectives between ranks are explicit.
+one tensor per mesh position this process drives (``Mesh.local_ranks``
+order; every position on a single-controller mesh), on that position's
+device, and the collectives between ranks are explicit (across
+processes where ``sp`` spans them).
 :func:`make_ring_attention` and :func:`make_ulysses_attention` wrap them
 over global ``(B, L, H, D)`` values laid out with ``P(None, axis,
 None, None)`` (:class:`.mesh.ShardedTensor`). Everything is
@@ -132,7 +134,8 @@ def ring_self_attention(qs, ks, vs, mesh: Mesh, *, axis: str = "sp",
     def positions(c, t):
         return c * Lc + torch.arange(Lc, device=t.device)
 
-    qpos = [positions(me[r], q) for r, q in enumerate(qs)]
+    ranks = mesh.local_ranks()
+    qpos = [positions(me[r], q) for r, q in zip(ranks, qs)]
     carry = []
     for r, (q, k, v) in enumerate(zip(qs, ks, vs)):
         # step 0: the resident block, no communication
@@ -146,10 +149,10 @@ def ring_self_attention(qs, ks, vs, mesh: Mesh, *, axis: str = "sp",
         kc = ring_shift(kc, mesh, axis)
         vc = ring_shift(vc, mesh, axis)
         carry = [
-            _block_update(q, kc[r], vc[r], *carry[r], qpos[r],
+            _block_update(q, kc[j], vc[j], *carry[j], qpos[j],
                           positions((me[r] - i) % n, q), scale, causal,
                           window)
-            for r, q in enumerate(qs)]
+            for j, (r, q) in enumerate(zip(ranks, qs))]
     out = []
     for q, (o, _, l) in zip(qs, carry):
         l = l.clamp_min(1e-20)  # fully masked rows (non-causal never hits)
@@ -211,7 +214,7 @@ def _make_wrapped(inner, mesh: Mesh, axis: str, causal: bool, **kw):
             raise ValueError(
                 f"need a value laid out as {spec} on this mesh, got "
                 f"{x.spec}")
-        return x, [x.local(r) for r in range(mesh.size)]
+        return x, x.locals()
 
     def run(q, k, v) -> ShardedTensor:
         (qsh, qs), (_, ks), (_, vs) = locals_(q), locals_(k), locals_(v)

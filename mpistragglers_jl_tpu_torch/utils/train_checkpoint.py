@@ -92,6 +92,13 @@ def _from_spec(spec, it):
     return arr
 
 
+def _require_local(tree) -> None:
+    """Refuse ShardedTensor leaves on a mesh that spans processes."""
+    for x in tree_leaves(tree):
+        if isinstance(x, ShardedTensor):
+            x.mesh.require_local("TrainCheckpointer")
+
+
 def _lay_out(arr: np.ndarray, like: ShardedTensor) -> ShardedTensor:
     """A global array laid out as the target leaf ``like``: its dtype,
     mesh and spec, each block on its position's device."""
@@ -142,6 +149,7 @@ class TrainCheckpointer:
         """Write ``state`` (any nest) and optional pool bookkeeping as
         step ``step``. The pool must be quiescent (``waitall`` first)
         unless ``allow_active``. Returns the step directory."""
+        _require_local(state)
         d = self._step_dir(step)
         tmp = d + ".tmp"
         if os.path.exists(tmp):
@@ -204,6 +212,7 @@ class TrainCheckpointer:
             )
             leaves = [z[k] for k in keys]
         if target is not None:
+            _require_local(target)
             n = len(tree_leaves(target))
             if n != len(leaves):
                 raise ValueError(f"checkpoint holds {len(leaves)} leaves, "

@@ -16,7 +16,10 @@ ranks of the card against eight CPU ranks, the expert-parallel step over
 eight and the 1F1B pipeline with MoE stages over four; and sharded
 inference on four ranks of the card (int8 generation, positional and
 ring, against the dense generators; the int8 serving tick against four
-CPU ranks), with exact K1 and K5 counts. Every test here is ``gpu``-marked and skips without a card. This file
+CPU ranks), with exact K1 and K5 counts; and one sharded step over two
+processes on the card joined by ``gloo``, bit-equal to the
+single-controller step. Every test here is ``gpu``-marked and skips
+without a card. This file
 imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -1858,3 +1861,87 @@ def test_sharded_int8_serving_tick_on_the_card_equals_cpu_ranks():
         lg, dc = sv.serving_decode_step_dense(p_cpu, dtok, dpos, dc, cfg)
         dtok, dpos = torch.argmax(lg, dim=-1).to(torch.int32), dpos + 1
     assert torch.equal(outs["card"][0].gather(), dtok)
+
+
+_GLOO_CARD_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mpistragglers_jl_tpu_torch.models import transformer as tt
+from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
+from mpistragglers_jl_tpu_torch.parallel import make_mesh
+from mpistragglers_jl_tpu_torch.parallel import multihost as mh
+addr, rank = sys.argv[1], int(sys.argv[2])
+dev = torch.device("cuda", 0)
+mh.initialize_multihost(addr, num_processes=2, process_id=rank, device=dev,
+                        backend="gloo")
+cfg = tt.TransformerConfig(vocab=256, d_model=512, n_heads=4, n_layers=2,
+                           d_ff=512, attn="ulysses", attn_impl="flash")
+tok = np.random.default_rng(11).integers(0, 256, (4, 257))
+inp, tgt = tok[:, :-1], tok[:, 1:]
+params = tt.init_params(cfg, seed=3, device="cpu")
+axes = ("dp", "sp", "tp")
+out = {}
+for tag, mesh in (
+        ("x", mh.make_multihost_mesh((2, 2, 2), axes, dcn_axis="dp",
+                                     devices=[dev] * 4)),
+        ("s", make_mesh((2, 2, 2), axes, devices=[dev] * 8))):
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    sp, loss = tt.make_train_step(cfg, mesh, lr=1e-2)(
+        tt.shard_params(params, cfg, mesh), inp, tgt)
+    torch.cuda.synchronize()
+    out[tag] = (loss, dict(fa.LAUNCHES),
+                [leaf.gather() for leaf in tt._leaves(sp)])
+same = bool(torch.equal(out["x"][0], out["s"][0]) and all(
+    torch.equal(a, b) for a, b in zip(out["x"][2], out["s"][2])))
+print("RESULT " + json.dumps({"same": same, "launches": out["x"][1],
+                              "single": out["s"][1]}))
+"""
+
+
+def test_gloo_step_across_two_processes_on_the_card_equals_one():
+    """Two processes on cuda:0 joined over gloo (nccl refuses two ranks
+    on one GPU), each driving four ranks of a (2, 2, 2) mesh with dp
+    across them: one f32 SGD step's loss and leaves bit-equal to the
+    single-controller step each process runs on eight ranks of the card,
+    each flash kernel launched once per local rank per layer."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from mpistragglers_jl_tpu_torch.ops import _build
+
+    _card()
+    _build.build("flash_attention")  # the processes load it, never build
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK")}
+    env["PYTHONPATH"] = root
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_CARD_RANK, addr,
+                               str(r)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.split("RESULT ", 1)[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for res in outs:
+        assert res["same"]
+        assert res["launches"] == {"flash_fwd": 8, "flash_bwd_dq": 8,
+                                   "flash_bwd_dkv": 8, "flash_bwd_fused": 0}
+        assert res["single"] == {"flash_fwd": 16, "flash_bwd_dq": 16,
+                                 "flash_bwd_dkv": 16, "flash_bwd_fused": 0}

@@ -126,9 +126,11 @@ def test_multihost_mesh_drives_collectives():
     "DeviceCoordinator",
 ])
 def test_mesh_plane_refuses_positions_of_another_process(entry):
-    # a mesh whose positions 4..7 another process drives serves the
-    # ownership reads only: sharding and every collective over it raise,
-    # naming the item that brings collectives across processes
+    # a mesh whose positions 4..7 are driven by a process absent from
+    # this job of one serves the ownership reads only: sharding and
+    # every collective over it raise, naming the absent process; the
+    # pool-fused GEMM and the device coordinator refuse any mesh with
+    # another process's positions, naming the item that brings them
     from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
     from mpistragglers_jl_tpu_torch.parallel import (
         DeviceCoordinator, Mesh, MeshCodedGemm, MeshMatDotGemm,
@@ -157,8 +159,10 @@ def test_mesh_plane_refuses_positions_of_another_process(entry):
             np.ones((8, 2, 4)), decode="mds",
             G=MDSCode(8, 6, dtype=np.float64).G, k=6, mesh=m),
     }
-    with pytest.raises(ValueError,
-                       match=r"process\(es\) \[1\].*item 18g \(collectives"):
+    later = entry in ("PoolMeshCodedGemm", "DeviceCoordinator")
+    with pytest.raises(ValueError, match=(
+            r"process\(es\) \[1\], not by this one \(0\).*ROADMAP item 18h"
+            if later else r"process\(es\) \[1\], absent from this job of 1")):
         calls[entry](mixed)
     obj = calls[entry](mine)  # the same call on this process's mesh runs
     if hasattr(obj, "shutdown"):
@@ -267,18 +271,26 @@ mine = {
     "grid_local": mh.local_worker_indices(grid, axis="dp"),
     "grid_groups": mh.host_groups(mesh=grid, axis="dp"),
 }
-# the mesh plane refuses the mesh that spans both processes, and runs
-# on one that is this process's own
+# the mesh plane shards over, and combines across, the mesh that spans
+# both processes; the pool-fused GEMM refuses it; a mesh of this
+# process's own devices runs as it did
 import torch
 from mpistragglers_jl_tpu_torch.parallel import (
-    PartitionSpec, make_mesh, masked_psum_scatter_combine, shard)
+    PartitionSpec, PoolMeshCodedGemm, make_mesh,
+    masked_psum_scatter_combine, shard)
 x = torch.arange(4.0).reshape(2, 2)
-for name, call in (("shard", lambda: shard(x, flat, PartitionSpec("w"))),
-                   ("combine", lambda: masked_psum_scatter_combine(flat))):
-    try:
-        call()
-    except ValueError as e:
-        mine["refused_" + name] = str(e)
+sx = shard(x, flat, PartitionSpec("w"))
+mine["shard_local"] = [None if t is None else t.tolist()
+                       for t in sx.shards.flat]
+mine["shard_gather"] = sx.gather().tolist()
+x3 = torch.arange(8.0).reshape(2, 2, 2)
+w = torch.tensor([[1.0, 2.0], [3.0, 4.0]])
+mine["combine_gather"] = masked_psum_scatter_combine(flat)(
+    x3, w).gather().tolist()
+try:
+    PoolMeshCodedGemm(np.ones((2, 4)), flat, 1, dtype=np.float64)
+except ValueError as e:
+    mine["refused_pool_fused"] = str(e)
 own = make_mesh(2, devices=["cpu", "cpu"])
 mine["own_owners"] = own.process_index.tolist()
 mine["own_gather"] = shard(x, own, PartitionSpec("w")).gather().tolist()
@@ -348,16 +360,24 @@ def test_two_gloo_ranks_agree(two_ranks):
 
 
 def test_two_gloo_ranks_refuse_a_mesh_across_them(two_ranks):
-    # each rank's shard and collective over the mesh that spans both
-    # processes raise, naming the other process; a mesh of the rank's
-    # own devices shards and gathers back
+    # over the mesh that spans both processes each rank holds its own
+    # block only, and shard, the gather and the masked combine give the
+    # global value on both; the pool-fused GEMM refuses the mesh, naming
+    # the other process and ROADMAP item 18h; a mesh of the rank's own
+    # devices shards and gathers back
+    w = np.array([[1.0, 2.0], [3.0, 4.0]])
+    x3 = np.arange(8.0).reshape(2, 2, 2)
+    want = np.einsum("jl,lrc->jrc", w, x3).tolist()
     for r in two_ranks[0]:
         other = 1 - r["rank"]
-        for name in ("shard", "combine"):
-            msg = r["refused_" + name]
-            assert f"process(es) [{other}], not by this one ({r['rank']})" \
-                in msg
-            assert "ROADMAP item 18g (collectives across processes)" in msg
+        blocks = [[[0.0, 1.0]], [[2.0, 3.0]]]
+        blocks[other] = None
+        assert r["shard_local"] == blocks
+        assert r["shard_gather"] == [[0.0, 1.0], [2.0, 3.0]]
+        assert r["combine_gather"] == want
+        msg = r["refused_pool_fused"]
+        assert f"process(es) [{other}], not by this one ({r['rank']})" in msg
+        assert "ROADMAP item 18h" in msg
         assert r["own_owners"] == [r["rank"]] * 2
         assert r["own_gather"] == [[0.0, 1.0], [2.0, 3.0]]
 

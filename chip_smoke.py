@@ -366,12 +366,12 @@ PyTorch version:
     sliced); a control (the tp psum dropped on rank 0) must break both
     limits; replicas bit-equal. Then the training main path in bf16
     (phase 14's model, batch and lr) on (1, 1, 1) and (2, 2, 2): 1
-    warm-up and 3 timed steps between a reset of the counts and a read
-    (K1-K3 each 8 layers x ranks x 4), the first loss within
+    warm-up and 2 timed steps between a reset of the counts and a read
+    (K1-K3 each 8 layers x ranks x 3), the first loss within
     ``TRAIN_BF16_ORACLE`` of the dense reference-attention loss (the
     dropped psum and the zeroed attention as controls above it), each
     leaf's change within ``TRAIN_BF16_UPDATE`` of the dense reference
-    step's (4 steps with the dp gradient sum dropped on (2, 2, 2) as the
+    step's (3 steps with the dp gradient sum dropped on (2, 2, 2) as the
     control above it), replicas bit-equal; ms/step, tokens/s and peak
     memory beside
     phase 14's dense ms/step. Then one fused-backward (K4) step on (2, 2,
@@ -386,7 +386,7 @@ PyTorch version:
     "pp")`` = (1, 2) against the dense step; 1F1B with MoE stages on (2,
     2) against the dense loss of each microbatch alone, averaged (the
     aux cotangent dropped as the control); exact K1-K3 counts.
-    (b) bf16, 8 layers, batch 8, lr 1e-3, donated, 1 warm-up and 3
+    (b) bf16, 8 layers, batch 8, lr 1e-3, donated, 1 warm-up and 2
     timed steps each: the MoE step on (1, 1, 1, 1) and (2, 1, 2, 2)
     (``MULTICHIP_r05.json``'s fifth leg), 1F1B MoE on (4, 2) with 2
     microbatches (its fourth leg), GPipe and circular dense on (1, 4)
@@ -418,7 +418,7 @@ PyTorch version:
     = (2, 2, 2) at ``moe_bench.py``'s width against ``generate_dense``;
     exact K1, K5 and sampler counts per run (K2-K4, K6, K7 0). (b) bf16,
     8 layers: ``bench_decode``'s own path on (1, 1), prompt 16384, B=1,
-    int8 with K5 forced (prefill s; decode ms/token by slope over 64
+    int8 with K5 forced (prefill s; decode ms/token by slope over 32
     steps for ``make_generate`` and, in the same run at the same cache
     length and steps, ``generate_dense``, beside phase 19's slope; the
     streams equal); ``make_generate`` int8 on (2, 4), B=8, prompt 2048,
@@ -445,8 +445,23 @@ PyTorch version:
     ``TRAIN_BF16_ORACLE`` of phase 57's reference-attention oracle, each
     leaf's change within ``TRAIN_BF16_UPDATE`` of 2 reference steps',
     ms/step beside phases 57 and 14; then phase 59(b)'s (2, 4) int8
-    generation, its stream equal to phase 59's. Exact K1-K3 and K5 counts
-    per process (each drives four ranks).
+    generation, its stream equal to phase 59's. Then, in the same two
+    processes, the models of ROADMAP item 18h's parts (i) and (ii) with
+    the named axis across them (``bench/multiproc.py``): (a) f32, TF32
+    off, 2 layers (4 for the pipelines), each bit-equal to the
+    single-controller run of the same shape in the same process: the EP
+    step on (2, 1, 2, 2), ep across; ``make_ring_generate`` int8 and the
+    int8 serving tick on (2, 4), dp across; ``make_speculative`` on (1,
+    8), tp across; GPipe and circular on (1, 2) and 1F1B with MoE stages
+    on (2, 2), pp across, the 1F1B state saved by ``TrainCheckpointer``
+    (process 0 writing), restored and stepped again bit-equal to the
+    uninterrupted run. (b) bf16 at full width, a warm-up and one timed
+    step or tick each: the EP step (its first loss within
+    ``TRAIN_BF16_ORACLE`` of phase 58's EP oracle), the 1F1B cell on (4,
+    2) (within it of phase 58's 1F1B oracle), the int8 serving tick on
+    (2, 4), S=8, 32 inner steps; ms and exchanges per process. Exact
+    K1-K3 and K5 counts per process (each drives four ranks, or its half
+    of a pipeline's).
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -4550,7 +4565,8 @@ def phase_slice16(dev, t_start) -> dict:
 SHARD_AXES = ("dp", "sp", "tp")
 SHARD_MESH = (2, 2, 2)
 SHARD_F32_LAYERS = 2  # phase 57(a): phase 13's shape at 2 layers
-SHARD_TIMED = 3       # phase 57(b): 1 warm-up and 3 timed steps a mesh
+SHARD_TIMED = 2       # phase 57(b): 1 warm-up and 2 timed steps a mesh
+# (3 before phase 60 took item 18h's runs: a depth cut, no check)
 SHARD_CTRL_RANK = 0   # the control drops the tp psum on this rank
 
 
@@ -5243,7 +5259,7 @@ def _pipe_bf16(dev, cache) -> tuple[dict, dict]:
                      < 1e-12 and gap > 0, f"circular bubble {rep}")
         else:
             _require(abs(gap) < 1e-12, f"{schedule} bubble {rep}")
-        rep["oracle_shards"] = shards
+        rep.update({"oracle_shards": shards, "oracle_trajectory": oracle[1]})
         out[schedule] = rep
         torch.cuda.empty_cache()
     del dense_oracle
@@ -5324,8 +5340,9 @@ INF_INNER = 8           # (a)'s serving tick
 INF_F32_LOGITS = 1e-5
 # (b): the 16k decode slope, make_generate on (1, 1) and generate_dense
 # (phase 19's program) each timed at both n_new, back to back at one
-# cache length: ms/token = (t(96) - t(32)) / 64
-INF_SLOPE_NEW = (32, 96)
+# cache length: ms/token = (t(64) - t(32)) / 32 (over 64 steps, (32, 96),
+# before phase 60 took item 18h's runs: a depth cut, no check)
+INF_SLOPE_NEW = (32, 64)
 INF_LONG_LEN = 18432    # (b): cache positions, 16384 + 128 rounded up
 # (b): (B, prompt, n_new) on (2, 4); n_new 32 -> 16, MoE's 16 -> 8 and the
 # timed tick's 64 inner steps -> 32 once phase 60 was added (the ROADMAP's
@@ -5770,7 +5787,7 @@ def phase_slice19(dev, t_start, serve_ms_per_step,
     return out, counts
 
 
-MP_TIMEOUT = 300  # phase 60: both processes, start-up included
+MP_TIMEOUT = 420  # phase 60: both processes, start-up included
 
 
 def _mp_counts(launches, what, **want) -> dict:
@@ -5785,11 +5802,13 @@ def _mp_counts(launches, what, **want) -> dict:
 
 
 def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
-                  stream59) -> tuple[dict, dict]:
+                  stream59, moe_oracles) -> tuple[dict, dict]:
     """Phase 60. ``loss_oracle`` is phase 57's first bf16 loss with the
     reference attention, ``dense_ms`` and ``sharded_ms`` phase 14's and
     phase 57's (2, 2, 2) ms/step, ``stream59`` phase 59(b)'s (2, 4) int8
-    stream. Returns (report, launches per run of one process)."""
+    stream, ``moe_oracles`` phase 58(b)'s first oracle losses and
+    ms/step of its EP (2, 1, 2, 2) and 1F1B (4, 2) runs. Returns
+    (report, launches per run of one process)."""
     from mpistragglers_jl_tpu_torch.bench import multiproc as mp
 
     t0 = time.perf_counter()
@@ -5797,7 +5816,12 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
     print("[60] the mesh plane across two processes on one card (gloo), "
           "four ranks each: (a) f32 bit-equality with the single-controller "
           "step and streams, a control; (b) bf16 at full width, "
-          f"{mp.SGD_STEPS} steps, and phase 59's (2, 4) int8 generation")
+          f"{mp.SGD_STEPS} steps, and phase 59's (2, 4) int8 generation; "
+          "then item 18h's models, the named axis across the processes: "
+          "(a) f32 bit-equality of the EP step, ring generation, the "
+          "serving tick, speculation, GPipe, circular, 1F1B and its "
+          "checkpoint resume; (b) bf16 EP and 1F1B steps and the int8 "
+          "tick, timed")
     cfg = _train_cfg(torch.bfloat16)
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
@@ -5875,6 +5899,7 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
                 f"process {r} bf16 int8 make_generate", K1=Lg * 4,
                 K5=Lg * 4 * (mp.GEN_BF16[2] - 1)),
         }
+        c.update(_mp_models_checks(rep, mp))
         counts.setdefault("per process", c)
         _require(c == counts["per process"], "the processes' counts differ")
     b0, b1 = (rep["bf16"] for rep in reps)
@@ -5904,7 +5929,9 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
         stream59) == len(stream), "the (2, 4) stream differs from phase 59's")
     for rep in reps:
         rep["bf16"]["generate_int8"].pop("stream")
+    models = _mp_models_bf16(reps, mp, moe_oracles)
     out = {"processes": reps, "run_s": run_s, "oracle_steps_s": ref_s,
+           "models_bf16": models,
            "bf16": {"loss_oracle": loss_oracle, "first_loss_rel_err": rel,
                     "update_rel_err": upd, "reference_losses": ref_traj,
                     "ms_per_step": [b0["ms_per_step"], b1["ms_per_step"]],
@@ -5915,6 +5942,125 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
           f"{run_s:.1f}, the oracle steps beside their start-up "
           f"{ref_s:.1f})")
     return out, counts["per process"]
+
+
+def _mp_models_checks(rep, mp) -> dict:
+    """Phase 60(a) for item 18h's models on one process's report: each
+    run bit-equal to the single-controller one, the checkpoint resume
+    bit-equal, exact counts (this process's four ranks, or its half of
+    a pipeline's). Returns the counts, by run."""
+    r, m = rep["rank"], rep["models_f32"]
+    runs = ("ep_step", "ring_int8", "tick_int8", "speculative", "gpipe",
+            "circular", "1f1b")
+    res = m["resume"]
+    print(f"  process {r} (a) item 18h, f32, across processes bit-equal to "
+          "the single-controller run: " + ", ".join(
+              f"{n} {m[n]['bit_equal']} ({m[n]['x']['s']:.2f} s against "
+              f"{m[n]['s']['s']:.2f})" for n in runs)
+          + f"; 1F1B resumed from its checkpoint bit-equal {res['bit_equal']}"
+          f" (uninterrupted {res['x']['bit_equal']}, files "
+          f"{res['x']['files']}); speculation {m['speculative']['x']['forwards']}"
+          " verify forwards")
+    for n in runs:
+        _require(m[n]["bit_equal"], f"process {r}: {n} across processes "
+                 "differs from the single-controller run")
+    _require(res["bit_equal"] and res["x"]["bit_equal"]
+             and res["s"]["bit_equal"] and res["x"]["files"] == ["step_1"]
+             and res["x"]["step"] == 1, f"process {r}: the resume {res}")
+    L, Lp, M = 2, mp.PIPE_F32_LAYERS, 2
+    k_ring = L * 4 * (mp.RING_F32[2] - 1)
+
+    def pipe(name):  # this process's half of the mesh's stage layers
+        shape = mp.PIPE_F32[name]
+        return Lp * M * shape[0] // 2
+
+    want = {
+        "f32 EP step": dict(K1=L * 4, K2=L * 4, K3=L * 4),
+        "f32 ring int8": dict(K5=k_ring),
+        "f32 tick int8": dict(K5=L * 4 * mp.TICK_F32[1]),
+        "f32 speculative": dict(K1=L * 4),
+        "f32 gpipe": dict(K1=pipe("gpipe"), K2=pipe("gpipe"),
+                          K3=pipe("gpipe")),
+        "f32 circular": dict(K1=pipe("circular"), K2=pipe("circular"),
+                             K3=pipe("circular")),
+        "f32 1f1b": dict(K1=2 * pipe("1f1b"), K2=pipe("1f1b"),
+                         K3=pipe("1f1b")),
+    }
+    b = rep["models_bf16"]
+    Lb = 8
+    shape, Mb, _ = pt.CELLS["1f1b"]
+    k_1f1b = Lb * Mb * shape[0] // 2 * mp.SGD_STEPS
+    want.update({
+        "bf16 EP steps": dict(K1=Lb * 4 * mp.SGD_STEPS,
+                              K2=Lb * 4 * mp.SGD_STEPS,
+                              K3=Lb * 4 * mp.SGD_STEPS),
+        "bf16 1f1b steps": dict(K1=2 * k_1f1b, K2=k_1f1b, K3=k_1f1b),
+        "bf16 tick int8": dict(K5=Lb * 4 * mp.TICK_BF16[2]),
+    })
+    got = {"f32 EP step": m["ep_step"]["x"]["launches"],
+           "f32 ring int8": m["ring_int8"]["x"]["launches"],
+           "f32 tick int8": m["tick_int8"]["x"]["launches"],
+           "f32 speculative": m["speculative"]["x"]["launches"],
+           "f32 gpipe": m["gpipe"]["x"]["launches"],
+           "f32 circular": m["circular"]["x"]["launches"],
+           "f32 1f1b": m["1f1b"]["x"]["launches"],
+           "bf16 EP steps": b["ep_step"]["launches"],
+           "bf16 1f1b steps": b["1f1b"]["launches"],
+           "bf16 tick int8": b["tick_int8"]["launches"]}
+    return {run: _mp_counts(got[run], f"process {r} {run}", **w)
+            for run, w in want.items()}
+
+
+def _mp_models_bf16(reps, mp, moe_oracles) -> dict:
+    """Phase 60(b) for item 18h's models: the EP and 1F1B first losses
+    against phase 58's oracles, both processes' losses equal, the
+    tick's tokens equal and in the vocabulary, ms and exchanges per
+    process."""
+    b0, b1 = (rep["models_bf16"] for rep in reps)
+    out = {}
+    for name, run in (("ep", "ep_step"), ("1f1b", "1f1b")):
+        oracle, ms58 = moe_oracles[name]
+        x0, x1 = b0[run], b1[run]
+        rel = abs(x0["losses"][0] - oracle) / abs(oracle)
+        print(f"  (b) {run} across processes: losses {x0['losses']}, the "
+              f"first against phase 58's oracle {oracle:.5f}: {rel:.3e} "
+              f"(limit {TRAIN_BF16_ORACLE:.0e}); {x0['ms_per_step']:.1f} "
+              f"ms/step (process 1 {x1['ms_per_step']:.1f}; warm-up "
+              f"{x0['step_s'][0] * 1e3:.1f}; phase 58 in one process "
+              f"{ms58:.1f}); in the timed step {x0['exchanges']} exchanges "
+              f"took {x0['exchange_ms']:.1f} ms for {x0['exchange_gb']:.3f} "
+              f"GB out (process 1: {x1['exchanges']}, "
+              f"{x1['exchange_ms']:.1f} ms, {x1['exchange_gb']:.3f} GB); "
+              f"peak {x0['peak_mem_gb']:.2f} GB a process")
+        _require(x0["losses"] == x1["losses"],
+                 f"{run}: the processes' losses differ")
+        _require(bool(np.isfinite(x0["losses"]).all()), f"{run}: {x0}")
+        _require(rel <= TRAIN_BF16_ORACLE, f"{run}: first loss {rel} off "
+                 "phase 58's oracle")
+        _require(x0["exchanges"] > 0, f"{run}: no exchange across processes")
+        out[run] = {"first_loss_rel_err": rel, "oracle": oracle,
+                    "phase58_ms_per_step": ms58,
+                    "ms_per_step": [x0["ms_per_step"], x1["ms_per_step"]],
+                    "exchanges": [x0["exchanges"], x1["exchanges"]],
+                    "exchange_ms": [x0["exchange_ms"], x1["exchange_ms"]],
+                    "exchange_gb": [x0["exchange_gb"], x1["exchange_gb"]]}
+    t0, t1 = b0["tick_int8"], b1["tick_int8"]
+    print(f"  (b) the int8 serving tick on (2, 4), S={mp.TICK_BF16[0]}, "
+          f"{mp.TICK_BF16[2]} inner steps across processes: "
+          f"{t0['ms_per_tick']:.1f} ms/tick (process 1 "
+          f"{t1['ms_per_tick']:.1f}; {mp.TICK_BF16[1]}-step warm-up "
+          f"{t0['warmup_ms']:.1f}); {t0['exchanges']} exchanges (tp within "
+          "each process)")
+    _require(t0["tokens"] == t1["tokens"] and t0["tokens_in_vocab"],
+             "the tick's tokens differ between the processes or leave the "
+             "vocabulary")
+    out["tick_int8"] = {"ms_per_tick": [t0["ms_per_tick"],
+                                        t1["ms_per_tick"]],
+                        "warmup_ms": [t0["warmup_ms"], t1["warmup_ms"]],
+                        "exchanges": [t0["exchanges"], t1["exchanges"]]}
+    for rep in reps:
+        rep["models_bf16"]["tick_int8"].pop("tokens")
+    return out
 
 
 def _phase60_launches(counts, key) -> dict:
@@ -6151,10 +6297,14 @@ def main() -> int:
     slice19, launches59 = phase_slice19(
         dev, t_start, serve["ms_per_step"],
         long_ctx["decode_ms_per_token_int8_kernel"])
+    ep58 = slice18["ep"]["x".join(map(str, EP_MESH))]
+    f1b58 = slice18["pipeline"]["1f1b"]
     slice20, launches60 = phase_slice20(
         dev, t_start, slice17["bf16"]["loss_oracle"], train["ms_per_step"],
         slice17["bf16"]["2x2x2"]["ms_per_step"],
-        slice19["bf16"]["generate_int8_2x4"]["stream"])
+        slice19["bf16"]["generate_int8_2x4"]["stream"],
+        {"ep": (ep58["oracle_trajectory"][0], ep58["ms_per_step"]),
+         "1f1b": (f1b58["oracle_trajectory"][0], f1b58["ms_per_step"])})
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context

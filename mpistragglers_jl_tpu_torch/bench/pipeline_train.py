@@ -15,9 +15,9 @@ seed 0), every rank of the mesh on cuda:0:
     python -m mpistragglers_jl_tpu_torch.bench.pipeline_train
 
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
-line per cell: ms per step (host clock around 3 steps after 1 warm-up,
+line per cell: ms per step (host clock around 2 steps after 1 warm-up,
 ending in a synchronize), tokens/s, peak memory, the flash kernels'
-launches over the 4 steps (every count set to 0 just before), and the
+launches over the 3 steps (every count set to 0 just before), and the
 bubble that ``measure_bubble`` reads on the card beside
 ``bubble_fraction``. Eight ranks on one card measure each rank's cost
 and the host's dispatch, not a pipeline's overlap across cards.
@@ -48,7 +48,7 @@ from .train_profile import (
     zero_launches,
 )
 
-TIMED = 3  # timed steps after one warm-up
+TIMED = 2  # timed steps after one warm-up (chip_smoke.py runs this depth)
 V = 2      # the circular schedule's virtual stages
 # schedule -> (mesh (dp, pp), microbatches, experts)
 CELLS = {"1f1b": ((4, 2), 2, True), "gpipe": ((1, 4), 4, False),

@@ -37,12 +37,14 @@ arrays, and return :class:`~..parallel.mesh.ShardedTensor` values.
 Each rank's prefill chunk runs ``cfg.attn_impl`` (K1 under flash) and
 each rank's int8 decode step K5 when routed, the routing resolved at
 the rank's local batch. Over a mesh that spans processes each process
-prefills and decodes its own ranks' rows and the tp psums cross
-processes where tp does; the decode loop runs a fixed ``n_new`` with no
-stop vote, so no agreement across processes is needed, and the tokens
-come back as a value every process can ``gather``. The ring generator
-(and ``make_speculative``, ``make_serving_scan``) refuse such a mesh
-(ROADMAP item 18h).
+prefills and decodes its own ranks' rows and the tp psums (and the
+experts' all-to-alls over ep) cross processes where those axes do; the
+decode loops (positional and ring) run a fixed ``n_new`` with no stop
+vote, so no agreement across processes is needed, and the tokens come
+back as a value every process can ``gather``. Every guard (a cache
+overflow, a bad ``n_new``) is decided from arguments and global shapes,
+which every process holds, before any collective: all processes raise
+together, and none waits in an exchange for one that raised.
 
 Sampling (``temperature > 0``, ``top_k``, a ``key`` from
 ``utils/prng.py``) draws the reference's tokens: ``utils/prng.py`` is
@@ -1006,8 +1008,6 @@ def make_generate(cfg: TransformerConfig, mesh: Mesh, n_new: int,
     :func:`make_ring_generate`) decodes over the O(W) ring; ``max_len``
     is then ignored."""
     _check_decode_mesh(cfg, mesh)
-    if ring:
-        mesh.require_local("the ring generator")
     W = _check_ring_cfg(cfg) if ring else None
     bax = decode_batch_axes(cfg)
     if n_new < 1:

@@ -108,8 +108,10 @@ def moe_ffn_sharded(xs: list, mps: list, capacity_factor: float, *,
     experts whose ``we1`` shard sits at ep coordinate ``j``: the
     all-to-all (split dim 0, concat dim 1) hands it there, the owner's
     FFN runs on (E/ep, ep*C, D), and the inverse (split dim 1, concat
-    dim 0) returns each member's (E, C, D)."""
-    mesh.require_local("moe_ffn_sharded")
+    dim 0) returns each member's (E, C, D). Over a mesh that spans
+    processes the lists hold this process's positions
+    (``mesh.local_ranks()``) and the all-to-alls and the gather cross
+    processes where ``ep`` does."""
     ep = mesh.shape["ep"]
     routes, xes, auxes = [], [], []
     for x, mp in zip(xs, mps):

@@ -340,7 +340,11 @@ def make_serving_scan(cfg: TransformerConfig, mesh, n_inner: int, *,
     per inner step. With ``kv_heads < tp`` the cache's head axis has
     ``tp`` slots (``decode.init_cache(..., mesh)``'s replicated groups).
     A mesh axis the specs do not name (``sp``) replicates: its ranks
-    compute the same rows. Outputs are ShardedTensors."""
+    compute the same rows. Outputs are ShardedTensors. Over a mesh that
+    spans processes each process runs its own positions' slots and the
+    tp psums cross processes where tp does; the tick is a fixed
+    ``n_inner`` steps with no vote, and its guards read only arguments
+    and global shapes, so every process raises together."""
     _check_ring_cfg(cfg)
     _check_sampling_params(temperature, top_k)
     if cfg.n_experts:
@@ -361,7 +365,6 @@ def make_serving_scan(cfg: TransformerConfig, mesh, n_inner: int, *,
             "layout"
         )
     _check_layout(cfg, mesh)
-    mesh.require_local("make_serving_scan")
     use_kernel = _decode._USE_DECODE_KERNEL  # make-time snapshot
     slots = P("dp")
 
@@ -380,7 +383,7 @@ def make_serving_scan(cfg: TransformerConfig, mesh, n_inner: int, *,
         ltok, (S,) = _rank_blocks(tok, mesh, slots)
         lpos, _ = _rank_blocks(pos, mesh, slots)
         ldone, _ = _rank_blocks(done, mesh, slots)
-        lkeys = ([None] * mesh.size if keys is None else
+        lkeys = ([None] * len(ltok) if keys is None else
                  [k.to(torch.int64) for k in _rank_blocks(keys, mesh,
                                                           slots)[0]])
         caches, lcaches = _rank_caches(caches, cfg, mesh, quantize_kv)

@@ -27,8 +27,12 @@ The reference's ``lax.while_loop`` is a Python ``while`` here: the
 token buffer and caches stay on the device, and each iteration fetches
 one number, the count of accepted drafts, which moves the host cursor.
 Over a mesh every tp member computes the same post-psum logits, hence
-the same drafts and acceptance, so the count is fetched from rank 0
-alone and every rank's buffer ends bit-equal.
+the same drafts and acceptance, so the count is fetched from flat rank
+0 alone and every rank's buffer ends bit-equal. Over a mesh that spans
+processes the process that drives flat rank 0 broadcasts that count
+(one int64 over the job's group) each iteration, and every process
+moves its cursor by it: no process reads a count of its own ranks in
+its place.
 """
 
 from __future__ import annotations
@@ -104,8 +108,32 @@ def _make_model_draft(fwd, k: int):
     return draft_init, draft_step
 
 
+def _rank0_count(mesh):
+    """The count of accepted drafts that moves the cursor: flat rank 0's
+    (the first of ``ms``) on a mesh one process drives; over a mesh that
+    spans processes, broadcast each call from the process that drives
+    flat rank 0, through the host under ``gloo`` and on the card under
+    ``nccl``."""
+    if not mesh.spans_processes:
+        return lambda ms: int(ms[0])
+    import torch.distributed as dist
+
+    src = int(mesh.process_index.flat[0])
+    mine = src == int(dist.get_rank())
+    dev = (mesh.local_devices()[0] if mesh.backend == "nccl"
+           else torch.device("cpu"))
+
+    def count(ms):
+        t = (ms[0].to(dev, torch.int64).reshape(1) if mine
+             else torch.empty(1, dtype=torch.int64, device=dev))
+        dist.broadcast(t, src=src)
+        return int(t.item())
+
+    return count
+
+
 def _spec_loop(prefill, step, cache, prompts, n_new: int, k: int,
-               draft=None, dstate=None):
+               draft=None, dstate=None, count=None):
     """THE draft/verify loop, shared by both drafters and by the dense
     and mesh programs (the exact-greedy acceptance lives here once):
     ``prefill(prompts, cache) -> (logits, cache)``, then one ``k +
@@ -113,10 +141,15 @@ def _spec_loop(prefill, step, cache, prompts, n_new: int, k: int,
     cache)`` per iteration. Prompts, chunks and logits hold one tensor
     per rank (one, on one device), and every rank keeps its own token
     buffer. ``draft(bufs, cursor, dstate) -> (drafts (k,) per rank,
-    dstate)``, the n-gram lookup by default. The cursor moves by rank
-    0's accepted count, the iteration's one host fetch: over a mesh
-    every rank sees the same post-psum logits, so the counts agree.
-    Returns (each rank's tokens (n_new,), verify forwards)."""
+    dstate)``, the n-gram lookup by default. The cursor moves by
+    ``count(ms)``, flat rank 0's accepted count (``ms[0]`` by default;
+    :func:`_rank0_count` across processes), the iteration's one host
+    fetch: over a mesh every rank sees the same post-psum logits, so the
+    counts agree. Returns (each rank's tokens (n_new,), verify
+    forwards)."""
+    if count is None:
+        def count(ms):
+            return int(ms[0])
     if draft is None:
         def draft(bufs, cursor, dstate):
             return [_bigram_draft(b, cursor, k) for b in bufs], dstate
@@ -150,7 +183,7 @@ def _spec_loop(prefill, step, cache, prompts, n_new: int, k: int,
             buf[cursor:cursor + k + 1] = torch.where(
                 ln < m, torch.cat([dr, dr[-1:]]), greedy)
             ms.append(m)
-        cursor += int(ms[0]) + 1  # the one host fetch of the iteration
+        cursor += count(ms) + 1  # the one host fetch of the iteration
         iters += 1
     return [b[Tp:Tp + n_new] for b in bufs], iters
 
@@ -268,9 +301,11 @@ def make_speculative(cfg: TransformerConfig, mesh, Tp: int, n_new: int, *,
     Per-stream (B=1; shard streams over dp by running one program per
     stream, so ``dp > 1`` is refused), dense configs only (the
     reference refuses MoE: its expert all-to-all makes the loop's
-    carries vary over ep)."""
+    carries vary over ep). Over a mesh that spans processes every
+    process moves its cursor by flat rank 0's count, broadcast from the
+    process that drives it (:func:`_rank0_count`), so the stream and the
+    verify count are the single-controller program's."""
     _check_decode_mesh(cfg, mesh)
-    mesh.require_local("make_speculative")
     if cfg.n_experts:
         raise ValueError(
             "sharded speculative decoding supports dense configs only "
@@ -325,7 +360,7 @@ def make_speculative(cfg: TransformerConfig, mesh, Tp: int, n_new: int, *,
                 lambda pr, c: fwd(pr, c, 0, True),
                 lambda ch, c, off: fwd(ch, c, off, False),
                 caches(cfg, devices), prompts, n_new, k, draft=draft,
-                dstate=dstate)
+                dstate=dstate, count=_rank0_count(mesh))
         return from_local(mesh, P(), [t[None] for t in toks],
                           (1, n_new)), iters
 

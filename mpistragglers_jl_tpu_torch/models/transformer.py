@@ -71,10 +71,11 @@ positions (``Mesh.local_ranks``; every per-rank list is indexed by
 position in it) and the collectives cross processes
 (``parallel/collectives.py``). Rule 2 is one ``autograd.grad`` per
 process over its local ranks' loss copies: every process then enters
-every backward collective, in the same order, and the gradients are
-the single-controller ones. Rule 3's replica sum crosses processes in rank
-order, in float32. The experts over ``ep`` do not run across processes
-yet (ROADMAP item 18h).
+every backward collective, in the same order (``crossing_chain``
+orders them), and the gradients are the single-controller ones. Rule
+3's replica sum crosses processes in rank order, in float32. The
+experts run across processes too: ``moe_ffn_sharded``'s all-to-alls
+and ``be2`` gather cross processes where ``ep`` does.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..parallel.collectives import psum
+from ..parallel.collectives import crossing_chain, psum
 from ..parallel.mesh import (
     Mesh,
     PartitionSpec as P,
@@ -614,9 +615,8 @@ def _check_layout(cfg: TransformerConfig, mesh: Mesh) -> None:
     """What :func:`param_specs` needs of a mesh, whatever program runs
     over it: a ``tp`` axis (and ``ep`` with experts), the experts and
     ``d_ff`` divisible over them, the tp and kv-head alignment, and
-    every process of the mesh in the job; experts over a mesh that spans
-    processes are refused by name. The decode meshes (``("dp", "tp")``,
-    ``("dp", "ep", "tp")``) pass it."""
+    every process of the mesh in the job. The decode meshes (``("dp",
+    "tp")``, ``("dp", "ep", "tp")``) pass it."""
     need = ("tp",) + (("ep",) if cfg.n_experts else ())
     missing = [a for a in need if a not in mesh.axis_names]
     if missing:
@@ -630,7 +630,6 @@ def _check_layout(cfg: TransformerConfig, mesh: Mesh) -> None:
                 f"n_experts {cfg.n_experts} must divide over ep={ep}")
         if cfg.d_ff % tp:
             raise ValueError(f"d_ff {cfg.d_ff} must divide over tp={tp}")
-        mesh.require_local("the mixture of experts over a mesh")
     mesh.local_ranks()  # every process of the mesh in the job
     param_specs(cfg, mesh)  # the tp and kv-head alignment checks
 
@@ -879,22 +878,31 @@ def _replica_loss_and_grads(params, leaves, mesh: Mesh, loss_local):
     schedules share it."""
     ranks = mesh.local_ranks()
     n = len(ranks)
+    chain = crossing_chain(mesh) if mesh.spans_processes else \
+        contextlib.nullcontext()
     with _shards_requiring_grad(leaves, mesh) as shards:
         flat = [t for per_leaf in shards for t in per_leaf]
         with torch.enable_grad():
-            lparams = [_rebuild(params, iter(s_[i] for s_ in shards))
-                       for i in range(n)]
-            losses = loss_local(lparams)
+            with chain as ends:  # the forward only: a remat replay's
+                # collectives in the backward join no chain
+                lparams = [_rebuild(params, iter(s_[i] for s_ in shards))
+                           for i in range(n)]
+                losses = loss_local(lparams)
             loss = losses[0]
             # one backward over every local copy, seeded 1 on flat rank
-            # 0's and 0 elsewhere: across processes every process then
-            # enters every backward collective
+            # 0's and 0 elsewhere, and across processes from the end of
+            # the crossing chain to its start: every process then enters
+            # every backward collective, in one order
             roots = [(lo, torch.ones_like(lo) if r == 0 else
                       torch.zeros_like(lo))
                      for lo, r in zip(losses, ranks) if lo.requires_grad]
+            chained = ends is not None and ends[1] is not ends[0]
+            if chained:
+                roots.append((ends[1], torch.zeros(())))
             grads = torch.autograd.grad(
-                [lo for lo, _ in roots], flat, allow_unused=True,
-                grad_outputs=[g for _, g in roots])
+                [lo for lo, _ in roots], flat + ([ends[0]] if chained
+                                                 else []),
+                allow_unused=True, grad_outputs=[g for _, g in roots])
     it = iter(grads)
     out = []
     with torch.no_grad():

@@ -51,7 +51,10 @@ form one ``torch.autograd.Function``, whose backward is JAX's
 transpose (a ``psum``'s cotangents ``psum``-ed back to every member,
 each ``all_gather`` slice summed back to its owner, the inverse
 ``all_to_all``, the shift run backwards): every process enters the
-same backward collectives in the same order. The members of such a
+same backward collectives in the same order. A backward whose loss
+does not reach every such node on every process (a pipeline's idle
+stage) runs inside :func:`crossing_chain`, which orders them. The
+members of such a
 group share one shape and dtype, and each process holds as many of
 them as every other. :data:`EXCHANGES` counts the gathers, their
 bytes and seconds; :func:`exchanges_dropped` is the control that skips
@@ -82,6 +85,7 @@ __all__ = [
     "EXCHANGES",
     "all_gather",
     "all_to_all",
+    "crossing_chain",
     "exchanges_dropped",
     "masked_psum_scatter_combine",
     "mds_decode_weights",
@@ -118,6 +122,27 @@ def exchanges_dropped():
         yield
     finally:
         _dropped = False
+
+
+@contextlib.contextmanager
+def crossing_chain(mesh: Mesh):
+    """Inside, every collective call over ``mesh`` that crosses
+    processes under grad also takes and returns a token, a 0-d tensor
+    that requires grad: the calls form one chain per process, in the
+    order the forward made them. Yields the list ``[start, end]`` of the
+    chain. A backward
+    seeded at the end as well as at the losses, and asked for the
+    start's gradient as well as the parameters', runs every crossing
+    node, even one whose outputs the loss does not reach on this process
+    (a pipeline stage that gets nothing at a tick), and runs each node's
+    backward after the one made after it: so every process enters the
+    backward exchanges in one order. The values are unchanged."""
+    start = torch.zeros((), requires_grad=True)
+    mesh._chain = [start, start]
+    try:
+        yield mesh._chain
+    finally:
+        mesh._chain = None
 
 
 def mds_decode_weights(code, idx) -> np.ndarray:
@@ -412,16 +437,20 @@ class _Crossing(torch.autograd.Function):
     """One collective call's groups that span processes, as one autograd
     node: ``fwd`` maps this process's members' tensors to their results,
     ``bwd`` their cotangents to the inputs' (the transpose). Every
-    process enters both, in the same order as every other."""
+    process enters both, in the same order as every other. ``tok`` is
+    the :func:`crossing_chain` token (None outside a chain): the node
+    returns the chain's next one first."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, *xs):
-        ctx.bwd = bwd
-        return tuple(fwd(list(xs)))
+    def forward(ctx, fwd, bwd, tok, *xs):
+        ctx.bwd, ctx.chained = bwd, tok is not None
+        nxt = torch.zeros(()) if ctx.chained else None
+        return (nxt, *fwd(list(xs)))
 
     @staticmethod
-    def backward(ctx, *gs):
-        return (None, None, *ctx.bwd(list(gs)))
+    def backward(ctx, gtok, *gs):
+        return (None, None, torch.zeros(()) if ctx.chained else None,
+                *ctx.bwd(list(gs)))
 
 
 def _collective(xs, mesh: Mesh, axes, local_fn, fwd, bwd) -> list:
@@ -440,8 +469,13 @@ def _collective(xs, mesh: Mesh, axes, local_fn, fwd, bwd) -> list:
             local_fn(group, at, out)
     ranks = [r for group, _ in cross for r in group if r in at]
     if ranks:
-        res = _Crossing.apply(partial(fwd, cross), partial(bwd, cross),
-                              *[xs[at[r]] for r in ranks])
+        chain = mesh._chain if torch.is_grad_enabled() else None
+        nxt, *res = _Crossing.apply(
+            partial(fwd, cross), partial(bwd, cross),
+            None if chain is None else chain[1],
+            *[xs[at[r]] for r in ranks])
+        if chain is not None:
+            chain[1] = nxt
         for r, t in zip(ranks, res):
             out[at[r]] = t
     return out
@@ -497,24 +531,40 @@ def psum(xs, mesh: Mesh, axes, *, dtype=None) -> list:
                        partial(_psum_cross, mesh, dtype=dtype), bwd)
 
 
-def _shift_cross(mesh, shift, cross, ts) -> list:
+def _shift_cross(mesh, shift, sends, like, cross, ts) -> list:
     devs = mesh.devices.flatten()
     out = []
     for group, pg, mine, local in _per_group(mesh, cross, ts):
-        every = _exchange(mesh, group, pg, local)
         n = len(group)
-        out += [every[(group.index(r) - shift) % n].to(devs[r], copy=True)
-                for r in mine]
+        src = [group[(group.index(r) - shift) % n] for r in mine]
+        if sends is not None:
+            if not any(sends[m] for m in group):
+                out += [None] * len(mine)  # nobody sends: nothing moves
+                continue
+            local = [torch.zeros(like.shape, dtype=like.dtype,
+                                 device=devs[r]) if t is None else t
+                     for r, t in zip(mine, local)]
+        every = _exchange(mesh, group, pg, local)
+        out += [None if sends is not None and not sends[s_] else
+                every[group.index(s_)].to(devs[r], copy=True)
+                for r, s_ in zip(mine, src)]
     return out
 
 
-def ring_shift(xs, mesh: Mesh, axis: str, *, shift: int = 1) -> list:
+def ring_shift(xs, mesh: Mesh, axis: str, *, shift: int = 1, sends=None,
+               like=None) -> list:
     """``jax.lax.ppermute`` with ``perm = [(j, (j + shift) % n)]`` over
     ``axis``: the member at coordinate ``c`` receives the tensor of
     the member at ``(c - shift) % n`` (a copy on its own device). An
     entry may be None, a member with nothing to send (a pipeline's idle
-    slot): its receiver gets None and nothing moves (within one
-    process only)."""
+    slot): its receiver gets None and nothing moves. Across processes a
+    receiver cannot see that, so the caller names the senders:
+    ``sends`` holds, per flat rank of the mesh, whether that member
+    sends (the schedule's state, which every process knows), and
+    ``like`` a tensor of the shape and dtype every sender sends. A group
+    across processes in which nobody sends then moves nothing; in any
+    other, each process sends zeros like ``like`` for its members that
+    send nothing, and their receivers get None."""
     xs = _per_position(xs, mesh)
     devs = mesh.devices.flatten()
 
@@ -526,13 +576,27 @@ def ring_shift(xs, mesh: Mesh, axis: str, *, shift: int = 1) -> list:
                 out[at[r]] = src.to(devs[r], copy=True)
 
     at = {r: i for i, r in enumerate(mesh.local_ranks())}
-    if any(xs[at[r]] is None for group, _ in _cross_groups(mesh, axis)
-           for r in group if r in at):
-        raise ValueError("a ring shift across processes moves a tensor "
-                         "from every member; got None")
+    crossing = [r for group, _ in _cross_groups(mesh, axis) for r in group
+                if r in at]
+    if sends is None:
+        if any(xs[at[r]] is None for r in crossing):
+            raise ValueError(
+                "a ring shift across processes with a member that sends "
+                "nothing needs sends= (who sends, per flat rank) and like=")
+        back = None
+    else:
+        bad = [r for r in at if (xs[at[r]] is not None) != bool(sends[r])]
+        if bad:
+            raise ValueError(f"sends disagrees with the tensors at flat "
+                             f"ranks {bad}")
+        back = [False] * mesh.size  # who sends each cotangent back
+        for group in mesh.axis_groups(axis):
+            n = len(group)
+            for c, r in enumerate(group):
+                back[r] = bool(sends[group[(c - shift) % n]])
     return _collective(xs, mesh, axis, local_fn,
-                       partial(_shift_cross, mesh, shift),
-                       partial(_shift_cross, mesh, -shift))
+                       partial(_shift_cross, mesh, shift, sends, like),
+                       partial(_shift_cross, mesh, -shift, back, like))
 
 
 def all_gather(xs, mesh: Mesh, axis: str, dim: int) -> list:

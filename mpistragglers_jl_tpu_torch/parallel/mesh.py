@@ -111,6 +111,7 @@ class Mesh:
         self._local = None  # (process, world, local ranks)
         self._pgroups: dict = {}  # process tuple -> torch.distributed group
         self._cross: dict = {}  # axes -> [(group, process group)]
+        self._chain = None  # collectives.crossing_chain's [start, end]
 
     @property
     def size(self) -> int:

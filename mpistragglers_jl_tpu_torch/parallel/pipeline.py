@@ -41,6 +41,24 @@ Gradients: GPipe and circular take the single-controller rule of
 leaf summed over the axes its spec does not name). 1F1B takes the
 reference's sums instead (stage gradients over dp, head gradients and
 the embedding's over dp and pp, divided by the token count), in f32.
+
+**Across processes.** Over a mesh that spans processes (``pp`` or
+``dp`` crossing them) the schedule's state, which slots are live and
+which stage counter rides where, is kept for every flat rank on every
+process: it is Python state that follows from the tick alone, so every
+process computes the same copy and decides nothing from its own ranks.
+Tensors (payloads, outputs, gradients) are kept for this process's
+positions only (``Mesh.local_ranks``). A hop names its senders from
+that state (``ring_shift``'s ``sends``) and the payload's shape and
+dtype from the microbatch, so a process whose ranks send nothing at a
+tick still enters the exchange that another process's ranks need, and
+a hop in which no rank sends moves nothing anywhere. The autodiff
+schedules take their backward inside ``crossing_chain`` (the one
+backward of ``models/transformer.py``), so a stage whose own loss copy
+does not reach its hops still runs their backward exchanges, in the
+forward's order. 1F1B's slots are local: each backward slot's
+``torch.autograd.grad`` crosses no process, and every process runs its
+ranks' slots tick by tick in flat-rank order.
 """
 
 from __future__ import annotations
@@ -92,8 +110,9 @@ def _micro(x, M: int):
 
 
 def _hop_flags(flags, mesh) -> list:
-    """Per-rank Python values moved one hop along ``pp`` (the
-    schedule's state riding the ring beside its payloads)."""
+    """Per-rank Python values, one per flat rank of the mesh, moved one
+    hop along ``pp`` (the schedule's state riding the ring beside its
+    payloads; every process holds all of it)."""
     out = list(flags)
     for group in mesh.axis_groups("pp"):
         for c, r in enumerate(group):
@@ -101,46 +120,55 @@ def _hop_flags(flags, mesh) -> list:
     return out
 
 
-def _replicate(outs, idx, owner, mesh):
+def _replicate(outs, idx, owner, mesh, micro):
     """The stacked (M, ...) output of the ranks at coordinate ``owner``
-    psummed over ``pp`` (zeros elsewhere): every stage gets it."""
-    stacked = [torch.stack(o) if idx[r] == owner else None
-               for r, o in enumerate(outs)]
-    like = next(s_ for s_ in stacked if s_ is not None)
-    return psum([s_ if s_ is not None else
-                 torch.zeros_like(like, device=mesh.devices.flat[r])
-                 for r, s_ in enumerate(stacked)], mesh, "pp")
+    psummed over ``pp`` (zeros elsewhere, of the microbatches' (M, ...)
+    form ``micro``, which every stage's output keeps): every stage gets
+    it. ``outs`` holds this process's positions."""
+    ranks = mesh.local_ranks()
+    return psum([torch.stack(o) if idx[r] == owner else
+                 torch.zeros_like(micro, device=mesh.devices.flat[r])
+                 for r, o in zip(ranks, outs)], mesh, "pp")
 
 
 def pipeline_spmd(stage_fn, stage_params: list, x: list, *, mesh,
                   n_microbatch: int, return_busy: bool = False):
     """Run each rank's local batch ``x[r]`` through the pp stages of
-    ``stage_fn(stage_params[r], micro) -> micro`` (GPipe). ``x`` is
-    identical over a pp group (only stage 0 reads it). Returns each
-    rank's full-batch output, replicated over ``pp``, and with
-    ``return_busy`` each rank's (T,) busy mask, ``T = M + pp - 1``."""
+    ``stage_fn(stage_params[r], micro) -> micro`` (GPipe; the output
+    keeps the microbatch's shape and dtype). The lists hold this
+    process's positions (``mesh.local_ranks()``). ``x`` is identical
+    over a pp group (only stage 0 reads it). Returns each rank's
+    full-batch output, replicated over ``pp``, and with ``return_busy``
+    every flat rank's (T,) busy mask, ``T = M + pp - 1``."""
     p, idx, n = mesh.shape["pp"], mesh.axis_index("pp"), mesh.size
+    ranks = mesh.local_ranks()
     M = int(n_microbatch)
     micro = [_micro(xr, M) for xr in x]
-    buf, live = [None] * n, [False] * n
-    outs = [[None] * M for _ in range(n)]
+    like = micro[0][0]
+    buf, live = [None] * len(ranks), [False] * n
+    outs = [[None] * M for _ in ranks]
     busy = [[] for _ in range(n)]
     for t in range(M + p - 1):
         for r in range(n):
             if idx[r] == 0:  # stage 0 ingests microbatch t
-                buf[r], live[r] = micro[r][min(t, M - 1)], t < M
-        y = [stage_fn(stage_params[r], buf[r]) if live[r] else None
-             for r in range(n)]
-        for r in range(n):
-            busy[r].append(live[r])
+                live[r] = t < M
+        for i, r in enumerate(ranks):
+            if idx[r] == 0:
+                buf[i] = micro[i][min(t, M - 1)]
+        y = [stage_fn(stage_params[i], buf[i]) if live[r] else None
+             for i, r in enumerate(ranks)]
+        for i, r in enumerate(ranks):
             if idx[r] == p - 1 and live[r]:
                 # the last stage emits microbatch t - (p - 1)
-                outs[r][t - (p - 1)] = y[r]
-                y[r] = None  # the wrap hop is overwritten by injection
-        buf = ring_shift(y, mesh, "pp")
+                outs[i][t - (p - 1)] = y[i]
+                y[i] = None  # the wrap hop is overwritten by injection
+        for r in range(n):
+            busy[r].append(live[r])
+        sends = [live[r] and idx[r] != p - 1 for r in range(n)]
+        buf = ring_shift(y, mesh, "pp", sends=sends, like=like)
         live = _hop_flags(live, mesh)
     out = [o.reshape(xr.shape[0], *o.shape[2:]) for o, xr in
-           zip(_replicate(outs, idx, p - 1, mesh), x)]
+           zip(_replicate(outs, idx, p - 1, mesh, micro[0]), x)]
     if return_busy:
         return out, [np.asarray(b, dtype=bool) for b in busy]
     return out
@@ -185,8 +213,8 @@ def measure_bubble(mesh, n_microbatch: int, schedule: str = "1f1b", *,
     as it ran), ``measured`` = 1 - mean(busy). The circular engine
     spends one emission hop past ``v M + pp - 1`` ticks, so its measured
     value exceeds the formula by that gap."""
-    p, M, n = mesh.shape["pp"], int(n_microbatch), mesh.size
-    devs = list(mesh.devices.flat)
+    p, M = mesh.shape["pp"], int(n_microbatch)
+    devs = mesh.local_devices()
     x = [torch.arange(M * 2, dtype=torch.float32, device=d).reshape(M, 2)
          for d in devs]
 
@@ -234,14 +262,16 @@ def pipeline_circular(chunk_fn, chunk_params: list, x: list, *, mesh,
     """Interleaved virtual stages: each rank holds ``v`` chunks
     (device-major: its local chunk ``j`` is global chunk ``j pp + d``)
     and ``chunk_fn(chunk_params[r], j, micro) -> micro`` applies its
-    ``j``-th. A payload's stage counter ``s`` rides with it (``s < v
-    pp`` live, next chunk ``s``; ``v pp`` finished; ``v pp + 1`` an
-    empty slot); stage 0 emits a finished arrival and refills the freed
-    slot, so each rank hosts one microbatch a tick. ``n_microbatch``
-    must divide the batch and be a multiple of pp. Returns the outputs
-    replicated over ``pp`` and, with ``return_busy``, each rank's (T,)
-    mask, ``T = v M + pp``."""
+    ``j``-th (keeping the microbatch's shape and dtype). The lists hold
+    this process's positions. A payload's stage counter ``s`` rides with
+    it (``s < v pp`` live, next chunk ``s``; ``v pp`` finished; ``v pp
+    + 1`` an empty slot); stage 0 emits a finished arrival and refills
+    the freed slot, so each rank hosts one microbatch a tick.
+    ``n_microbatch`` must divide the batch and be a multiple of pp.
+    Returns the outputs replicated over ``pp`` and, with
+    ``return_busy``, every flat rank's (T,) mask, ``T = v M + pp``."""
     p, idx, n = mesh.shape["pp"], mesh.axis_index("pp"), mesh.size
+    ranks = mesh.local_ranks()
     M = int(n_microbatch)
     micro = [_micro(xr, M) for xr in x]
     if M % p != 0:
@@ -249,34 +279,47 @@ def pipeline_circular(chunk_fn, chunk_params: list, x: list, *, mesh,
             f"n_microbatch {M} must be a multiple of the pipeline size "
             f"{p} (seamless circular waves need full ring occupancy)")
     C = v * p
-    buf, s = [None] * n, [C + 1] * n
+    like = micro[0][0]
+    buf, s = [None] * len(ranks), [C + 1] * n
     inj, emit = [0] * n, [0] * n  # only stage 0's advance (FIFO ids)
-    outs = [[None] * M for _ in range(n)]
+    outs = [[None] * M for _ in ranks]
+    at = {r: i for i, r in enumerate(ranks)}
     busy = [[] for _ in range(n)]
     for _ in range(v * M + p):
         for r in range(n):
             if idx[r] != 0:
                 continue
             # stage 0: emit a finished arrival, refill the freed slot
+            i = at.get(r)
             done = s[r] == C
             if done and emit[r] < M:
-                outs[r][emit[r]] = buf[r]
+                if i is not None:
+                    outs[i][emit[r]] = buf[i]
                 emit[r] += 1
             if s[r] >= C and inj[r] < M:
-                buf[r], s[r] = micro[r][inj[r]], 0
+                if i is not None:
+                    buf[i] = micro[i][inj[r]]
+                s[r] = 0
                 inj[r] += 1
             elif done:  # a consumed finished slot parks as empty
-                buf[r], s[r] = None, C + 1
+                if i is not None:
+                    buf[i] = None
+                s[r] = C + 1
         live = [s_ < C for s_ in s]
         for r in range(n):
             busy[r].append(live[r])
+        for i, r in enumerate(ranks):
             if live[r]:
-                buf[r] = chunk_fn(chunk_params[r], s[r] // p, buf[r])
+                buf[i] = chunk_fn(chunk_params[i], s[r] // p, buf[i])
+        for r in range(n):
+            if live[r]:
                 s[r] += 1
-        buf = ring_shift(buf, mesh, "pp")
+        # a slot holds a payload (live, finished or not) unless empty
+        buf = ring_shift(buf, mesh, "pp", sends=[s_ <= C for s_ in s],
+                         like=like)
         s = _hop_flags(s, mesh)
     out = [o.reshape(xr.shape[0], *o.shape[2:]) for o, xr in
-           zip(_replicate(outs, idx, 0, mesh), x)]
+           zip(_replicate(outs, idx, 0, mesh, micro[0]), x)]
     if return_busy:
         return out, [np.asarray(b, dtype=bool) for b in busy]
     return out
@@ -315,8 +358,11 @@ def pipeline_1f1b(stage_fn, head_fn, stage_params: list, head_params: list,
     tuple (here ``(activation, aux)``); ``head_fn(head_params[r],
     payload, tgt_micro) -> scalar`` (summed over the microbatch, not
     meaned). ``x[r]`` is the rank's local batch of activations,
-    ``targets[r]`` its targets. Every leaf of the parameter trees must
-    require grad. On stage d at tick t, ``T = M + 2(pp-1)`` ticks:
+    ``targets[r]`` its targets; the lists hold this process's positions
+    (``mesh.local_ranks()``). Every leaf of the parameter trees must
+    require grad, and a stage's payload keeps the shapes and dtypes of
+    ``(microbatch, f32 scalar)``. On stage d at tick t, ``T = M +
+    2(pp-1)`` ticks:
 
     * forward slot: microbatch ``f = t - d``; stage 0 injects
       ``(x[f], 0)``, the input goes to the ring, the stage runs without
@@ -327,87 +373,100 @@ def pipeline_1f1b(stage_fn, head_fn, stage_params: list, head_params: list,
       incoming cotangent (the last stage's own, else the one handed
       back from stage d+1); stage 0 keeps ``dL/dx`` of its microbatch.
 
-    Activations then hop to d+1 and cotangents to d-1. Returns per-rank
-    lists ``(loss_sum, stage_grads, head_grads, dx)``: local f32 sums
-    (loss and head gradients nonzero on the last stage, ``dx`` (M, ...)
-    on stage 0, else None), gradients as lists in the trees' leaf
-    order; with ``return_busy`` also each rank's (T, 2) mask of live
-    forward and backward slots."""
+    Activations then hop to d+1 and cotangents to d-1. Returns lists
+    over this process's positions ``(loss_sum, stage_grads, head_grads,
+    dx)``: local f32 sums (loss and head gradients nonzero on the last
+    stage, ``dx`` (M, ...) on stage 0, else None), gradients as lists in
+    the trees' leaf order; with ``return_busy`` also every flat rank's
+    (T, 2) mask of live forward and backward slots."""
     p, idx, n = mesh.shape["pp"], mesh.axis_index("pp"), mesh.size
+    ranks = mesh.local_ranks()
     M = int(n_microbatch)
     micro = [_micro(xr, M) for xr in x]
     tgt = [_micro(tr, M) for tr in targets]
     R = 2 * p - 1  # the residual ring covers the in-flight window
     s_leaves = [_leaves(sp) for sp in stage_params]
     h_leaves = [_leaves(hp) for hp in head_params]
-    ring = [[None] * R for _ in range(n)]
-    buf_f, buf_b = [None] * n, [None] * n
+    ring = [[None] * R for _ in ranks]
+    buf_f, buf_b = [None] * len(ranks), [None] * len(ranks)
     loss = [torch.zeros((), dtype=torch.float32, device=xr.device)
             for xr in x]
+    like = (micro[0][0], loss[0])  # the payload's and cotangent's form
     g_stage = [_f32_zeros(ls) for ls in s_leaves]
     g_head = [_f32_zeros(lh) for lh in h_leaves]
-    dx = [torch.zeros(micro[r].shape, dtype=torch.float32,
-                      device=x[r].device) if idx[r] == 0 else None
-          for r in range(n)]
-    busy = [[] for _ in range(n)]
+    dx = [torch.zeros(micro[i].shape, dtype=torch.float32,
+                      device=x[i].device) if idx[r] == 0 else None
+          for i, r in enumerate(ranks)]
+
+    def slots(t, r):
+        d = idx[r]
+        f, b = t - d, t - (2 * p - 2 - d)
+        return f, b, 0 <= f < M, 0 <= b < M
+
+    busy = [[slots(t, r)[2:] for t in range(M + 2 * (p - 1))]
+            for r in range(n)]
     for t in range(M + 2 * (p - 1)):
-        ys, gxs = [None] * n, [None] * n
-        for r in range(n):
+        ys, gxs = [None] * len(ranks), [None] * len(ranks)
+        for i, r in enumerate(ranks):
             d = idx[r]
-            f, b = t - d, t - (2 * p - 2 - d)
-            f_live, b_live = 0 <= f < M, 0 <= b < M
-            busy[r].append((f_live, b_live))
+            f, b, f_live, b_live = slots(t, r)
             dy = None
             if f_live:
-                p_in = ((micro[r][f], torch.zeros_like(loss[r])) if d == 0
-                        else buf_f[r])
-                ring[r][f % R] = p_in
+                p_in = ((micro[i][f], torch.zeros_like(loss[i])) if d == 0
+                        else buf_f[i])
+                ring[i][f % R] = p_in
                 with torch.no_grad():
-                    y = stage_fn(stage_params[r], p_in)
+                    y = stage_fn(stage_params[i], p_in)
                 if d == p - 1:  # the head: loss and dL/dy this tick
                     with torch.enable_grad():
                         y_in = _detached_requiring_grad(y)
-                        lf = head_fn(head_params[r], y_in, tgt[r][f])
-                        g = _vjp(lf, h_leaves[r] + list(y_in), None)
-                    loss[r] = loss[r] + lf.detach().float()
-                    nh = len(h_leaves[r])
-                    _add(g_head[r], g[:nh])
+                        lf = head_fn(head_params[i], y_in, tgt[i][f])
+                        g = _vjp(lf, h_leaves[i] + list(y_in), None)
+                    loss[i] = loss[i] + lf.detach().float()
+                    nh = len(h_leaves[i])
+                    _add(g_head[i], g[:nh])
                     dy = tuple(torch.zeros_like(a) if ga is None else ga
                                for ga, a in zip(g[nh:], y_in))
                 else:
-                    ys[r] = y
+                    ys[i] = y
             if b_live:
-                g_in = dy if d == p - 1 else buf_b[r]
+                g_in = dy if d == p - 1 else buf_b[i]
                 with torch.enable_grad():
-                    x_in = _detached_requiring_grad(ring[r][b % R])
-                    out = stage_fn(stage_params[r], x_in)
-                    g = _vjp(out, s_leaves[r] + list(x_in), g_in)
-                ns = len(s_leaves[r])
-                _add(g_stage[r], g[:ns])
+                    x_in = _detached_requiring_grad(ring[i][b % R])
+                    out = stage_fn(stage_params[i], x_in)
+                    g = _vjp(out, s_leaves[i] + list(x_in), g_in)
+                ns = len(s_leaves[i])
+                _add(g_stage[i], g[:ns])
                 g_x = tuple(torch.zeros_like(a) if ga is None else ga
                             for ga, a in zip(g[ns:], x_in))
                 if d == 0:  # the embedding's cotangent of microbatch b
-                    dx[r][b] = g_x[0]
+                    dx[i][b] = g_x[0]
                 else:
-                    gxs[r] = g_x
-        buf_f = _hop_payloads(ys, mesh, 1)
-        buf_b = _hop_payloads(gxs, mesh, -1)
+                    gxs[i] = g_x
+        # who sends, from the schedule: forward slots short of the head,
+        # backward slots past stage 0
+        fwd = [slots(t, r)[2] and idx[r] != p - 1 for r in range(n)]
+        bwd = [slots(t, r)[3] and idx[r] != 0 for r in range(n)]
+        buf_f = _hop_payloads(ys, mesh, 1, fwd, like)
+        buf_b = _hop_payloads(gxs, mesh, -1, bwd, like)
     out = (loss, g_stage, g_head, dx)
     if return_busy:
         return out + ([np.asarray(b_, dtype=bool) for b_ in busy],)
     return out
 
 
-def _hop_payloads(payloads, mesh, shift) -> list:
+def _hop_payloads(payloads, mesh, shift, sends, like) -> list:
     """Tuples of tensors (None: nothing to send) one hop along ``pp``
-    (``shift`` 1 forward, -1 back), element by element."""
-    width = next((len(pl) for pl in payloads if pl is not None), 0)
-    if not width:
+    (``shift`` 1 forward, -1 back), element by element. ``sends`` (per
+    flat rank) and ``like`` (the tuple's form) come from the schedule,
+    so every process makes the same hops: none when no rank sends."""
+    if not any(sends):
         return [None] * len(payloads)
     parts = [ring_shift([None if pl is None else pl[i] for pl in payloads],
-                        mesh, "pp", shift=shift) for i in range(width)]
-    return [None if parts[0][r] is None else tuple(pt[r] for pt in parts)
-            for r in range(len(payloads))]
+                        mesh, "pp", shift=shift, sends=sends, like=lk)
+             for i, lk in enumerate(like)]
+    return [None if parts[0][i] is None else tuple(pt[i] for pt in parts)
+            for i in range(len(payloads))]
 
 
 # ---------------------------------------------------------------- model
@@ -541,30 +600,28 @@ def _1f1b_loss_grads_local(lparams, ltokens, ltargets, cfg, mesh,
         partial(_head_loss_sum, cfg=cfg),
         [lp["layers"] for lp in lparams], head, xs, ltargets, mesh=mesh,
         n_microbatch=n_microbatch)
-    count = [0.0] * mesh.size  # tokens are pp-replicated: dp only
-    for group in mesh.axis_groups("dp"):
-        total = float(sum(ltargets[r].numel() for r in group))
-        for r in group:
-            count[r] = total
+    # tokens are pp-replicated: each position's count is its dp group's
+    # (every dp member holds an equal block of the batch)
+    total = float(ltargets[0].numel() * mesh.shape["dp"])
     both = ("dp", "pp")
-    loss = [s_ / c for s_, c in zip(psum(loss_sum, mesh, both), count)]
+    loss = [s_ / total for s_ in psum(loss_sum, mesh, both)]
     # the embedding: the head's part plus the lookup's (dx on stage 0)
     hk = sorted(head[0])
     e = hk.index("emb")
-    for r, lp in enumerate(lparams):
-        if dx[r] is not None:
+    for i, lp in enumerate(lparams):
+        if dx[i] is not None:
             D = lp["emb"].shape[-1]
-            g_head[r][e].index_add_(0, ltokens[r].reshape(-1).long(),
-                                    dx[r].reshape(-1, D))
-    heads = [psum([g[i] for g in g_head], mesh, both)
-             for i in range(len(hk))]
-    stages = [psum([g[i] for g in g_stage], mesh, "dp")
-              for i in range(len(g_stage[0]))]
+            g_head[i][e].index_add_(0, ltokens[i].reshape(-1).long(),
+                                    dx[i].reshape(-1, D))
+    heads = [psum([g[j] for g in g_head], mesh, both)
+             for j in range(len(hk))]
+    stages = [psum([g[j] for g in g_stage], mesh, "dp")
+              for j in range(len(g_stage[0]))]
     out = []
-    for r, lp in enumerate(lparams):
-        grads = {k: h[r] / count[r] for k, h in zip(hk, heads)}
+    for i, lp in enumerate(lparams):
+        grads = {k: h[i] / total for k, h in zip(hk, heads)}
         grads["layers"] = _rebuild(lp["layers"], iter(
-            st[r] / count[r] for st in stages))
+            st[i] / total for st in stages))
         out.append(_rebuild(lp, iter(
             g.to(p_.dtype) for g, p_ in zip(_leaves(grads), _leaves(lp)))))
     return loss, out
@@ -603,8 +660,8 @@ def _pipeline_grad_fn(cfg, mesh, n_microbatch: int, schedule: str,
                 params, leaves, mesh,
                 lambda lp: local(lp, toks, tgts, cfg, mesh, n_microbatch))
         with _shards_requiring_grad(leaves, mesh) as shards:
-            lparams = [_rebuild(params, iter(s_[r] for s_ in shards))
-                       for r in range(mesh.size)]
+            lparams = [_rebuild(params, iter(s_[i] for s_ in shards))
+                       for i in range(len(mesh.local_ranks()))]
             loss, grads = _1f1b_loss_grads_local(lparams, toks, tgts, cfg,
                                                  mesh, n_microbatch)
         per_rank = [_leaves(g) for g in grads]
@@ -616,10 +673,10 @@ def _pipeline_grad_fn(cfg, mesh, n_microbatch: int, schedule: str,
 
 
 def _data_locals(x, mesh) -> list:
-    """Each rank's block of a (B, L) token array split over dp."""
+    """Each local position's block of a (B, L) token array split over
+    dp."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-    sh = shard(t, mesh, P("dp"))
-    return [sh.local(r).long() for r in range(mesh.size)]
+    return [b.long() for b in shard(t, mesh, P("dp")).locals()]
 
 
 def _check_mesh(cfg, mesh):
@@ -632,7 +689,7 @@ def _check_mesh(cfg, mesh):
     if cfg.n_layers % pp != 0:
         raise ValueError(
             f"n_layers {cfg.n_layers} not divisible by pp size {pp}")
-    mesh.require_local("the pipeline")
+    mesh.local_ranks()  # every process of the mesh in the job
 
 
 def make_pipeline_train_step(cfg, mesh, *, n_microbatch: int,

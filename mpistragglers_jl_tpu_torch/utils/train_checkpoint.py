@@ -25,7 +25,14 @@ the target's dtype and device; without a target the structure comes from
 ``tree.json`` (tensors on the CPU). A :class:`..parallel.mesh.ShardedTensor`
 leaf (a parameter laid out over a mesh) is written as its gathered global
 value, the array a JAX-saved sharded array holds, and a target's sharded
-leaf is laid out again by its own mesh and spec. Writes are numpy only: a
+leaf is laid out again by its own mesh and spec. Over a mesh that spans
+processes ``save`` is a collective: every process of the job calls it
+and takes part in each leaf's gather, process 0 alone writes the step
+(through a ``.tmp`` directory, renamed), and each of the others returns
+only once process 0 has said that the step is in place (or raises if
+process 0 failed to write it), so none reads a half-written step.
+``restore`` needs no collective: each process reads the files and lays
+each sharded leaf out on its own positions. Writes are numpy only: a
 step written by orbax (a ``state/`` directory) is refused by name.
 
 >>> ckpt = TrainCheckpointer(dir)
@@ -92,11 +99,26 @@ def _from_spec(spec, it):
     return arr
 
 
-def _require_local(tree) -> None:
-    """Refuse ShardedTensor leaves on a mesh that spans processes."""
+def _spanning(tree):
+    """The first mesh that spans processes among ``tree``'s sharded
+    leaves, or None."""
     for x in tree_leaves(tree):
-        if isinstance(x, ShardedTensor):
-            x.mesh.require_local("TrainCheckpointer")
+        if isinstance(x, ShardedTensor) and x.mesh.spans_processes:
+            return x.mesh
+    return None
+
+
+def _announce(mesh, ok: bool | None) -> bool:
+    """Process 0's word on a step, heard by every process of the job:
+    ``ok`` on process 0 (None elsewhere), one byte broadcast over the
+    job's group (on the card under ``nccl``)."""
+    import torch.distributed as dist
+
+    dev = (mesh.local_devices()[0] if mesh.backend == "nccl"
+           else torch.device("cpu"))
+    flag = torch.tensor([int(bool(ok))], dtype=torch.uint8, device=dev)
+    dist.broadcast(flag, src=0)
+    return bool(flag.item())
 
 
 def _lay_out(arr: np.ndarray, like: ShardedTensor) -> ShardedTensor:
@@ -148,17 +170,37 @@ class TrainCheckpointer:
     ) -> str:
         """Write ``state`` (any nest) and optional pool bookkeeping as
         step ``step``. The pool must be quiescent (``waitall`` first)
-        unless ``allow_active``. Returns the step directory."""
-        _require_local(state)
+        unless ``allow_active``. Returns the step directory. Over a mesh
+        that spans processes every process calls it (the module
+        docstring): process 0 writes, the others wait for its word."""
         d = self._step_dir(step)
+        arrays = {f"leaf_{i}": to_numpy(
+            x.gather() if isinstance(x, ShardedTensor) else x)
+            for i, x in enumerate(tree_leaves(state))}
+        mesh = _spanning(state)
+        if mesh is None:
+            return self._write(d, step, state, arrays, pool, allow_active)
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            if not _announce(mesh, None):
+                raise RuntimeError(
+                    f"process 0 failed to write {d}: its own error says why")
+            return d
+        try:
+            self._write(d, step, state, arrays, pool, allow_active)
+        except BaseException:
+            _announce(mesh, False)
+            raise
+        _announce(mesh, True)
+        return d
+
+    def _write(self, d, step, state, arrays, pool, allow_active) -> str:
         tmp = d + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "state.npz"),
-                 **{f"leaf_{i}": to_numpy(
-                     x.gather() if isinstance(x, ShardedTensor) else x)
-                    for i, x in enumerate(tree_leaves(state))})
+        np.savez(os.path.join(tmp, "state.npz"), **arrays)
         with open(os.path.join(tmp, "tree.json"), "w") as f:
             json.dump(_spec(state), f)
         if pool is not None:
@@ -212,7 +254,6 @@ class TrainCheckpointer:
             )
             leaves = [z[k] for k in keys]
         if target is not None:
-            _require_local(target)
             n = len(tree_leaves(target))
             if n != len(leaves):
                 raise ValueError(f"checkpoint holds {len(leaves)} leaves, "

@@ -27,8 +27,10 @@ CPU ranks in its own process and thread setting. The parent holds
   and ``ring_shift`` with their backwards over 2 and 4 processes, on
   integer-valued inputs (every sum exact), bit for bit;
 * a control: with the cross-process bytes dropped the loss changes;
-* the backend choice, and the entry points that stay single-process
-  (ROADMAP item 18h) refusing a mesh that spans processes by name.
+* the backend choice; the entry points of ROADMAP item 18h's parts (i)
+  and (ii) running over a mesh that spans processes (their values are
+  held in ``tests/test_torch_multiproc_models.py``), and those of part
+  (iii), which stay single-process, refusing it by name.
 
 Run a child by hand: ``python tests/test_torch_multiproc.py slice
 127.0.0.1:<port> <rank> <out.pkl>`` in two shells (``collectives4``:
@@ -74,6 +76,9 @@ FWD, TOL = 2e-4, 1e-5
 LATER = ["moe", "moe_ffn_sharded", "pipeline", "speculative",
          "serving_scan", "ring_generate", "pool_fused",
          "device_coordinator", "checkpoint"]
+# item 18h's parts (i) and (ii): these now run across processes
+RUNS = {"moe", "moe_ffn_sharded", "pipeline", "speculative", "serving_scan",
+        "ring_generate", "checkpoint"}
 
 
 def _tokens(vocab, shape, seed):
@@ -240,8 +245,8 @@ def _gemm_cases(mh) -> dict:
 
 
 def _later_refusals(mh) -> dict:
-    """Each entry point that stays single-process, over a mesh that
-    spans the processes: its error message."""
+    """Each entry point of ROADMAP item 18h over a mesh that spans the
+    processes: "ran", or its error message."""
     from mpistragglers_jl_tpu_torch.models import decode as td
     from mpistragglers_jl_tpu_torch.models import serving as sv
     from mpistragglers_jl_tpu_torch.models import speculative as tsp
@@ -265,11 +270,18 @@ def _later_refusals(mh) -> dict:
                                       dcn_axis="dp", devices=cpu4)
     pool = mh.make_multihost_mesh(4, devices=["cpu"] * 2)
     tmp = tempfile.mkdtemp()
+
+    def ffn():
+        lps = td._rank_params(tt.shard_params(
+            tt.init_params(moe, device="cpu"), moe, moe_mesh), moe, moe_mesh)
+        xs = [torch.ones(1, 2, moe.d_model) for _ in lps]
+        return moe_ffn_sharded(xs, [lp["layers"][0] for lp in lps], 1.0,
+                               mesh=moe_mesh)
+
     calls = {
         "moe": lambda: tt.shard_params(
             tt.init_params(moe, device="cpu"), moe, moe_mesh),
-        "moe_ffn_sharded": lambda: moe_ffn_sharded([], [], 1.0,
-                                                   mesh=moe_mesh),
+        "moe_ffn_sharded": ffn,
         "pipeline": lambda: make_pipeline_train_step(
             tt.TransformerConfig(**{**GEN_CFG, "n_layers": 4}),
             mh.make_multihost_mesh((2, 4), ("dp", "pp"), dcn_axis="dp",
@@ -607,13 +619,16 @@ def test_mesh_gemms_across_processes(slice_):
             np.testing.assert_array_equal(x[k], s[k])
 
 
-# -- what stays single-process ------------------------------------------------
+# -- item 18h's entry points -----------------------------------------------------
 
 
 @pytest.mark.parametrize("entry", LATER)
 def test_later_entry_points_refuse_a_mesh_across_processes(slice_, entry):
     for r, res in enumerate(slice_):
         msg = res["later"][entry]
+        if entry in RUNS:
+            assert msg == "ran", msg
+            continue
         assert f"process(es) [{1 - r}], not by this one ({r})" in msg, msg
         assert "ROADMAP item 18h" in msg, msg
 

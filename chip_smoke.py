@@ -461,7 +461,18 @@ PyTorch version:
     2) (within it of phase 58's 1F1B oracle), the int8 serving tick on
     (2, 4), S=8, 32 inner steps; ms and exchanges per process. Exact
     K1-K3 and K5 counts per process (each drives four ranks, or its half
-    of a pipeline's).
+    of a pipeline's). Then, in the same two processes, the device
+    coordinator's mesh window over ``("w",)`` of 8, the pool axis
+    across them: (a) f64 at phase 56's shape, K=6 then K=4, each window
+    bit-equal to the single-controller window the process runs itself
+    (histories, blocks, ``last_full``, the pool's end state),
+    ``last_full`` within 1e-9 of ``A @ B``, K + 2 exchanges a window
+    (the reduce-scatters, the ring, the digest); (b) config 3's width
+    (8196x8192 coded at (8, 6), B 8192x8192, ``"default"``), a K=1
+    warm-up window and a timed K=2 one: ms/epoch and the exchanges and
+    GB out of each process, the histories equal to the flat window's on
+    the card, the product within 1e-5 cond(G_S) of the flat window's
+    decode and 2^-8 cond(G_S) of ``A @ B``.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -5821,7 +5832,8 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
           "(a) f32 bit-equality of the EP step, ring generation, the "
           "serving tick, speculation, GPipe, circular, 1F1B and its "
           "checkpoint resume; (b) bf16 EP and 1F1B steps and the int8 "
-          "tick, timed")
+          "tick, timed; then the device coordinator's window over ('w',) "
+          "of 8: (a) f64 bit-equality, (b) config 3's width, timed")
     cfg = _train_cfg(torch.bfloat16)
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
@@ -5930,8 +5942,9 @@ def phase_slice20(dev, t_start, loss_oracle, dense_ms, sharded_ms,
     for rep in reps:
         rep["bf16"]["generate_int8"].pop("stream")
     models = _mp_models_bf16(reps, mp, moe_oracles)
+    window = _mp_window(reps, mp)
     out = {"processes": reps, "run_s": run_s, "oracle_steps_s": ref_s,
-           "models_bf16": models,
+           "models_bf16": models, "window": window,
            "bf16": {"loss_oracle": loss_oracle, "first_loss_rel_err": rel,
                     "update_rel_err": upd, "reference_losses": ref_traj,
                     "ms_per_step": [b0["ms_per_step"], b1["ms_per_step"]],
@@ -6061,6 +6074,67 @@ def _mp_models_bf16(reps, mp, moe_oracles) -> dict:
     for rep in reps:
         rep["models_bf16"]["tick_int8"].pop("tokens")
     return out
+
+
+def _mp_window(reps, mp) -> dict:
+    """Phase 60's device coordinator window, the pool axis across the
+    processes: (a) f64, every window bit-equal to the single-controller
+    one in both processes, ``last_full`` within 1e-9 of ``A @ B``, K
+    reduce-scatters + one ring + one digest exchange a window; (b)
+    config 3's width at ``"default"``, the histories equal to the flat
+    window's, the product held to the flat window's decode of the same
+    bf16 products and to ``A @ B`` (limits scaled by cond(G_S)), ms and
+    exchanges per process of the timed window."""
+    for rep in reps:
+        r, w = rep["rank"], rep["window"]
+        ex = [x["exchanges"] for x in w["f64_x"]]
+        print(f"  process {r} (a) the device coordinator's window over ('w',) "
+              f"of 8, f64, K={mp.WIN_KS}: bit-equal to the single-controller "
+              f"window {w['f64_bit_equal']}; last_full rel err "
+              f"{w['f64_last_full_rel_err']:.2e} (limit 1e-9); exchanges a "
+              f"window {ex} (want K + 2); "
+              + ", ".join(f"{x['s'] * 1e3:.1f} ms" for x in w["f64_x"])
+              + " (single-controller "
+              + ", ".join(f"{x['s'] * 1e3:.1f}" for x in w["f64_s"]) + ")")
+        _require(w["f64_bit_equal"], f"process {r}: the f64 window across "
+                 "processes differs from the single-controller window")
+        _require(w["f64_last_full_rel_err"] < 1e-9,
+                 f"process {r}: last_full {w['f64_last_full_rel_err']}")
+        _require(ex == [K + 2 for K in mp.WIN_KS]
+                 and all(x["exchanges"] == 0 for x in w["f64_s"]),
+                 f"process {r}: exchanges {ex}")
+        c = w["config3"]
+        t = c["timed"]
+        print(f"  process {r} (b) config 3's width {c['shape']} at "
+              f"'default': warm-up K={c['warmup']['K']} "
+              f"{c['warmup']['ms_per_epoch']:.1f} ms/epoch, timed "
+              f"K={t['K']} {t['ms_per_epoch']:.1f} ms/epoch, "
+              f"{t['exchanges']} exchanges {t['exchange_ms']:.1f} ms for "
+              f"{t['exchange_gb']:.3f} GB out; histories equal the flat "
+              f"window's {c['histories_equal_flat']}; fresh {c['fresh']}, "
+              f"cond(G_S) {c['cond']:.1f}: rel err against the flat "
+              f"window's decode {c['rel_err_vs_flat']:.2e} (limit "
+              f"{c['limit_vs_flat']:.2e}), against A @ B "
+              f"{c['rel_err_vs_ab']:.2e} (limit {c['limit_vs_ab']:.2e})")
+        _require(c["histories_equal_flat"], f"process {r}: the config 3 "
+                 "window's history differs from the flat window's")
+        _require(c["rel_err_vs_flat"] <= c["limit_vs_flat"]
+                 and c["rel_err_vs_ab"] <= c["limit_vs_ab"],
+                 f"process {r}: the config 3 window's product: {c}")
+        _require(t["exchanges"] == t["K"] + 2, f"process {r}: {t}")
+    c0, c1 = (rep["window"]["config3"] for rep in reps)
+    _require(c0["history"] == c1["history"],
+             "the processes' config 3 histories differ")
+    return {"f64_ms": [[x["s"] * 1e3 for x in rep["window"]["f64_x"]]
+                       for rep in reps],
+            "config3_ms_per_epoch": [c0["timed"]["ms_per_epoch"],
+                                     c1["timed"]["ms_per_epoch"]],
+            "config3_exchanges": [c0["timed"]["exchanges"],
+                                  c1["timed"]["exchanges"]],
+            "config3_exchange_gb": [c0["timed"]["exchange_gb"],
+                                    c1["timed"]["exchange_gb"]],
+            "config3_exchange_ms": [c0["timed"]["exchange_ms"],
+                                    c1["timed"]["exchange_ms"]]}
 
 
 def _phase60_launches(counts, key) -> dict:

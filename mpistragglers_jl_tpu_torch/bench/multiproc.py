@@ -46,6 +46,20 @@ the named axis across the processes:
     width on (2, 4), dp across (S=8, a 4-step warm-up tick, then 32
     inner steps).
 
+Then the device coordinator's mesh window (``parallel/device_coord.py``)
+over ``("w",)`` of 8, four ranks a process, MDS (8, 6) on phase 56's
+straggling schedule (:func:`_window`):
+
+(a) f64 at phase 56's shape (A 384x256, B 256x64), K=6 then K=4 back
+    to back, across the processes and on a single-controller mesh of
+    eight ranks that the process runs itself, bit for bit, and
+    ``last_full`` against ``A @ B``; the exchanges a window (K
+    reduce-scatters, the ring, the digest);
+(b) config 3's width at ``"default"`` (``bench/device_coord.py``: A
+    8196x8192 coded, B 8192x8192): a K=1 warm-up window and a timed K=2
+    one, the histories against the flat window's on the card, the
+    product against the flat window's decode and ``A @ B``.
+
 Every run's parameters are ``init_params(cfg, seed=0)`` of its
 configuration (:data:`CONFIGS`), drawn on the host by one background
 thread in the order the runs need them, while the runs before them use
@@ -56,7 +70,7 @@ Every run counts its kernel launches (per process: each rank this
 process drives launches its own). The kernels must be built before the
 spawn (``ops/_build.build``): the processes load them, never build.
 Each process writes ``<out>/rank<r>.json``; :func:`wait` returns both.
-The timed bf16 runs also report their exchanges across processes
+The timed runs also report their exchanges across processes
 (``collectives.EXCHANGES``: ``exchanges``, ``exchange_ms``,
 ``exchange_gb``, this process's payloads).
 
@@ -91,15 +105,21 @@ from ..models.transformer import (
     shard_params,
     sharded_loss_and_grads,
 )
+from ..ops.coding import MDSCode
 from ..parallel import collectives as col
 from ..parallel import make_mesh
 from ..parallel import multihost as mh
+from ..parallel.device_coord import DeviceCoordinator
 from ..parallel.pipeline import (
     make_pipeline_train_step,
     shard_params_pipeline,
 )
+from ..pool import AsyncPool, asyncmap_fused
+from ..utils import faults
 from ..utils.train_checkpoint import TrainCheckpointer
+from .coded_gemm import MDS_M, _operands, rel_err
 from .configs import DECODE
+from .device_coord import CONFIG3_SEED
 from .moe_train import moe_config
 from .pipeline_train import CELLS, V
 from .serving_profile import MODEL
@@ -122,6 +142,10 @@ SPEC_F32 = (64, 16, 4)     # (prompt, n_new, k), the n-gram drafter
 PIPE_F32_LAYERS = 4
 PIPE_F32 = {"gpipe": (1, 2), "circular": (1, 2), "1f1b": (2, 2)}  # M = 2
 TICK_BF16 = (8, 4, 32)     # (S, warm-up inner steps, timed inner steps)
+WIN_N, WIN_K = 8, 6        # the device coordinator's (8, 6) MDS pool
+WIN_F64 = (384, 256, 64)   # (a): A (6 * 64, 256), B (256, 64), phase 56's
+WIN_KS = (6, 4)            # (a): two windows back to back
+WIN_C3 = (1, 2)            # (b): a warm-up window, then the timed one
 F32, BF16 = torch.float32, torch.bfloat16
 # every configuration the processes initialise, in the order they need it
 CONFIGS = {
@@ -442,6 +466,111 @@ def _models_bf16(dev, trees) -> dict:
                           "tokens": toks.tolist()}}
 
 
+def _win_delay():
+    """Phase 56's window schedule: seeded lognormal, worker 2 straggling
+    by 30 s."""
+    base = faults.seeded_lognormal(0.01, 0.7, seed=3)
+    return lambda w, e: base(w, e) + (30.0 if w == 2 else 0.0)
+
+
+def _win_run(coord, pool, payload, K: int):
+    """One window between a reset of :data:`collectives.EXCHANGES` and a
+    read: (its history, report)."""
+    torch.cuda.synchronize()
+    col.zero_exchanges()
+    t0 = time.perf_counter()
+    hist = asyncmap_fused(pool, payload, coord, epochs=K)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return hist, {"K": K, "s": dt, "ms_per_epoch": dt / K * 1e3,
+                  **_exchanges()}
+
+
+def _window(dev) -> dict:
+    """The device coordinator's mesh window over ("w",) of 8, the pool
+    axis across the processes (four ranks each): (a) f64 at phase 56's
+    shape, K=6 then K=4, across the processes and on the
+    single-controller mesh, bit for bit (histories, every epoch's
+    gathered and local blocks, ``last_full``, the pool's end state),
+    ``last_full`` against ``A @ B``; (b) config 3's width at
+    ``"default"``, a warm-up window and a timed one, the histories
+    against the flat window's on the card, ``last_full`` against
+    ``A @ B`` within config 3's limit."""
+    out, got = {}, {}
+    code = MDSCode(WIN_N, WIN_K, dtype=np.float64)
+    m, d, c = WIN_F64
+    rng = np.random.default_rng(60)
+    A, B = rng.standard_normal((m, d)), rng.standard_normal((d, c))
+    blocks = code.encode_array(torch.from_numpy(A))
+    meshes = _meshes(dev, (WIN_N,), ("w",), None)
+    mine = meshes["x"].local_ranks()  # this process's ranks, on both
+    for tag, mesh in meshes.items():
+        coord = DeviceCoordinator(blocks, decode="mds", G=code.G, k=WIN_K,
+                                  mesh=mesh, delay_fn=_win_delay())
+        pool, vals, reps = AsyncPool(WIN_N), [], []
+        for K in WIN_KS:
+            hist, rep = _win_run(coord, pool, B, K)
+            reps.append({**rep, "history": hist.tolist()})
+            full = coord.last_window["last_full"].cpu()
+            vals += [torch.from_numpy(hist),
+                     torch.from_numpy(np.asarray(coord.last_decoded)),
+                     full] + [coord.last_decoded.local(r).cpu()
+                              for r in mine]
+        vals += [torch.from_numpy(np.asarray(x)) for x in (
+            pool.epoch, pool.repochs, pool.sepochs, pool.active)]
+        got[tag] = vals
+        out[f"f64_{tag}"] = reps
+        if tag == "x":  # the last window's product, the first rank's copy
+            out["f64_last_full_rel_err"] = float(
+                np.abs(full.numpy() - A @ B).max() / np.abs(A @ B).max())
+    out["f64_bit_equal"] = _equal(got["x"], got["s"])
+    del got
+    # (b) config 3's width: 8196 x 8192 coded at (8, 6), B 8192 x 8192
+    A3, B3 = _operands(MDS_M, MDS_M, MDS_M, CONFIG3_SEED, dev)
+    C_ref = torch.matmul(A3, B3)
+    m_pad = -(-MDS_M // WIN_K) * WIN_K
+    A_pad = torch.zeros(m_pad, MDS_M, device=dev)
+    A_pad[:MDS_M] = A3
+    del A3
+    code = MDSCode(WIN_N, WIN_K, dtype=np.float32)
+    blocks = code.encode_array(A_pad)
+    del A_pad
+    kw = dict(decode="mds", G=code.G, k=WIN_K, delay_fn=_win_delay(),
+              precision="default")
+    coord = DeviceCoordinator(blocks, mesh=meshes["x"], **kw)
+    pool, hists, reps = AsyncPool(WIN_N), [], []
+    for K in WIN_C3:
+        hist, rep = _win_run(coord, pool, B3, K)
+        hists.append(hist)
+        reps.append(rep)
+    last_full = coord.last_window["last_full"]
+    del coord
+    torch.cuda.empty_cache()
+    flat = DeviceCoordinator(blocks, device=dev, **kw)
+    fpool = AsyncPool(WIN_N)
+    flat_hists = [asyncmap_fused(fpool, B3, flat, epochs=K) for K in WIN_C3]
+    # the last epoch's decode inverts G over its first k fresh workers:
+    # bf16 operands (unit roundoff 2^-8) and the f32 decode are both
+    # amplified by that inverse's condition number
+    fresh = np.flatnonzero(hists[-1][-1] == pool.epoch)[:WIN_K]
+    cond = float(np.linalg.cond(code.G.astype(np.float64)[fresh]))
+    out["config3"] = {
+        "shape": [m_pad, MDS_M, MDS_M], "precision": "default",
+        "warmup": reps[0], "timed": reps[1],
+        "histories_equal_flat": all(
+            np.array_equal(a, b) for a, b in zip(hists, flat_hists)),
+        "history": hists[1].tolist(), "fresh": fresh.tolist(),
+        "cond": cond,
+        # the same bf16 products decoded by the flat window (_lu_solve)
+        "rel_err_vs_flat": rel_err(last_full, flat.last_decoded[-1]),
+        "limit_vs_flat": 1e-5 * cond,
+        "rel_err_vs_ab": rel_err(last_full[:MDS_M], C_ref),
+        "limit_vs_ab": 2.0 ** -8 * cond}
+    del flat, blocks, B3, C_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def child(addr_nccl: str, addr_gloo: str, rank: int, out_dir: str) -> None:
     """One process of :func:`start`: both drive cuda:0."""
     dev = torch.device("cuda", 0)
@@ -468,6 +597,8 @@ def child(addr_nccl: str, addr_gloo: str, rank: int, out_dir: str) -> None:
         res["models_f32"] = _models_f32(dev, out_dir, trees)
         res["models_f32_s"] = time.perf_counter() - t0
         res["models_bf16"] = _models_bf16(dev, trees)
+        res["models_bf16_s"] = time.perf_counter() - t0
+        res["window"] = _window(dev)
         res["seconds"] = time.perf_counter() - t0
     import torch.distributed as dist
 

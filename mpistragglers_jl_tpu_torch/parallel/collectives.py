@@ -56,14 +56,16 @@ does not reach every such node on every process (a pipeline's idle
 stage) runs inside :func:`crossing_chain`, which orders them. The
 members of such a
 group share one shape and dtype, and each process holds as many of
-them as every other. :data:`EXCHANGES` counts the gathers, their
-bytes and seconds; :func:`exchanges_dropped` is the control that skips
-them.
+them as every other. :func:`agree` holds inputs that every process
+passes equal across the processes, by one exchange of their digests.
+:data:`EXCHANGES` counts the gathers, their bytes and seconds;
+:func:`exchanges_dropped` is the control that skips them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
 from functools import partial
 
@@ -83,9 +85,11 @@ from .mesh import (
 
 __all__ = [
     "EXCHANGES",
+    "agree",
     "all_gather",
     "all_to_all",
     "crossing_chain",
+    "digest",
     "exchanges_dropped",
     "masked_psum_scatter_combine",
     "mds_decode_weights",
@@ -233,6 +237,74 @@ def over_pool(op, xs, mesh: Mesh, axis: str = "w", **kw) -> list:
         else:
             raise ValueError(f"no pool collective {op!r}")
     return out
+
+
+_FAULT_BYTES = 512  # room for one guard's message in agree()'s record
+
+
+def digest(*values) -> bytes:
+    """A sha256 over ``values``: a tensor or array by its dtype, shape
+    and bytes (a card's copied to the host), anything else by its
+    ``repr``."""
+    h = hashlib.sha256()
+    for v in values:
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        if isinstance(v, torch.Tensor):
+            t = v.detach().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy())
+        else:
+            h.update(repr(v).encode())
+    return h.digest()
+
+
+def agree(mesh: Mesh, axis: str, digests: dict, fault: str = "") -> None:
+    """Hold this process's inputs to every other's over the 1-D
+    ``(axis,)`` pool mesh, as JAX's ``device_put`` of a host value to a
+    sharding that spans processes holds them
+    (``multihost_utils.assert_equal``): one exchange of their
+    :func:`digest` s (``digests``: name -> digest, the same names in the
+    same order on every process) and of ``fault``, the message of a
+    guard this process tripped on its own state ("" for none). Raises
+    ValueError on every process together when a process reports a fault
+    or a named input differs, so no process is left waiting in a later
+    exchange. On a mesh of this process's alone, or inside
+    :func:`exchanges_dropped`, nothing is exchanged and only ``fault``
+    raises."""
+    if not mesh.spans_processes or _dropped:
+        if fault:
+            raise ValueError(fault)
+        return
+    ((group, pg),) = _cross_groups(mesh, axis)
+    procs = _owners(mesh, group)
+    note = fault.encode()[:_FAULT_BYTES].ljust(_FAULT_BYTES, b"\0")
+    rec = torch.frombuffer(bytearray(b"".join(digests.values()) + note),
+                           dtype=torch.uint8)
+    t0 = time.perf_counter()
+    payload = to_bytes(rec.to(mesh.local_devices()[0]), mesh.backend)
+    bufs = [torch.empty_like(payload) for _ in procs]
+    _dist().all_gather(bufs, payload, group=pg)
+    recs = [bytes(b.cpu().numpy()) for b in bufs]
+    EXCHANGES["calls"] += 1
+    EXCHANGES["bytes"] += payload.numel()
+    EXCHANGES["seconds"] += time.perf_counter() - t0
+    faults = [(p, r[-_FAULT_BYTES:].rstrip(b"\0").decode(errors="replace"))
+              for p, r in zip(procs, recs) if r[-_FAULT_BYTES:].strip(b"\0")]
+    if faults:
+        raise ValueError("refused on every process: " + "; ".join(
+            f"process {p}: {m}" for p, m in faults))
+    differ, at = [], 0
+    for name, d in digests.items():
+        if len({r[at:at + len(d)] for r in recs}) > 1:
+            differ.append(name)
+        at += len(d)
+    if differ:
+        raise ValueError(
+            f"processes {list(procs)} pass different values of "
+            f"{', '.join(differ)}: every process must pass the same value, "
+            "as every JAX process passes the same host value to a sharding "
+            "across processes")
 
 
 def _as_sharded(x, mesh: Mesh, axis: str) -> ShardedTensor:

@@ -79,8 +79,9 @@ from ..ops._batch import (
 from ..ops.coding import _decode, _lu_solve
 from ..ops.hierarchical import decode_groups
 from ..pool import AsyncPool
-from .collectives import reduce_scatter, ring_pass
+from .collectives import agree, digest, over_pool, reduce_scatter, ring_pass
 from .mesh import Mesh, PartitionSpec, from_local, shard
+from .multihost import local_worker_indices
 
 __all__ = ["DeviceCoordinator", "stage_delays"]
 
@@ -173,6 +174,22 @@ class DeviceCoordinator:
     reduce-scatter per epoch places source block j on rank j, and the
     last epoch's blocks ride the ring all-gather back to every rank.
     It runs eagerly; the flat path is the one captured into a graph.
+
+    A mesh from :func:`~.multihost.make_multihost_mesh` may span
+    processes, as the JAX window's ``shard_map`` program does under
+    multi-controller JAX: every process builds the coordinator from the
+    whole (n, r, d) stack and runs each window with the same payload and
+    schedule, drives its own ranks, and crosses processes in the
+    reduce-scatter and the ring (:func:`~.collectives.over_pool`). Those
+    inputs are held equal as JAX's ``device_put`` holds them: one digest
+    exchange at construction (the blocks and ``G``) and one a window
+    (the payload, the staged schedule, the epoch range, the carry),
+    which also carries the guards that read this process's own pool, so
+    every process raises together. ``repochs``, the pool's end state and
+    ``last_window`` are then the same on every process;
+    ``pool.results`` holds the fresh results of this process's workers
+    only (:func:`~.multihost.local_worker_indices`), and
+    ``last_window["last_full"]`` is its first rank's copy.
 
     ``device=`` is where a flat window runs: the blocks' device when
     they are a tensor, else the card (``_device.resolve_device``).
@@ -302,8 +319,11 @@ class DeviceCoordinator:
                     f"the stack holds {n} worker blocks (one worker "
                     "per device)"
                 )
-            self.devices = mesh.axis_devices(axis)
+            self.devices = mesh.local_axis_devices(axis)
             self.device = self.devices[0]
+            # every process passes the same stack and code
+            agree(mesh, axis, {"the blocks": digest(blocks),
+                               "the generator G": digest(self.G)})
             # placed once: worker i's coded block lives on rank i for
             # every window this coordinator ever runs
             op = operand_dtype(blocks.dtype, self.precision)
@@ -537,12 +557,14 @@ class DeviceCoordinator:
     def _mesh_window(self, payload, delays, e_arr, active, dspe, arr, rep,
                      T):
         """The sharded window: worker shards stay on their ranks, the
-        recurrence runs replicated on every rank's device, the decode is
-        one masked-weight reduce-scatter per epoch (block j on rank j,
-        blocks >= k zero: the collectives layout), and the last epoch's
-        blocks return to every rank over the ring."""
+        recurrence runs replicated on every local rank's device, the
+        decode is one masked-weight reduce-scatter per epoch (block j on
+        rank j, blocks >= k zero: the collectives layout), and the last
+        epoch's blocks return to every rank over the ring. Each process
+        runs its own ranks; the two collectives cross processes."""
         n, k, r = self.n, self.k, self.block_rows
-        devs = self.devices
+        mesh, axis = self.mesh, self.axis
+        ranks, devs = mesh.local_ranks(), self.devices
         K = delays.shape[0]
         per_epoch = payload.dim() == 3
         # the replicated operands, once per distinct device
@@ -554,8 +576,8 @@ class DeviceCoordinator:
                                (active, dspe, arr, rep, T))
         rep_hist = torch.empty((K, n), dtype=rep.dtype, device=devs[0])
         t_hist = torch.empty(K, dtype=T.dtype, device=devs[0])
-        dec_hist = [[] for _ in range(n)]
-        shard_w = [None] * n
+        dec_hist = [[] for _ in ranks]
+        shard_w = [None] * len(ranks)
         for j in range(K):
             weights = {}
             for dev, st in state.items():
@@ -573,29 +595,31 @@ class DeviceCoordinator:
                 W[:k].index_copy_(1, sel, inv)
                 weights[dev] = W
             parts = []
-            for w, dev in enumerate(devs):
+            for i, (w, dev) in enumerate(zip(ranks, devs)):
                 p_w = staged[dev][0]
-                shard_w[w] = matmul(self._blocks.local(w)[0],
+                shard_w[i] = matmul(self._blocks.local(w)[0],
                                     p_w[j] if per_epoch else p_w,
                                     self.precision)
-                W = weights[dev].to(shard_w[w].dtype)
-                parts.append(W[:, w, None, None] * shard_w[w][None])
-            for w, blk in enumerate(reduce_scatter(parts, devs)):
-                dec_hist[w].append(blk)
+                W = weights[dev].to(shard_w[i].dtype)
+                parts.append(W[:, w, None, None] * shard_w[i][None])
+            for i, blk in enumerate(over_pool(reduce_scatter, parts, mesh,
+                                              axis)):
+                dec_hist[i].append(blk)
             st0 = state[devs[0]]
             rep_hist[j].copy_(st0[3])
             t_hist[j].copy_(st0[4])
         cols = shard_w[0].shape[-1]
-        dec = from_local(self.mesh, PartitionSpec(None, self.axis),
+        dec = from_local(mesh, PartitionSpec(None, axis),
                          [torch.stack(h) for h in dec_hist],  # (K, 1, r, c)
                          (K, n, r, cols))
-        shards_last = from_local(self.mesh, PartitionSpec(self.axis),
+        shards_last = from_local(mesh, PartitionSpec(axis),
                                  [s[None] for s in shard_w], (n, r, cols))
         # ring all-gather of the final decoded blocks: every rank leaves
         # the window holding the full product
-        full = ring_pass([h[-1][0] for h in dec_hist], devs)
+        full = over_pool(ring_pass, [h[-1][0] for h in dec_hist], mesh,
+                         axis)
         last_full = from_local(
-            self.mesh, PartitionSpec(self.axis),
+            mesh, PartitionSpec(axis),
             [f[:k].reshape(1, k * r, cols) for f in full],
             (n, k * r, cols))
         return state[devs[0]], (rep_hist, dec, t_hist), shards_last, \
@@ -686,6 +710,11 @@ class DeviceCoordinator:
         ``sendbuf``: one (d, cols) payload broadcast to every epoch of
         the window, or an (epochs, d, cols) stack staging per-epoch
         payloads up front.
+
+        Over a mesh that spans processes every process calls this with
+        the same arguments: the guards on arguments raise before any
+        exchange, and the ones on this process's pool ride the window's
+        digest exchange, so all raise together.
         """
         epochs = int(epochs)
         if epochs < 1:
@@ -706,8 +735,22 @@ class DeviceCoordinator:
             )
         delays = stage_delays(self.delay_fn, self.n, epoch0, epochs)
         e_arr = np.arange(epoch0, epoch0 + epochs, dtype=np.int64)
-        carry = self._initial_carry(pool)
+        spans = self.mesh is not None and self.mesh.spans_processes
+        carry, fault = None, ""
+        try:
+            carry = self._initial_carry(pool)
+        except ValueError as e:
+            if not spans:
+                raise
+            fault = str(e)
         T0 = self._carry_T if carry is self._carry else 0.0
+        if spans:
+            agree(self.mesh, self.axis, {
+                "the payload": digest(payload),
+                "the delay schedule": digest(delays),
+                "the epoch range": digest(epoch0, epochs),
+                "the carry": digest(T0, *(carry or ())),
+            }, fault)
         dev = self.device
         args = (payload.to(dev), torch.from_numpy(delays).to(dev),
                 torch.from_numpy(e_arr).to(dev), *carry)
@@ -740,11 +783,14 @@ class DeviceCoordinator:
         pool.sepochs[:] = carry_out[1].cpu().numpy()
         pool.active[:] = carry_out[0].cpu().numpy()
         if store_results:
-            for i in np.flatnonzero(rep_np[-1] == pool.epoch):
-                pool.results[int(i)] = (
-                    shards_last[int(i)] if last_full is None
-                    else shards_last.local(int(i))[0]
-                )
+            fresh = np.flatnonzero(rep_np[-1] == pool.epoch)
+            if last_full is None:
+                for i in fresh:
+                    pool.results[int(i)] = shards_last[int(i)]
+            else:  # this process's workers only
+                for i in np.intersect1d(
+                        fresh, local_worker_indices(self.mesh, self.axis)):
+                    pool.results[int(i)] = shards_last.local(int(i))[0]
         self.last_decoded = dec_hist
         t_np = t_hist.cpu().numpy()
         self._carry_T = float(t_np[-1])
@@ -754,7 +800,7 @@ class DeviceCoordinator:
             "virtual_s": float(t_np[-1] - T0),
             "epoch_ends": t_np,
             "last_full": None if last_full is None
-            else last_full.local(0)[0],
+            else last_full.local(self.mesh.local_ranks()[0])[0],
         }
         dt = time.perf_counter() - t0
         if self._m is not None:
@@ -773,7 +819,11 @@ class DeviceCoordinator:
     def full(self, decoded) -> np.ndarray:
         """Host gather of one epoch's decoded product -> (rows, cols):
         flat windows already emit the stacked source rows; mesh windows
-        emit the collectives layout (n, r, c) with blocks >= k zero."""
+        emit the collectives layout (n, r, c) with blocks >= k zero.
+        Over a mesh that spans processes, ``np.asarray`` of
+        :attr:`last_decoded` and this method given a ShardedTensor
+        gather collectively (``ShardedTensor.gather``): every process
+        calls them, in the same order."""
         if isinstance(decoded, torch.Tensor):
             decoded = decoded.detach().cpu()
         out = np.asarray(decoded)

@@ -25,6 +25,17 @@ Contrast with the two unfused paths:
 
 The combine is weight-masked, so the values on stale ranks never affect
 the output, but every rank still takes part in the collective.
+
+**One process.** :class:`PoolMeshCodedGemm`, :class:`PoolMeshMatDotGemm`
+and :func:`select_coded_gemm` run over a mesh that one process drives
+whole, as the JAX package's do, and refuse one that spans processes
+(``Mesh.axis_devices``): the map step's fastest-k set is decided by one
+process's ``asyncmap`` from the arrivals its own dispatcher threads
+see, and nothing makes the processes agree on an arrival mask, so each
+would combine with weights of its own. A
+:class:`~.device_coord.DeviceCoordinator` given the coded blocks and
+such a mesh (``mesh=``) runs the coded window across processes: its
+arrivals come from a staged schedule held equal on every process.
 """
 
 from __future__ import annotations
@@ -204,7 +215,7 @@ class PoolMeshCodedGemm:
             raise ValueError(f"rows {m} must divide evenly into k={k} blocks")
         self.mesh = mesh
         self.axis = axis
-        axis_devs = mesh.axis_devices(axis)
+        axis_devs = mesh.axis_devices(axis, "PoolMeshCodedGemm")
         # blocked worker -> rank map: group g = workers [g*fold, ...)
         self.devices = [axis_devs[i // fold] for i in range(n)]
         self._ranks = axis_devs
@@ -377,7 +388,7 @@ class PoolMeshMatDotGemm:
             )
         self.mesh = mesh
         self.axis = axis
-        self.devices = mesh.axis_devices(axis)
+        self.devices = mesh.axis_devices(axis, "PoolMeshMatDotGemm")
         self.code = MatDotCode(p, n, dtype=_np_dtype(A))
         self.p, self.n, self.k = p, n, self.code.k
         self.precision = check_precision(precision)
@@ -527,7 +538,7 @@ def select_coded_gemm(
     # the fused candidate's mesh axis (dropping it here would break every
     # non-default-axis mesh inside PoolMeshCodedGemm)
     axis = kw.pop("axis", "w")
-    devices = mesh.axis_devices(axis)
+    devices = mesh.axis_devices(axis, "select_coded_gemm")
     n = int(n_workers) if n_workers is not None else len(devices)
     fused = PoolMeshCodedGemm(A, mesh, k, n_workers=n, axis=axis, **kw)
     dev_map = [devices[i * len(devices) // n] for i in range(n)]

@@ -29,9 +29,10 @@ indexed by position in that list (on a single-controller mesh it is
 and :func:`from_local` fill only the local positions (a
 :class:`ShardedTensor` holds None at another process's), and
 :meth:`ShardedTensor.gather` is a collective: every process calls it
-and gets the whole value. The entry points that do not run across
-processes yet call :meth:`Mesh.require_local`, which names the
-ROADMAP item that brings them.
+and gets the whole value. The pool-fused GEMMs of :mod:`.fused`, which
+run over a mesh of one process's alone as the JAX package's do, call
+:meth:`Mesh.require_local`, which says why and names what runs across
+processes instead.
 """
 
 from __future__ import annotations
@@ -149,21 +150,30 @@ class Mesh:
 
     def require_local(self, what: str = "this entry point") -> None:
         """Raise unless this process drives every position: ``what``
-        runs over a mesh of this process's alone."""
+        runs over a mesh of this process's alone. That is the JAX
+        package's limit for the pool-fused GEMMs: their map step is a
+        host ``asyncmap`` whose fastest-k set one process's pool
+        decides, and no exchange makes the processes agree on it."""
         me = _process_index()
         others = sorted({int(p) for p in self.process_index.flat} - {me})
         if others:
             raise ValueError(
                 f"mesh positions are driven by process(es) {others}, not "
                 f"by this one ({me}): {what} runs over a mesh that one "
-                "process drives whole, and across processes it is ROADMAP "
-                "item 18h (the rest of the mesh plane across processes)")
+                "process drives whole, as in the JAX package: its fastest-k "
+                "set is decided by one process's asyncmap from the "
+                "arrivals its own threads see, and no exchange makes the "
+                "processes agree on it. DeviceCoordinator(mesh=...) runs "
+                "the coded window across processes, and "
+                "local_worker_indices(mesh) names this process's workers")
 
-    def axis_devices(self, axis: str) -> list:
+    def axis_devices(self, axis: str,
+                     what: str = "this entry point") -> list:
         """The devices along ``axis`` of a 1-D mesh that this process
-        drives whole, in rank order (the pool-fused GEMMs and the device
-        coordinator's mesh window)."""
-        self.require_local()
+        drives whole, in rank order (the pool-fused GEMMs, named by
+        ``what``): raises through :meth:`require_local` over a mesh that
+        spans processes."""
+        self.require_local(what)
         return self.local_axis_devices(axis)
 
     def local_axis_devices(self, axis: str) -> list:

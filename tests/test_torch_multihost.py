@@ -128,9 +128,10 @@ def test_multihost_mesh_drives_collectives():
 def test_mesh_plane_refuses_positions_of_another_process(entry):
     # a mesh whose positions 4..7 are driven by a process absent from
     # this job of one serves the ownership reads only: sharding and
-    # every collective over it raise, naming the absent process; the
-    # pool-fused GEMM and the device coordinator refuse any mesh with
-    # another process's positions, naming the item that brings them
+    # every collective over it raise, naming the absent process, and so
+    # does the device coordinator, whose window runs across processes;
+    # the pool-fused GEMM refuses any mesh with another process's
+    # positions, naming the JAX package's one-process limit
     from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
     from mpistragglers_jl_tpu_torch.parallel import (
         DeviceCoordinator, Mesh, MeshCodedGemm, MeshMatDotGemm,
@@ -159,10 +160,12 @@ def test_mesh_plane_refuses_positions_of_another_process(entry):
             np.ones((8, 2, 4)), decode="mds",
             G=MDSCode(8, 6, dtype=np.float64).G, k=6, mesh=m),
     }
-    later = entry in ("PoolMeshCodedGemm", "DeviceCoordinator")
     with pytest.raises(ValueError, match=(
-            r"process\(es\) \[1\], not by this one \(0\).*ROADMAP item 18h"
-            if later else r"process\(es\) \[1\], absent from this job of 1")):
+            r"process\(es\) \[1\], not by this one \(0\): "
+            r"PoolMeshCodedGemm runs over a mesh that one process drives "
+            r"whole, as in the JAX package"
+            if entry == "PoolMeshCodedGemm"
+            else r"process\(es\) \[1\], absent from this job of 1")):
         calls[entry](mixed)
     obj = calls[entry](mine)  # the same call on this process's mesh runs
     if hasattr(obj, "shutdown"):
@@ -363,8 +366,8 @@ def test_two_gloo_ranks_refuse_a_mesh_across_them(two_ranks):
     # over the mesh that spans both processes each rank holds its own
     # block only, and shard, the gather and the masked combine give the
     # global value on both; the pool-fused GEMM refuses the mesh, naming
-    # the other process and ROADMAP item 18h; a mesh of the rank's own
-    # devices shards and gathers back
+    # the other process and the JAX package's one-process limit; a mesh
+    # of the rank's own devices shards and gathers back
     w = np.array([[1.0, 2.0], [3.0, 4.0]])
     x3 = np.arange(8.0).reshape(2, 2, 2)
     want = np.einsum("jl,lrc->jrc", w, x3).tolist()
@@ -377,7 +380,10 @@ def test_two_gloo_ranks_refuse_a_mesh_across_them(two_ranks):
         assert r["combine_gather"] == want
         msg = r["refused_pool_fused"]
         assert f"process(es) [{other}], not by this one ({r['rank']})" in msg
-        assert "ROADMAP item 18h" in msg
+        assert ("PoolMeshCodedGemm runs over a mesh that one process drives "
+                "whole, as in the JAX package") in msg
+        assert "DeviceCoordinator(mesh=...)" in msg
+        assert "ROADMAP" not in msg and "item " not in msg
         assert r["own_owners"] == [r["rank"]] * 2
         assert r["own_gather"] == [[0.0, 1.0], [2.0, 3.0]]
 

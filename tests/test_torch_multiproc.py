@@ -1,11 +1,12 @@
 """The port's mesh plane across processes (``parallel/multihost.py``,
-``mesh.py``, ``collectives.py``, ``mesh_gemm.py``; the sharded train
-step and sharded generation of ``models/transformer.py`` and
-``models/decode.py``) over ``gloo`` processes on the CPU.
+``mesh.py``, ``collectives.py``, ``mesh_gemm.py``, ``device_coord.py``;
+the sharded train step and sharded generation of
+``models/transformer.py`` and ``models/decode.py``) over ``gloo``
+processes on the CPU.
 
 Two spawns, once for the module, each with a timeout of its own: two
-processes run the slice, four run the collective cases only. Each
-child is this file run as a script (it imports no JAX): it joins the
+processes run the slice, four run the collective and window cases
+only. Each child is this file run as a script (it imports no JAX): it joins the
 job with ``initialize_multihost``, builds meshes with
 ``make_multihost_mesh`` that span the processes, runs the programs on
 them, and runs the same programs on a single-controller mesh of eight
@@ -27,10 +28,17 @@ CPU ranks in its own process and thread setting. The parent holds
   and ``ring_shift`` with their backwards over 2 and 4 processes, on
   integer-valued inputs (every sum exact), bit for bit;
 * a control: with the cross-process bytes dropped the loss changes;
-* the backend choice; the entry points of ROADMAP item 18h's parts (i)
-  and (ii) running over a mesh that spans processes (their values are
-  held in ``tests/test_torch_multiproc_models.py``), and those of part
-  (iii), which stay single-process, refusing it by name.
+* the device coordinator's mesh window (``parallel/device_coord.py``)
+  over ("w",) of 8 across 2 and 4 processes, MDS (8, 6) in f64: one
+  window, two back to back, per-epoch payloads and ``backend=``, bit for
+  bit against the single-controller window and against the JAX
+  package's mesh window (histories equal, products within 1e-9 of JAX's
+  and of ``A @ B``), each process's ``pool.results`` holding its own
+  workers' only, and every guard raising on every process together;
+* the backend choice; the entry points that once refused a mesh across
+  processes running over one (the models' values are held in
+  ``tests/test_torch_multiproc_models.py``), and the pool-fused GEMM,
+  which keeps the JAX package's one-process limit, refusing it by name.
 
 Run a child by hand: ``python tests/test_torch_multiproc.py slice
 127.0.0.1:<port> <rank> <out.pkl>`` in two shells (``collectives4``:
@@ -76,9 +84,30 @@ FWD, TOL = 2e-4, 1e-5
 LATER = ["moe", "moe_ffn_sharded", "pipeline", "speculative",
          "serving_scan", "ring_generate", "pool_fused",
          "device_coordinator", "checkpoint"]
-# item 18h's parts (i) and (ii): these now run across processes
+# these run across processes; the pool-fused GEMM keeps the JAX
+# package's one-process limit
 RUNS = {"moe", "moe_ffn_sharded", "pipeline", "speculative", "serving_scan",
-        "ring_generate", "checkpoint"}
+        "ring_generate", "checkpoint", "device_coordinator"}
+# the device coordinator's mesh window over ("w",) of 8, MDS (8, 6) in
+# f64: the windows each case runs back to back, by K
+WIN_N, WIN_K = 8, 6
+WIN_CASES = {"k6": (6,), "k6k4": (6, 4), "per_epoch": (6,),
+             "backend": (6,)}
+# the guards: what each process's message holds (``last``: the last
+# process, the one whose own pool trips the guard)
+WIN_GUARDS = {
+    "epochs0": lambda last: "epochs must be >= 1, got 0",
+    "pool_size": lambda last: "pool has 7 workers but this window is laid "
+                              "out for 8",
+    "staged_count": lambda last: "staged payloads carry 5 epochs but the "
+                                 "window runs 6",
+    "quiescent": lambda last: f"refused on every process: process {last}: "
+                              "pool has in-flight host-loop work",
+    "diverged_carry": lambda last: f"refused on every process: process "
+                                   f"{last}: pool state diverged",
+    "delay_fn": lambda last: "pass different values of the delay schedule",
+    "blocks": lambda last: "pass different values of the blocks",
+}
 
 
 def _tokens(vocab, shape, seed):
@@ -245,8 +274,8 @@ def _gemm_cases(mh) -> dict:
 
 
 def _later_refusals(mh) -> dict:
-    """Each entry point of ROADMAP item 18h over a mesh that spans the
-    processes: "ran", or its error message."""
+    """Each entry point that once refused a mesh across processes, over
+    one that spans them: "ran", or its error message."""
     from mpistragglers_jl_tpu_torch.models import decode as td
     from mpistragglers_jl_tpu_torch.models import serving as sv
     from mpistragglers_jl_tpu_torch.models import speculative as tsp
@@ -310,6 +339,115 @@ def _later_refusals(mh) -> dict:
     return out
 
 
+def _win_inputs():
+    """A (18, 16) and B (16, 5) in f64, and an (6, 16, 5) payload stack."""
+    rng = np.random.default_rng(21)
+    return (rng.standard_normal((WIN_K * 3, 16)),
+            rng.standard_normal((16, 5)), rng.standard_normal((6, 16, 5)))
+
+
+def _win_delay(faults, extra=0.0):
+    """``tests/test_torch_device_coord.py``'s schedule: seeded lognormal,
+    worker 2 straggling by 30 s; ``extra`` more on worker 0."""
+    base = faults.seeded_lognormal(0.01, 0.7, seed=3)
+
+    def fn(w, e):
+        return base(w, e) + (30.0 if w == 2 else 0.0) + (
+            extra if w == 0 else 0.0)
+
+    return fn
+
+
+def _window_cases(mh, n_proc) -> dict:
+    """The device coordinator's mesh window over ("w",) of 8 across the
+    processes ("x") and on the single-controller mesh of eight CPU ranks
+    ("s"), per case of :data:`WIN_CASES`; then each guard of
+    :data:`WIN_GUARDS` on "x", and a window after them."""
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap_fused
+    from mpistragglers_jl_tpu_torch.backends.cuda import CUDADeviceBackend
+    from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
+    from mpistragglers_jl_tpu_torch.parallel import (
+        DeviceCoordinator, make_mesh)
+    from mpistragglers_jl_tpu_torch.parallel import collectives as col
+    from mpistragglers_jl_tpu_torch.utils import faults
+
+    A, Bm, Bs = _win_inputs()
+    code = MDSCode(WIN_N, WIN_K, dtype=np.float64)
+    blocks = code.encode_array(torch.from_numpy(A))
+    meshes = {"x": mh.make_multihost_mesh(
+        WIN_N, devices=["cpu"] * (WIN_N // n_proc)),
+        "s": make_mesh(WIN_N, devices=["cpu"] * WIN_N)}
+
+    def coord(mesh, blk=blocks, extra=0.0, backend=None):
+        return DeviceCoordinator(blk, decode="mds", G=code.G, k=WIN_K,
+                                 mesh=mesh, delay_fn=_win_delay(faults, extra),
+                                 backend=backend)
+
+    out = {}
+    for case, windows in WIN_CASES.items():
+        for tag, mesh in meshes.items():
+            backend = None
+            if case == "backend":  # over this process's own devices
+                backend = CUDADeviceBackend(lambda i, p, e: None, WIN_N,
+                                            devices=mesh.local_devices())
+            c = coord(mesh, backend=backend)
+            pool = AsyncPool(WIN_N)
+            pool.results = ["untouched"] * WIN_N
+            runs = []
+            for K in windows:
+                col.zero_exchanges()
+                hist = asyncmap_fused(pool, Bs if case == "per_epoch" else Bm,
+                                      c, epochs=K)
+                calls = col.EXCHANGES["calls"]
+                every = np.asarray(c.last_decoded)  # collective: all call it
+                runs.append({
+                    "hist": hist, "exchanges": calls,
+                    "local": {r: _np(c.last_decoded.local(r))
+                              for r in mesh.local_ranks()},
+                    "decoded": [c.full(every[j]) for j in range(K)],
+                    "last_full": _np(c.last_window["last_full"]),
+                    "epoch_ends": c.last_window["epoch_ends"]})
+            if backend is not None:
+                backend.shutdown()
+            out[case, tag] = {
+                "runs": runs, "workers": mh.local_worker_indices(mesh),
+                "pool": {"epoch": pool.epoch, "repochs": pool.repochs.copy(),
+                         "sepochs": pool.sepochs.copy(),
+                         "active": pool.active.copy()},
+                "results": [r if isinstance(r, str) else _np(r)
+                            for r in pool.results]}
+    me, last, x = mh.process_index(), n_proc - 1, meshes["x"]
+    c = coord(x)
+    busy = AsyncPool(WIN_N)
+    busy.active[0] = me == last
+    stepped = AsyncPool(WIN_N)
+    guards = {
+        "epochs0": lambda: c.run_window(AsyncPool(WIN_N), Bm, epochs=0),
+        "pool_size": lambda: c.run_window(AsyncPool(WIN_N - 1), Bm,
+                                          epochs=2),
+        "staged_count": lambda: c.run_window(AsyncPool(WIN_N), Bs[:5],
+                                             epochs=6),
+        "quiescent": lambda: c.run_window(busy, Bm, epochs=2),
+        "diverged_carry": lambda: c.run_window(stepped, Bm, epochs=2),
+        "delay_fn": lambda: coord(x, extra=0.5 * me).run_window(
+            AsyncPool(WIN_N), Bm, epochs=2),
+        "blocks": lambda: coord(x, blk=blocks + me),
+    }
+    out["guards"] = {}
+    for name, call in guards.items():
+        if name == "diverged_carry":  # a window, then the last edits it
+            c.run_window(stepped, Bm, epochs=2)
+            stepped.sepochs[3] += me == last
+        try:
+            call()
+            out["guards"][name] = "ran"
+        except ValueError as e:
+            out["guards"][name] = str(e)
+    c.reset()  # and the job goes on
+    out["after"] = c.run_window(AsyncPool(WIN_N), Bm, epochs=2)
+    return out
+
+
 def _child(role, addr, rank, path) -> None:
     torch.set_num_threads(1)
     from mpistragglers_jl_tpu_torch.parallel import multihost as mh
@@ -326,6 +464,7 @@ def _child(role, addr, rank, path) -> None:
                             device="cpu")
     res["backend"] = mh.backend()
     res["collectives"] = _collective_cases(n_proc)
+    res["window"] = _window_cases(mh, n_proc)
     if role == "slice":
         res["train"] = _train_cases(mh)
         res["gen"] = _gen_cases(mh)
@@ -619,18 +758,154 @@ def test_mesh_gemms_across_processes(slice_):
             np.testing.assert_array_equal(x[k], s[k])
 
 
-# -- item 18h's entry points -----------------------------------------------------
+# -- the device coordinator's mesh window ---------------------------------------
+
+
+def _window_runs(runs, n_proc) -> list:
+    return [res["window"] for res in
+            runs("slice" if n_proc == 2 else "collectives4")]
+
+
+@pytest.mark.parametrize("case", list(WIN_CASES))
+@pytest.mark.parametrize("n_proc", [2, 4])
+def test_mesh_window_across_processes_equals_single_controller(runs, n_proc,
+                                                               case):
+    """Each window's history, each process's decoded blocks, the
+    gathered products, ``last_full`` and the pool's end state equal the
+    single-controller window's bit for bit; a window makes K
+    reduce-scatters, one ring and one digest exchange across processes,
+    and the processes together hold every rank."""
+    ranks = []
+    for res in _window_runs(runs, n_proc):
+        x, s = res[case, "x"], res[case, "s"]
+        assert len(x["runs"]) == len(WIN_CASES[case])
+        for K, a, b in zip(WIN_CASES[case], x["runs"], s["runs"]):
+            np.testing.assert_array_equal(a["hist"], b["hist"])
+            np.testing.assert_array_equal(a["epoch_ends"], b["epoch_ends"])
+            assert (a["exchanges"], b["exchanges"]) == (K + 2, 0)
+            for r, blk in a["local"].items():
+                np.testing.assert_array_equal(blk, b["local"][r])
+            for u, v in zip(a["decoded"], b["decoded"]):
+                np.testing.assert_array_equal(u, v)
+            np.testing.assert_array_equal(a["last_full"], b["last_full"])
+        for key, v in x["pool"].items():
+            np.testing.assert_array_equal(v, s["pool"][key], err_msg=key)
+        ranks += list(x["runs"][0]["local"])
+    assert sorted(ranks) == list(range(WIN_N))
+
+
+@pytest.fixture(scope="module")
+def jax_windows():
+    """The JAX package's ``DeviceCoordinator`` mesh window on its 8 host
+    devices, per case (``backend`` runs as ``k6``): the histories, every
+    epoch's product and ``last_full``."""
+    from mpistragglers_jl_tpu import AsyncPool as JPool
+    from mpistragglers_jl_tpu import asyncmap_fused as j_fused
+    from mpistragglers_jl_tpu.parallel import PoolMeshCodedGemm as JPMCG
+    from mpistragglers_jl_tpu.parallel import make_mesh as jmake_mesh
+    from mpistragglers_jl_tpu.utils import faults as jfaults
+
+    A, Bm, Bs = _win_inputs()
+    fg = JPMCG(A, jmake_mesh(WIN_N), WIN_K, dtype=np.float64)
+    out = {}
+    try:
+        for case, windows in WIN_CASES.items():
+            coord = fg.device_coordinator(delay_fn=_win_delay(jfaults))
+            pool, got = JPool(WIN_N), []
+            for K in windows:
+                hist = j_fused(pool, Bs if case == "per_epoch" else Bm,
+                               coord, epochs=K)
+                every = np.asarray(coord.last_decoded)
+                got.append({"hist": hist,
+                            "decoded": [coord.full(every[j])
+                                        for j in range(K)],
+                            "last_full": np.asarray(
+                                coord.last_window["last_full"])})
+            out[case] = got
+    finally:
+        fg.shutdown()
+    return out
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("case", list(WIN_CASES))
+@pytest.mark.parametrize("n_proc", [2, 4])
+def test_mesh_window_across_processes_matches_jax(runs, jax_windows, n_proc,
+                                                  case):
+    """The histories equal the JAX package's mesh window's; every epoch's
+    product and ``last_full`` lie within 1e-9 (relative) of JAX's and of
+    ``A @ B``, the bound of ``tests/test_device_coord.py``."""
+    A, Bm, Bs = _win_inputs()
+    for res in _window_runs(runs, n_proc):
+        got = res[case, "x"]["runs"]
+        for a, w in zip(got, jax_windows[case]):
+            np.testing.assert_array_equal(a["hist"], w["hist"])
+            for j, (u, v) in enumerate(zip(a["decoded"], w["decoded"])):
+                exact = A @ (Bs[j] if case == "per_epoch" else Bm)
+                assert _rel(u, v) < 1e-9 and _rel(u, exact) < 1e-9, j
+            exact = A @ (Bs[-1] if case == "per_epoch" else Bm)
+            assert _rel(a["last_full"], w["last_full"]) < 1e-9
+            assert _rel(a["last_full"], exact) < 1e-9
+
+
+@pytest.mark.parametrize("n_proc", [2, 4])
+def test_mesh_window_stores_only_this_process_results(runs, n_proc):
+    """``pool.results`` holds, on each process, the fresh results of its
+    own workers (bit-equal to the single-controller pool's) and leaves
+    every other entry as it was."""
+    for case in WIN_CASES:
+        mine = []
+        for res in _window_runs(runs, n_proc):
+            x, s = res[case, "x"], res[case, "s"]
+            assert len(x["workers"]) == WIN_N // n_proc
+            mine += x["workers"]
+            for i, (u, v) in enumerate(zip(x["results"], s["results"])):
+                if i not in x["workers"]:
+                    assert isinstance(u, str) and u == "untouched", (case, i)
+                elif isinstance(v, str):
+                    assert u == v, (case, i)
+                else:
+                    np.testing.assert_array_equal(u, v)
+            fresh = np.flatnonzero(x["runs"][-1]["hist"][-1]
+                                   == x["pool"]["epoch"])
+            assert all(not isinstance(x["results"][i], str)
+                       for i in fresh if i in x["workers"])
+        assert sorted(mine) == list(range(WIN_N))
+
+
+@pytest.mark.parametrize("guard", list(WIN_GUARDS))
+@pytest.mark.parametrize("n_proc", [2, 4])
+def test_mesh_window_guards_raise_on_every_process(runs, n_proc, guard):
+    """A guard raises on every process together, also when only the
+    last process's own pool, schedule or blocks trip it, and the job
+    goes on: a window after them runs on every process alike."""
+    got = _window_runs(runs, n_proc)
+    want = WIN_GUARDS[guard](n_proc - 1)
+    for res in got:
+        assert want in res["guards"][guard], res["guards"][guard]
+        np.testing.assert_array_equal(res["after"], got[0]["after"])
+
+
+# -- the entry points that once refused a mesh across processes -------------------
 
 
 @pytest.mark.parametrize("entry", LATER)
 def test_later_entry_points_refuse_a_mesh_across_processes(slice_, entry):
+    """Every entry point but the pool-fused GEMM runs over a mesh that
+    spans the processes; the pool-fused GEMM refuses it, naming the
+    other process and the JAX package's one-process limit."""
     for r, res in enumerate(slice_):
         msg = res["later"][entry]
         if entry in RUNS:
             assert msg == "ran", msg
             continue
         assert f"process(es) [{1 - r}], not by this one ({r})" in msg, msg
-        assert "ROADMAP item 18h" in msg, msg
+        assert ("PoolMeshCodedGemm runs over a mesh that one process drives "
+                "whole, as in the JAX package") in msg, msg
+        assert "ROADMAP" not in msg and "item " not in msg, msg
 
 
 if __name__ == "__main__":

@@ -680,8 +680,8 @@ def test_one_trace_gives_equal_decisions_in_both_sims(tmp_path, writer):
 def test_router_half_raises_naming_item_12b():
     """The router-day half of ``sim/`` once raised naming item 12b (see
     :func:`test_router_half_runs` for the calls that run now): no source
-    file of the port names that item any more, and every raise left for
-    a later item names item 18."""
+    file of the port names that item any more, and, with the port's
+    plan of work done, no raise in the port names a ROADMAP item."""
     import ast
     import pathlib
 
@@ -698,7 +698,7 @@ def test_router_half_raises_naming_item_12b():
                     and isinstance(c.value, str))
                 if "ROADMAP" in text or "item " in text:
                     later.append((path.name, text))
-    assert later and all("item 18" in t for _, t in later), later
+    assert later == [], later
 
 
 def test_router_half_runs(tmp_path):

@@ -121,6 +121,10 @@ class Backend(ABC):
     """Minimal transport interface consumed by ``asyncmap``/``waitall``."""
 
     n_workers: int
+    # True for the length of an ``asyncmap`` call whose tracer asks for
+    # spans: the backend then opens its ``mp.*`` ranges
+    # (``obs.timeline.annotate``) on the coordinator's thread
+    spans: bool = False
 
     @abstractmethod
     def dispatch(self, i: int, sendbuf, epoch: int, *, tag: int = 0) -> None:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..obs.timeline import annotate_if
 from .base import _SHUTDOWN, DelayFn, MailboxBackend, WorkerError
 
 __all__ = ["CUDADeviceBackend", "StackedSlice", "WindowHandle", "consume"]
@@ -256,7 +257,8 @@ class CUDADeviceBackend(MailboxBackend):
         key = (self.devices[i], epoch)
         payload = self._payload_cache.get(key)
         if payload is None:
-            payload = self._payload_cache[key] = self._copy(i, sendbuf)
+            with annotate_if(self.spans, "mp.backend.copy"):
+                payload = self._payload_cache[key] = self._copy(i, sendbuf)
         return payload
 
     def _copy(self, i: int, sendbuf) -> _Payload:
@@ -337,6 +339,10 @@ class CUDADeviceBackend(MailboxBackend):
         if self.batch_fn is None or not self._pending:
             return
         pending, self._pending = self._pending, []
+        with annotate_if(self.spans, "mp.pool.flush"):
+            self._submit(pending)
+
+    def _submit(self, pending: list) -> None:
         # one fused program per (device, payload, epoch): members of a
         # group share the payload copy and the epoch (asyncmap's
         # broadcast shares one copy per device, so an epoch is one

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any
 
 __all__ = [
@@ -27,6 +27,7 @@ __all__ = [
     "dump_merged_chrome_trace",
     "merged_chrome_trace",
     "annotate",
+    "annotate_if",
 ]
 
 _US = 1e6
@@ -248,3 +249,31 @@ def annotate(name: str):
                 yield
         else:
             yield
+
+
+_DARK = nullcontext()
+
+
+def annotate_if(on: bool, name: str, worker: int | None = None,
+                epoch: int | None = None):
+    """A profiler range named ``name`` when ``on``, else a shared no-op
+    context: a dark call site pays one boolean check and never enters
+    the profiler.
+
+    Unlike :func:`annotate`, the range is torch's ``_RecordFunctionFast``
+    (a ``cpu_op`` event in the trace, on the profiler's clock) and opens
+    no NVTX range: ``record_function`` enters through the op dispatcher,
+    which lets go of the interpreter lock at each boundary, so on a hot
+    path with other Python threads waiting for it each span hands them
+    the lock and the spans time their own hand-offs. ``worker`` and
+    ``epoch`` go into the name as ``name/w3/e120``, so a trace reader
+    can tie a span to its epoch and task."""
+    if not on:
+        return _DARK
+    from torch._C._profiler import _RecordFunctionFast
+
+    if worker is not None:
+        name = f"{name}/w{worker}"
+    if epoch is not None:
+        name = f"{name}/e{epoch}"
+    return _RecordFunctionFast(name)

@@ -29,6 +29,7 @@ import torch
 
 from ..backends.base import DelayFn
 from ..backends.cuda import CUDADeviceBackend, StackedSlice, consume, consume_stack
+from ..obs.timeline import annotate_if
 from ..pool import AsyncPool
 from ._batch import (
     as_tensor,
@@ -42,18 +43,14 @@ from .gemm import _block_matmul, resolve_devices
 from .lt import LTCode, nwait_lt_decodable
 
 
-def _decode_from_stack(stacked: torch.Tensor, rows, G_S: torch.Tensor):
-    """Gather the k winners out of the fused stack and solve, restacked
-    to the flat (k*r, c) product layout. Consecutive rows (every epoch
-    without a straggler in the systematic part) are a view of the stack,
-    not a copy."""
+def _stack_rows(stacked: torch.Tensor, rows) -> torch.Tensor:
+    """The k winners out of the fused stack. Consecutive rows (every
+    epoch without a straggler in the systematic part) are a view of the
+    stack, not a copy."""
     rows = [int(r) for r in rows]
     if rows == list(range(rows[0], rows[0] + len(rows))):
-        shards = stacked[rows[0]: rows[0] + len(rows)]
-    else:
-        shards = torch.stack([stacked[r] for r in rows])
-    blocks = _decode(G_S, shards)
-    return blocks.reshape(-1, *blocks.shape[2:])
+        return stacked[rows[0]: rows[0] + len(rows)]
+    return torch.stack([stacked[r] for r in rows])
 
 
 def _host(result) -> np.ndarray:
@@ -171,38 +168,45 @@ class CodedGemm:
         return nwait_decodable(self.k)
 
     def result_device(
-        self, pool: AsyncPool, epoch: int | None = None
+        self, pool: AsyncPool, epoch: int | None = None, tracer=None
     ) -> torch.Tensor:
         """Decode the full product from the first k fresh shards, on the
         first device, read on the current stream: ready to feed the next
-        device computation without a host round-trip."""
-        fresh = pool.fresh_indices(epoch)
-        if fresh.size < self.k:
-            raise ValueError(
-                f"only {fresh.size} fresh shards at epoch "
-                f"{pool.epoch if epoch is None else epoch}, need k={self.k}"
-            )
-        idx = fresh[: self.k]
-        if self._m is not None:
-            self._m["decodes"].inc()
-            self._m["fresh_k"].set(fresh.size)
-            for i in idx:
-                self._m["recovered"][int(i)].inc()
-        results = [pool.results[i] for i in idx]
-        dev = self.devices[0]
-        G_S = _rows(self.code.generator(dev), idx)
-        # batch-mode fast path: the k winners are lazy views of ONE
-        # fused stack — decode straight off it, no per-worker slices
-        if all(isinstance(r, StackedSlice) for r in results) and all(
-            r.stacked is results[0].stacked for r in results
-        ):
-            stacked = consume_stack(results[0]).to(dev)
-            return _decode_from_stack(
-                stacked, [r.index for r in results], G_S
-            )
-        # general path: stack the k winners' independent results
-        shards = torch.stack([consume(r).to(dev) for r in results])
-        blocks = _decode(G_S, shards)
+        device computation without a host round-trip.
+
+        A tracer made with ``spans=True`` (``utils.trace.EpochTracer``,
+        as ``asyncmap``'s) opens the decode's spans: ``mp.decode.select``,
+        ``mp.decode.stack`` and those of ``_lu_solve``."""
+        on = getattr(tracer, "spans", False)
+        with annotate_if(on, "mp.decode.select"):
+            fresh = pool.fresh_indices(epoch)
+            if fresh.size < self.k:
+                raise ValueError(
+                    f"only {fresh.size} fresh shards at epoch "
+                    f"{pool.epoch if epoch is None else epoch}, "
+                    f"need k={self.k}"
+                )
+            idx = fresh[: self.k]
+            if self._m is not None:
+                self._m["decodes"].inc()
+                self._m["fresh_k"].set(fresh.size)
+                for i in idx:
+                    self._m["recovered"][int(i)].inc()
+            results = [pool.results[i] for i in idx]
+            dev = self.devices[0]
+            G_S = _rows(self.code.generator(dev), idx)
+        with annotate_if(on, "mp.decode.stack"):
+            # batch-mode fast path: the k winners are lazy views of ONE
+            # fused stack — decode straight off it, no per-worker slices
+            if all(isinstance(r, StackedSlice) for r in results) and all(
+                r.stacked is results[0].stacked for r in results
+            ):
+                stacked = consume_stack(results[0]).to(dev)
+                shards = _stack_rows(stacked, [r.index for r in results])
+            else:
+                # general path: stack the k winners' independent results
+                shards = torch.stack([consume(r).to(dev) for r in results])
+        blocks = _decode(G_S, shards, tracer)
         return blocks.reshape(-1, *blocks.shape[2:])
 
     def result(self, pool: AsyncPool, epoch: int | None = None) -> np.ndarray:
@@ -312,18 +316,24 @@ class LTCodedGemm:
         return self.code.decode_array(shards, ids)
 
     def result_device(
-        self, pool: AsyncPool, epoch: int | None = None
+        self, pool: AsyncPool, epoch: int | None = None, tracer=None
     ) -> torch.Tensor:
         """Decode on the device, leaving the product there.
 
         Peelability of the arrived set implies the 0/1 generator has
         full rank, so the same system solves as one k x k linear solve
-        over a full-rank row subset, the MDS decode's math.
+        over a full-rank row subset, the MDS decode's math. ``tracer``
+        opens the decode's spans, as in :meth:`CodedGemm.result_device`.
         """
-        rows = self.decode_rows(pool, epoch)
+        on = getattr(tracer, "spans", False)
+        with annotate_if(on, "mp.decode.select"):
+            rows = self.decode_rows(pool, epoch)
+            G_S = _rows(self._G, rows)
         dev = self.devices[0]
-        shards = torch.stack([consume(pool.results[i]).to(dev) for i in rows])
-        blocks = _decode(_rows(self._G, rows), shards)
+        with annotate_if(on, "mp.decode.stack"):
+            shards = torch.stack(
+                [consume(pool.results[i]).to(dev) for i in rows])
+        blocks = _decode(G_S, shards, tracer)
         return blocks.reshape(-1, *blocks.shape[2:])
 
     def decode_rows(self, pool: AsyncPool, epoch: int | None = None) -> list:

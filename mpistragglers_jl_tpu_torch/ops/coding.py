@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.timeline import annotate_if
 from ._batch import as_tensor
 
 __all__ = ["MDSCode", "nwait_decodable"]
@@ -47,7 +48,8 @@ def _encode(G: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
 
 
 def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor,
-              rows: torch.Tensor | None = None) -> torch.Tensor:
+              rows: torch.Tensor | None = None,
+              tracer=None) -> torch.Tensor:
     """``G_S X = flat`` by LU with partial pivoting, the algorithm of
     ``jax.scipy.linalg.solve`` and LAPACK's ``gesv``: factor the small
     k x k ``G_S``, permute ``flat``'s rows in one gather, then two
@@ -68,30 +70,39 @@ def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor,
 
     ``rows`` (a device index tensor, 2-D ``flat`` only) solves against
     ``flat[rows]`` instead, with that selection folded into the pivots'
-    gather: one copy of the k right-hand rows, not two."""
-    LU, piv, _ = torch.linalg.lu_factor_ex(G_S)
-    P, L, U = torch.lu_unpack(LU, piv)
-    # G_S = P L U, so L U X = P^T flat, whose row i is flat[perm[i]]
-    perm = P.argmax(dim=-2)
-    if rows is not None:
-        pf = flat.index_select(0, rows.index_select(0, perm))
-    elif flat.dim() == 2:
-        pf = flat.index_select(0, perm)
-    else:
-        batch = torch.arange(flat.shape[0], device=flat.device)
-        pf = flat[batch[:, None], perm]
-    yT = torch.linalg.solve_triangular(L.mT, pf.mT, upper=True, left=False,
-                                       unitriangular=True)
-    return torch.linalg.solve_triangular(U.mT, yT, upper=False,
-                                         left=False).mT
+    gather: one copy of the k right-hand rows, not two.
+
+    A tracer that asks for spans (the caller's ``tracer=``) opens
+    ``mp.decode.factor``, ``mp.decode.gather`` and ``mp.decode.solve``."""
+    on = getattr(tracer, "spans", False)
+    with annotate_if(on, "mp.decode.factor"):
+        LU, piv, _ = torch.linalg.lu_factor_ex(G_S)
+        P, L, U = torch.lu_unpack(LU, piv)
+        # G_S = P L U, so L U X = P^T flat, whose row i is flat[perm[i]]
+        perm = P.argmax(dim=-2)
+    with annotate_if(on, "mp.decode.gather"):
+        if rows is not None:
+            pf = flat.index_select(0, rows.index_select(0, perm))
+        elif flat.dim() == 2:
+            pf = flat.index_select(0, perm)
+        else:
+            batch = torch.arange(flat.shape[0], device=flat.device)
+            pf = flat[batch[:, None], perm]
+    with annotate_if(on, "mp.decode.solve"):
+        yT = torch.linalg.solve_triangular(L.mT, pf.mT, upper=True,
+                                           left=False, unitriangular=True)
+        return torch.linalg.solve_triangular(U.mT, yT, upper=False,
+                                             left=False).mT
 
 
-def _decode(G_S: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
+def _decode(G_S: torch.Tensor, shards: torch.Tensor,
+            tracer=None) -> torch.Tensor:
     # shards: (k, rows, cols) from the k arrived workers; solve
     # G_S @ X = shards for the source blocks X
     k = G_S.shape[0]
     flat = shards.reshape(k, -1)
-    return _lu_solve(G_S.to(flat.dtype), flat).reshape(shards.shape)
+    return _lu_solve(G_S.to(flat.dtype), flat,
+                     tracer=tracer).reshape(shards.shape)
 
 
 def _rows(G: torch.Tensor, idx) -> torch.Tensor:

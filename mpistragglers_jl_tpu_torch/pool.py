@@ -63,6 +63,7 @@ from .backends.base import (  # noqa: F401  (DeadWorkerError re-export)
     WorkerError,
 )
 from .native.codec import tensor_types
+from .obs.timeline import annotate_if
 
 NwaitArg = Union[int, Callable[[int, np.ndarray], bool]]
 
@@ -367,6 +368,14 @@ def asyncmap(
     blows its deadline TRIPS an automatic flight dump before the
     :class:`DeadWorkerError` raises — the artifact for the hang exists
     even though nothing after the raise runs cleanly.
+
+    A tracer made with ``spans=True`` also turns on the call's ``mp.*``
+    spans (``obs.timeline.annotate``, on the profiler's clock), all on
+    this thread: ``mp.pool.drain``, ``mp.pool.dispatch``, one
+    ``mp.pool.wait`` per arrival and ``mp.pool.retask`` here (each named
+    ``<span>/e<epoch>``, a re-task ``/w<worker>/e<epoch>``), and the
+    backend's own, armed for the call (``Backend.spans``). Otherwise no
+    span is opened.
     """
     n = pool.n_workers
     if nwait is None:
@@ -410,6 +419,9 @@ def asyncmap(
     # (reference src/MPIAsyncPools.jl:87)
     pool.epoch = int(epoch)
     backend.begin_epoch(pool.epoch)
+    spans = getattr(tracer, "spans", False)
+    if spans:
+        backend.spans = True
     if tracer is not None:
         tracer.begin("asyncmap", pool.epoch, nwait)
     _t_fl = time.perf_counter() if flight is not None else 0.0
@@ -422,32 +434,34 @@ def asyncmap(
         # PHASE 1 — opportunistic, non-blocking drain of results that
         # arrived since the last call, to keep iterations independent
         # (reference src/MPIAsyncPools.jl:91-114).
-        for i in range(n):
-            if not pool.active[i]:
-                continue
-            result = backend.test(pool.ranks[i], tag=int(pool.stags[i]))
-            if result is None:
-                continue
-            _store(pool, i, result, recvbufs)
-            pool.active[i] = False
-            if tracer is not None:
-                tracer.arrival(
-                    i, pool.repochs[i],
-                    fresh=pool.repochs[i] == pool.epoch, drain=True,
-                )
+        with annotate_if(spans, "mp.pool.drain", epoch=pool.epoch):
+            for i in range(n):
+                if not pool.active[i]:
+                    continue
+                result = backend.test(pool.ranks[i], tag=int(pool.stags[i]))
+                if result is None:
+                    continue
+                _store(pool, i, result, recvbufs)
+                pool.active[i] = False
+                if tracer is not None:
+                    tracer.arrival(
+                        i, pool.repochs[i],
+                        fresh=pool.repochs[i] == pool.epoch, drain=True,
+                    )
 
         # PHASE 2 — dispatch to every idle worker; all workers are active
         # after this loop (reference src/MPIAsyncPools.jl:118-139).
-        for i in range(n):
-            if pool.active[i]:
-                continue
-            _dispatch(pool, backend, i, sendbuf, tag)
-            if tracer is not None:
-                tracer.dispatch(i, pool.epoch)
+        with annotate_if(spans, "mp.pool.dispatch", epoch=pool.epoch):
+            for i in range(n):
+                if pool.active[i]:
+                    continue
+                _dispatch(pool, backend, i, sendbuf, tag)
+                if tracer is not None:
+                    tracer.dispatch(i, pool.epoch)
 
-        # coalescing backends submit buffered dispatches now, in one
-        # program per device (no-op elsewhere)
-        backend.flush()
+            # coalescing backends submit buffered dispatches now, in one
+            # program per device (no-op elsewhere)
+            backend.flush()
 
         # PHASE 3 — collect until satisfied: the hot loop
         # (reference src/MPIAsyncPools.jl:145-185). Only arrivals stamped
@@ -463,47 +477,56 @@ def asyncmap(
             else:
                 if nrecv >= nwait:
                     break
-            # block until any active worker responds
-            # (reference MPI.Waitany! at src/MPIAsyncPools.jl:161)
-            act = np.flatnonzero(pool.active)
-            got = backend.wait_any(
-                [pool.ranks[j] for j in act],
-                timeout=deadline.remaining(),
-                tags=pool.stags[act],
-            )
-            if got is None:
-                # Report backend ranks, not pool indices: a subset pool
-                # over ranks [1,4,5] must name the dead worker as 4, not
-                # the misleading pool-local 1 (advisor r3 finding).
-                dead = [
-                    int(pool.ranks[j]) for j in np.flatnonzero(pool.active)
-                ]
-                if flight is not None:
-                    # the hang postmortem: dump the ring NOW — nothing
-                    # after this raise is guaranteed to run
-                    flight.trip(
-                        f"asyncmap epoch {pool.epoch}: wait past "
-                        f"deadline ({timeout}s), workers {dead} "
-                        "outstanding"
-                    )
-                raise DeadWorkerError(dead, timeout)
-            rank, result = got
-            i = pool._idx_of_rank[rank]
-            _store(pool, i, result, recvbufs)
-            fresh = pool.repochs[i] == pool.epoch
-            if tracer is not None:
-                tracer.arrival(i, pool.repochs[i], fresh=fresh)
-            if fresh:
-                nrecv += 1
-                _n_fresh += 1
-                pool.active[i] = False
-            else:
-                _n_stale += 1
-                _dispatch(pool, backend, i, sendbuf, tag)
+            # one span per arrival: the wait and its bookkeeping, so the
+            # epoch's last ends where the loop finds nwait met
+            with annotate_if(spans, "mp.pool.wait", epoch=pool.epoch):
+                # block until any active worker responds
+                # (reference MPI.Waitany! at src/MPIAsyncPools.jl:161)
+                act = np.flatnonzero(pool.active)
+                got = backend.wait_any(
+                    [pool.ranks[j] for j in act],
+                    timeout=deadline.remaining(),
+                    tags=pool.stags[act],
+                )
+                if got is None:
+                    # Report backend ranks, not pool indices: a subset
+                    # pool over ranks [1,4,5] must name the dead worker
+                    # as 4, not the misleading pool-local 1 (advisor r3
+                    # finding).
+                    dead = [
+                        int(pool.ranks[j])
+                        for j in np.flatnonzero(pool.active)
+                    ]
+                    if flight is not None:
+                        # the hang postmortem: dump the ring NOW —
+                        # nothing after this raise is guaranteed to run
+                        flight.trip(
+                            f"asyncmap epoch {pool.epoch}: wait past "
+                            f"deadline ({timeout}s), workers {dead} "
+                            "outstanding"
+                        )
+                    raise DeadWorkerError(dead, timeout)
+                rank, result = got
+                i = pool._idx_of_rank[rank]
+                _store(pool, i, result, recvbufs)
+                fresh = pool.repochs[i] == pool.epoch
                 if tracer is not None:
-                    tracer.dispatch(i, pool.epoch, retask=True)
+                    tracer.arrival(i, pool.repochs[i], fresh=fresh)
+                if fresh:
+                    nrecv += 1
+                    _n_fresh += 1
+                    pool.active[i] = False
+                else:
+                    _n_stale += 1
+                    with annotate_if(spans, "mp.pool.retask", rank,
+                                     pool.epoch):
+                        _dispatch(pool, backend, i, sendbuf, tag)
+                    if tracer is not None:
+                        tracer.dispatch(i, pool.epoch, retask=True)
     finally:
         backend.end_epoch()
+        if spans:
+            backend.spans = False
         if tracer is not None:
             tracer.end(pool)
         if flight is not None:

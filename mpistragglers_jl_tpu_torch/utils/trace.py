@@ -87,9 +87,16 @@ class EpochTracer:
     >>> tracer.records[-1].n_fresh
     >>> tracer.dump_jsonl("trace.jsonl")
     >>> tracer.summary()["straggler_rate"]
+
+    ``spans=True`` also opens the program's ``mp.*`` ranges
+    (``obs.timeline.annotate``, on the profiler's clock) in the calls
+    given this tracer: ``asyncmap``'s and the backend's, and the
+    decode's in ``CodedGemm.result_device(..., tracer=)``. Off, no
+    call enters the profiler on its account.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, spans: bool = False) -> None:
+        self.spans = bool(spans)
         self.records: list[EpochRecord] = []
         self._open: EpochRecord | None = None
 

@@ -29,7 +29,8 @@ PyTorch version:
 1. card name and power limit;
 2. build the kernels from the sources in this checkout, one ``nvcc``
    per source, all started together (``_build.build``): the decode
-   kernels, the flash kernels and the sampling kernel;
+   kernels, the flash kernels, the sampling kernel and the coded-GEMM
+   decode kernel;
 3. K5 (split-K: a split kernel and its combine) against its plain
    version at the serving shape (8 splits of 128 keys), bf16 and f32,
    ring (warm-up, W - 1, W, wrapped) and positional (with and without
@@ -473,6 +474,18 @@ PyTorch version:
     GB out of each process, the histories equal to the flat window's on
     the card, the product within 1e-5 cond(G_S) of the flat window's
     decode and 2^-8 cond(G_S) of ``A @ B``.
+61. the coded-GEMM decode kernel (``ops/csrc/decode_solve.cu``) against
+    its plain version (``ops/decode_solve.py`` ``decode_solve_ref``) on
+    the same card shards at the main path's shapes
+    (``bench/decode_solve.py``): config 3's k=6 shards of 1366 x 8192
+    through the systematic rows (a bit copy) and rows 2-7 (cond 852),
+    config 4's k=8 shards of 2048 x 16384 through an LT set, each within
+    ``DSOLVE_TOL`` x cond(G_S) of max|X|; then the kernel's float
+    instance on rows of a stack of 3 x 3 shards and on shards 4 bytes
+    off alignment, within the same limit; the kernel, the plain version
+    and the chain it replaced (the stack and ``_lu_solve``) timed, and
+    its bound (``bench/kernel_bounds.py``). Its launches are counted in
+    phases 24, 25 and 35: in phase 35 exactly one a decode.
 
 Prints a ``{"coded": {...}}`` JSON line with phases 22-26's results, a
 ``{"moe": ..., "coded_train": ...}`` line with phases 27, 28 and 30's,
@@ -484,8 +497,8 @@ line with phases 50-51's, a ``{"slice15": ...}`` line with phases
 52-54's, a ``{"slice16": ...}`` line with phases 55-56's, a
 ``{"slice17": ...}`` line with phase 57's, a ``{"slice18": ...}``
 line with phase 58's, a ``{"slice19": ...}`` line with phase 59's, a
-``{"slice20": ...}`` line with phase 60's, a
-``{"kernels": [...]}`` JSON line and, last,
+``{"slice20": ...}`` line with phase 60's, a ``{"decode_solve": ...}``
+line with phase 61's, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result,
 without a CUDA device or when any phase fails.
 
@@ -525,6 +538,7 @@ from mpistragglers_jl_tpu_torch.bench import coded_family as cf_bench
 from mpistragglers_jl_tpu_torch.bench import coded_gemm as coded_bench
 from mpistragglers_jl_tpu_torch.bench import coded_train as ct_bench
 from mpistragglers_jl_tpu_torch.bench import decode_kernel_attrib as attrib
+from mpistragglers_jl_tpu_torch.bench import decode_solve as dsolve_bench
 from mpistragglers_jl_tpu_torch.bench import device_coord as dc_bench
 from mpistragglers_jl_tpu_torch.bench import chaos as chaos_bench
 from mpistragglers_jl_tpu_torch.bench import disagg as disagg_bench
@@ -537,6 +551,7 @@ from mpistragglers_jl_tpu_torch.bench import router as router_bench
 from mpistragglers_jl_tpu_torch.bench import transport as tr_bench
 from mpistragglers_jl_tpu_torch.bench.kernel_bounds import (
     flash_bounds,
+    decode_solve_bounds,
     sampling_bounds,
 )
 from mpistragglers_jl_tpu_torch.bench.serving_profile import MODEL, _busy_us
@@ -588,10 +603,12 @@ from mpistragglers_jl_tpu_torch.models.transformer import (
 from mpistragglers_jl_tpu_torch.ops import _build
 from mpistragglers_jl_tpu_torch.parallel.mesh import from_local
 from mpistragglers_jl_tpu_torch.ops import decode_attention as da
+from mpistragglers_jl_tpu_torch.ops import decode_solve as dsolve
 from mpistragglers_jl_tpu_torch.ops import flash_attention as fa
 from mpistragglers_jl_tpu_torch.ops import sampling
 from mpistragglers_jl_tpu_torch.native import transport as native_transport
 from mpistragglers_jl_tpu_torch.ops.coded_gemm import CodedGemm
+from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
 from mpistragglers_jl_tpu_torch.ops.gf256_device import DeviceRSGF256
 from mpistragglers_jl_tpu_torch.ops.lt import LTCode
 from mpistragglers_jl_tpu_torch.qos import TenantContract, TenantRegistry
@@ -618,6 +635,13 @@ K5 = "quantized_decode_attention"
 K6 = "paged_decode_attention"
 K7 = "decode_attention_attrib"
 SAMPLE = "sample_rows"
+DSOLVE = "decode_solve"
+# phase 61: the decode kernel and its plain version substitute in f32
+# from the same host factors, the kernel with one fmaf a term and the
+# plain version with a rounded product and sum, so they differ by
+# rounding amplified by at most cond(G_S): within 1e-5 x cond(G_S) of
+# max|X| (tests/test_torch_gpu.py's limit); a systematic set is a bit copy
+DSOLVE_TOL = 1e-5
 # phases 31-34: sampled serving at temperature 0.8 with top_k 50; the
 # main-path runs of phases 33 and 34 (S=8, n_inner=64) time 1 tick
 SAMPLE_T, SAMPLE_TOP_K = 0.8, 50
@@ -2358,7 +2382,9 @@ def phase_coded(dev) -> dict:
     torch.cuda.empty_cache()
     print("[24] config 3: (8, 6) MDS-coded GEMM 8192^3 (A padded to 8196 "
           "rows), nwait=6")
+    dsolve.LAUNCHES[DSOLVE] = 0
     r = coded_bench.config3(dev, delay_s=CODED_DELAY_S)
+    r["decode_solve_launches"] = dsolve.LAUNCHES[DSOLVE]
     for name, rung in r["rungs"].items():
         _coded_line(name, rung)
     st = r["straggler_rung"]
@@ -2375,8 +2401,10 @@ def phase_coded(dev) -> dict:
     torch.cuda.empty_cache()
     print("[25] config 4: LT-coded GEMM 16384^2, 16 workers, k=8, workers "
           f"3 and 11 delayed {CODED_DELAY_S} s")
+    dsolve.LAUNCHES[DSOLVE] = 0
     r = coded_bench.config4(dev, delay_s=CODED_DELAY_S, epochs=2, chains=2,
                             raw_reps=2)
+    r["decode_solve_launches"] = dsolve.LAUNCHES[DSOLVE]
     _coded_line("config 4", r)
     print(f"  fresh at return {r['fresh_at_return']}, host peel vs device "
           f"{r['host_peel_vs_device']:.2e} ({r['host_peel_s']:.2f} s), "
@@ -2987,6 +3015,7 @@ def phase_instrumented_coded(dev) -> dict:
                         ttrace.EpochTracer())
     cg = CodedGemm(A_pad, n, k, devices=[dev], batch=True, registry=reg)
     pool = AsyncPool(n)
+    dsolve.LAUNCHES[DSOLVE] = 0
     try:
         for _ in range(INSTR_EPOCHS + 1):
             t0 = time.perf_counter()
@@ -3006,13 +3035,18 @@ def phase_instrumented_coded(dev) -> dict:
     tracks = {e["args"]["name"] for e in doc["traceEvents"]
               if e.get("name") == "thread_name"}
     decodes = reg.counter("coded_gemm_decodes_total").value
-    print(f"  coded GEMM (config 3): {decodes:.0f} decodes, error "
+    launches = dsolve.LAUNCHES[DSOLVE]
+    print(f"  coded GEMM (config 3): {decodes:.0f} decodes, {launches} "
+          f"decode kernel launches, error "
           f"{err:.2e}, merged trace {n_ev} events on tracks "
           f"{sorted(tracks)}")
+    _require(launches == decodes, "the coded GEMM's decodes did not each "
+             "launch the decode kernel once")
     _require(decodes == INSTR_EPOCHS + 1 and err <= tol
              and sum(t.startswith("worker") for t in tracks) == n
              and "gemm" in tracks, "the instrumented coded GEMM")
     out["coded_gemm"] = {"decodes": decodes, "rel_err": err,
+                         "decode_solve_launches": launches,
                          "tracks": sorted(tracks), "trace_events": n_ev}
     return out
 
@@ -6137,6 +6171,72 @@ def _mp_window(reps, mp) -> dict:
                                     c1["timed"]["exchange_ms"]]}
 
 
+# --------------------------------------------------------------------------
+# phase 61: the coded-GEMM decode kernel against its plain version
+# --------------------------------------------------------------------------
+
+
+def _dsolve_odd(dev, case) -> float:
+    """The kernel's float instance on config 3's rows 2-7: six 3 x 3
+    shards as rows of one stack (each 36 bytes after the last), or six
+    1366 x 8192 shards 4 bytes off 16-byte alignment. Returns the
+    largest |kernel - plain| as a share of max|plain|, checked."""
+    G_S = MDSCode(8, 6).G[2:8]
+    gen = torch.Generator(device=dev).manual_seed(61)
+    if case == "stack_of_3x3":
+        shards = list(torch.randn(6, 3, 3, generator=gen, device=dev))
+    else:
+        flat = torch.randn(6 * 1366 * 8192 + 1, generator=gen, device=dev)
+        shards = list(flat[1:].view(6, 1366, 8192))
+    got = dsolve.decode_solve(shards, G_S)
+    want = dsolve.decode_solve_ref(shards, *dsolve.host_lu(G_S))
+    diff = float((got - want).abs().max() / want.abs().max())
+    cond = float(np.linalg.cond(G_S.astype(np.float64)))
+    print(f"  float instance, {case}: |kernel - plain| / max {diff:.2e}")
+    _require(diff <= DSOLVE_TOL * cond,
+             f"the decode kernel's float instance ({case}) disagrees with "
+             f"its plain version: {diff:.2e}")
+    return diff
+
+
+def phase_decode_solve_vs_plain(dev) -> tuple[float, dict]:
+    """Phase 61: ``bench/decode_solve.py``'s three decodes, each checked
+    against the plain version, then the float instance; returns the
+    worst difference and the kernels line's times (rows 2-7 as the
+    row's own, the other two beside it)."""
+    worst, res = 0.0, {}
+    for label, G_S, rows, cols, reps in dsolve_bench.cases():
+        r = dsolve_bench.case(dev, G_S, rows, cols, reps)
+        res[label] = r
+        print(f"  {label} (k={r['k']}, {rows} x {cols}, cond "
+              f"{r['cond']:.1f}): kernel {r['kernel_ms']:.3f} ms "
+              f"({r['roofline_pct']:.1f}% of its {r['bound_ms']:.3f} ms "
+              f"bound), plain {r['plain_ms']:.3f} ms, stack + _lu_solve "
+              f"{r['stack_ms']:.3f} + {r['lu_solve_ms']:.3f} ms; "
+              f"|kernel - plain| / max {r['max_rel_diff_plain']:.2e}, "
+              f"bit copy {r['bit_copy']}")
+        _require(r["max_rel_diff_plain"] <= DSOLVE_TOL * r["cond"]
+                 and r["bit_copy"] in (None, True),
+                 f"the decode kernel disagrees with its plain version "
+                 f"({label})")
+        worst = max(worst, r["max_rel_diff_plain"])
+        torch.cuda.empty_cache()
+    for case in ("stack_of_3x3", "misaligned"):
+        worst = max(worst, _dsolve_odd(dev, case))
+    torch.cuda.empty_cache()
+
+    def row(r):
+        return {"ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "library_ms": r["stack_ms"] + r["lu_solve_ms"]}
+
+    bound_by = decode_solve_bounds()["bound_by"]
+    tim = {**row(res["mds_rows_2_7"]), "bound_by": bound_by,
+           "at_systematic_ms": row(res["mds_systematic"]),
+           "at_lt_k8_16384_ms": row(res["lt"])}
+    return worst, {"kernel": tim, "cases": res}
+
+
 def _phase60_launches(counts, key) -> dict:
     """One kernel's launches per process on phase 60's runs."""
     return {run: c[key] for run, c in counts.items() if c.get(key)}
@@ -6186,10 +6286,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     native_builds = _start_native_builds()
-    _build.build("decode_attention", "flash_attention", "sampling")
+    _build.build("decode_attention", "flash_attention", "sampling",
+                 "decode_solve")
     t_build = time.perf_counter() - t0
     print(f"[2] built decode_attention.cu (K5, K6, K7), "
-          f"flash_attention.cu (K1-K4) and sampling.cu, one nvcc each in "
+          f"flash_attention.cu (K1-K4), sampling.cu and decode_solve.cu, "
+          f"one nvcc each in "
           f"parallel (g++ of the native host sources beside them), in "
           f"{t_build:.1f} s; decode kernels at D=128:")
     _decode_build_report()
@@ -6380,6 +6482,11 @@ def main() -> int:
         {"ep": (ep58["oracle_trajectory"][0], ep58["ms_per_step"]),
          "1f1b": (f1b58["oracle_trajectory"][0], f1b58["ms_per_step"])})
     print(f"  (+{time.perf_counter() - t_start:.1f} s)")
+    print("[61] the coded-GEMM decode kernel against its plain version: "
+          "k=6 1366 x 8192 (systematic, rows 2-7), LT k=8 2048 x 16384; "
+          "the float instance; timed")
+    err_dsolve, dsolve_res = phase_decode_solve_vs_plain(dev)
+    print(f"  (+{time.perf_counter() - t_start:.1f} s)")
 
     # K5's row: the serving shape's time (phase 6), with the long-context
     # shape's beside it (phase 20: graph replays; SDPA at the same B)
@@ -6448,6 +6555,22 @@ def main() -> int:
         "launches_sharded_inference_phase59": _phase59_launches(
             launches59, "sampler"),
     })
+    kernels.append({
+        **_kernel_row(DSOLVE, "mpistragglers_jl_tpu/ops/coding.py:62",
+                      instrumented["coded_gemm"]["decode_solve_launches"],
+                      err_dsolve, dsolve_res["kernel"],
+                      source="decode_solve.cu"),
+        "replaces_is": "the reference's jax.scipy.linalg.solve in "
+                       "_decode, not a pallas_call: a port-only kernel",
+        "err_is": "max |kernel - plain| / max |plain| (phase 61)",
+        "library_is": "the chain it replaced: torch.stack of the shards "
+                      "and ops/coding.py _lu_solve",
+        "launches_are": "phase 35's config-3 coded GEMM, one a decode",
+        "launches_config3_phase24": coded["config3"][
+            "decode_solve_launches"],
+        "launches_config4_phase25": coded["config4"][
+            "decode_solve_launches"],
+    })
     _require(all(k["launches"] > 0 for k in kernels),
              "a kernel of a main path was never launched")
     print(json.dumps({"coded": coded, "card": smi}))
@@ -6486,6 +6609,8 @@ def main() -> int:
     print(json.dumps({"slice19": slice19,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"slice20": slice20,
+                      "total_s": time.perf_counter() - t_start}))
+    print(json.dumps({"decode_solve": dsolve_res["cases"],
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

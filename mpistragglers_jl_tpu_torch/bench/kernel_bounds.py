@@ -37,6 +37,13 @@ move (each input read once, each output written once) over the card's
   TFLOP/s figure counting a fused multiply-add as two). The two pipes
   run side by side, so the bound is the larger of the two times and the
   bytes' (the logits read once, tokens written once).
+* The coded-GEMM decode kernel (``ops/csrc/decode_solve.cu``, the
+  port's own; the JAX package decodes with ``jax.scipy.linalg.solve``)
+  at BASELINE config 3 (k = 6 f32 shards of 1366 x 8192) and config 4
+  (k = 8 of 2048 x 16384): the k shards read once and the k blocks of
+  the product written once, 2 k rows cols 4 bytes. Its k^2 fused
+  multiply-adds an element run at the f32 rate above (two operations
+  each), under the bytes' time.
 
 Pure arithmetic, no card needed:
 
@@ -109,10 +116,26 @@ def sampling_bounds(R=8, V=32768, logit_bytes=2) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def decode_solve_bounds(k=6, rows=1366, cols=8192) -> dict:
+    """The decode kernel over k f32 shards of rows x cols: the bytes
+    (each shard element read once, each product element written once)
+    against its k^2 fused multiply-adds an element at the f32 rate."""
+    n = rows * cols
+    nbytes = 2 * k * n * 4
+    nops = 2 * k * k * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": nops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def main() -> int:
     rows = {**flash_bounds(),
             **{f"K7 B={B}": attrib_bound(B=B)["K7"] for B in (1, 4, 8)},
-            "sample_rows R=8 V=32768 bf16": sampling_bounds()}
+            "sample_rows R=8 V=32768 bf16": sampling_bounds(),
+            "decode_solve k=6 1366x8192": decode_solve_bounds(),
+            "decode_solve k=8 2048x16384": decode_solve_bounds(
+                8, 2048, 16384)}
     for name, r in rows.items():
         hi_lo = (f"; hi/lo tensor work {r['hi_lo_bound_ms'] * 1e3:.2f} us"
                  if "hi_lo_ops" in r else "")

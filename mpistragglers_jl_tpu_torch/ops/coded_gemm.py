@@ -12,8 +12,10 @@ The port of the JAX package's ``ops/coded_gemm.py``. BASELINE config 3:
    same code applied to the true row blocks of ``C``;
 3. return when ``nwait >= k`` workers are fresh (integer nwait or the
    :func:`~.coding.nwait_decodable` predicate);
-4. decode: pick the first k fresh shards by the ``repochs`` mask, solve
-   the k×k system, restack — the *full* product, stragglers ignored.
+4. decode: pick the first k fresh shards by the ``repochs`` mask, factor
+   their k×k generator rows on the host and solve over the shards where
+   they lie (ops/decode_solve.py) — the *full* product, stragglers
+   ignored.
 
 The setup encode and the decode run in the blocks' own dtype (f32) on
 either precision; ``precision="default"`` applies to the workers'
@@ -39,18 +41,26 @@ from ._batch import (
     operand_dtype,
 )
 from .coding import MDSCode, _decode, _rows, nwait_decodable
+from .decode_solve import decode_solve, takes
 from .gemm import _block_matmul, resolve_devices
 from .lt import LTCode, nwait_lt_decodable
 
 
-def _stack_rows(stacked: torch.Tensor, rows) -> torch.Tensor:
-    """The k winners out of the fused stack. Consecutive rows (every
-    epoch without a straggler in the systematic part) are a view of the
-    stack, not a copy."""
-    rows = [int(r) for r in rows]
-    if rows == list(range(rows[0], rows[0] + len(rows))):
-        return stacked[rows[0]: rows[0] + len(rows)]
-    return torch.stack([stacked[r] for r in rows])
+def _solve(shards, G_host, G_dev, tracer) -> torch.Tensor:
+    """The decoded product from the k fresh shards, blocks stacked by
+    rows. Where :func:`~.decode_solve.takes` the shards, ``G_host()``
+    (the k generator rows as host data) is factored on the host and the
+    shards solved where they lie; otherwise they are stacked and solved
+    by ``_decode`` with ``G_dev()`` (the same rows on the card)."""
+    if takes(shards[0], len(shards)):
+        blocks = decode_solve(shards, G_host(), tracer)
+    else:
+        on = getattr(tracer, "spans", False)
+        with annotate_if(on, "mp.decode.stack"):
+            G_S = G_dev()
+            flat = torch.stack(shards)
+        blocks = _decode(G_S, flat, tracer)
+    return blocks.reshape(-1, *blocks.shape[2:])
 
 
 def _host(result) -> np.ndarray:
@@ -174,9 +184,14 @@ class CodedGemm:
         first device, read on the current stream: ready to feed the next
         device computation without a host round-trip.
 
-        A tracer made with ``spans=True`` (``utils.trace.EpochTracer``,
-        as ``asyncmap``'s) opens the decode's spans: ``mp.decode.select``,
-        ``mp.decode.stack`` and those of ``_lu_solve``."""
+        ``G_S`` is factored on the host and the shards solved where they
+        lie (``ops/decode_solve.py``: the CUDA kernel for f32 shards on
+        the card, the plain version on the CPU); other dtypes on the
+        card stack the shards and solve with ``_decode``. A tracer made
+        with ``spans=True`` (``utils.trace.EpochTracer``, as
+        ``asyncmap``'s) opens the decode's spans: ``mp.decode.select``,
+        then ``mp.decode.factor`` and ``mp.decode.solve`` (on the
+        ``_decode`` route ``mp.decode.stack`` and ``_lu_solve``'s)."""
         on = getattr(tracer, "spans", False)
         with annotate_if(on, "mp.decode.select"):
             fresh = pool.fresh_indices(epoch)
@@ -194,20 +209,17 @@ class CodedGemm:
                     self._m["recovered"][int(i)].inc()
             results = [pool.results[i] for i in idx]
             dev = self.devices[0]
-            G_S = _rows(self.code.generator(dev), idx)
-        with annotate_if(on, "mp.decode.stack"):
             # batch-mode fast path: the k winners are lazy views of ONE
             # fused stack — decode straight off it, no per-worker slices
             if all(isinstance(r, StackedSlice) for r in results) and all(
                 r.stacked is results[0].stacked for r in results
             ):
                 stacked = consume_stack(results[0]).to(dev)
-                shards = _stack_rows(stacked, [r.index for r in results])
+                shards = [stacked[r.index] for r in results]
             else:
-                # general path: stack the k winners' independent results
-                shards = torch.stack([consume(r).to(dev) for r in results])
-        blocks = _decode(G_S, shards, tracer)
-        return blocks.reshape(-1, *blocks.shape[2:])
+                shards = [consume(r).to(dev) for r in results]
+        return _solve(shards, lambda: self.code.G[idx],
+                      lambda: _rows(self.code.generator(dev), idx), tracer)
 
     def result(self, pool: AsyncPool, epoch: int | None = None) -> np.ndarray:
         """Decode the full product from the first k fresh shards (host copy)."""
@@ -322,19 +334,20 @@ class LTCodedGemm:
 
         Peelability of the arrived set implies the 0/1 generator has
         full rank, so the same system solves as one k x k linear solve
-        over a full-rank row subset, the MDS decode's math. ``tracer``
-        opens the decode's spans, as in :meth:`CodedGemm.result_device`.
+        over a full-rank row subset, the MDS decode's math, by the same
+        routes as :meth:`CodedGemm.result_device`. ``tracer`` opens the
+        decode's spans, as there.
         """
         on = getattr(tracer, "spans", False)
+        dev = self.devices[0]
         with annotate_if(on, "mp.decode.select"):
             rows = self.decode_rows(pool, epoch)
-            G_S = _rows(self._G, rows)
-        dev = self.devices[0]
-        with annotate_if(on, "mp.decode.stack"):
-            shards = torch.stack(
-                [consume(pool.results[i]).to(dev) for i in rows])
-        blocks = _decode(G_S, shards, tracer)
-        return blocks.reshape(-1, *blocks.shape[2:])
+            shards = [consume(pool.results[i]).to(dev) for i in rows]
+        return _solve(
+            shards,
+            lambda: self.code.generator_rows(
+                [self.shard_ids[i] for i in rows]),
+            lambda: _rows(self._G, rows), tracer)
 
     def decode_rows(self, pool: AsyncPool, epoch: int | None = None) -> list:
         """The k fresh workers whose 0/1 generator rows

@@ -57,10 +57,10 @@ def _lu_solve(G_S: torch.Tensor, flat: torch.Tensor,
     host never waits on the card.
 
     Written out for the card's sake, with millions of right-hand sides
-    (6 x 11.2 M at BASELINE config 3 on an H100, ``bench/decode_solve.py``;
-    PERF.md §6, PR 8): ``torch.linalg.solve_ex`` takes 1.1 s once the LU
-    exchanges rows (2.6 ms without), and a triangular solve from the
-    left takes 6-7.5 s. From the right, on ``flat``'s transpose
+    (6 x 11.2 M at BASELINE config 3 on an H100; PERF.md §6):
+    ``torch.linalg.solve_ex`` takes 1.1 s once the LU exchanges rows
+    (2.6 ms without), and a triangular solve from the left takes
+    6-7.5 s. From the right, on ``flat``'s transpose
     (column-major as it lies), each triangular solve takes 1.2-1.4 ms:
     X^T U^T = Y^T and Y^T L^T = (P^T flat)^T.
 

@@ -337,7 +337,7 @@ def test_coded_gemm_decodes_around_gated_stragglers(late):
 
 def test_coded_gemm_fast_path_decodes_a_non_contiguous_stack():
     """Batch mode whose k winners are not rows 0..k-1 of the stack: the
-    decode gathers them (and the consecutive case is a view)."""
+    decode reads them where they lie."""
     A, B = _mats(6, 48, 16, 8)
     n, k = 6, 4
     cg = tcg.CodedGemm(A, n, k, devices=CPU, batch=True)

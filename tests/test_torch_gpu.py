@@ -2,7 +2,8 @@
 versions, and the routes that launch them: the decode kernels (dense K5
 and paged K6) with the serving scheduler, and the flash-attention
 kernels (K1-K4) with the train step; the pool on CUDA streams with
-the coded GEMM over it (snapshots, stream ordering, bf16 bytes); and the
+the coded GEMM over it (snapshots, stream ordering, bf16 bytes) and
+its decode kernel against its plain version; and the
 mixture of experts and coded transformer training on the card; the
 rateless GEMM's collected set, GF(256) coding and the hierarchical
 decode's batched solve on the card; and spawned worker processes that
@@ -742,6 +743,245 @@ def test_coded_gemm_on_the_card_equals_its_cpu_result(batch):
             cg.backend.shutdown()
     scale = np.max(np.abs(out["cpu"]))
     assert np.max(np.abs(out["cuda"] - out["cpu"])) <= 1e-5 * scale
+
+
+# -- the coded-GEMM decode kernel (ops/csrc/decode_solve.cu) against its
+# plain version (ops/decode_solve.py), both on the card from the same host
+# factors, at the benchmark's shapes. The two substitute in f32 with the
+# same factors, the kernel with one fmaf a term and the plain version
+# with a rounded product and sum, so they differ by rounding amplified by
+# at most cond(G_S): within 1e-5 x cond(G_S) of max|X|, as the decode's
+# other tests. A systematic set (G_S the identity) is a bit copy.
+
+
+def _decode_case(dev, G, rows, cols, seed):
+    """Source blocks X (k, rows, cols) and every coded shard G X, on the
+    card in f32 (the sum taken in float64 and rounded once)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = G.shape[1]
+    X = torch.randn(k, rows, cols, generator=gen, device=dev)
+    G64 = torch.from_numpy(G).to(dev, torch.float64)
+    X64 = X.double()
+    coded = torch.stack([torch.einsum("j,jrc->rc", G64[i], X64).float()
+                         for i in range(G.shape[0])])
+    return X, coded
+
+
+def _check_decode_kernel(G_S, shards, X):
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+
+    cond = float(np.linalg.cond(np.asarray(G_S, np.float64)))
+    before = ds.LAUNCHES["decode_solve"]
+    got = ds.decode_solve(shards, G_S)
+    assert ds.LAUNCHES["decode_solve"] == before + 1
+    want = ds.decode_solve_ref(shards, *ds.host_lu(G_S))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * cond * scale
+    assert float((got - X).abs().max()) <= 1e-5 * cond * float(
+        X.abs().max())
+    if np.array_equal(G_S, np.eye(len(shards))):
+        assert torch.equal(got, torch.stack(shards))
+    return got
+
+
+def test_decode_kernel_matches_plain_version_on_every_mds_set():
+    """Config 3's shards (1366 x 8192, the (8, 6) Cauchy code), every
+    six-of-eight fresh set, the largest cond(G_S) (852, rows 2-7, as
+    the shiftexp traffic's worst set) among them; the shards read as
+    rows of one stack, where they lie."""
+    import itertools
+
+    from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
+
+    dev = _card()
+    G = MDSCode(8, 6).G
+    X, coded = _decode_case(dev, G, 1366, 8192, 0)
+    for idx in itertools.combinations(range(8), 6):
+        _check_decode_kernel(G[list(idx)], [coded[i] for i in idx], X)
+
+
+def test_decode_kernel_matches_plain_version_on_the_lt_sets():
+    """Config 4's shards (2048 x 16384, k=8, code seed 0): the 0/1 sets
+    ``decode_rows`` picks from fresh sets that first peel in seeded
+    arrival orders without the stragglers 3 and 11."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from mpistragglers_jl_tpu_torch.ops.coded_gemm import LTCodedGemm
+
+    dev = _card()
+    lt = LTCodedGemm(np.zeros((8, 2), np.float32), 16, 8,
+                     devices=[torch.device("cpu")], seed=0)
+    lt.backend.shutdown()
+    G = lt.code.generator_rows(lt.shard_ids)
+    X, coded = _decode_case(dev, G, 2048, 16384, 1)
+    sets = set()
+    for seed in range(12):
+        order = [int(i) for i in np.random.default_rng(seed).permutation(16)
+                 if i not in (3, 11)]
+        for m in range(8, len(order) + 1):
+            fresh = np.sort(np.asarray(order[:m]))
+            if lt.code.peelable([lt.shard_ids[i] for i in fresh]):
+                break
+        pool = SimpleNamespace(fresh_indices=lambda epoch=None: fresh,
+                               epoch=1)
+        sets.add(tuple(lt.decode_rows(pool)))
+    assert len(sets) >= 6
+    for rows in sorted(sets):
+        _check_decode_kernel(G[list(rows)], [coded[i] for i in rows], X)
+
+
+def test_decode_kernel_reads_shards_where_they_lie():
+    """A non-contiguous selection of a fused stack's rows and the same
+    shards as separate allocations at unrelated addresses decode to the
+    same bits (the kernel reads values, not a layout)."""
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+    from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
+
+    dev = _card()
+    G = MDSCode(8, 6).G
+    _, stacked = _decode_case(dev, G, 256, 1024, 2)
+    idx = [0, 2, 3, 5, 6, 7]
+    views = [stacked[i] for i in idx]
+    apart = []
+    for i in idx:
+        torch.empty(1 + 1000 * i, device=dev)  # shift the allocator
+        apart.append(stacked[i].clone())
+    a = ds.decode_solve(views, G[idx])
+    b = ds.decode_solve(apart, G[idx])
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("code", ["mds", "mds_coalesced", "lt"])
+def test_result_device_launches_one_decode_kernel_each(code):
+    """One ``LAUNCHES["decode_solve"]`` per ``result_device`` on f32
+    shards, each product within 1e-5 x cond(G_S) of the f32 product;
+    f64 shards keep ``_decode`` and launch none."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+    from mpistragglers_jl_tpu_torch.ops.coded_gemm import (
+        CodedGemm,
+        LTCodedGemm,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((1536, 512)).astype(np.float32)
+    B = rng.standard_normal((512, 256)).astype(np.float32)
+    want = A.astype(np.float64) @ B
+    for dtype, launches in ((np.float32, 3), (np.float64, 0)):
+        Bd = B.astype(dtype)
+        if code == "lt":
+            g, n = LTCodedGemm(A, 16, 8, devices=[dev], dtype=dtype), 16
+        else:
+            g, n = CodedGemm(A, 8, 6, devices=[dev], dtype=dtype,
+                             batch=code == "mds_coalesced"), 8
+        before = ds.LAUNCHES["decode_solve"]
+        try:
+            pool = AsyncPool(n)
+            for _ in range(3):
+                asyncmap(pool, Bd, g.backend, nwait=n)
+                got = g.result_device(pool).cpu().double().numpy()
+                err = np.abs(got - want).max() / np.abs(want).max()
+                assert err <= 1e-5 * 852, err
+            waitall(pool, g.backend)
+        finally:
+            g.backend.shutdown()
+        assert ds.LAUNCHES["decode_solve"] - before == launches
+
+
+@pytest.mark.parametrize("case,match", [
+    ("k17", "k <= 16"),
+    ("f64", "f32 shards"),
+    ("transposed", "not contiguous"),
+])
+def test_decode_kernel_rejects_what_it_cannot_take(case, match):
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+
+    dev = _card()
+    k = 17 if case == "k17" else 6
+    G_S = np.eye(k) + 0.1 * np.random.default_rng(0).standard_normal((k, k))
+    base = torch.randn(k, 64, 64, device=dev)
+    if case == "f64":
+        shards = list(base.double())
+    elif case == "transposed":
+        shards = [s.t() for s in base]
+    else:
+        shards = list(base)
+    before = ds.LAUNCHES["decode_solve"]
+    with pytest.raises(ValueError, match=match):
+        ds.decode_solve(shards, G_S)
+    assert ds.LAUNCHES["decode_solve"] == before
+
+
+@pytest.mark.parametrize("case", ["misaligned", "ragged", "stack_of_3x3"])
+def test_decode_kernel_serves_any_shape_and_alignment(case):
+    """The float instance: shards 4 bytes off 16-byte alignment, shards
+    of 9 elements apart and as rows of one stack (each row 36 bytes on),
+    within 1e-5 x cond(G_S) of the plain version (the tolerance of the
+    float4 cases above: the same arithmetic)."""
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+    from mpistragglers_jl_tpu_torch.ops.coding import MDSCode
+
+    dev = _card()
+    G = MDSCode(8, 6).G
+    idx = [0, 2, 3, 5, 6, 7]
+    rows, cols = {"misaligned": (64, 64), "ragged": (3, 3),
+                  "stack_of_3x3": (3, 3)}[case]
+    X, coded = _decode_case(dev, G, rows, cols, 5)
+    if case == "misaligned":
+        flat = torch.empty(8 * rows * cols + 1, device=dev)
+        flat[1:].copy_(coded.reshape(-1))
+        coded = flat[1:].view(8, rows, cols)
+        shards = [coded[i] for i in idx]
+    elif case == "ragged":
+        shards = [coded[i].clone() for i in idx]
+    else:
+        shards = [coded[i] for i in idx]
+    _check_decode_kernel(G[idx], shards, X)
+
+
+@pytest.mark.parametrize("batch", [True, False])
+def test_result_device_decodes_3x3_shards_on_the_card(batch):
+    """``CodedGemm`` of an 18 x 5 A over (8, 6) times a 5 x 3 B: 3 x 3
+    shards, from one fused stack or from each worker, workers 1 and 4
+    left out of the fresh set so that two parity shards enter the
+    solve; the kernel's float instance decodes within 1e-5 x cond(G_S)
+    of the float64 product, one launch a decode."""
+    import numpy as np
+
+    from mpistragglers_jl_tpu_torch import AsyncPool, asyncmap, waitall
+    from mpistragglers_jl_tpu_torch.ops import decode_solve as ds
+    from mpistragglers_jl_tpu_torch.ops.coded_gemm import CodedGemm
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    A = rng.standard_normal((18, 5)).astype(np.float32)
+    B = rng.standard_normal((5, 3)).astype(np.float32)
+    want = A.astype(np.float64) @ B
+    g = CodedGemm(A, 8, 6, devices=[dev], batch=batch)
+    cond = np.linalg.cond(g.code.G[[0, 2, 3, 5, 6, 7]].astype(np.float64))
+    before = ds.LAUNCHES["decode_solve"]
+    try:
+        pool = AsyncPool(8)
+        for _ in range(2):
+            asyncmap(pool, B, g.backend, nwait=8)
+            pool.repochs[[1, 4]] = pool.epoch - 1
+            got = g.result_device(pool).cpu().double().numpy()
+            assert got.shape == want.shape
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err <= 1e-5 * cond, err
+        waitall(pool, g.backend)
+    finally:
+        g.backend.shutdown()
+    assert ds.LAUNCHES["decode_solve"] - before == 2
 
 
 # -- slice 9: the mixture of experts and coded training on the card.

@@ -58,6 +58,7 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "mpistragglers_jl_tpu_torch.utils.prng",
             "mpistragglers_jl_tpu_torch.utils.trace",
             "mpistragglers_jl_tpu_torch.ops.sampling",
+            "mpistragglers_jl_tpu_torch.ops.decode_solve",
             "mpistragglers_jl_tpu_torch.obs",
             "mpistragglers_jl_tpu_torch.obs.metrics",
             "mpistragglers_jl_tpu_torch.obs.timeline",

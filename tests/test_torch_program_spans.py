@@ -34,8 +34,7 @@ EPOCHS = 3
 
 COORDINATOR = {"mp.pool.drain", "mp.pool.dispatch", "mp.backend.copy",
                "mp.pool.flush", "mp.pool.wait", "mp.pool.retask"}
-DECODE = {"mp.decode.select", "mp.decode.stack", "mp.decode.factor",
-          "mp.decode.gather", "mp.decode.solve"}
+DECODE = {"mp.decode.select", "mp.decode.factor", "mp.decode.solve"}
 ALL = COORDINATOR | DECODE
 
 # the spans each route opens: the three together open every one (a
@@ -138,7 +137,7 @@ def _base(name: str) -> str:
 
 def test_the_three_routes_open_every_span():
     assert set().union(*EXPECTED.values()) == ALL
-    assert len(ALL) == 11
+    assert len(ALL) == 9
 
 
 @pytest.mark.parametrize("route", sorted(EXPECTED))

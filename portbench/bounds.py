@@ -3,7 +3,10 @@
 Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates, at the full 700 W power limit): 67 TFLOP/s in float32 outside
 the tensor cores (the rate of an f32 product with TF32 off, as the
-configurations state it) and 3.35 TB/s of HBM bandwidth.
+configurations state it), 989 TFLOP/s in bfloat16 on the tensor cores
+(bf16 operands, f32 sums) and 3.35 TB/s of HBM bandwidth. A record
+states the precision of its products (``"f32"`` where it states none);
+its operations are held to that precision's peak.
 
 A bound is the least time the card could take: the larger of the
 operations over the peak rate and the bytes over the bandwidth, each
@@ -16,7 +19,9 @@ bytes are counted too high or the time leaves out part of the work.
 from __future__ import annotations
 
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS_PER_S = {"f32": FP32_FLOPS_PER_S, "bf16": BF16_FLOPS_PER_S}
 
 
 def product_flops(rows: int, kdim: int, ncols: int) -> int:
@@ -38,10 +43,10 @@ def decode_flops(k: int, rows: int, ncols: int) -> int:
     return 2 * k * k * rows * ncols
 
 
-def bound_s(flops: float, nbytes: float) -> float:
-    """The least time for ``flops`` f32 operations and ``nbytes`` of
-    HBM traffic."""
-    return max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+def bound_s(flops: float, nbytes: float, precision: str = "f32") -> float:
+    """The least time for ``flops`` operations at ``precision``'s peak
+    and ``nbytes`` of HBM traffic."""
+    return max(flops / PEAK_FLOPS_PER_S[precision], nbytes / HBM_BYTES_PER_S)
 
 
 def share_pct(bound: float, measured: float) -> float | None:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from portbench import pool_gemm
 
+CONTROLS, FAULTS = pool_gemm.CONTROLS, pool_gemm.FAULTS
+
 
 def build(cfg, A, device, *, delay_fn, batch, batch_arrival):
     from mpistragglers_jl_tpu_torch.ops.coded_gemm import LTCodedGemm

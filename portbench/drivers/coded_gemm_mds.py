@@ -4,7 +4,9 @@
 into k blocks and encoded by the program's systematic (n, k) code into
 n coded blocks, one per stream worker; ``nwait`` is k, and the program
 decodes the full product from the first k fresh shards
-(``CodedGemm.result_device``), whose first m rows are the product.
+(``CodedGemm.result_device``), whose first m rows are the product. The
+code is systematic (its generator is ``[I; P]``), so every fresh shard
+j < k is among the first k and delivers row block j as it is.
 Coalesced dispatch (``batch=True``) where the traffic asks for it.
 """
 
@@ -13,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from portbench import pool_gemm
+
+CONTROLS, FAULTS = pool_gemm.CONTROLS, pool_gemm.FAULTS
 
 
 def build(cfg, A, device, *, delay_fn, batch, batch_arrival):
@@ -28,7 +32,8 @@ def build(cfg, A, device, *, delay_fn, batch, batch_arrival):
     return pool_gemm.program(
         cg.backend, int(cfg["nwait"]),
         lambda pool: cg.result_device(pool)[:m],
-        k=k, block_rows=m_pad // k)
+        k=k, block_rows=m_pad // k,
+        direct=lambda fresh: [j for j in range(k) if fresh[j]])
 
 
 def run(ctx) -> dict:

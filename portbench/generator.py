@@ -7,6 +7,11 @@ probe vector, stall tables and check sample.
 * Operands: ``A`` (m, kdim), ``payloads`` payload matrices of (kdim,
   ncols) and the probe vector ``v`` (ncols,), standard normal, drawn on
   the run's device by one ``torch.Generator`` in three calls.
+* Logistic-regression data: ``X`` (rows, dim) standard normal, labels
+  ``y`` (rows,) drawn as Bernoulli(sigmoid(X w*)) from a hidden ``w*``
+  of N(0, 1/dim) entries (the program's ``CodedSGD.synthetic`` law), and
+  ``payloads`` weight vectors ``W`` (payloads, dim) of N(0, 1/dim)
+  entries, drawn on the run's device by one ``torch.Generator``.
 * Stalls: a traffic file's ``stall`` group is the seconds a worker's
   dispatcher thread waits before it enqueues each task (the program's
   ``delay_fn``): ``stall_s`` on every task of the ``stragglers`` (a
@@ -48,6 +53,18 @@ def operands(m: int, kdim: int, ncols: int, payloads: int, seed: int,
                     dtype=dtype)
     v = torch.randn(ncols, generator=g, device=device, dtype=dtype)
     return A, B, v
+
+
+def logreg(rows: int, dim: int, payloads: int, seed: int, device):
+    """``(X, y, W)``: X (rows, dim), y (rows,) in {0, 1}, W (payloads,
+    dim), all float32."""
+    g = torch.Generator(device=device)
+    g.manual_seed(sub_seed(seed, _OPERANDS))
+    X = torch.randn(rows, dim, generator=g, device=device)
+    wstar = torch.randn(dim, generator=g, device=device) * dim ** -0.5
+    y = torch.bernoulli(torch.sigmoid(X @ wstar), generator=g)
+    W = torch.randn(payloads, dim, generator=g, device=device) * dim ** -0.5
+    return X, y, W
 
 
 def stall_table(stall: dict, cfg: dict, n: int, seed: int) -> np.ndarray:

@@ -2,13 +2,28 @@
 
 Everything is found by name under the checkout's ``portbench/``: the
 cell's configuration (the file its ``configs`` entry names), which
-names its driver (``drivers/<driver>.py``, whose ``run(ctx)`` returns
-the run's record), its traffic (``traffic/<traffic>.json``) and one
-reader per metric (``metrics/<metric>.py``, whose ``read(record)``
-returns a number or None; see :func:`reader`). A ``--trace 0`` run
-reports the cell's end-to-end metrics, a ``--trace 1`` run its per-layer
-metrics; a metric with a ``workloads`` list is read only in those cells,
-and a reader that finds nothing to read leaves its metric out.
+names its driver (``drivers/<driver>.py``), its traffic
+(``traffic/<traffic>.json``) and one reader per metric
+(``metrics/<metric>.py``, whose ``read(record)`` returns a number or
+None; see :func:`reader`). A ``--trace 0`` run reports the cell's
+end-to-end metrics, a ``--trace 1`` run its per-layer metrics; a metric
+with a ``workloads`` list is read only in those cells, and a reader that
+finds nothing to read leaves its metric out.
+
+A driver module declares what belongs to its configurations:
+
+* ``run(ctx)``: one run, returning its record (the readers' input, the
+  compared numbers under ``checks`` and ``setup_parts`` from
+  :func:`setup_parts`);
+* ``CONTROLS``: the names ``--control`` takes for it (a
+  configuration's ``control`` names one of them, or a list: each a
+  precision below one the configuration states, whose run must come out
+  not correct; see :func:`controls`);
+* ``FAULTS``: ``{name: plant(monkeypatch)}``, each breaking the timed
+  path underneath (the tests run every cell once with each).
+
+A configuration's ``test`` group holds the keys it changes at test size:
+``cpu`` for the CPU tests, ``card`` for the tests on the card.
 
 The record's ``checks`` hold each compared number, per epoch or per
 sampled epoch; the cell's ``limits/<cell>.json`` holds each one's limit
@@ -26,6 +41,11 @@ import sys
 from types import SimpleNamespace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mpistragglers_jl_tpu")
+# set-up parts (``run.py``'s marks) that ``setup_s`` leaves out: the
+# interpreter's start, torch's import, the wait for card 0's context and
+# torch's start on it (``torch.cuda.init``)
+OUTSIDE_SETUP = ("python and argparse", "import torch", "CUDA context",
+                 "CUDA init")
 
 
 def _json(path: str) -> dict:
@@ -82,6 +102,36 @@ def cell(root: str, workload: str) -> SimpleNamespace:
         per_layer=mine(manifest["per_layer"]))
 
 
+def driver(root: str, cfg: dict):
+    """The driver module of configuration ``cfg``."""
+    return load_module(root, "drivers", cfg["driver"])
+
+
+def controls(cfg: dict) -> list:
+    """The controls configuration ``cfg`` states (``control``: a name or
+    a list of names of its driver's ``CONTROLS``)."""
+    c = cfg["control"]
+    return [c] if isinstance(c, str) else list(c)
+
+
+def setup_parts(ctx, marks) -> tuple[dict, dict]:
+    """``(parts, cpu)`` at the end of a run's set-up: the seconds of each
+    step, ``ctx.marks`` (``run.py``'s, before the driver) and the
+    driver's ``marks`` (``(name, time.perf_counter())`` at each step's
+    end, in order), the first from ``ctx.t_start``; and the CPU seconds
+    the process has used."""
+    import resource
+    import time
+
+    usage = resource.getrusage(resource.RUSAGE_SELF)
+    marks = list(ctx.marks) + list(marks) + [("warm-up",
+                                             time.perf_counter())]
+    parts = {marks[0][0]: marks[0][1] - ctx.t_start}
+    for (_, t0), (name, t1) in zip(marks, marks[1:]):
+        parts[name] = t1 - t0
+    return parts, {"user": usage.ru_utime, "sys": usage.ru_stime}
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is JAX's or the JAX package's."""
     return sorted({name.split(".")[0] for name in list(sys.modules)}
@@ -113,12 +163,15 @@ def run_cell(root: str, workload: str, *, seed: int, seconds: float,
     import torch
 
     c = cell(root, workload)
-    driver = load_module(root, "drivers", c.cfg["driver"])
+    drv = driver(root, c.cfg)
+    if control is not None and control not in drv.CONTROLS:
+        raise ValueError(f"driver {c.cfg['driver']!r} has no control "
+                         f"{control!r} (it has {list(drv.CONTROLS)})")
     ctx = SimpleNamespace(cfg=c.cfg, traffic=c.traffic, cell=c.name,
                           seed=seed, seconds=seconds, trace=trace,
                           device=device, t_start=t_start, control=control,
                           marks=tuple(marks))
-    record = driver.run(ctx)
+    record = drv.run(ctx)
     metrics = {}
     for m in (c.per_layer if trace else c.end_to_end):
         value = reader(root, m["name"]).read(record)

@@ -1,6 +1,7 @@
 """``epoch_mfu``: the decoded products' useful operations (2 * m * kdim
 * ncols an epoch; the code's redundancy is not counted) over the traced
-window's time, against the card's published f32 peak, in percent."""
+window's time, against the card's published peak in the precision the
+record states (f32 where it states none), in percent."""
 
 from portbench import bounds
 
@@ -10,4 +11,6 @@ def read(record):
     if not tr or not tr["window_us"] or not record["n_epochs"]:
         return None
     flops = record["useful_flops_per_epoch"] * record["n_epochs"]
-    return bounds.share_pct(bounds.bound_s(flops, 0), tr["window_us"] * 1e-6)
+    return bounds.share_pct(
+        bounds.bound_s(flops, 0, record.get("precision", "f32")),
+        tr["window_us"] * 1e-6)

@@ -4,79 +4,171 @@ A driver builds the program under test (``build``) from the operands
 and the traffic's dispatch mode; this module runs it. An epoch is the
 program's own path: ``pool.asyncmap`` of payload ``e mod P`` with the
 code's ``nwait``, then the program's decode of the full product on the
-device. The loop keeps at most ``in_flight`` epochs unfinished: with 1
-it is closed (each decoded product is complete on the card before the
-next call, and the epoch's latency is read from CUDA events around it:
-the call on an idle stream to the decoded product); with 2 or more, the
-harness waits on epoch e - in_flight's completion event before it
-issues epoch e.
+device. The window (``window.measure``) keeps at most ``in_flight``
+epochs unfinished: with 1 it is closed, and the epoch's latency is the
+call on an idle stream to the decoded product.
 
-The window runs from the first ``asyncmap`` after the warm-up to the
-completion of the last epoch issued before ``seconds`` have passed.
-Inside it, after each decode, the benchmark takes its check (span
-``pb.check``): the product's projection on the probe vector ``v`` for
-every epoch, and a copy of the whole product for the epochs the seeded
-reservoir picks. Once the window has closed, the stalls are released,
-the pool drained and the program freed, the plain reference
-(``reference.py``) judges both.
+Inside the window, after each decode, the benchmark takes its check
+(span ``pb.check``): the product's projection on the probe vector ``v``
+for every epoch, and a copy of the whole product for the epochs the
+seeded reservoir picks. Once the window has closed, the stalls are
+released, the pool drained and the program freed, the plain reference
+(``reference.py``) judges both: ``proj_err`` and ``full_err`` against
+``A @ B`` of the f32 operands. Where a configuration stores its blocks
+below f32 (``"default"``: bf16), that rounding, amplified by the decode
+through the parity shards, hides a product rounded below what the
+configuration states; so the rows of the blocks that a systematic shard
+fresh at return delivered straight (the program's ``direct``; an MDS
+decode from the first k fresh shards uses every fresh systematic one)
+are judged again, ``proj_err_direct`` and ``full_err_direct``, against
+the product of the operands as stored, in float64.
 
 ``memory_peak_bytes`` is the peak the program and its inputs reach on
 the card: the allocator's peak less what the check holds, the
 reservoir (allocated first) and the projections (one vector an epoch;
 the program reaches its peak in every epoch, so at the last one all
 but that epoch's are held).
+
+What the coded-GEMM drivers declare (``harness``): the controls, each
+the program's products one step below a precision a configuration
+states (``tf32``: f32 products in TF32, cuBLAS's own mode; ``fp8``:
+bf16 products with operands rounded to float8 e4m3 under a per-tensor
+power-of-two scale, f32 sums, a mode the program lacks; ``bf16_out``:
+bf16 products rounded to bf16 where they are made, for the f32 products
+a ``"default"`` configuration states); and the faults:
+
+* ``stale``: the decode returns its first product every epoch (a step
+  that returns its state unchanged);
+* ``half``: the decoded product's second half of rows left out (zeros);
+* ``altered``: every worker's product altered in one element where it
+  is produced.
+
+The cells run on one chip, so no exchange between chips can be left out.
 """
 
 from __future__ import annotations
 
-import collections
-import resource
+import contextlib
+import sys
 import time
 from types import SimpleNamespace
+from unittest import mock
 
-import numpy as np
 import torch
 
-from . import bounds, generator, reference, trace
+from . import bounds, generator, harness, reference, trace, window
+
+# the products' precision as the bounds name it
+PRECISION = {"highest": "f32", "default": "bf16"}
+FP8_MAX = 448.0  # float8 e4m3's largest finite value
 
 
-def program(backend, nwait, decode, *, k, block_rows):
+def program(backend, nwait, decode, *, k, block_rows, direct=None):
     """What ``build`` of ``drivers/<driver>.py`` returns: the pool
     backend, the code's ``nwait``, ``decode(pool) -> (m, ncols)`` product
-    on the device, and the shapes the bounds count (k shards of
-    ``block_rows`` rows)."""
+    on the device, the shapes the bounds count (k shards of
+    ``block_rows`` rows) and, for a systematic code, ``direct(fresh)``:
+    the row blocks the decode takes straight from a shard, given the
+    workers fresh at return (a boolean array)."""
     return SimpleNamespace(backend=backend, nwait=nwait, decode=decode, k=k,
-                           block_rows=block_rows)
+                           block_rows=block_rows, direct=direct)
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
+def _matmul_sites():
+    """Where the workers' products are made: ``ops/gemm.py``'s per-worker
+    product and ``ops/_batch.py``'s stacked one."""
+    from mpistragglers_jl_tpu_torch.ops import _batch, gemm
+
+    return [(gemm, "matmul"), (_batch, "matmul")]
 
 
-class _Clock:
-    """Latency of one closed-loop epoch: CUDA events on the card, the
-    host's clock on the CPU."""
-
-    def __init__(self, dev):
-        self.cuda = dev.type == "cuda"
-
-    def start(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def stop(self):
-        return self.start()
-
-    def ms(self, a, b) -> float:
-        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+def fp8(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to float8 e4m3 under a per-tensor power-of-two scale
+    (its largest magnitude brought just under e4m3's largest), as
+    bfloat16, which holds each such value exactly."""
+    amax = x.abs().amax().float().clamp_min(1e-30)
+    scale = torch.exp2(torch.floor(torch.log2(FP8_MAX / amax)))
+    q = (x.float() * scale).to(torch.float8_e4m3fn).float()
+    return (q / scale).to(torch.bfloat16)
 
 
-def _bytes(t) -> int:
-    return t.numel() * t.element_size()
+@contextlib.contextmanager
+def _tf32():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def _products(wrap):
+    """Every worker's product made by ``wrap(matmul)`` in place of the
+    program's ``matmul``."""
+    with contextlib.ExitStack() as stack:
+        for mod, name in _matmul_sites():
+            stack.enter_context(
+                mock.patch.object(mod, name, wrap(getattr(mod, name))))
+        yield
+
+
+def _fp8():
+    return _products(lambda mm: lambda a, b, precision:
+                     mm(fp8(a), fp8(b), precision))
+
+
+def _bf16_out():
+    return _products(lambda mm: lambda a, b, precision:
+                     mm(a, b, precision).to(torch.bfloat16).float())
+
+
+CONTROLS = {"tf32": _tf32, "fp8": _fp8, "bf16_out": _bf16_out}
+
+
+def _stale(decode):
+    first = []
+
+    def wrapped(pool):
+        C = decode(pool)
+        if not first:
+            first.append(C.clone())
+        return first[0]
+    return wrapped
+
+
+def _half(decode):
+    def wrapped(pool):
+        C = decode(pool).clone()
+        C[C.shape[0] // 2:] = 0
+        return C
+    return wrapped
+
+
+def _wrap_decode(wrap):
+    def plant(monkeypatch):
+        build = program
+
+        def wrapped(backend, nwait, decode, **kw):
+            return build(backend, nwait, wrap(decode), **kw)
+
+        monkeypatch.setattr(sys.modules[__name__], "program", wrapped)
+    return plant
+
+
+def _altered(monkeypatch):
+    def altering(matmul):
+        def wrapped(a, b, precision):
+            out = matmul(a, b, precision)
+            out.reshape(-1)[0] += 1.0
+            return out
+        return wrapped
+
+    for mod, name in _matmul_sites():
+        monkeypatch.setattr(mod, name, altering(getattr(mod, name)))
+
+
+FAULTS = {"stale": _wrap_decode(_stale), "half": _wrap_decode(_half),
+          "altered": _altered}
 
 
 def run(ctx, build) -> dict:
@@ -90,34 +182,37 @@ def run(ctx, build) -> dict:
     sampler = generator.Reservoir(int(cfg["check_sample"]), ctx.seed)
     samples = torch.empty(sampler.size, m, ncols, device=dev)
     A, B, v = generator.operands(m, kdim, ncols, P, ctx.seed, dev)
-    _sync(dev)
+    window.sync(dev)
     marks.append(("operands", time.perf_counter()))
     table = generator.stall_table(tr["stall"], cfg, n, ctx.seed)
     gate = generator.StallGate(table) if table.any() else None
-    if ctx.control == "tf32":  # the control: the program's products in TF32
-        torch.backends.cuda.matmul.allow_tf32 = True
+    control = contextlib.ExitStack()
+    if ctx.control is not None:  # the program's products one step down
+        control.enter_context(CONTROLS[ctx.control]())
     prog = build(cfg, A, dev, delay_fn=gate,
                  batch=tr["dispatch"] == "coalesced",
                  batch_arrival=tr.get("batch_arrival", "ready"))
     pool = AsyncPool(n)
-    _sync(dev)
+    window.sync(dev)
     marks.append(("program", time.perf_counter()))
+    # the blocks delivered straight by a systematic shard are judged
+    # against the operands as stored where they are rounded below f32
+    by_block = prog.direct is not None and cfg["precision"] != "highest"
     proj = []  # the window's projections, one an epoch
-    clock = _Clock(dev)
-    lat, host_ms, fresh = [], [], []
+    clock = window.Clock(dev)
+    host_ms, fresh, direct = [], [], []
     tracer = None
 
     def epoch(i: int, timed: bool):
-        t0 = clock.start() if timed and in_flight == 1 else None
         h0 = time.perf_counter()
         with trace.span("pb.asyncmap", tracing):
             repochs = asyncmap(pool, B[i % P], prog.backend,
                                nwait=prog.nwait, tracer=tracer)
         h1 = time.perf_counter()
-        n_fresh = int((repochs == pool.epoch).sum())
+        at_return = repochs == pool.epoch
         with trace.span("pb.decode", tracing):
             C = prog.decode(pool)
-        t1 = clock.stop() if t0 is not None else None
+        t1 = clock.stop() if timed and in_flight == 1 else None
         with trace.span("pb.check", tracing):
             p = torch.mv(C, v)
             if timed:
@@ -127,57 +222,26 @@ def run(ctx, build) -> dict:
                     samples[j].copy_(C)
         if timed:
             host_ms.append((h1 - h0) * 1e3)
-            fresh.append(n_fresh)
-        return t0, t1
+            fresh.append(int(at_return.sum()))
+            if by_block:
+                direct.append(prog.direct(at_return))
+        return t1
 
     for i in range(int(tr.get("warmup_epochs", 2))):
         epoch(i, timed=False)
-        _sync(dev)
-    setup_s = time.perf_counter() - ctx.t_start
-    usage = resource.getrusage(resource.RUSAGE_SELF)
-    marks.append(("warm-up", time.perf_counter()))
-    marks = list(ctx.marks) + marks
-    setup_parts = {marks[0][0]: marks[0][1] - ctx.t_start}
-    for (_, t0), (name, t1) in zip(marks, marks[1:]):
-        setup_parts[name] = t1 - t0
+        window.sync(dev)
+    setup_parts, setup_cpu = harness.setup_parts(ctx, marks)
 
-    tracer = EpochTracer() if tracing else None
-    done = collections.deque()
-    prof_cm = trace.profiler(tracing)
-    with prof_cm as prof:
-        with trace.span("pb.window", tracing):
-            w0 = time.perf_counter()
-            i = 0
-            while time.perf_counter() - w0 < ctx.seconds:
-                if len(done) >= in_flight:
-                    with trace.span("pb.wait", tracing):
-                        done.popleft().synchronize()
-                with trace.span("pb.epoch", tracing):
-                    t0, t1 = epoch(i, timed=True)
-                    if in_flight == 1:
-                        with trace.span("pb.sync", tracing):
-                            _sync(dev)
-                        lat.append(clock.ms(t0, t1))
-                    elif dev.type == "cuda":
-                        ev = torch.cuda.Event()
-                        ev.record()
-                        done.append(ev)
-                i += 1
-            with trace.span("pb.sync", tracing):
-                _sync(dev)
-            w1 = time.perf_counter()
-        # the close: no stall is waited out; every task dispatched is
-        # drained, so its product lies inside the trace
+    def close():  # no stall is waited out; every task dispatched drains
         if gate is not None:
             gate.release()
         waitall(pool, prog.backend, timeout=600.0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    n_epochs = i
-    traced = trace.read(prof) if tracing else None
-    check_bytes = _bytes(samples) + sum(_bytes(p) for p in proj)
-    memory_peak = (torch.cuda.max_memory_allocated(dev) - check_bytes
-                   if dev.type == "cuda" else 0)
+
+    tracer = EpochTracer() if tracing else None
+    win = window.measure(ctx, lambda i: epoch(i, timed=True), close, clock,
+                         in_flight)
+    check_bytes = window.nbytes([samples, *proj])
+    memory_peak = window.memory_peak(dev, check_bytes)
     dispatched = None
     if tracer is not None:
         dispatched = sum(1 for r in tracer.records for e in r.events
@@ -189,27 +253,49 @@ def run(ctx, build) -> dict:
     k, block_rows = prog.k, prog.block_rows
     variable_nwait = callable(prog.nwait)
     del prog, pool
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    window.collect(dev)
+    control.close()
 
-    proj_err = np.zeros(n_epochs)
+    n_epochs = win.n_epochs
+    names = ["proj_err", "full_err"]
+    if by_block:
+        names += ["proj_err_direct", "full_err_direct"]
+        Aq = reference.as_stored(A, cfg["precision"])
+    checks = {name: {} for name in names}  # {epoch: value}
+
+    def rows(blocks):
+        return [(b * block_rows, min((b + 1) * block_rows, m))
+                for b in blocks]
+
     for p in range(P):
         ref = reference.projection(A, B[p], v)
-        idx = list(range(p, n_epochs, P))
+        idx = range(p, n_epochs, P)
         for i in idx:
-            proj_err[i] = reference.proj_rel_err(proj[i], ref)
+            checks["proj_err"][i] = reference.proj_rel_err(proj[i], ref)
+        if by_block:
+            ref = reference.projection(Aq, reference.as_stored(
+                B[p], cfg["precision"]), v)
+            for i in idx:
+                checks["proj_err_direct"][i] = reference.proj_rel_err(
+                    proj[i], ref, rows(direct[i]))
         del ref
-    full_err = {e: reference.rel_err(samples[j], A, B[e % P])
-                for j, e in enumerate(sampler.epochs) if e >= 0}
+    for j, e in enumerate(sampler.epochs):
+        if e < 0:
+            continue
+        checks["full_err"][e] = reference.rel_err(samples[j], A, B[e % P])
+        if by_block:
+            checks["full_err_direct"][e] = reference.rel_err(
+                samples[j], Aq,
+                reference.as_stored(B[e % P], cfg["precision"]),
+                rows(direct[e]))
 
     return {
-        "setup_s": setup_s,
         "setup_parts": setup_parts,
-        "setup_cpu_s": {"user": usage.ru_utime, "sys": usage.ru_stime},
-        "window_s": w1 - w0,
+        "setup_cpu_s": setup_cpu,
+        "precision": PRECISION[cfg["precision"]],
+        "window_s": win.window_s,
         "n_epochs": n_epochs,
-        "latency_ms": lat,
+        "latency_ms": win.latency_ms,
         "asyncmap_host_ms": host_ms,
         "fresh_at_return": fresh,
         "k": k,
@@ -219,11 +305,9 @@ def run(ctx, build) -> dict:
         "products_dispatched": dispatched,
         "decode_bytes": bounds.decode_bytes(k, block_rows, ncols),
         "decode_flops": bounds.decode_flops(k, block_rows, ncols),
-        "trace": traced,
+        "trace": win.trace,
         "memory_peak_bytes": memory_peak,
         "memory_check_bytes": check_bytes,
-        "checks": {"proj_err": proj_err.tolist(),
-                   "full_err": list(full_err.values())},
-        "check_epochs": {"proj_err": list(range(n_epochs)),
-                         "full_err": list(full_err.keys())},
+        "checks": {name: list(c.values()) for name, c in checks.items()},
+        "check_epochs": {name: list(c) for name, c in checks.items()},
     }

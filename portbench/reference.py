@@ -12,7 +12,11 @@ says.
   the benchmark's probe vector ``v``, to judge the projection the run
   took of every decoded product in its window.
 * :func:`rel_err` is ``max |C - A @ B| / max |A @ B|`` over a whole
-  decoded product.
+  decoded product, or over some of its rows (the top is the whole
+  product's).
+* :func:`as_stored` is an operand as a configuration states it is
+  stored: rounded to bf16 (to nearest even) at ``"default"``, as it is;
+  the reference rounds the benchmark's operands itself.
 """
 
 from __future__ import annotations
@@ -27,6 +31,22 @@ def _exact():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def as_stored(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """``x`` as stored at ``precision``: bf16 values at ``"default"``."""
+    return x.to(torch.bfloat16).float() if precision == "default" else x
+
+
+def _mask(n: int, rows, device) -> torch.Tensor | None:
+    """A boolean mask of the ``(start, end)`` row ranges, or None for
+    all (made on the host: one copy to the device)."""
+    if rows is None:
+        return None
+    mask = torch.zeros(n, dtype=torch.bool)
+    for r0, r1 in rows:
+        mask[r0:r1] = True
+    return mask.to(device)
+
+
 def projection(A: torch.Tensor, B: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
     """``A @ (B @ v)`` in float64: an (m,) vector."""
@@ -38,17 +58,23 @@ def projection(A: torch.Tensor, B: torch.Tensor,
     return out
 
 
-def rel_err(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> float:
+def rel_err(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            rows=None) -> float:
     """``max |C - A @ B| / max |A @ B|``, the product in float64 and in
-    blocks of ``ROW_BLOCK`` rows."""
+    blocks of ``ROW_BLOCK`` rows; the gap over the ``(start, end)`` row
+    ranges ``rows`` only, where given (0 where they are none)."""
     _exact()
     if C.shape != (A.shape[0], B.shape[1]):
         return float("inf")
+    mask = _mask(A.shape[0], rows, A.device)
     B64 = B.double()
     worst = top = 0.0
     for r in range(0, A.shape[0], ROW_BLOCK):
         ref = A[r:r + ROW_BLOCK].double() @ B64
-        gap = float((C[r:r + ROW_BLOCK].double() - ref).abs().max())
+        diff = (C[r:r + ROW_BLOCK].double() - ref).abs()
+        if mask is not None:
+            diff = diff[mask[r:r + ROW_BLOCK]]
+        gap = float(diff.max()) if diff.numel() else 0.0
         if gap != gap:  # a NaN in the product is wrong, not small
             return float("inf")
         worst = max(worst, gap)
@@ -57,10 +83,15 @@ def rel_err(C: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> float:
     return worst / top if top > 0 else float("inf")
 
 
-def proj_rel_err(y: torch.Tensor, ref: torch.Tensor) -> float:
-    """``max |y - ref| / max |ref|`` of one projection."""
+def proj_rel_err(y: torch.Tensor, ref: torch.Tensor, rows=None) -> float:
+    """``max |y - ref| / max |ref|`` of one projection, the gap over the
+    ``(start, end)`` row ranges ``rows`` only, where given."""
     top = float(ref.abs().max())
-    gap = float((y.double() - ref).abs().max())
+    diff = (y.double() - ref).abs()
+    mask = _mask(ref.shape[0], rows, ref.device)
+    if mask is not None:
+        diff = diff[mask]
+    gap = float(diff.max()) if diff.numel() else 0.0
     if gap != gap or top <= 0:
         return float("inf")
     return gap / top

@@ -8,9 +8,16 @@ numbers compared beside their limits as the last lines of standard
 error, and one JSON line as the last line of standard output. Exits
 with 2, printing no result, without a CUDA card or with fewer cards
 than the cell asks for, and with 3 if a module of JAX or of the JAX
-package was loaded. ``--control tf32`` runs the program's products in
-TF32 (the lower-precision control of the correctness check, which must
-come out not correct).
+package was loaded. ``--control <name>`` runs the lower-precision
+control of the correctness check that the cell's configuration states
+(``control`` in its file: ``tf32`` for an f32 one, for example), which
+must come out not correct; the names a driver takes are its
+``CONTROLS``.
+
+``setup_s`` is the set-up less torch's import and card 0's CUDA context
+(made on a thread beside the import, then torch's ``torch.cuda.init``
+on it): what the benchmark and the program do from then to the start of
+the window. Every part is printed.
 """
 
 import time
@@ -76,7 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", choices=("tf32",), default=None)
+    ap.add_argument("--control", default=None)
     args = ap.parse_args(argv)
     marks = [("python and argparse", time.perf_counter())]
     # the CUDA context, which costs the host 0.4-8 s, made beside the
@@ -84,21 +91,24 @@ def main(argv=None) -> int:
     context = threading.Thread(target=_primary_context, daemon=True)
     context.start()
 
-    from portbench import harness
-
-    chips = int(harness.cell(ROOT, args.workload).entry["chips"])
     import torch
 
     marks.append(("import torch", time.perf_counter()))
+    context.join()
+    marks.append(("CUDA context", time.perf_counter()))
     import mpistragglers_jl_tpu_torch  # noqa: F401  (absent: no run)
 
-    context.join()
+    from portbench import harness
+
+    chips = int(harness.cell(ROOT, args.workload).entry["chips"])
+    marks.append(("port import", time.perf_counter()))
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"portbench: the cell needs {chips} CUDA card(s), this "
               f"machine has {n}", file=sys.stderr)
         return 2
+    # torch's own start on the made context
     torch.cuda.init()
     marks.append(("CUDA init", time.perf_counter()))
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -9,7 +9,10 @@ from portbench import bounds
 
 def test_peaks_are_the_data_sheets():
     assert bounds.FP32_FLOPS_PER_S == 67e12
+    assert bounds.BF16_FLOPS_PER_S == 989e12
     assert bounds.HBM_BYTES_PER_S == 3.35e12
+    assert bounds.bound_s(989e12, 0, "bf16") == 1.0
+    assert bounds.bound_s(67e12, 0) == bounds.bound_s(67e12, 0, "f32") == 1.0
 
 
 def test_product_of_one_mds_worker():

@@ -1,9 +1,12 @@
-"""The lower-precision control on the card: the program's products in
-TF32 (the configurations state f32 with TF32 off) must come out not
-correct, and the program as stated correct, under each cell's limits.
+"""The lower-precision controls on the card: each control a cell's
+configuration states (``control`` in its file: TF32 products where it
+states f32; float8 operands, and products rounded to bf16, where it
+states bf16 operands and f32 products) must come out not correct, and
+the program as stated correct, under each cell's limits.
 
-At 2048 rows, a size a test run can hold; the cells' own sizes are run
-by ``portbench/run.py --control tf32``. Needs a CUDA card::
+At the size the configuration's ``test.card`` group gives, which a test
+run can hold; the cells' own sizes are run by ``portbench/run.py
+--control <name>``. Needs a CUDA card::
 
     python -m pytest portbench/tests -m gpu
 """
@@ -14,19 +17,18 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.tests._tiny import manifest, tiny_root
+from portbench.tests._tiny import cell_config, manifest, tiny_root
 
-CELLS = [w["name"] for w in manifest()["workloads"]]
-SIZES = {"mds8x6_8192": 2048, "lt16k8_16384": 2048}
+CASES = [(w["name"], control) for w in manifest()["workloads"]
+         for control in [None, *harness.controls(cell_config(w["name"]))]]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("control", [None, "tf32"])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell,control", CASES)
 def test_tf32_control_is_not_correct(tmp_path, cell, control):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    root = tiny_root(tmp_path, SIZES)
+    root = tiny_root(tmp_path, "card")
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         res, worst = harness.run_cell(

@@ -1,14 +1,11 @@
 """A run whose timed path is broken underneath comes out not correct.
 
-Each cell runs at test size on the CPU (the harness's look for a card is
-skipped: ``harness.run_cell`` is driven directly), once sound and once
-with each fault the coded-GEMM cells can have planted in the program:
-
-* ``stale``: the decode returns its first product every epoch (a step
-  that returns its state unchanged);
-* ``half``: the decoded product's second half of rows left out (zeros);
-* ``altered``: every worker's product altered in one element where it
-  is produced.
+Each cell runs at its configuration's CPU test size (the harness's look
+for a card is skipped: ``harness.run_cell`` is driven directly), once
+sound and once with each fault its driver declares (``FAULTS``: a step
+that returns its state unchanged, part of the result left out, a
+worker's output altered where it is produced; ``pool_gemm`` and
+``drivers/coded_sgd.py`` say how each is planted).
 
 The cells run on one chip, so no exchange between chips can be left out.
 """
@@ -23,68 +20,18 @@ import sys
 import pytest
 import torch
 
-from portbench import harness, pool_gemm
-from portbench.tests._tiny import REPO, manifest, tiny_root
+from portbench.tests._tiny import (REPO, assert_fault_outcome,
+                                   cells_and_faults, fault_run, manifest,
+                                   tiny_root)
 
 CELLS = [w["name"] for w in manifest()["workloads"]]
-SEED = 2 ** 31 + 99
 
 
-def _stale(decode):
-    first = []
-
-    def wrapped(pool):
-        C = decode(pool)
-        if not first:
-            first.append(C.clone())
-        return first[0]
-    return wrapped
-
-
-def _half(decode):
-    def wrapped(pool):
-        C = decode(pool).clone()
-        C[C.shape[0] // 2:] = 0
-        return C
-    return wrapped
-
-
-def _plant(monkeypatch, fault):
-    if fault in ("stale", "half"):
-        wrap = {"stale": _stale, "half": _half}[fault]
-        build = pool_gemm.program
-
-        def program(backend, nwait, decode, **kw):
-            return build(backend, nwait, wrap(decode), **kw)
-
-        monkeypatch.setattr(pool_gemm, "program", program)
-    elif fault == "altered":
-        from mpistragglers_jl_tpu_torch.ops import _batch, gemm
-
-        def altering(matmul):
-            def wrapped(a, b, precision):
-                out = matmul(a, b, precision)
-                out.reshape(-1)[0] += 1.0
-                return out
-            return wrapped
-
-        monkeypatch.setattr(gemm, "matmul", altering(gemm.matmul))
-        monkeypatch.setattr(_batch, "matmul", altering(_batch.matmul))
-
-
-@pytest.mark.parametrize("fault", [None, "stale", "half", "altered"])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell,fault", cells_and_faults())
 def test_fault_makes_the_run_not_correct(tmp_path, monkeypatch, cell, fault):
     root = tiny_root(tmp_path)
-    _plant(monkeypatch, fault)
-    res, worst = harness.run_cell(root, cell, seed=SEED, seconds=0.3,
-                                  trace=False, device=torch.device("cpu"),
-                                  t_start=0.0)
-    assert res["attempted"] > 0
-    assert res["correct"] is (fault is None), worst
-    if fault is not None:
-        assert res["failed"] > 0
-    assert list(res)[-1] == "checks"
+    res, worst = fault_run(root, cell, fault, monkeypatch)
+    assert_fault_outcome(res, worst, fault)
 
 
 def test_run_without_a_card_prints_no_result(tmp_path):

@@ -25,6 +25,7 @@ for c in man["configs"]:
 for m in man["end_to_end"] + man["per_layer"]:
     harness.reader(".", m["name"])
 # what the drivers load when they build the program
+import mpistragglers_jl_tpu_torch.models.logreg
 import mpistragglers_jl_tpu_torch.ops.coded_gemm
 import mpistragglers_jl_tpu_torch.pool
 import mpistragglers_jl_tpu_torch.utils.trace
@@ -54,15 +55,21 @@ def test_harness_names_a_forbidden_module_by_its_whole_top_name(monkeypatch):
 
 
 def test_reference_imports_only_torch_numpy_and_the_standard_library():
-    with open(os.path.join(REPO, "portbench", "reference.py")) as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, "a relative import"
-            names.add(node.module.split(".")[0])
-    allowed = {"torch", "numpy", "__future__"} | set(sys.stdlib_module_names)
-    assert names <= allowed, sorted(names - allowed)
-    assert not names & {"mpistragglers_jl_tpu_torch", "portbench"}
+    base = os.path.join(REPO, "portbench")
+    refs = sorted(f for f in os.listdir(base)
+                  if f.startswith("reference") and f.endswith(".py"))
+    assert "reference.py" in refs
+    for ref in refs:
+        with open(os.path.join(base, ref)) as f:
+            tree = ast.parse(f.read())
+        names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, (ref, "a relative import")
+                names.add(node.module.split(".")[0])
+        allowed = {"torch", "numpy", "__future__"} | set(
+            sys.stdlib_module_names)
+        assert names <= allowed, (ref, sorted(names - allowed))
+        assert not names & {"mpistragglers_jl_tpu_torch", "portbench"}, ref

@@ -1,5 +1,5 @@
 """``BENCHMARK.json`` against the rules it is checked by, and every
-file it names."""
+file it names. :func:`check` runs every rule on another checkout."""
 
 from __future__ import annotations
 
@@ -27,6 +27,11 @@ KEYS = {
 @pytest.fixture(scope="module")
 def man():
     return manifest()
+
+
+@pytest.fixture(scope="module")
+def root():
+    return REPO
 
 
 def test_top_level_keys_and_command(man):
@@ -108,11 +113,11 @@ def test_shares_are_percent(man):
             assert m["unit"] == "%", m["name"]
 
 
-def test_named_files_exist(man):
-    base = os.path.join(REPO, "portbench")
+def test_named_files_exist(man, root):
+    base = os.path.join(root, "portbench")
     for c in man["configs"]:
         assert c["file"].startswith("portbench/")
-        with open(os.path.join(REPO, c["file"])) as f:
+        with open(os.path.join(root, c["file"])) as f:
             cfg = json.load(f)
         assert cfg["name"] == c["name"]
         assert cfg["reduced"] == c["reduced"]
@@ -132,3 +137,37 @@ def test_named_files_exist(man):
 def test_four_chip_cells_within_a_quarter(man):
     four = sum(1 for w in man["workloads"] if w["chips"] == 4)
     assert four <= max(1, len(man["workloads"]) // 4)
+
+
+def test_each_config_states_its_control_and_test_sizes(man, root):
+    from portbench import harness
+
+    for c in man["configs"]:
+        with open(os.path.join(root, c["file"])) as f:
+            cfg = json.load(f)
+        stated = harness.controls(cfg)
+        assert stated, c["name"]
+        assert set(stated) <= set(harness.driver(root, cfg).CONTROLS), \
+            c["name"]
+        assert set(cfg["test"]) == {"cpu", "card"}, c["name"]
+        for where in ("cpu", "card"):  # test sizes change keys it has
+            assert set(cfg["test"][where]) <= set(cfg), (c["name"], where)
+
+
+def check(man: dict, root: str) -> None:
+    """Every rule of this file on the manifest ``man`` of the checkout at
+    ``root``."""
+    test_top_level_keys_and_command(man)
+    for group, kind in [("configs", "config"), ("workloads", "workload"),
+                        ("end_to_end", "end_to_end"),
+                        ("per_layer", "per_layer")]:
+        test_entries_names_and_units(man, group, kind)
+    for rule in (test_metric_names_unique_across_groups, test_bounds,
+                 test_every_config_has_a_cell_and_each_cell_a_config,
+                 test_cells_report_setup_another_metric_and_a_layer,
+                 test_moves_is_reported_by_each_cell_of_the_metric,
+                 test_shares_are_percent,
+                 test_four_chip_cells_within_a_quarter):
+        rule(man)
+    test_named_files_exist(man, root)
+    test_each_config_states_its_control_and_test_sizes(man, root)
